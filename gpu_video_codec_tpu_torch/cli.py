@@ -1,0 +1,171 @@
+"""Command-line entry point: the reference main()'s role (main.cu:109-141), with
+actual argument parsing instead of hand-edited constants.
+
+    python -m gpu_video_codec_tpu_torch.cli --input in.yuv --width 352 \
+        --height 288 --qp 35 --output out.yuv [--backend cuda|torch|golden]
+    python -m gpu_video_codec_tpu_torch.cli --device-info
+    python -m gpu_video_codec_tpu_torch.cli --input ... --bench   # timing split
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+from .utils.config import BACKENDS, DeblockConfig
+
+
+def device_info() -> dict:
+    """GetGpuDeviceInfo equivalent (main.cu:92-107): per CUDA device its
+    name, total global memory, SM count and warp size."""
+    import torch
+
+    devices = []
+    if torch.cuda.is_available():
+        for i in range(torch.cuda.device_count()):
+            props = torch.cuda.get_device_properties(i)
+            devices.append({
+                "id": i,
+                "name": props.name,
+                "total_memory": props.total_memory,
+                "multi_processor_count": props.multi_processor_count,
+                "warp_size": getattr(props, "warp_size", None),
+                "capability": f"{props.major}.{props.minor}",
+            })
+    return {
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "num_devices": len(devices),
+        "devices": devices,
+    }
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="gpu_video_codec_tpu_torch.cli",
+        description="HEVC in-loop deblocking of raw YV12 frames on a CUDA GPU",
+    )
+    p.add_argument("--input", "-i", help="input YV12 file (single frame or stream)")
+    p.add_argument("--output", "-o", help="output YV12 file")
+    p.add_argument("--width", "-W", type=int, help="frame width (multiple of 8)")
+    p.add_argument("--height", "-H", type=int, help="frame height (multiple of 8)")
+    p.add_argument("--qp", type=int, default=20, help="quantization parameter (default 20)")
+    p.add_argument("--backend", choices=BACKENDS, default="cuda")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the cuda/torch backends (default cuda)")
+    p.add_argument("--luma-only", action="store_true", help="skip chroma filtering")
+    p.add_argument("--frames", type=int, help="max frames to process from a stream")
+    p.add_argument("--depth", type=int, default=2, help="streaming frames in flight")
+    p.add_argument("--bench", action="store_true",
+                   help="add a per-frame timing breakdown to the JSON result "
+                        "(copy vs step on a CUDA device, filter time for golden)")
+    p.add_argument("--device-info", action="store_true", help="print device info and exit")
+    return p
+
+
+def _raw_frames(path: str, frame_bytes: int, max_frames: int | None):
+    """Yield raw YV12 frame buffers straight from disk (memory stays
+    O(pipeline depth) for long streams)."""
+    count = 0
+    with open(path, "rb") as f:
+        while max_frames is None or count < max_frames:
+            data = f.read(frame_bytes)
+            if len(data) < frame_bytes:
+                break
+            count += 1
+            yield data
+
+
+def run(cfg: DeblockConfig, bench: bool = False) -> dict:
+    import os
+
+    frame_bytes = 3 * cfg.width * cfg.height // 2
+    n_avail = os.path.getsize(cfg.input) // frame_bytes
+    if n_avail == 0:
+        raise ValueError(f"no complete {cfg.width}x{cfg.height} frames in {cfg.input}")
+    n = n_avail if cfg.frames is None else min(cfg.frames, n_avail)
+
+    result: dict = {"frames": n, "backend": cfg.backend, "qp": cfg.qp}
+
+    if cfg.backend in ("cuda", "torch"):
+        # device path: raw packed frames, copy-overlap streaming, incremental
+        # output writes
+        from .models.streaming import StreamingDeblocker
+
+        s = StreamingDeblocker(cfg.width, cfg.height, cfg.qp, backend=cfg.backend,
+                               luma_only=cfg.luma_only, depth=cfg.depth, device=cfg.device)
+        result["device"] = str(s.device)
+        sink = open(cfg.output, "wb") if cfg.output else None
+        try:
+            t0 = time.perf_counter()
+            for o in s.run(_raw_frames(cfg.input, frame_bytes, n)):
+                if sink is not None:
+                    sink.write(o.tobytes())
+            dt = time.perf_counter() - t0
+        finally:
+            if sink is not None:
+                sink.close()
+        if bench:
+            with open(cfg.input, "rb") as f:
+                first_raw = f.read(frame_bytes)
+            result["timing"] = {
+                k.replace("_s", "_us"): round(v * 1e6, 1)
+                for k, v in s.time_breakdown(first_raw).items()
+            }
+            result["timing_unit"] = "us/frame"
+    else:
+        from .models.golden import deblock_frame_golden
+        from .utils.bs import BoundaryStrength
+        from .utils.yuv import planes_from_yv12_bytes, yv12_bytes_from_planes
+
+        bs = BoundaryStrength.intra_default(cfg.width, cfg.height)
+        sink = open(cfg.output, "wb") if cfg.output else None
+        try:
+            t0 = time.perf_counter()
+            per_frame = []
+            for raw in _raw_frames(cfg.input, frame_bytes, n):
+                f0 = time.perf_counter()
+                out = deblock_frame_golden(planes_from_yv12_bytes(raw, cfg.width, cfg.height),
+                                           bs, cfg.qp, luma_only=cfg.luma_only)
+                per_frame.append(time.perf_counter() - f0)
+                if sink is not None:
+                    sink.write(yv12_bytes_from_planes(out))
+            dt = time.perf_counter() - t0
+        finally:
+            if sink is not None:
+                sink.close()
+        if bench:
+            result["timing"] = {"filter_us": round(min(per_frame) * 1e6, 1)}
+            result["timing_unit"] = "us/frame"
+
+    result["seconds"] = dt
+    result["fps"] = n / dt
+    return result
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.device_info:
+        print(json.dumps(device_info(), indent=2))
+        return 0
+    if not args.input or args.width is None or args.height is None:
+        print("error: --input, --width and --height are required", file=sys.stderr)
+        return 2
+    try:
+        cfg = DeblockConfig(
+            input=args.input, width=args.width, height=args.height, qp=args.qp,
+            output=args.output, backend=args.backend, luma_only=args.luma_only,
+            frames=args.frames, depth=args.depth, device=args.device,
+        ).validate()
+        result = run(cfg, bench=args.bench)
+    except (ValueError, FileNotFoundError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

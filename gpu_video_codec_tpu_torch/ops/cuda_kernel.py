@@ -1,0 +1,240 @@
+"""The hand-written CUDA deblock kernel: build, ctypes binding and wrappers.
+
+Counterpart of gpu_video_codec_tpu/ops/pallas_kernel.py.  The kernel
+(csrc/deblock_kernel.cu over the per-tile math in csrc/deblock_tile.cuh)
+runs one thread per shifted 8x8 tile, luma or chroma by template, on the
+tile-planes layout of utils/tiles.py.
+
+The library is built at first use with nvcc, from csrc/ only, into
+build/torch_kernels/ beside the package, under a name keyed on a hash of
+the sources and flags, so an edit rebuilds.  It has a plain C interface
+and is loaded with ctypes (no PyTorch headers, so the build takes seconds).
+
+deblock_tiles_cuda launches the kernel for a CUDA tensor and raises on any
+failure; for a CPU tensor it runs the plain version
+(ops/deblock.deblock_tiles_plain).  LAUNCHES counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from .deblock import deblock_tiles_plain
+from ..utils.tiles import plane_to_tiles, split_covered, tiles_to_plane
+
+# CUDA threads per block, laid along the tile grid's Bx axis (one thread
+# per tile).  Callers may pass their own (StreamingDeblocker's
+# luma_block/chroma_block).
+BLOCK_BX = 128
+CHROMA_BLOCK_BX = 128
+
+# Kernel launches per variant since import (or since a caller reset them).
+LAUNCHES = {"luma": 0, "chroma": 0}
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+_KERNEL_SOURCES = ("deblock_kernel.cu",)
+_HOST_SOURCES = ("host_shim.cpp",)
+_HEADERS = ("deblock_tile.cuh",)
+
+DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's standard place
+_MAX_GRID_YZ = 65535
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    if home and (Path(home) / "bin" / "nvcc").is_file():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if DEFAULT_NVCC.is_file():
+        return str(DEFAULT_NVCC)
+    cmd = " ".join(("nvcc", *NVCC_FLAGS, "-o", "<lib>.so",
+                    *(str(CSRC / s) for s in _KERNEL_SOURCES)))
+    raise RuntimeError(f"nvcc not found (set CUDA_HOME or PATH); cannot run: {cmd}")
+
+
+def _build(compiler: list[str], sources, stem: str) -> tuple[Path, str]:
+    """Compile `sources` (names under csrc/) into a shared library keyed on
+    the hash of every csrc input and the command.  Returns (path, compiler
+    output); the output is '' when the library was already built."""
+    h = hashlib.sha256(" ".join(compiler[1:]).encode())
+    for name in (*sources, *_HEADERS):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    out = BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+    if out.is_file():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build under a private name, then rename: a concurrent loader never
+    # sees a half-written library
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [*compiler, "-o", str(tmp), *(str(CSRC / s) for s in sources)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"kernel build failed ({res.returncode}): {' '.join(cmd)}\n"
+                           f"{res.stdout}{res.stderr}")
+    os.replace(tmp, out)
+    return out, res.stdout + res.stderr
+
+
+def build_library() -> tuple[Path, str]:
+    """Build the CUDA library with nvcc (no-op when already built).
+    Returns (path, compiler output)."""
+    return _build([_nvcc(), *NVCC_FLAGS], _KERNEL_SOURCES, "libgvct_deblock")
+
+
+def _load(key: str, build, setup) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(key)
+        if lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            setup(lib)
+            _libs[key] = lib
+        return lib
+
+
+_TILE_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int]
+
+
+def _setup_cuda(lib) -> None:
+    lib.gvct_deblock_tiles.argtypes = _TILE_ARGS + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.gvct_deblock_tiles.restype = ctypes.c_int
+    lib.gvct_error_string.argtypes = [ctypes.c_int]
+    lib.gvct_error_string.restype = ctypes.c_char_p
+
+
+def _setup_host(lib) -> None:
+    lib.gvct_host_deblock_tiles.argtypes = _TILE_ARGS
+    lib.gvct_host_deblock_tiles.restype = None
+
+
+def load_host_library() -> ctypes.CDLL:
+    """g++ build of csrc/host_shim.cpp: the kernel's per-tile math and
+    indexing compiled for the CPU, so tests can hold the CUDA source's
+    arithmetic against the plain version where nvcc is absent."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH")
+    return _load("host", lambda: _build([gxx, "-std=c++17", "-O2", "-shared", "-fPIC"],
+                                        _HOST_SOURCES, "libgvct_host"), _setup_host)
+
+
+def _check(tiles, maps, beta, tc) -> tuple[int, int]:
+    """Validate the kernel's operands; returns (nb, map batch stride)."""
+    if tiles.dtype != torch.uint8:
+        raise ValueError(f"tiles must be uint8, got {tiles.dtype}")
+    if tiles.dim() not in (4, 5) or tuple(tiles.shape[-4:-2]) != (8, 8):
+        raise ValueError(f"tiles must be (8, 8, By, Bx) or (NB, 8, 8, By, Bx), "
+                         f"got {tuple(tiles.shape)}")
+    if not tiles.is_contiguous():
+        raise ValueError("tiles must be contiguous (plane_to_tiles returns a strided "
+                         "view: call .contiguous() first)")
+    if beta < 0 or tc < 0:
+        raise ValueError(f"beta and tc must be non-negative, got {beta}, {tc}")
+    by, bx = tiles.shape[-2], tiles.shape[-1]
+    batched = tiles.dim() == 5
+    nb = tiles.shape[0] if batched else 1
+    for name, m in zip(("bs_ver1", "bs_ver2", "bs_hor1", "bs_hor2"), maps):
+        if m.dtype != torch.uint8 or m.device != tiles.device or not m.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous uint8 tensor on {tiles.device}, "
+                             f"got {m.dtype} on {m.device}")
+        want = [(1, by, bx), (nb, by, bx)] if batched else [(by, bx)]
+        if tuple(m.shape) not in want:
+            raise ValueError(f"{name} has shape {tuple(m.shape)}; tiles "
+                             f"{tuple(tiles.shape)} need one of {want}")
+    # the kernel takes one batch stride for all four maps
+    if len({m.shape for m in maps}) != 1:
+        raise ValueError("the four BS maps must have one shape (all shared or all per-frame)")
+    shared = batched and maps[0].shape[0] == 1
+    if by > _MAX_GRID_YZ or nb > _MAX_GRID_YZ:
+        raise ValueError(f"tile grid too large for one launch: By={by}, NB={nb}")
+    return nb, 0 if shared else by * bx
+
+
+def deblock_tiles_cuda(tiles, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,
+                       chroma: bool = False, block_bx: int | None = None):
+    """Deblock a tile-planes tensor with the CUDA kernel.
+
+    tiles: (8, 8, By, Bx) uint8 with (By, Bx) BS maps, or batched
+    (NB, 8, 8, By, Bx) with (NB, By, Bx) per-frame or (1, By, Bx) shared
+    maps; all contiguous uint8 on one device.  beta, tc: ints.
+    block_bx: threads per block (default BLOCK_BX / CHROMA_BLOCK_BX).
+    Returns a new tensor of the input's shape.  The launch goes on the
+    current stream and does not synchronize.  CPU tensors take the plain
+    version instead.
+    """
+    maps = (bs_ver1, bs_ver2, bs_hor1, bs_hor2)
+    beta, tc = int(beta), int(tc)
+    nb, map_stride = _check(tiles, maps, beta, tc)
+    if tiles.device.type == "cpu":
+        return deblock_tiles_plain(tiles, *maps, beta, tc, chroma=chroma)
+    if tiles.device.type != "cuda":
+        raise ValueError(f"deblock_tiles_cuda takes CUDA or CPU tensors, got {tiles.device}")
+    threads = block_bx or (CHROMA_BLOCK_BX if chroma else BLOCK_BX)
+    if not 1 <= threads <= 1024:
+        raise ValueError(f"block_bx must be in 1..1024, got {threads}")
+    out = torch.empty_like(tiles)
+    if tiles.numel() == 0:
+        return out
+    lib = _load("cuda", build_library, _setup_cuda)
+    by, bx = tiles.shape[-2], tiles.shape[-1]
+    stream = torch.cuda.current_stream(tiles.device).cuda_stream
+    err = lib.gvct_deblock_tiles(
+        tiles.data_ptr(), out.data_ptr(), *(m.data_ptr() for m in maps),
+        beta, tc, nb, by, bx, map_stride, int(chroma), threads,
+        tiles.device.index, stream)
+    if err:
+        raise RuntimeError(f"deblock kernel launch failed: "
+                           f"{lib.gvct_error_string(err).decode()} (cudaError {err})")
+    LAUNCHES["chroma" if chroma else "luma"] += 1
+    return out
+
+
+def deblock_frame_cuda(y_ext, u_ext, v_ext, luma_maps, chroma_maps, beta, tc,
+                       luma_only: bool = False, luma_block: int = BLOCK_BX,
+                       chroma_block: int = CHROMA_BLOCK_BX):
+    """Full-frame deblock of extended planes through the kernel: one luma
+    launch, and one chroma launch for U and V together
+    (deblock_chroma_ext_cuda)."""
+    yt = plane_to_tiles(y_ext).contiguous()
+    y_out = deblock_tiles_cuda(yt, *luma_maps, beta, tc, chroma=False, block_bx=luma_block)
+    y_plane = tiles_to_plane(y_out)
+    if luma_only:
+        return y_plane, u_ext, v_ext
+    u_plane, v_plane = deblock_chroma_ext_cuda(u_ext, v_ext, chroma_maps, beta, tc,
+                                               chroma_block=chroma_block)
+    return y_plane, u_plane, v_plane
+
+
+def deblock_chroma_ext_cuda(u_ext, v_ext, chroma_maps, beta, tc,
+                            chroma_block: int = CHROMA_BLOCK_BX):
+    """Chroma-only deblock of extended U/V planes in one launch, their tile
+    grids stacked along By.  Chroma sweeps the reference's flat
+    (8*ncby, 8*ncbx) view (quirk Q9: sheared when the extended width is not
+    8-aligned; the flat remainder is untouched)."""
+    u_core, u_paste = split_covered(u_ext)
+    v_core, v_paste = split_covered(v_ext)
+    ut = plane_to_tiles(u_core)
+    vt = plane_to_tiles(v_core)
+    uv = torch.cat([ut, vt], dim=2)  # stack tile grids along By (contiguous)
+    cmaps = [torch.cat([m, m], dim=0) for m in chroma_maps]
+    uv_out = deblock_tiles_cuda(uv, *cmaps, beta, tc, chroma=True, block_bx=chroma_block)
+    cby = ut.shape[2]
+    return (u_paste(tiles_to_plane(uv_out[:, :, :cby])),
+            v_paste(tiles_to_plane(uv_out[:, :, cby:])))

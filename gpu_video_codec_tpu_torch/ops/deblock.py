@@ -1,0 +1,141 @@
+"""Whole-frame deblocking over the tile-planes layout, in plain PyTorch.
+
+The counterpart of gpu_video_codec_tpu/ops/deblock.py, and the plain
+version of the deblock kernel (ops/cuda_kernel.py, csrc/): four phases of
+elementwise int32 ops on (*B)-shaped tile planes.
+
+  1. upper-vertical  edges: filter rows 0-3 across tile cols 3|4
+  2. lower-vertical  edges: filter rows 4-7 across tile cols 3|4
+  3. left-horizontal edges: filter cols 0-3 across tile rows 3|4 (transposed)
+  4. right-horizontal edges: cols 4-7, with the reference's P/Q column
+     mismatch (quirk Q3, cpu.h:383-433): P comes from cols 4-7 but Q from
+     cols 0-3.
+
+Phase order is load-bearing (quirk Q7): the horizontal phases read pixels the
+vertical phases wrote, and phase 4 reads Q pixels phase 3 wrote.  Every
+segment is confined to its own tile, so each phase is a parallel map over
+the whole tile grid.
+
+Segment geometry (r = filter row 0-3, j = distance from the edge, T[a, b]
+the (*B) plane of tile-local pixel (a, b)):
+
+  upper-vert  p[r][j] = T[r,     3-j]   q[r][j] = T[r,     4+j]   (cpu.h:169-207)
+  lower-vert  p[r][j] = T[4+r,   3-j]   q[r][j] = T[4+r,   4+j]   (cpu.h:233-271)
+  left-hor    p[r][j] = T[3-j,   r  ]   q[r][j] = T[4+j,   r  ]   (cpu.h:302-364)
+  right-hor   p[r][j] = T[3-j, 4+r  ]   q[r][j] = T[4+j,   r  ]   (cpu.h:383-445, Q3)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .filters import chroma_edge_filter_planes, luma_edge_filter_planes
+from ..utils.tiles import plane_to_tiles, split_covered, tiles_to_plane
+
+# (p_coords, q_coords) per phase; entries are (tile_row, tile_col) as a
+# function of filter row r and edge distance j.
+_SEGMENT_GEOMETRY = {
+    "upper_vert": (lambda r, j: (r, 3 - j), lambda r, j: (r, 4 + j)),
+    "lower_vert": (lambda r, j: (4 + r, 3 - j), lambda r, j: (4 + r, 4 + j)),
+    "left_hor": (lambda r, j: (3 - j, r), lambda r, j: (4 + j, r)),
+    "right_hor": (lambda r, j: (3 - j, 4 + r), lambda r, j: (4 + j, r)),
+}
+_PHASE_ORDER = ("upper_vert", "lower_vert", "left_hor", "right_hor")
+
+
+def _apply_phase(planes, phase, bs_mask, beta, tc, chroma):
+    """Run one edge phase on the 8x8 list of (*B) planes, replacing the
+    entries it changes (luma: distances 0-2; chroma: distance 0)."""
+    p_at, q_at = _SEGMENT_GEOMETRY[phase]
+    nj = 2 if chroma else 4
+    p = [[planes[p_at(r, j)[0]][p_at(r, j)[1]] for j in range(nj)] for r in range(4)]
+    q = [[planes[q_at(r, j)[0]][q_at(r, j)[1]] for j in range(nj)] for r in range(4)]
+    if chroma:
+        new_p, new_q = chroma_edge_filter_planes(p, q, bs_mask, tc)
+        touched = 1
+    else:
+        new_p, new_q = luma_edge_filter_planes(p, q, bs_mask, beta, tc)
+        touched = 3
+    for r in range(4):
+        for j in range(touched):
+            pr, pc = p_at(r, j)
+            planes[pr][pc] = new_p[r][j]
+            qr, qc = q_at(r, j)
+            planes[qr][qc] = new_q[r][j]
+
+
+def deblock_planes_core(planes, bs_maps, beta: int, tc: int, chroma: bool = False):
+    """Four-phase sweep on an 8x8 list-of-lists of (*B) int32 planes.
+    Mutates and returns `planes`.  The BS gate is `> 0` for luma and
+    `== 2` for chroma (cpu.h:164, 463)."""
+    for phase, bs in zip(_PHASE_ORDER, bs_maps):
+        gate = (bs == 2) if chroma else (bs > 0)
+        _apply_phase(planes, phase, gate, beta, tc, chroma)
+    return planes
+
+
+def deblock_tiles(tiles, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta: int, tc: int,
+                  chroma: bool = False):
+    """Deblock a tile-planes tensor.
+
+    tiles: (8, 8, *B) integer tensor (compute is int32: uint8 arithmetic
+    wraps, so the cast comes before any subtraction).  bs_*: BS value per
+    tile segment, broadcastable to (*B) (see utils/bs.py).  beta, tc: ints.
+    chroma: use the 2-wide chroma filter and BS == 2 gate.
+    Returns a new (8, 8, *B) tensor with the input's dtype.
+    """
+    t = tiles.to(torch.int32)
+    planes = [[t[r, c] for c in range(8)] for r in range(8)]
+    deblock_planes_core(planes, (bs_ver1, bs_ver2, bs_hor1, bs_hor2), beta, tc, chroma)
+    return torch.stack([torch.stack(row) for row in planes]).to(tiles.dtype)
+
+
+def deblock_tiles_plain(tiles, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta: int, tc: int,
+                        chroma: bool = False):
+    """The plain version of the deblock kernel, in the kernel's own forms:
+    tiles (8, 8, By, Bx) with (By, Bx) maps, or batched tiles
+    (NB, 8, 8, By, Bx) with (NB, By, Bx) per-frame or (1, By, Bx) shared
+    maps.  Runs on any device; ops/cuda_kernel.deblock_tiles_cuda takes it
+    for CPU tensors."""
+    maps = (bs_ver1, bs_ver2, bs_hor1, bs_hor2)
+    if tiles.dim() == 4:
+        return deblock_tiles(tiles, *maps, beta, tc, chroma=chroma)
+    # (NB, 8, 8, By, Bx) -> (8, 8, NB, By, Bx); (NB|1, By, Bx) maps broadcast
+    out = deblock_tiles(tiles.permute(1, 2, 0, 3, 4), *maps, beta, tc, chroma=chroma)
+    return out.permute(2, 0, 1, 3, 4).contiguous()
+
+
+def deblock_plane(ext_plane, bs_maps, beta: int, tc: int, chroma: bool = False):
+    """Deblock one extended plane (.., Hext, Wext) given its four (By, Bx) BS maps.
+
+    Leading batch axes (e.g. the stacked {U, V} pair) are folded into the
+    tile-grid batch; BS maps broadcast across them.  The plane is swept
+    through the reference's flat (8*ncby, 8*ncbx) view (quirk Q9,
+    utils/tiles.split_covered): sheared when the extended width is not a
+    multiple of 8, with the flat remainder passing through untouched.
+    """
+    core, paste = split_covered(ext_plane)
+    tiles = plane_to_tiles(core)  # (*lead, 8, 8, By, Bx)
+    nlead = tiles.dim() - 4
+    if nlead:
+        # -> (8, 8, *lead, By, Bx): deblock_tiles wants tile coords leading
+        tiles = tiles.permute(nlead, nlead + 1, *range(nlead), nlead + 2, nlead + 3)
+    out = deblock_tiles(tiles, *bs_maps, beta, tc, chroma=chroma)
+    if nlead:
+        out = out.permute(*range(2, 2 + nlead), 0, 1, nlead + 2, nlead + 3)
+    return paste(tiles_to_plane(out))
+
+
+def deblock_frame(y_ext, u_ext, v_ext, luma_maps, chroma_maps, beta: int, tc: int,
+                  luma_only: bool = False):
+    """Full-frame luma + chroma deblock on extended planes (uint8 in/out).
+
+    Mirrors ReadYuvFrame::DeblockingFilter's luma -> U -> V sequence
+    (cpu.h:134-993); U and V are independent so they are batched into one
+    chroma call along a leading axis.
+    """
+    y_out = deblock_plane(y_ext, luma_maps, beta, tc, chroma=False)
+    if luma_only:
+        return y_out, u_ext, v_ext
+    uv_out = deblock_plane(torch.stack([u_ext, v_ext]), chroma_maps, beta, tc, chroma=True)
+    return y_out, uv_out[0], uv_out[1]

@@ -1,0 +1,97 @@
+"""The PyTorch port's CLI on the bundled frames, against the golden oracle
+and the JAX package's CLI output, plus its error paths."""
+
+import json
+import os
+
+import pytest
+
+from gpu_video_codec_tpu.cli import main as jax_main
+from gpu_video_codec_tpu_torch.cli import build_parser, main
+from gpu_video_codec_tpu_torch.models.golden import deblock_frame_golden
+from gpu_video_codec_tpu_torch.utils.bs import BoundaryStrength
+from gpu_video_codec_tpu_torch.utils.yuv import read_yv12, yv12_bytes_from_planes
+
+CIF = "mother-daughter_352x288_yv12.yuv"
+
+
+def _gold(path, w, h, qp, luma_only=False):
+    frame = read_yv12(path, w, h)
+    out = deblock_frame_golden(frame, BoundaryStrength.intra_default(w, h), qp,
+                               luma_only=luma_only)
+    return yv12_bytes_from_planes(out)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch", "golden"])
+def test_cli_roundtrip(tmp_path, testdata_dir, capsys, backend):
+    inp = os.path.join(testdata_dir, CIF)
+    out = str(tmp_path / "out.yuv")
+    rc = main(["--input", inp, "--width", "352", "--height", "288", "--qp", "35",
+               "--output", out, "--backend", backend, "--device", "cpu"])
+    assert rc == 0
+    res = json.loads(capsys.readouterr().out)
+    assert res["frames"] == 1 and res["backend"] == backend
+    with open(out, "rb") as f:
+        assert f.read() == _gold(inp, 352, 288, 35)
+
+
+def test_cli_matches_jax_cli(tmp_path, testdata_dir, capsys):
+    inp = os.path.join(testdata_dir, CIF)
+    mine, ref = str(tmp_path / "mine.yuv"), str(tmp_path / "ref.yuv")
+    assert main(["-i", inp, "-W", "352", "-H", "288", "--qp", "30", "-o", mine,
+                 "--device", "cpu"]) == 0
+    assert jax_main(["-i", inp, "-W", "352", "-H", "288", "--qp", "30", "-o", ref,
+                     "--backend", "jnp"]) == 0
+    capsys.readouterr()
+    with open(mine, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_cli_stream_frames_and_luma_only(tmp_path, testdata_dir, capsys):
+    one = open(os.path.join(testdata_dir, CIF), "rb").read()
+    two = open(os.path.join(testdata_dir, "image1_352x288_yv12.yuv"), "rb").read()
+    inp = tmp_path / "stream.yuv"
+    inp.write_bytes(one + two + two[:100])  # a truncated tail frame is ignored
+    out = tmp_path / "out.yuv"
+    assert main(["-i", str(inp), "-W", "352", "-H", "288", "--qp", "35", "-o", str(out),
+                 "--device", "cpu", "--depth", "1", "--luma-only"]) == 0
+    assert json.loads(capsys.readouterr().out)["frames"] == 2
+    data = out.read_bytes()
+    assert len(data) == 2 * len(one)
+    gold = [_gold(os.path.join(testdata_dir, n), 352, 288, 35, luma_only=True)
+            for n in (CIF, "image1_352x288_yv12.yuv")]
+    assert data == gold[0] + gold[1]
+    assert main(["-i", str(inp), "-W", "352", "-H", "288", "-o", str(out),
+                 "--device", "cpu", "--frames", "1"]) == 0
+    assert json.loads(capsys.readouterr().out)["frames"] == 1
+    assert out.stat().st_size == len(one)
+
+
+def test_cli_device_info(capsys):
+    assert main(["--device-info"]) == 0
+    info = json.loads(capsys.readouterr().out)
+    assert info["num_devices"] == len(info["devices"])
+    assert "torch" in info
+
+
+def test_cli_errors(tmp_path, testdata_dir, capsys):
+    assert main([]) == 2
+    f = tmp_path / "x.yuv"
+    f.write_bytes(b"\0" * (3 * 50 * 50 // 2))
+    assert main(["--input", str(f), "-W", "50", "-H", "50", "--device", "cpu"]) == 1
+    small = tmp_path / "small.yuv"
+    small.write_bytes(b"\0" * 10)
+    assert main(["--input", str(small), "-W", "64", "-H", "48", "--device", "cpu"]) == 1
+    assert main(["--input", str(tmp_path / "missing.yuv"), "-W", "64", "-H", "48"]) == 1
+    # timing needs a CUDA device; on a CPU device the CLI reports it
+    inp = os.path.join(testdata_dir, CIF)
+    assert main(["-i", inp, "-W", "352", "-H", "288", "--device", "cpu", "--bench"]) == 1
+    assert "CUDA" in capsys.readouterr().err
+
+
+def test_parser_leaves_out_resident_and_multistream_modes():
+    opts = {a for action in build_parser()._actions for a in action.option_strings}
+    assert {"--batch", "--streams", "--mesh", "--num-threads"}.isdisjoint(opts)
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--backend", "pallas"])
+    assert build_parser().parse_args([]).backend == "cuda"
