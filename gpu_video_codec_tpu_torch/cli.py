@@ -5,6 +5,7 @@ actual argument parsing instead of hand-edited constants.
         --height 288 --qp 35 --output out.yuv [--backend cuda|torch|golden]
     python -m gpu_video_codec_tpu_torch.cli --device-info
     python -m gpu_video_codec_tpu_torch.cli --input ... --bench   # timing split
+    python -m gpu_video_codec_tpu_torch.cli --input ... --batch 4  # resident, 4 frames a launch
 """
 
 from __future__ import annotations
@@ -61,6 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bench", action="store_true",
                    help="add a per-frame timing breakdown to the JSON result "
                         "(copy vs step on a CUDA device, filter time for golden)")
+    p.add_argument("--batch", type=int,
+                   help="process N frames per kernel launch through the device-resident "
+                        "pipeline (models/resident.py)")
     p.add_argument("--device-info", action="store_true", help="print device info and exit")
     return p
 
@@ -76,6 +80,56 @@ def _raw_frames(path: str, frame_bytes: int, max_frames: int | None):
                 break
             count += 1
             yield data
+
+
+def run_batched(cfg: DeblockConfig, batch: int) -> dict:
+    """Batched device-resident mode: N frames per kernel launch (the batch
+    is the kernels' outermost grid dimension).  A short tail group runs as
+    its own (smaller) batch."""
+    import os
+
+    import numpy as np
+
+    from .models.resident import ResidentDeblocker
+
+    if batch < 1:
+        raise ValueError(f"--batch must be >= 1, got {batch}")
+    rd = ResidentDeblocker(cfg.width, cfg.height, cfg.qp, luma_only=cfg.luma_only,
+                           device=cfg.device)
+    frame_bytes = rd.frame_bytes
+    n_avail = os.path.getsize(cfg.input) // frame_bytes
+    if n_avail == 0:
+        raise ValueError(f"no complete {cfg.width}x{cfg.height} frames in {cfg.input}")
+    n = n_avail if cfg.frames is None else min(cfg.frames, n_avail)
+
+    sink = open(cfg.output, "wb") if cfg.output else None
+    done = 0
+    try:
+        t0 = time.perf_counter()
+        group: list[bytes] = []
+
+        def flush(group):
+            out = rd(np.stack([np.frombuffer(g, np.uint8) for g in group]))
+            if sink is not None:
+                sink.write(out.tobytes())
+            return len(group)
+
+        for raw in _raw_frames(cfg.input, frame_bytes, n):
+            group.append(raw)
+            if len(group) == batch:
+                done += flush(group)
+                group = []
+        if group:
+            done += flush(group)
+        dt = time.perf_counter() - t0
+    finally:
+        if sink is not None:
+            sink.close()
+    return {
+        "frames": done, "batch": batch, "mode": "resident",
+        "backend": "cuda", "qp": cfg.qp, "device": str(rd.device),
+        "seconds": dt, "fps": done / dt,
+    }
 
 
 def run(cfg: DeblockConfig, bench: bool = False) -> dict:
@@ -159,7 +213,18 @@ def main(argv: list[str] | None = None) -> int:
             output=args.output, backend=args.backend, luma_only=args.luma_only,
             frames=args.frames, depth=args.depth, device=args.device,
         ).validate()
-        result = run(cfg, bench=args.bench)
+        if args.batch is not None:
+            # the batched mode runs the device-resident pipeline through the
+            # kernels: reject rather than silently override --backend
+            if args.backend != "cuda":
+                raise ValueError(f"--batch uses the device-resident cuda pipeline; "
+                                 f"--backend {args.backend} is not supported with it")
+            if args.bench:
+                raise ValueError("--bench is not supported with --batch; "
+                                 "ResidentDeblocker.step_time times the resident path")
+            result = run_batched(cfg, args.batch)
+        else:
+            result = run(cfg, bench=args.bench)
     except (ValueError, FileNotFoundError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

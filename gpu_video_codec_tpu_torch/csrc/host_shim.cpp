@@ -1,8 +1,10 @@
-// Host (g++) build of the deblock kernel's per-tile math, with the kernel's
-// own indexing, for the CPU tests: the loop below visits the tiles that the
-// CUDA grid assigns to its threads and calls the same deblock_tile_at.
+// Host (g++) build of the kernels' per-tile math and indexing, for the CPU
+// tests: each loop below visits the tiles, blocks or chunks that the CUDA
+// grid assigns to its threads and calls the same functions the kernels do
+// (deblock_tile.cuh, relayout_tile.cuh).
 
 #include "deblock_tile.cuh"
+#include "relayout_tile.cuh"
 
 extern "C" void gvct_host_deblock_tiles(const uint8_t* in, uint8_t* out,
                                         const uint8_t* v1, const uint8_t* v2,
@@ -22,4 +24,50 @@ extern "C" void gvct_host_deblock_tiles(const uint8_t* in, uint8_t* out,
       }
     }
   }
+}
+
+// T2 (inverse = 0) or T3 (inverse = 1) over the launch grid of
+// relayout_kernel.cu, one block after another.  Returns 0, or -1 for a
+// geometry the kernel's launcher refuses.
+extern "C" int gvct_host_relayout(int inverse, const uint8_t* src, uint8_t* dst, int h, int w,
+                                  int pad, int by_grid, int bx_grid, int n_outer, int n_inner,
+                                  long long p_outer, long long p_inner, long long p_row,
+                                  long long t_outer, long long t_inner, long long t_r,
+                                  long long t_c, long long t_by) {
+  const gvct::RelayoutGeom g{h, w, pad, by_grid, bx_grid, n_inner, p_outer, p_inner,
+                             p_row, t_outer, t_inner, t_r, t_c, t_by};
+  if (!gvct::geometry_ok(g) || n_outer < 0) return -1;
+  uint8_t stage[gvct::kStageBytes];
+  const long long nb = static_cast<long long>(n_outer) * n_inner;
+  for (long long b = 0; b < nb; ++b) {
+    for (int by = 0; by < by_grid; ++by) {
+      for (int bx0 = 0; bx0 < bx_grid; bx0 += gvct::kSpanTiles) {
+        if (inverse) {
+          gvct::inv_stage(src + gvct::tiles_base(g, b), stage, g, by, bx0, 0, 1);
+          gvct::inv_store(stage, dst + gvct::plane_base(g, b), g, by, bx0, 0, 1);
+        } else {
+          gvct::fwd_stage(src + gvct::plane_base(g, b), stage, g, by, bx0, 0, 1);
+          gvct::fwd_store(stage, dst + gvct::tiles_base(g, b), g, by, bx0, 0, 1);
+        }
+      }
+    }
+  }
+  return 0;
+}
+
+// T4 over the kernel's chunks.
+extern "C" void gvct_host_pack_yv12(const uint8_t* y, const uint8_t* u, const uint8_t* v,
+                                    uint8_t* out, long long yn, long long cn, int nb,
+                                    long long y_stride, long long u_stride, long long v_stride,
+                                    long long out_stride) {
+  const long long chunks = (yn + 2 * cn) / gvct::kPackChunk;
+  for (long long b = 0; b < nb; ++b) {
+    for (long long k = 0; k < chunks; ++k) {
+      gvct::pack_chunk(y, u, v, out, yn, cn, y_stride, u_stride, v_stride, out_stride, b, k);
+    }
+  }
+}
+
+extern "C" int gvct_host_covered_tiles(int interior, int pad) {
+  return gvct::covered_tiles(interior, pad);
 }

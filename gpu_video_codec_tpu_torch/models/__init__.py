@@ -1,1 +1,2 @@
+from .resident import ResidentDeblocker  # noqa: F401
 from .streaming import StreamingDeblocker  # noqa: F401

@@ -45,7 +45,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _KERNEL_SOURCES = ("deblock_kernel.cu",)
 _HOST_SOURCES = ("host_shim.cpp",)
-_HEADERS = ("deblock_tile.cuh",)
+_HEADERS = ("deblock_tile.cuh", "relayout_tile.cuh")
 
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's standard place
 _MAX_GRID_YZ = 65535
@@ -53,7 +53,7 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def _nvcc(sources=_KERNEL_SOURCES) -> str:
     home = os.environ.get("CUDA_HOME")
     if home and (Path(home) / "bin" / "nvcc").is_file():
         return str(Path(home) / "bin" / "nvcc")
@@ -63,7 +63,7 @@ def _nvcc() -> str:
     if DEFAULT_NVCC.is_file():
         return str(DEFAULT_NVCC)
     cmd = " ".join(("nvcc", *NVCC_FLAGS, "-o", "<lib>.so",
-                    *(str(CSRC / s) for s in _KERNEL_SOURCES)))
+                    *(str(CSRC / s) for s in sources)))
     raise RuntimeError(f"nvcc not found (set CUDA_HOME or PATH); cannot run: {cmd}")
 
 
@@ -99,6 +99,7 @@ def build_library() -> tuple[Path, str]:
 
 
 def _load(key: str, build, setup) -> ctypes.CDLL:
+    """Build (once) and load a library, calling setup(lib) on first load."""
     with _lock:
         lib = _libs.get(key)
         if lib is None:

@@ -1,0 +1,264 @@
+"""The hand-written CUDA relayout and pack kernels: build, ctypes binding and
+wrappers.
+
+Counterpart of tools/kernel_relayout_exp.py (T2 fwd_inkernel, T3
+inv_inkernel) and tools/pack_exp.py (T4 pack_pallas), the in-kernel
+versions of the device-resident path's boundary operations:
+
+  plane_to_tiles_cuda  T2: (.., h, w) interior planes -> (.., 8, 8, By, Bx)
+                       tile-planes of the zero-extended plane (ingest)
+  tiles_to_plane_cuda  T3: the inverse (readback)
+  pack_yv12_cuda       T4: Y, U, V planes -> one packed YV12 buffer (readback)
+
+The kernels (csrc/relayout_kernel.cu over the index math of
+csrc/relayout_tile.cuh) are built at first use with nvcc into a library of
+their own beside the deblock kernel's (ops/cuda_kernel.py builds both the
+same way).  Each wrapper checks its operands, launches on the current
+stream and raises on any failure; on a CPU tensor it runs the plain
+version instead (utils/tiles.py interior_to_tiles / tiles_to_interior,
+torch.cat).  LAUNCHES counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_kernel as ck
+from .tables import SAMPLE_BLOCK_SIZE
+from ..utils.tiles import interior_to_tiles, tiles_to_interior
+
+# Kernel launches per kernel since import (or since a caller reset them).
+LAUNCHES = {"fwd": 0, "inv": 0, "pack": 0}
+
+_SOURCES = ("relayout_kernel.cu",)
+_MAX_GRID_YZ = 65535
+_ALIGN = 16  # T4 moves 16 bytes per thread
+_GEOM_ARGS = [ctypes.c_int] * 7 + [ctypes.c_longlong] * 8
+_PACK_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] \
+    + [ctypes.c_longlong] * 4
+
+
+def build_library():
+    """Build the relayout library with nvcc (no-op when already built).
+    Returns (path, compiler output)."""
+    return ck._build([ck._nvcc(_SOURCES), *ck.NVCC_FLAGS], _SOURCES, "libgvct_relayout")
+
+
+def _setup_cuda(lib) -> None:
+    for fn in (lib.gvct_plane_to_tiles, lib.gvct_tiles_to_plane):
+        fn.argtypes = [ctypes.c_void_p] * 2 + _GEOM_ARGS + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.gvct_pack_yv12.argtypes = _PACK_ARGS + [ctypes.c_int, ctypes.c_void_p]
+    lib.gvct_pack_yv12.restype = ctypes.c_int
+    lib.gvct_relayout_error_string.argtypes = [ctypes.c_int]
+    lib.gvct_relayout_error_string.restype = ctypes.c_char_p
+
+
+def load_host_library() -> ctypes.CDLL:
+    """The g++ build of csrc/host_shim.cpp (ops/cuda_kernel.load_host_library)
+    with the relayout kernels' block loops bound: gvct_host_relayout (T2 and
+    T3), gvct_host_pack_yv12 (T4) and gvct_host_covered_tiles."""
+    lib = ck.load_host_library()
+    lib.gvct_host_relayout.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2 + _GEOM_ARGS
+    lib.gvct_host_relayout.restype = ctypes.c_int
+    lib.gvct_host_pack_yv12.argtypes = _PACK_ARGS
+    lib.gvct_host_pack_yv12.restype = None
+    lib.gvct_host_covered_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.gvct_host_covered_tiles.restype = ctypes.c_int
+    return lib
+
+
+# -- plain versions ------------------------------------------------------------
+
+def plane_to_tiles_plain(x, pad: int, by_grid: int | None = None,
+                         bx_grid: int | None = None):
+    """T2's plain version: a contiguous interior_to_tiles."""
+    return interior_to_tiles(x, pad, by_grid=by_grid, bx_grid=bx_grid).contiguous()
+
+
+def tiles_to_plane_plain(tiles, pad: int, h: int, w: int):
+    """T3's plain version: a contiguous tiles_to_interior."""
+    return tiles_to_interior(tiles, pad, h, w).contiguous()
+
+
+def pack_yv12_plain(y, u, v):
+    """T4's plain version: the planes concatenated along the last axis."""
+    return torch.cat([y, u, v], dim=-1)
+
+
+# -- checks ----------------------------------------------------------------------
+
+def _check_u8(t, name: str, device=None) -> None:
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.uint8:
+        raise ValueError(f"{name} must be a uint8 tensor, got "
+                         f"{getattr(t, 'dtype', type(t).__name__)}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} must be a CUDA or CPU tensor, got {t.device}")
+    if t.numel() and t.stride(-1) != 1:
+        raise ValueError(f"{name} must be contiguous along its last axis, "
+                         f"got strides {t.stride()}")
+
+
+def _lead(t, name: str, tail: int):
+    """(n_outer, n_inner, outer stride, inner stride) of up to two leading
+    batch axes in front of `tail` trailing ones."""
+    lead = t.dim() - tail
+    if lead < 0 or lead > 2:
+        raise ValueError(f"{name} takes at most two leading batch axes, got shape "
+                         f"{tuple(t.shape)}")
+    shape = [1] * (2 - lead) + list(t.shape[:lead])
+    strides = [0] * (2 - lead) + list(t.stride()[:lead])
+    if shape[0] * shape[1] > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: batch of {shape[0] * shape[1]} planes is too large "
+                         f"for one launch")
+    return shape[0], shape[1], strides[0], strides[1]
+
+
+def _grid(h: int, w: int, pad: int, by_grid, bx_grid) -> tuple[int, int]:
+    """The tile grid of an (h, w) interior plane with `pad`, validated as
+    relayout_tile.cuh::geometry_ok and the plain versions do."""
+    b = SAMPLE_BLOCK_SIZE
+    if h <= 0 or w <= 0 or pad < 0:
+        raise ValueError(f"need h, w > 0 and pad >= 0, got {h}x{w}, pad {pad}")
+    if (w + 2 * pad) % b:
+        raise ValueError(f"extended width {w} + 2*{pad} must be a multiple of {b} "
+                         f"(sheared planes go through split_covered_data with pad 0)")
+    by, bx = (h + 2 * pad) // b, (w + 2 * pad) // b
+    byg = by if by_grid is None else int(by_grid)
+    bxg = bx if bx_grid is None else int(bx_grid)
+    if byg < by or bxg < bx:
+        raise ValueError(f"grid ({byg}, {bxg}) is smaller than the covered tiles ({by}, {bx})")
+    if pad + h > b * by:
+        raise ValueError(f"interior rows [{pad}, {pad + h}) exceed covered rows {b * by}")
+    if byg > _MAX_GRID_YZ:
+        raise ValueError(f"tile grid too large for one launch: By={byg}")
+    return byg, bxg
+
+
+def _raise_on(err: int, lib, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.gvct_relayout_error_string(err).decode()} (cudaError {err})")
+
+
+def _cuda_lib(device):
+    if device.type != "cuda":
+        raise ValueError(f"the relayout kernels take CUDA or CPU tensors, got {device}")
+    return ck._load("relayout", build_library, _setup_cuda)
+
+
+def _geom_args(plane, tiles, h, w, pad, byg, bxg):
+    """The launch's geometry arguments; plane and tiles share their leading
+    batch axes."""
+    n_outer, n_inner, p_outer, p_inner = _lead(plane, "plane", 2)
+    _, _, t_outer, t_inner = _lead(tiles, "tiles", 4)
+    return (h, w, pad, byg, bxg, n_outer, n_inner, p_outer, p_inner, plane.stride(-2),
+            t_outer, t_inner, tiles.stride(-4), tiles.stride(-3), tiles.stride(-2))
+
+
+# -- wrappers ----------------------------------------------------------------------
+
+def plane_to_tiles_cuda(x, pad: int, *, by_grid: int | None = None,
+                        bx_grid: int | None = None, out=None):
+    """T2: (.., h, w) uint8 interior planes -> (.., 8, 8, By, Bx) tile-planes
+    of the plane zero-extended by `pad` (Q6), over a grid of (by_grid,
+    bx_grid) tiles (default: the covered tiles, (h + 2pad) // 8 rows by
+    truncating division, Q9).  Up to two leading batch axes; any row and
+    batch strides, columns contiguous.
+
+    out: optional destination of shape (.., 8, 8, By, Bx) with any strides
+    but a contiguous last axis -- e.g. a view that places U and V of one
+    launch as (8, 8, 2, cBy, cBx).  Returns `out`, or a new contiguous
+    tensor.  The launch goes on the current stream and does not
+    synchronize.  CPU tensors take the plain version instead."""
+    _check_u8(x, "plane")
+    _lead(x, "plane", 2)
+    h, w = x.shape[-2], x.shape[-1]
+    byg, bxg = _grid(h, w, pad, by_grid, bx_grid)
+    want = (*x.shape[:-2], SAMPLE_BLOCK_SIZE, SAMPLE_BLOCK_SIZE, byg, bxg)
+    if out is None:
+        out = torch.empty(want, dtype=torch.uint8, device=x.device)
+    else:
+        _check_u8(out, "out", x.device)
+        if tuple(out.shape) != want:
+            raise ValueError(f"out has shape {tuple(out.shape)}, expected {want}")
+    if x.device.type == "cpu":
+        return out.copy_(plane_to_tiles_plain(x, pad, byg, bxg))
+    lib = _cuda_lib(x.device)
+    if x.numel() == 0:
+        return out
+    err = lib.gvct_plane_to_tiles(x.data_ptr(), out.data_ptr(),
+                                  *_geom_args(x, out, h, w, pad, byg, bxg),
+                                  x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, lib, "plane_to_tiles")
+    LAUNCHES["fwd"] += 1
+    return out
+
+
+def tiles_to_plane_cuda(tiles, pad: int, h: int, w: int):
+    """T3: (.., 8, 8, By, Bx) uint8 tile-planes (any strides, Bx contiguous)
+    -> the new contiguous (.., h, w) interior [pad, pad + h) x [pad, pad + w)
+    of the extended plane they hold.  Grid tiles past the extended plane are
+    ignored.  Up to two leading batch axes.  The launch goes on the current
+    stream and does not synchronize.  CPU tensors take the plain version."""
+    _check_u8(tiles, "tiles")
+    if tiles.dim() < 4 or tuple(tiles.shape[-4:-2]) != (SAMPLE_BLOCK_SIZE, SAMPLE_BLOCK_SIZE):
+        raise ValueError(f"tiles must be (.., 8, 8, By, Bx), got {tuple(tiles.shape)}")
+    byg, bxg = tiles.shape[-2], tiles.shape[-1]
+    _grid(h, w, pad, byg, bxg)
+    _lead(tiles, "tiles", 4)
+    if tiles.device.type == "cpu":
+        return tiles_to_plane_plain(tiles, pad, h, w)
+    lib = _cuda_lib(tiles.device)
+    out = torch.empty((*tiles.shape[:-4], h, w), dtype=torch.uint8, device=tiles.device)
+    if out.numel() == 0:
+        return out
+    err = lib.gvct_tiles_to_plane(tiles.data_ptr(), out.data_ptr(),
+                                  *_geom_args(out, tiles, h, w, pad, byg, bxg),
+                                  tiles.device.index,
+                                  torch.cuda.current_stream(tiles.device).cuda_stream)
+    _raise_on(err, lib, "tiles_to_plane")
+    LAUNCHES["inv"] += 1
+    return out
+
+
+def pack_yv12_cuda(y, u, v):
+    """T4: Y (.., yn), U and V (.., cn) uint8 planes, flat -> one new (..,
+    yn + 2cn) packed buffer, in one launch.  At most one leading batch axis,
+    any batch strides; yn, cn, every batch stride and every start address
+    are multiples of 16 bytes (always so for planes of frames whose w and h
+    are multiples of 8).  The launch goes on the current stream and does
+    not synchronize.  CPU tensors take the plain version."""
+    _check_u8(y, "y")
+    for name, t in (("y", y), ("u", u), ("v", v)):
+        _check_u8(t, name, y.device)
+        if t.dim() not in (1, 2) or t.dim() != y.dim() or t.shape[:-1] != y.shape[:-1]:
+            raise ValueError(f"y, u, v must be (n) or (nb, n) with one nb, got "
+                             f"{tuple(y.shape)}, {tuple(u.shape)}, {tuple(v.shape)}")
+    yn, cn = y.shape[-1], u.shape[-1]
+    if v.shape[-1] != cn:
+        raise ValueError(f"u and v differ in size: {cn} vs {v.shape[-1]}")
+    nb = y.shape[0] if y.dim() == 2 else 1
+    strides = [t.stride(0) if t.dim() == 2 else 0 for t in (y, u, v)]
+    if yn % _ALIGN or cn % _ALIGN or any(s % _ALIGN for s in strides) or any(
+            t.data_ptr() % _ALIGN for t in (y, u, v)):
+        raise ValueError(f"plane sizes ({yn}, {cn}), batch strides {strides} and start "
+                         f"addresses must be multiples of {_ALIGN} bytes")
+    if nb > _MAX_GRID_YZ:
+        raise ValueError(f"batch of {nb} frames is too large for one launch")
+    if y.device.type == "cpu":
+        return pack_yv12_plain(y, u, v)
+    lib = _cuda_lib(y.device)
+    out = torch.empty((*y.shape[:-1], yn + 2 * cn), dtype=torch.uint8, device=y.device)
+    if out.numel() == 0:
+        return out
+    err = lib.gvct_pack_yv12(y.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
+                             yn, cn, nb, *strides, out.stride(0) if out.dim() == 2 else 0,
+                             y.device.index, torch.cuda.current_stream(y.device).cuda_stream)
+    _raise_on(err, lib, "pack_yv12")
+    LAUNCHES["pack"] += 1
+    return out

@@ -89,9 +89,44 @@ def test_cli_errors(tmp_path, testdata_dir, capsys):
     assert "CUDA" in capsys.readouterr().err
 
 
+def test_cli_batch_resident_with_tail(tmp_path, testdata_dir, capsys):
+    """--batch 2 over three frames: one batch of two, then the tail frame as
+    a batch of its own, each frame equal to golden."""
+    names = (CIF, "image1_352x288_yv12.yuv", CIF)
+    inp = tmp_path / "stream.yuv"
+    inp.write_bytes(b"".join(open(os.path.join(testdata_dir, n), "rb").read() for n in names))
+    out = tmp_path / "out.yuv"
+    assert main(["-i", str(inp), "-W", "352", "-H", "288", "--qp", "35", "-o", str(out),
+                 "--device", "cpu", "--batch", "2"]) == 0
+    res = json.loads(capsys.readouterr().out)
+    assert (res["frames"], res["batch"], res["mode"], res["backend"]) == (3, 2, "resident", "cuda")
+    assert out.read_bytes() == b"".join(_gold(os.path.join(testdata_dir, n), 352, 288, 35)
+                                        for n in names)
+    assert main(["-i", str(inp), "-W", "352", "-H", "288", "--qp", "35", "-o", str(out),
+                 "--device", "cpu", "--batch", "4", "--frames", "1", "--luma-only"]) == 0
+    assert json.loads(capsys.readouterr().out)["frames"] == 1
+    assert out.read_bytes() == _gold(os.path.join(testdata_dir, CIF), 352, 288, 35,
+                                     luma_only=True)
+
+
+def test_cli_batch_errors(tmp_path, testdata_dir, capsys):
+    inp = os.path.join(testdata_dir, CIF)
+    base = ["-i", inp, "-W", "352", "-H", "288", "--device", "cpu"]
+    assert main(base + ["--batch", "0"]) == 1
+    assert main(base + ["--batch", "2", "--bench"]) == 1
+    assert main(base + ["--batch", "2", "--backend", "torch"]) == 1
+    assert main(base + ["--batch", "2", "--backend", "golden"]) == 1
+    small = tmp_path / "small.yuv"
+    small.write_bytes(b"\0" * 10)
+    assert main(["-i", str(small), "-W", "64", "-H", "48", "--device", "cpu", "--batch", "2"]) == 1
+    assert "--batch" in capsys.readouterr().err
+
+
 def test_parser_leaves_out_resident_and_multistream_modes():
+    """The multi-stream modes are not ported; the resident --batch mode is."""
     opts = {a for action in build_parser()._actions for a in action.option_strings}
-    assert {"--batch", "--streams", "--mesh", "--num-threads"}.isdisjoint(opts)
+    assert {"--streams", "--mesh", "--num-threads"}.isdisjoint(opts)
+    assert "--batch" in opts and build_parser().parse_args([]).batch is None
     with pytest.raises(SystemExit):
         build_parser().parse_args(["--backend", "pallas"])
     assert build_parser().parse_args([]).backend == "cuda"
