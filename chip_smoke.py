@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 0. Builds the kernels from gpu_video_codec_tpu_torch/csrc, one nvcc per
-   library, both started together.
+   library (deblock, relayout, SWAR), all started together, and prints
+   ptxas's registers and spills for every kernel entry.
 1. Holds each variant of the deblock kernel against its plain PyTorch
    version on the card, byte for byte, at the main path's grids (1080p luma
    and U+V chroma), a sheared chroma grid, tail grids and a batched luma
@@ -13,9 +14,20 @@
    inverse) and the pack kernel T4 against their plain versions, byte for
    byte: 1080p luma and U+V, the sheared 360x288 chroma core, a tail grid,
    a batch of four 1080p frames; T4 at 1080p and 360x288.
+1c. Holds K1-i16 (int16 compute, luma and chroma), T5 (the rows layout)
+   and T1 (SWAR, two tiles per thread) against their plain versions, and
+   K1-i16 against K1, byte for byte, over QP {0,17,30,35,51}: 1080p luma
+   and U+V grids, the race grid (136, 256), the sheared chroma stack, tail
+   grids; T1 refuses an odd Bx.
 2. Runs the CLI on the three bundled frames, and StreamingDeblocker on a
    synthetic 1920x1080 frame and a sheared 360x288 frame, against the
    golden NumPy oracle.
+2b. The int16 frame path: deblock_frame_cuda(dtype=torch.int16) on a
+   synthetic 1920x1080 frame and a sheared 360x288 frame == golden, with
+   exactly one K1-i16 luma and one chroma launch per frame.
+2c. The three experiments' entry points (gpu_video_codec_tpu_torch/tools:
+   int16_probe, rowslayout_exp, swar_exp --check and --race) on the card,
+   each reporting bit-exact.
 3. Streams 16 distinct 1080p frames through StreamingDeblocker.run (the
    main path), checks each against the plain backend on the card and that
    each frame launched the luma and the chroma kernel once; then again
@@ -32,6 +44,9 @@
    readback at 1080p, batch 1 and 4.
 4c. Lists the device kernels by name and time (torch.profiler) for the
    resident path and the streaming packed step at 1080p.
+4d. Times K1, K1-i16, T5 and T1 in turns at the race grid (136, 256), K1 on
+   uniform noise there too, and K1-i16 luma and chroma at the 1080p grids,
+   each beside its plain version and its byte bound.
 
 Exits non-zero at the first failure.  Prints the card's name and power
 limit, a JSON line of per-kernel results, and last a JSON line with
@@ -42,6 +57,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -56,6 +72,7 @@ QPS = (0, 17, 30, 35, 51)
 KERNEL_SOURCE = "gpu_video_codec_tpu_torch/csrc/deblock_kernel.cu"
 TPU_KERNEL = "gpu_video_codec_tpu/ops/pallas_kernel.py:71"
 RELAYOUT_SOURCE = "gpu_video_codec_tpu_torch/csrc/relayout_kernel.cu"
+SWAR_SOURCE = "gpu_video_codec_tpu_torch/csrc/swar_kernel.cu"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak bandwidth
 
 
@@ -93,19 +110,6 @@ def bytes_bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def in_turns(fns: dict, iters: dict) -> dict:
-    """Device ms per call of each named function, measured in turns
-    (first, second, ..., ..., second, first), best of the two runs each,
-    with whether every run was queued ahead of the device."""
-    from gpu_video_codec_tpu_torch.utils.timing import device_ms
-
-    order = list(fns) + list(fns)[::-1]
-    runs = {name: [] for name in fns}
-    for name in order:
-        runs[name].append(device_ms(fns[name], iters[name]))
-    return {name: (min(ms for ms, _ in r), all(ok for _, ok in r)) for name, r in runs.items()}
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -115,12 +119,18 @@ def main() -> int:
     from gpu_video_codec_tpu_torch.models.streaming import StreamingDeblocker
     from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
     from gpu_video_codec_tpu_torch.ops import relayout_kernel as rk
-    from gpu_video_codec_tpu_torch.ops.deblock import deblock_tiles_plain
+    from gpu_video_codec_tpu_torch.ops import swar_kernel as sk
+    from gpu_video_codec_tpu_torch.ops.deblock import deblock_rows_plain, deblock_tiles_plain
     from gpu_video_codec_tpu_torch.ops.tables import get_beta, get_tc
-    from gpu_video_codec_tpu_torch.utils.bs import BoundaryStrength
+    from gpu_video_codec_tpu_torch.tools import int16_probe, rowslayout_exp, swar_exp
+    from gpu_video_codec_tpu_torch.utils.bs import (
+        BoundaryStrength, chroma_segment_maps, luma_segment_maps,
+    )
     from gpu_video_codec_tpu_torch.utils.tiles import split_covered_data
-    from gpu_video_codec_tpu_torch.utils.timing import device_ms
-    from gpu_video_codec_tpu_torch.utils.yuv import planes_from_yv12_bytes, yv12_bytes_from_planes
+    from gpu_video_codec_tpu_torch.utils.timing import device_ms, in_turns
+    from gpu_video_codec_tpu_torch.utils.yuv import (
+        FramePlanes, planes_from_yv12_bytes, yv12_bytes_from_planes,
+    )
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -129,15 +139,60 @@ def main() -> int:
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per library, started together
-        builds = list(pool.map(lambda build: build(), (ck.build_library, rk.build_library)))
-    print(f"kernel build (both libraries): {time.perf_counter() - t0:.1f} s")
+    libs = (ck.build_library, rk.build_library, sk.build_library)
+    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per library, started together
+        builds = list(pool.map(lambda build: build(), libs))
+    print(f"kernel build (three libraries): {time.perf_counter() - t0:.1f} s")
+    cuobjdump = os.path.join(os.path.dirname(ck._nvcc()), "cuobjdump")
+    cxxfilt = shutil.which("c++filt")
     for path, log in builds:
         print(f"  -> {os.path.relpath(path, REPO)}")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+        if not os.path.isfile(cuobjdump):
+            print("  sass: cuobjdump not found (instruction counts not measured)")
+            continue
+        sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                              check=True).stdout
+        entry = None
+        for line in sass.splitlines() + ["Function : <end>"]:
+            if "Function : " in line:
+                if entry:
+                    name = subprocess.run([cxxfilt, entry[0]], capture_output=True,
+                                          text=True).stdout.strip() if cxxfilt else entry[0]
+                    print(f"  sass: {name}: {entry[1]} instructions (static)")
+                entry = [line.split("Function : ")[1].strip(), 0]
+            elif entry and line.lstrip().startswith("/*") and ";" in line:
+                entry[1] += 1
     rng = np.random.default_rng(2026)
+
+    def counts() -> dict:
+        """Launches since the last reset(), by kernel."""
+        return {"T2": rk.LAUNCHES["fwd"], "K1": ck.LAUNCHES["luma"],
+                "K1c": ck.LAUNCHES["chroma"], "T3": rk.LAUNCHES["inv"],
+                "T4": rk.LAUNCHES["pack"], "K1-i16": ck.LAUNCHES["luma_i16"],
+                "K1-i16c": ck.LAUNCHES["chroma_i16"], "T5": ck.LAUNCHES["rows"],
+                "T1": sk.LAUNCHES["swar"]}
+
+    def reset() -> None:
+        for d in (ck.LAUNCHES, rk.LAUNCHES, sk.LAUNCHES):
+            d.update(dict.fromkeys(d, 0))
+
+    def only(**launches) -> dict:
+        """counts() as it should read when only `launches` ran."""
+        return {**dict.fromkeys(counts(), 0), **launches}
+
+    max_err = dict.fromkeys(counts(), 0)  # max |kernel - plain| by kernel, phases 1-1c
+
+    def same(kind: str, what: str, got, ref) -> None:
+        """Hold a kernel's output against its plain version, byte for byte."""
+        torch.cuda.synchronize()
+        check(got.shape == ref.shape, f"{kind}: {what} shape {tuple(got.shape)} != "
+                                      f"{tuple(ref.shape)}")
+        diff = int((got.int() - ref.int()).abs().max()) if got.numel() else 0
+        max_err[kind] = max(max_err[kind], diff)
+        check(diff == 0, f"{kind} vs plain: {what} max |diff| {diff}")
 
     # -- 1. kernel vs plain on the card ----------------------------------------
     cases = [  # (name, chroma, tiles shape, map shape)
@@ -148,7 +203,6 @@ def main() -> int:
         ("chroma tail", True, (8, 8, 3, 5), (3, 5)),
         ("luma batched per-frame maps", False, (3, 8, 8, 136, 241), (3, 136, 241)),
     ]
-    err = {False: 0, True: 0}
     for name, chroma, shape, mshape in cases:
         for qp in QPS:
             tiles = torch.from_numpy(blocky_tiles(rng, shape)).to(dev)
@@ -156,24 +210,11 @@ def main() -> int:
                     for _ in range(4)]
             beta, tc = get_beta(qp), get_tc(qp)
             out = ck.deblock_tiles_cuda(tiles, *maps, beta, tc, chroma=chroma)
-            ref = deblock_tiles_plain(tiles, *maps, beta, tc, chroma=chroma)
-            torch.cuda.synchronize()
-            diff = int((out.int() - ref.int()).abs().max())
-            err[chroma] = max(err[chroma], diff)
-            check(diff == 0, f"kernel vs plain: {name} qp {qp} max |diff| {diff}")
+            same("K1c" if chroma else "K1", f"{name} qp {qp}", out,
+                 deblock_tiles_plain(tiles, *maps, beta, tc, chroma=chroma))
         print(f"kernel == plain: {name} {shape}, QP {list(QPS)}")
 
     # -- 1b. relayout and pack kernels vs plain on the card ------------------------
-    rerr = {"fwd": 0, "inv": 0, "pack": 0}
-
-    def same(what: str, kind: str, got, ref) -> None:
-        torch.cuda.synchronize()
-        check(got.shape == ref.shape, f"{kind}: {what} shape {tuple(got.shape)} != "
-                                      f"{tuple(ref.shape)}")
-        diff = int((got.int() - ref.int()).abs().max()) if got.numel() else 0
-        rerr[kind] = max(rerr[kind], diff)
-        check(diff == 0, f"{kind} kernel vs plain: {what} max |diff| {diff}")
-
     w, h = 1920, 1080
     frames4 = torch.from_numpy(np.stack([blocky_frame(rng, w, h) for _ in range(4)])).to(dev)
     y4 = frames4[:, : w * h].reshape(4, h, w)  # batch stride 3wh/2: the packed buffer's
@@ -191,16 +232,16 @@ def main() -> int:
             ("1080p luma, batch of 4 in packed frames", y4, 4, (None, None))):
         hh, ww = x.shape[-2:]
         t = rk.plane_to_tiles_cuda(x, pad, by_grid=grid[0], bx_grid=grid[1])
-        same(what, "fwd", t, rk.plane_to_tiles_plain(x, pad, *grid))
+        same("T2", what, t, rk.plane_to_tiles_plain(x, pad, *grid))
         rnd = torch.randint(0, 256, t.shape, dtype=torch.uint8, device=dev)
         for tiles in (t, rnd):
-            same(what, "inv", rk.tiles_to_plane_cuda(tiles, pad, hh, ww),
+            same("T3", what, rk.tiles_to_plane_cuda(tiles, pad, hh, ww),
                  rk.tiles_to_plane_plain(tiles, pad, hh, ww))
         if x.dim() == 3 and x.shape[0] == 2:  # U and V land as (8, 8, 2, cBy, cBx)
             stacked = torch.zeros((8, 8, 2, *t.shape[-2:]), dtype=torch.uint8, device=dev)
             rk.plane_to_tiles_cuda(x, pad, out=stacked.movedim(2, 0))
-            same(what + " into the U-over-V stack", "fwd", stacked.movedim(2, 0), t)
-            same(what + " from the U-over-V stack", "inv",
+            same("T2", what + " into the U-over-V stack", stacked.movedim(2, 0), t)
+            same("T3", what + " from the U-over-V stack",
                  rk.tiles_to_plane_cuda(stacked.movedim(2, 0), pad, hh, ww), x)
         print(f"T2/T3 == plain: {what} {tuple(x.shape)} -> {tuple(t.shape)}")
     for what, buf, ww, hh in (("1080p", frames4[0], 1920, 1080), ("360x288", cif, 360, 288),
@@ -208,9 +249,61 @@ def main() -> int:
         yn, cn = ww * hh, ww * hh // 4
         planes = (buf[..., :yn], buf[..., yn : yn + cn], buf[..., yn + cn :])
         packed = rk.pack_yv12_cuda(*planes)
-        same(what, "pack", packed, rk.pack_yv12_plain(*planes))
-        same(what + " (round trip)", "pack", packed, buf)
+        same("T4", what, packed, rk.pack_yv12_plain(*planes))
+        same("T4", what + " (round trip)", packed, buf)
         print(f"T4 == plain: {what} -> {tuple(packed.shape)}")
+
+    # -- 1c. K1-i16, T5 and T1 vs their plain versions on the card -------------------
+    def tiles_maps(shape, mshape):
+        tiles = torch.from_numpy(blocky_tiles(rng, shape)).to(dev)
+        maps = [torch.from_numpy(rng.integers(0, 3, mshape, dtype=np.uint8)).to(dev)
+                for _ in range(4)]
+        return tiles, maps
+
+    for name, chroma, shape, mshape in (
+            ("luma 1080p", False, (8, 8, 136, 241), (136, 241)),
+            ("luma race grid", False, (8, 8, 136, 256), (136, 256)),
+            ("luma tail", False, (8, 8, 3, 5), (3, 5)),
+            ("chroma U+V 1080p shared map", True, (2, 8, 8, 68, 121), (1, 68, 121)),
+            ("chroma sheared 360x288 U|V stacked", True, (8, 8, 38, 23), (38, 23))):
+        kind = "K1-i16c" if chroma else "K1-i16"
+        for qp in QPS:
+            tiles, maps = tiles_maps(shape, mshape)
+            beta, tc = get_beta(qp), get_tc(qp)
+            out = ck.deblock_tiles_cuda(tiles, *maps, beta, tc, chroma=chroma, dtype=torch.int16)
+            same(kind, f"{name} qp {qp}", out, deblock_tiles_plain(
+                tiles, *maps, beta, tc, chroma=chroma, dtype=torch.int16))
+            same(kind, f"{name} qp {qp} against K1", out,
+                 ck.deblock_tiles_cuda(tiles, *maps, beta, tc, chroma=chroma))
+        print(f"{kind} == plain == K1: {name} {shape}, QP {list(QPS)}")
+    for name, chroma, (by, bx) in (("luma 1080p", False, (136, 241)),
+                                   ("luma race grid", False, (136, 256)),
+                                   ("chroma 1080p", True, (136, 241)),
+                                   ("chroma race grid", True, (136, 256)),
+                                   ("luma tail", False, (3, 5)), ("chroma tail", True, (3, 5))):
+        for qp in QPS:
+            tiles, maps = tiles_maps((8, 8, by, bx), (by, bx))
+            rows = tiles.permute(2, 0, 1, 3).contiguous()
+            beta, tc = get_beta(qp), get_tc(qp)
+            same("T5", f"{name} qp {qp}", ck.deblock_rows_cuda(rows, *maps, beta, tc, chroma=chroma),
+                 deblock_rows_plain(rows, *maps, beta, tc, chroma=chroma))
+        print(f"T5 == plain: {name} {(by, 8, 8, bx)}, QP {list(QPS)}")
+    for name, chroma, (by, bx) in (("luma race grid", False, (136, 256)),
+                                   ("chroma 1080p U+V stack, even", True, (68, 120)),
+                                   ("luma tail", False, (3, 4)), ("chroma tail", True, (3, 4))):
+        for qp in QPS:
+            tiles, maps = tiles_maps((8, 8, by, bx), (by, bx))
+            beta, tc = get_beta(qp), get_tc(qp)
+            same("T1", f"{name} qp {qp}",
+                 sk.deblock_tiles_swar_cuda(tiles, *maps, beta, tc, chroma=chroma),
+                 deblock_tiles_plain(tiles, *maps, beta, tc, chroma=chroma))
+        print(f"T1 == plain: {name} {(8, 8, by, bx)}, QP {list(QPS)}")
+    tiles, maps = tiles_maps((8, 8, 3, 5), (3, 5))
+    try:
+        sk.deblock_tiles_swar_cuda(tiles, *maps, 38, 4)
+        check(False, "T1 took an odd Bx")
+    except ValueError as e:
+        print(f"T1 refuses an odd Bx: {e}")
 
     # -- 2. golden -----------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -242,16 +335,53 @@ def main() -> int:
         print(f"StreamingDeblocker == golden: {w}x{h} "
               f"({int((out != raw).sum())} bytes changed; golden {time.perf_counter() - t0:.1f} s)")
 
+    # -- 2b. the int16 frame path ------------------------------------------------------
+    beta35, tc35 = get_beta(35), get_tc(35)
+    i16_launches = only()
+    for w, h in ((1920, 1080), (360, 288)):
+        fp = planes_from_yv12_bytes(blocky_frame(rng, w, h), w, h)
+        bs = BoundaryStrength.intra_default(w, h)
+        lm = [torch.from_numpy(m).to(dev) for m in luma_segment_maps(bs)]
+        cm = [torch.from_numpy(m).to(dev) for m in chroma_segment_maps(bs)]
+        planes = [torch.from_numpy(p).to(dev) for p in (fp.y, fp.u, fp.v)]
+        reset()
+        y, u, v = ck.deblock_frame_cuda(*planes, lm, cm, beta35, tc35, dtype=torch.int16)
+        got = counts()
+        check(got == only(**{"K1-i16": 1, "K1-i16c": 1}), f"int16 frame {w}x{h}: launches {got}")
+        i16_launches = {k: i16_launches[k] + got[k] for k in got}
+        gold = deblock_frame_golden(fp, bs, 35)
+        out = FramePlanes(y.cpu().numpy(), u.cpu().numpy(), v.cpu().numpy(), w, h)
+        check(yv12_bytes_from_planes(out) == yv12_bytes_from_planes(gold),
+              f"deblock_frame_cuda(dtype=int16) {w}x{h} != golden")
+        check(not np.array_equal(out.y, fp.y), f"int16 {w}x{h}: the filter changed nothing")
+        print(f"deblock_frame_cuda(dtype=torch.int16) == golden: {w}x{h}; launches {got}")
+
+    # -- 2c. the experiments' entry points on the card ----------------------------------
+    reset()
+    probe = int16_probe.main([])
+    check(probe.get("int16_on_gpu") == "ok-bitexact", f"int16_probe: {probe}")
+    rows_res = rowslayout_exp.main([])
+    check(rows_res["bit_exact"], f"rowslayout_exp: {rows_res}")
+    swar_check = swar_exp.main(["--check"])
+    check(swar_check["ok"], f"swar_exp --check: {swar_check}")
+    swar_race = swar_exp.main(["--race"])
+    check(swar_race["bit_exact"], f"swar_exp --race: {swar_race}")
+    tool_launches = counts()
+    check(all(tool_launches[k] > 0 for k in ("K1-i16", "K1-i16c", "T5", "T1")),
+          f"the tools did not launch every new kernel: {tool_launches}")
+    print(f"tools: int16_probe, rowslayout_exp, swar_exp --check/--race all bit-exact; "
+          f"launches {tool_launches}")
+
     # -- 3. the main path: a 1080p stream ----------------------------------------
     w, h, n = 1920, 1080, 16
     frames = [blocky_frame(rng, w, h) if i % 2 else rng.integers(0, 256, 3 * w * h // 2,
                                                                  dtype=np.uint8)
               for i in range(n)]
     s = StreamingDeblocker(w, h, 35, depth=2, device=dev)
-    ck.LAUNCHES.update(luma=0, chroma=0)
+    reset()
     outs = list(s.run(frames))
-    launches = dict(ck.LAUNCHES)
-    check(launches == {"luma": n, "chroma": n}, f"launches {launches}, want {n} each")
+    launches = counts()
+    check(launches == only(K1=n, K1c=n), f"launches {launches}, want {n} K1 and K1c")
     plain = StreamingDeblocker(w, h, 35, backend="torch", depth=2, device=dev)
     refs = list(plain.run(frames))
     check(len(outs) == n and all(np.array_equal(o, r) for o, r in zip(outs, refs)),
@@ -260,9 +390,9 @@ def main() -> int:
     print(f"stream: {n} x 1080p == plain backend; launches {launches}")
 
     s_luma = StreamingDeblocker(w, h, 35, luma_only=True, device=dev)
-    ck.LAUNCHES.update(luma=0, chroma=0)
+    reset()
     outs_l = list(s_luma.run(frames))
-    check(dict(ck.LAUNCHES) == {"luma": n, "chroma": 0}, f"luma_only launches {ck.LAUNCHES}")
+    check(counts() == only(K1=n), f"luma_only launches {counts()}")
     refs_l = StreamingDeblocker(w, h, 35, backend="torch", luma_only=True, device=dev).run(frames)
     check(all(np.array_equal(o, r) for o, r in zip(outs_l, refs_l)), "luma_only != plain")
     check(all(np.array_equal(o[w * h:], f[w * h:]) for o, f in zip(outs_l, frames)),
@@ -291,15 +421,6 @@ def main() -> int:
     print(f"stream with mid-stream BS swap: {n} x 1080p == plain backend")
 
     # -- 3b. the resident path ------------------------------------------------------
-    def counts() -> dict:
-        return {"T2": rk.LAUNCHES["fwd"], "K1": ck.LAUNCHES["luma"],
-                "K1c": ck.LAUNCHES["chroma"], "T3": rk.LAUNCHES["inv"],
-                "T4": rk.LAUNCHES["pack"]}
-
-    def reset() -> None:
-        ck.LAUNCHES.update(luma=0, chroma=0)
-        rk.LAUNCHES.update(fwd=0, inv=0, pack=0)
-
     for ww, hh in ((1920, 1080), (360, 288)):
         raw = blocky_frame(rng, ww, hh)
         out = ResidentDeblocker(ww, hh, 35, device=dev)(raw)
@@ -322,7 +443,7 @@ def main() -> int:
     reset()
     outs_r = resident("cuda")
     res_launches = counts()
-    want = {"T2": 2, "K1": steps, "K1c": steps, "T3": 2, "T4": 1}
+    want = only(T2=2, K1=steps, K1c=steps, T3=2, T4=1)
     check(res_launches == want, f"resident launches {res_launches}, want {want}")
     check(np.array_equal(outs_r, resident("torch")), "resident 1080p batch != plain backend")
     check(all(not np.array_equal(o, f) for o, f in zip(outs_r, batch)), "a frame was unchanged")
@@ -342,9 +463,9 @@ def main() -> int:
 
     # -- 4. times --------------------------------------------------------------
     kernels = []
-    for name, chroma, shape, mshape, variant in (
-            ("K1 luma deblock", False, (8, 8, 136, 241), (136, 241), "luma"),
-            ("K1c chroma deblock", True, (2, 8, 8, 68, 121), (1, 68, 121), "chroma")):
+    for name, chroma, shape, mshape in (
+            ("K1 luma deblock", False, (8, 8, 136, 241), (136, 241)),
+            ("K1c chroma deblock", True, (2, 8, 8, 68, 121), (1, 68, 121))):
         tiles = torch.from_numpy(blocky_tiles(rng, shape)).to(dev)
         maps = [torch.from_numpy(rng.integers(0, 3, mshape, dtype=np.uint8)).to(dev)
                 for _ in range(4)]
@@ -355,11 +476,12 @@ def main() -> int:
             fn = ck.deblock_tiles_cuda if which == "kernel" else deblock_tiles_plain
             runs[which].append(device_ms(lambda: fn(tiles, *maps, beta, tc, chroma=chroma),
                                          iters))
-        by_path = {"stream": launches[variant], "resident": res_launches[name.split()[0]]}
+        short = name.split()[0]
+        by_path = {"stream": launches[short], "resident": res_launches[short]}
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": err[chroma],
+            "max_abs_err": max_err[short],
             "ms": min(ms for ms, _ in runs["kernel"]),
             "plain_ms": min(ms for ms, _ in runs["plain"]),
             # tiles read and written once, four BS maps read once
@@ -427,8 +549,7 @@ def main() -> int:
         print(f"{kname} {shape}: kernel {row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f}"
               f" us, library {row['library_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f}"
               f" us (queued ahead: {all(ok for _, ok in r.values())}; device time; {smi})")
-    for kname, what, kind in (("T2", "plane_to_tiles", "fwd"), ("T3", "tiles_to_plane", "inv"),
-                              ("T4", "pack_yv12", "pack")):
+    for kname, what in (("T2", "plane_to_tiles"), ("T3", "tiles_to_plane"), ("T4", "pack_yv12")):
         main_row, *others = rows[kname]
         replaces = {"T2": "tools/kernel_relayout_exp.py:55", "T3": "tools/kernel_relayout_exp.py:87",
                     "T4": "tools/pack_exp.py:91"}[kname]
@@ -436,7 +557,7 @@ def main() -> int:
             "name": f"{kname} {what} ({main_row['shape']})", "route": "cuda",
             "source": RELAYOUT_SOURCE, "replaces": replaces,
             "launches": res_launches[kname], "launches_by_path": {"resident": res_launches[kname]},
-            "max_abs_err": rerr[kind],
+            "max_abs_err": max_err[kname],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
             "library_ms": main_row["library_ms"],
@@ -482,6 +603,73 @@ def main() -> int:
     trace("resident 1080p ingest + step + readback to the device, batch 4",
           lambda: _readback(rd1.step(rd1.ingest(frames4)), w, h), reps=5)
     trace("streaming packed _step 1080p", lambda: s._step(buf))
+
+    # -- 4d. K1, K1-i16, T5 and T1 side by side -----------------------------------------
+    by, bx = 136, 256  # the race grid of rowslayout_exp and swar_exp
+    tiles, maps = tiles_maps((8, 8, by, bx), (by, bx))
+    rows = tiles.permute(2, 0, 1, 3).contiguous()
+    noise = torch.randint(0, 256, tiles.shape, dtype=torch.uint8, device=dev)
+    race = in_turns({
+        "K1": lambda: ck.deblock_tiles_cuda(tiles, *maps, beta35, tc35),
+        "K1-i16": lambda: ck.deblock_tiles_cuda(tiles, *maps, beta35, tc35, dtype=torch.int16),
+        "T5": lambda: ck.deblock_rows_cuda(rows, *maps, beta35, tc35),
+        "T1": lambda: sk.deblock_tiles_swar_cuda(tiles, *maps, beta35, tc35),
+        "K1 on noise": lambda: ck.deblock_tiles_cuda(noise, *maps, beta35, tc35),
+        "T1 on noise": lambda: sk.deblock_tiles_swar_cuda(noise, *maps, beta35, tc35),
+    }, dict.fromkeys(("K1", "K1-i16", "T5", "T1", "K1 on noise", "T1 on noise"), 200))
+    race_plain = in_turns({
+        "int32": lambda: deblock_tiles_plain(tiles, *maps, beta35, tc35),
+        "int16": lambda: deblock_tiles_plain(tiles, *maps, beta35, tc35, dtype=torch.int16),
+        "rows": lambda: deblock_rows_plain(rows, *maps, beta35, tc35),
+    }, {"int32": 5, "int16": 5, "rows": 5})
+    race_bound = bytes_bound_ms(2 * tiles.numel() + 4 * maps[0].numel())
+    print(f"race grid (8, 8, {by}, {bx}), blocky tiles, QP 35: " + ", ".join(
+        f"{k} {ms * 1e3:.2f} us" for k, (ms, _) in race.items())
+        + f"; T1/K1 {race['T1'][0] / race['K1'][0]:.3f}, K1-i16/K1 "
+        f"{race['K1-i16'][0] / race['K1'][0]:.3f}, T5/K1 {race['T5'][0] / race['K1'][0]:.3f}; "
+        f"plain " + ", ".join(f"{k} {ms * 1e3:.0f} us" for k, (ms, _) in race_plain.items())
+        + f"; bound {race_bound * 1e3:.2f} us (kernels queued ahead: "
+        f"{all(ok for _, ok in race.values())}; device time; {smi})")
+    i16_rows = {}
+    for kname, chroma, shape, mshape in (("K1-i16", False, (8, 8, 136, 241), (136, 241)),
+                                         ("K1-i16c", True, (2, 8, 8, 68, 121), (1, 68, 121))):
+        t, m = tiles_maps(shape, mshape)
+        r = in_turns({"int16": lambda: ck.deblock_tiles_cuda(t, *m, beta35, tc35, chroma=chroma,
+                                                             dtype=torch.int16),
+                      "int32": lambda: ck.deblock_tiles_cuda(t, *m, beta35, tc35, chroma=chroma),
+                      "plain": lambda: deblock_tiles_plain(t, *m, beta35, tc35, chroma=chroma,
+                                                           dtype=torch.int16)},
+                     {"int16": 200, "int32": 200, "plain": 5})
+        i16_rows[kname] = {"shape": str(shape), "ms": r["int16"][0], "int32_ms": r["int32"][0],
+                           "plain_ms": r["plain"][0],
+                           "bound_ms": bytes_bound_ms(2 * t.numel() + 4 * m[0].numel())}
+        print(f"{kname} {shape}: int16 {r['int16'][0] * 1e3:.2f} us, int32 (K1/K1c) "
+              f"{r['int32'][0] * 1e3:.2f} us, plain int16 {r['plain'][0] * 1e3:.0f} us (kernels "
+              f"queued ahead: {r['int16'][1] and r['int32'][1]}; device time; {smi})")
+    for kname, name in (("K1-i16", "K1-i16 luma deblock, int16 compute"),
+                        ("K1-i16c", "K1-i16c chroma deblock, int16 compute")):
+        row = i16_rows[kname]
+        by_path = {"int16 frame path": i16_launches[kname], "tools": tool_launches[kname]}
+        kernels.append({
+            "name": f"{name} ({row['shape']})", "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": "gpu_video_codec_tpu/ops/pallas_kernel.py:139",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max_err[kname], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            **({"race_grid_ms": race["K1-i16"][0]} if kname == "K1-i16" else {}),
+        })
+    for kname, name, source, replaces, plain in (
+            ("T5", "T5 rows-layout deblock (8, 8, 136, 256) as (136, 8, 8, 256)", KERNEL_SOURCE,
+             "tools/rowslayout_exp.py:38", "rows"),
+            ("T1", "T1 SWAR deblock (8, 8, 136, 256)", SWAR_SOURCE, "tools/swar_exp.py:522",
+             "int32")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": tool_launches[kname], "launches_by_path": {"tools": tool_launches[kname]},
+            "max_abs_err": max_err[kname], "ms": race[kname][0], "plain_ms": race_plain[plain][0],
+            "bound_ms": race_bound, "bound_by": "bytes", "library_ms": None,
+            "k1_ms_same_grid": race["K1"][0],
+        })
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,10 +3,14 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of gpu_video_codec_tpu (JAX + Pallas), which stays the reference it
 is checked against byte for byte.  Same layout and names:
-  ops/      filter math (tables, torch int32 segment filters), whole-frame
-            tile-plane deblock, the CUDA kernels' builds and wrappers (the
-            deblock kernel; the relayout and YV12 pack kernels)
+  ops/      filter math (tables, torch int32 or int16 segment filters),
+            whole-frame tile-plane deblock, the CUDA kernels' builds and
+            wrappers (the deblock kernel in int and int16_t and on the rows
+            layout; the SWAR deblock kernel; the relayout and YV12 pack
+            kernels)
   csrc/     the kernels' CUDA C++ sources
+  tools/    the kernel-variant experiments (int16_probe, rowslayout_exp,
+            swar_exp) as entry points
   models/   the golden NumPy oracle, the streaming packed-YV12 pipeline and
             the device-resident tile-planes path
   utils/    YV12 I/O, boundary-strength subsystem, tile-planes layout,

@@ -1,16 +1,18 @@
 // Host (g++) build of the kernels' per-tile math and indexing, for the CPU
 // tests: each loop below visits the tiles, blocks or chunks that the CUDA
 // grid assigns to its threads and calls the same functions the kernels do
-// (deblock_tile.cuh, relayout_tile.cuh).
+// (deblock_tile.cuh, swar_tile.cuh, relayout_tile.cuh).
 
 #include "deblock_tile.cuh"
 #include "relayout_tile.cuh"
+#include "swar_tile.cuh"
 
-extern "C" void gvct_host_deblock_tiles(const uint8_t* in, uint8_t* out,
-                                        const uint8_t* v1, const uint8_t* v2,
-                                        const uint8_t* h1, const uint8_t* h2,
-                                        int beta, int tc, int nb, int by, int bx,
-                                        long long map_batch_stride, int chroma) {
+namespace {
+
+template <typename T>
+void host_deblock_tiles(const uint8_t* in, uint8_t* out, const uint8_t* v1, const uint8_t* v2,
+                        const uint8_t* h1, const uint8_t* h2, int beta, int tc, int nb, int by,
+                        int bx, long long map_batch_stride, int chroma) {
   const gvct::Thresholds th = gvct::make_thresholds(beta, tc);
   const size_t plane = static_cast<size_t>(by) * bx;
   for (size_t b = 0; b < static_cast<size_t>(nb); ++b) {
@@ -18,12 +20,93 @@ extern "C" void gvct_host_deblock_tiles(const uint8_t* in, uint8_t* out,
       const size_t tile = b * 64 * plane + cell;
       const size_t map = b * static_cast<size_t>(map_batch_stride) + cell;
       if (chroma) {
-        gvct::deblock_tile_at<true>(in, out, v1, v2, h1, h2, plane, tile, map, th);
+        gvct::deblock_tile_at<T, true>(in, out, v1, v2, h1, h2, plane, tile, map, th);
       } else {
-        gvct::deblock_tile_at<false>(in, out, v1, v2, h1, h2, plane, tile, map, th);
+        gvct::deblock_tile_at<T, false>(in, out, v1, v2, h1, h2, plane, tile, map, th);
       }
     }
   }
+}
+
+}  // namespace
+
+// K1 / K1c (int) and K1-i16 (int16_t) over the kernel's grid.
+extern "C" void gvct_host_deblock_tiles(const uint8_t* in, uint8_t* out,
+                                        const uint8_t* v1, const uint8_t* v2,
+                                        const uint8_t* h1, const uint8_t* h2,
+                                        int beta, int tc, int nb, int by, int bx,
+                                        long long map_batch_stride, int chroma) {
+  host_deblock_tiles<int>(in, out, v1, v2, h1, h2, beta, tc, nb, by, bx, map_batch_stride,
+                          chroma);
+}
+
+extern "C" void gvct_host_deblock_tiles_i16(const uint8_t* in, uint8_t* out,
+                                            const uint8_t* v1, const uint8_t* v2,
+                                            const uint8_t* h1, const uint8_t* h2,
+                                            int beta, int tc, int nb, int by, int bx,
+                                            long long map_batch_stride, int chroma) {
+  host_deblock_tiles<int16_t>(in, out, v1, v2, h1, h2, beta, tc, nb, by, bx, map_batch_stride,
+                              chroma);
+}
+
+// T5 over its grid: the rows layout (by, 8, 8, bx), maps (by, bx).
+extern "C" void gvct_host_deblock_rows(const uint8_t* in, uint8_t* out, const uint8_t* v1,
+                                       const uint8_t* v2, const uint8_t* h1, const uint8_t* h2,
+                                       int beta, int tc, int by, int bx, int chroma) {
+  const gvct::Thresholds th = gvct::make_thresholds(beta, tc);
+  for (size_t y = 0; y < static_cast<size_t>(by); ++y) {
+    for (size_t x = 0; x < static_cast<size_t>(bx); ++x) {
+      if (chroma) {
+        gvct::deblock_rows_tile<true>(in, out, v1, v2, h1, h2, bx, y, x, th);
+      } else {
+        gvct::deblock_rows_tile<false>(in, out, v1, v2, h1, h2, bx, y, x, th);
+      }
+    }
+  }
+}
+
+// T1 over its grid: tiles (8, 8, by, bx) with bx even, one tile pair
+// (x, x + bx/2) per thread.  Returns 0, or -1 for an odd bx.
+extern "C" int gvct_host_swar_tiles(const uint8_t* in, uint8_t* out, const uint8_t* v1,
+                                    const uint8_t* v2, const uint8_t* h1, const uint8_t* h2,
+                                    int beta, int tc, int by, int bx, int chroma) {
+  if (bx % 2) return -1;
+  const gvct::Thresholds th = gvct::make_thresholds(beta, tc);
+  for (size_t y = 0; y < static_cast<size_t>(by); ++y) {
+    for (size_t x = 0; x < static_cast<size_t>(bx / 2); ++x) {
+      if (chroma) {
+        gvct::swar::deblock_pair<true>(in, out, v1, v2, h1, h2, by, bx, y, x, th);
+      } else {
+        gvct::swar::deblock_pair<false>(in, out, v1, v2, h1, h2, by, bx, y, x, th);
+      }
+    }
+  }
+  return 0;
+}
+
+// One halfword primitive of swar_tile.cuh (its host fallback) applied to n
+// words: out[i] = op(a[i], b[i], c[i]) with shift count k.  Ops: 0 add,
+// 1 sub, 2 neg, 3 abs, 4 max, 5 min, 6 lt, 7 asr, 8 shl, 9 addmin_relu.
+// Returns 0, or -1 for an unknown op.
+extern "C" int gvct_host_swar_op(int op, const uint32_t* a, const uint32_t* b,
+                                 const uint32_t* c, uint32_t* out, long long n, int k) {
+  namespace s = gvct::swar;
+  if (op < 0 || op > 9) return -1;
+  for (long long i = 0; i < n; ++i) {
+    switch (op) {
+      case 0: out[i] = s::vadd(a[i], b[i]); break;
+      case 1: out[i] = s::vsub(a[i], b[i]); break;
+      case 2: out[i] = s::vneg(a[i]); break;
+      case 3: out[i] = s::vabs(a[i]); break;
+      case 4: out[i] = s::vmax(a[i], b[i]); break;
+      case 5: out[i] = s::vmin(a[i], b[i]); break;
+      case 6: out[i] = s::vlt(a[i], b[i]); break;
+      case 7: out[i] = s::vasr(a[i], k); break;
+      case 8: out[i] = s::vshl(a[i], k); break;
+      default: out[i] = s::vaddmin_relu(a[i], b[i], c[i]); break;
+    }
+  }
+  return 0;
 }
 
 // T2 (inverse = 0) or T3 (inverse = 1) over the launch grid of

@@ -146,6 +146,6 @@ extern "C" int gvct_pack_yv12(const void* y, const void* u, const void* v, void*
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" const char* gvct_relayout_error_string(int code) {
+extern "C" const char* gvct_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

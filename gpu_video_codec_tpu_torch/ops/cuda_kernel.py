@@ -1,18 +1,23 @@
-"""The hand-written CUDA deblock kernel: build, ctypes binding and wrappers.
+"""The hand-written CUDA deblock kernels: build, ctypes binding and wrappers.
 
 Counterpart of gpu_video_codec_tpu/ops/pallas_kernel.py.  The kernel
 (csrc/deblock_kernel.cu over the per-tile math in csrc/deblock_tile.cuh)
 runs one thread per shifted 8x8 tile, luma or chroma by template, on the
-tile-planes layout of utils/tiles.py.
+tile-planes layout of utils/tiles.py, computing in int (K1, K1c) or, with
+dtype=torch.int16, in int16 (K1-i16, the JAX package's dtype=jnp.int16).
+The same library holds T5 (deblock_rows_cuda), the kernel of
+tools/rowslayout_exp.py: K1's per-tile math on the (By, 8, 8, Bx) "rows"
+layout.
 
 The library is built at first use with nvcc, from csrc/ only, into
 build/torch_kernels/ beside the package, under a name keyed on a hash of
 the sources and flags, so an edit rebuilds.  It has a plain C interface
 and is loaded with ctypes (no PyTorch headers, so the build takes seconds).
 
-deblock_tiles_cuda launches the kernel for a CUDA tensor and raises on any
-failure; for a CPU tensor it runs the plain version
-(ops/deblock.deblock_tiles_plain).  LAUNCHES counts kernel launches.
+deblock_tiles_cuda and deblock_rows_cuda launch their kernel for a CUDA
+tensor and raise on any failure; for a CPU tensor they run the plain
+version (ops/deblock.deblock_tiles_plain, deblock_rows_plain).  LAUNCHES
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from pathlib import Path
 
 import torch
 
-from .deblock import deblock_tiles_plain
+from .deblock import deblock_rows_plain, deblock_tiles_plain
 from ..utils.tiles import plane_to_tiles, split_covered, tiles_to_plane
 
 # CUDA threads per block, laid along the tile grid's Bx axis (one thread
@@ -36,8 +41,9 @@ from ..utils.tiles import plane_to_tiles, split_covered, tiles_to_plane
 BLOCK_BX = 128
 CHROMA_BLOCK_BX = 128
 
-# Kernel launches per variant since import (or since a caller reset them).
-LAUNCHES = {"luma": 0, "chroma": 0}
+# Kernel launches per variant since import (or since a caller reset them):
+# K1, K1c, K1-i16 luma and chroma, T5 (luma and chroma).
+LAUNCHES = {"luma": 0, "chroma": 0, "luma_i16": 0, "chroma_i16": 0, "rows": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
@@ -45,7 +51,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _KERNEL_SOURCES = ("deblock_kernel.cu",)
 _HOST_SOURCES = ("host_shim.cpp",)
-_HEADERS = ("deblock_tile.cuh", "relayout_tile.cuh")
+_HEADERS = ("deblock_tile.cuh", "relayout_tile.cuh", "swar_tile.cuh")
+_DTYPES = (torch.int32, torch.int16)
 
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's standard place
 _MAX_GRID_YZ = 65535
@@ -111,24 +118,35 @@ def _load(key: str, build, setup) -> ctypes.CDLL:
 
 
 _TILE_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int]
+# in, out, four maps, beta, tc, By, Bx, chroma: T5's and T1's arguments
+GRID_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+_LAUNCH_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # threads, device, stream
 
 
 def _setup_cuda(lib) -> None:
-    lib.gvct_deblock_tiles.argtypes = _TILE_ARGS + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.gvct_deblock_tiles.argtypes = _TILE_ARGS + [ctypes.c_int] + _LAUNCH_ARGS
     lib.gvct_deblock_tiles.restype = ctypes.c_int
+    lib.gvct_deblock_rows.argtypes = GRID_ARGS + _LAUNCH_ARGS
+    lib.gvct_deblock_rows.restype = ctypes.c_int
     lib.gvct_error_string.argtypes = [ctypes.c_int]
     lib.gvct_error_string.restype = ctypes.c_char_p
 
 
 def _setup_host(lib) -> None:
-    lib.gvct_host_deblock_tiles.argtypes = _TILE_ARGS
-    lib.gvct_host_deblock_tiles.restype = None
+    for fn in (lib.gvct_host_deblock_tiles, lib.gvct_host_deblock_tiles_i16):
+        fn.argtypes = _TILE_ARGS
+        fn.restype = None
+    lib.gvct_host_deblock_rows.argtypes = GRID_ARGS
+    lib.gvct_host_deblock_rows.restype = None
 
 
 def load_host_library() -> ctypes.CDLL:
-    """g++ build of csrc/host_shim.cpp: the kernel's per-tile math and
+    """g++ build of csrc/host_shim.cpp: the kernels' per-tile math and
     indexing compiled for the CPU, so tests can hold the CUDA source's
-    arithmetic against the plain version where nvcc is absent."""
+    arithmetic against the plain version where nvcc is absent
+    (gvct_host_deblock_tiles for K1/K1c, gvct_host_deblock_tiles_i16 for
+    K1-i16, gvct_host_deblock_rows for T5; ops/relayout_kernel.py and
+    ops/swar_kernel.py bind the rest)."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found on PATH")
@@ -136,18 +154,36 @@ def load_host_library() -> ctypes.CDLL:
                                         _HOST_SOURCES, "libgvct_host"), _setup_host)
 
 
-def _check(tiles, maps, beta, tc) -> tuple[int, int]:
-    """Validate the kernel's operands; returns (nb, map batch stride)."""
+def check_operands(tiles, beta, tc) -> None:
+    """The checks every deblock kernel's wrapper makes on its tile tensor
+    and thresholds (its shape is each wrapper's own)."""
     if tiles.dtype != torch.uint8:
         raise ValueError(f"tiles must be uint8, got {tiles.dtype}")
-    if tiles.dim() not in (4, 5) or tuple(tiles.shape[-4:-2]) != (8, 8):
-        raise ValueError(f"tiles must be (8, 8, By, Bx) or (NB, 8, 8, By, Bx), "
-                         f"got {tuple(tiles.shape)}")
     if not tiles.is_contiguous():
         raise ValueError("tiles must be contiguous (plane_to_tiles returns a strided "
                          "view: call .contiguous() first)")
     if beta < 0 or tc < 0:
         raise ValueError(f"beta and tc must be non-negative, got {beta}, {tc}")
+
+
+def check_grid_maps(tiles, maps, by: int, bx: int) -> None:
+    """The four (By, Bx) BS maps of a one-frame launch (T5, T1)."""
+    for name, m in zip(("bs_ver1", "bs_ver2", "bs_hor1", "bs_hor2"), maps):
+        if m.dtype != torch.uint8 or m.device != tiles.device or not m.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous uint8 tensor on {tiles.device}, "
+                             f"got {m.dtype} on {m.device}")
+        if tuple(m.shape) != (by, bx):
+            raise ValueError(f"{name} has shape {tuple(m.shape)}, expected {(by, bx)}")
+    if by > _MAX_GRID_YZ:
+        raise ValueError(f"tile grid too large for one launch: By={by}")
+
+
+def _check(tiles, maps, beta, tc) -> tuple[int, int]:
+    """Validate the kernel's operands; returns (nb, map batch stride)."""
+    check_operands(tiles, beta, tc)
+    if tiles.dim() not in (4, 5) or tuple(tiles.shape[-4:-2]) != (8, 8):
+        raise ValueError(f"tiles must be (8, 8, By, Bx) or (NB, 8, 8, By, Bx), "
+                         f"got {tuple(tiles.shape)}")
     by, bx = tiles.shape[-2], tiles.shape[-1]
     batched = tiles.dim() == 5
     nb = tiles.shape[0] if batched else 1
@@ -168,23 +204,36 @@ def _check(tiles, maps, beta, tc) -> tuple[int, int]:
     return nb, 0 if shared else by * bx
 
 
+def raise_on_launch(err: int, lib, what: str) -> None:
+    """Raise if a kernel's C entry returned a CUDA error (every CUDA library
+    of the port exports gvct_error_string)."""
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.gvct_error_string(err).decode()} (cudaError {err})")
+
+
 def deblock_tiles_cuda(tiles, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,
-                       chroma: bool = False, block_bx: int | None = None):
+                       chroma: bool = False, block_bx: int | None = None,
+                       dtype=torch.int32):
     """Deblock a tile-planes tensor with the CUDA kernel.
 
     tiles: (8, 8, By, Bx) uint8 with (By, Bx) BS maps, or batched
     (NB, 8, 8, By, Bx) with (NB, By, Bx) per-frame or (1, By, Bx) shared
     maps; all contiguous uint8 on one device.  beta, tc: ints.
     block_bx: threads per block (default BLOCK_BX / CHROMA_BLOCK_BX).
+    dtype: the compute type, torch.int32 (K1, K1c) or torch.int16
+    (K1-i16; the same bytes).
     Returns a new tensor of the input's shape.  The launch goes on the
     current stream and does not synchronize.  CPU tensors take the plain
     version instead.
     """
     maps = (bs_ver1, bs_ver2, bs_hor1, bs_hor2)
     beta, tc = int(beta), int(tc)
+    if dtype not in _DTYPES:
+        raise ValueError(f"dtype must be torch.int32 or torch.int16, got {dtype}")
     nb, map_stride = _check(tiles, maps, beta, tc)
     if tiles.device.type == "cpu":
-        return deblock_tiles_plain(tiles, *maps, beta, tc, chroma=chroma)
+        return deblock_tiles_plain(tiles, *maps, beta, tc, chroma=chroma, dtype=dtype)
     if tiles.device.type != "cuda":
         raise ValueError(f"deblock_tiles_cuda takes CUDA or CPU tensors, got {tiles.device}")
     threads = block_bx or (CHROMA_BLOCK_BX if chroma else BLOCK_BX)
@@ -195,47 +244,83 @@ def deblock_tiles_cuda(tiles, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,
         return out
     lib = _load("cuda", build_library, _setup_cuda)
     by, bx = tiles.shape[-2], tiles.shape[-1]
+    int16 = dtype == torch.int16
     stream = torch.cuda.current_stream(tiles.device).cuda_stream
     err = lib.gvct_deblock_tiles(
         tiles.data_ptr(), out.data_ptr(), *(m.data_ptr() for m in maps),
-        beta, tc, nb, by, bx, map_stride, int(chroma), threads,
+        beta, tc, nb, by, bx, map_stride, int(chroma), int(int16), threads,
         tiles.device.index, stream)
-    if err:
-        raise RuntimeError(f"deblock kernel launch failed: "
-                           f"{lib.gvct_error_string(err).decode()} (cudaError {err})")
-    LAUNCHES["chroma" if chroma else "luma"] += 1
+    raise_on_launch(err, lib, "deblock")
+    LAUNCHES[("chroma" if chroma else "luma") + ("_i16" if int16 else "")] += 1
+    return out
+
+
+def deblock_rows_cuda(tiles_rows, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,
+                      chroma: bool = False):
+    """T5: deblock a tile grid held in the rows layout (By, 8, 8, Bx),
+    element [by, r, c, bx] = pixel (r, c) of tile (by, bx), with (By, Bx)
+    BS maps; all contiguous uint8 on one device.  beta, tc: ints.
+    Returns a new (By, 8, 8, Bx) tensor.  The launch goes on the current
+    stream and does not synchronize.  CPU tensors take the plain version
+    (ops/deblock.deblock_rows_plain)."""
+    maps = (bs_ver1, bs_ver2, bs_hor1, bs_hor2)
+    beta, tc = int(beta), int(tc)
+    check_operands(tiles_rows, beta, tc)
+    if tiles_rows.dim() != 4 or tuple(tiles_rows.shape[1:3]) != (8, 8):
+        raise ValueError(f"tiles_rows must be (By, 8, 8, Bx), got {tuple(tiles_rows.shape)}")
+    by, bx = tiles_rows.shape[0], tiles_rows.shape[3]
+    check_grid_maps(tiles_rows, maps, by, bx)
+    if tiles_rows.device.type == "cpu":
+        return deblock_rows_plain(tiles_rows, *maps, beta, tc, chroma=chroma)
+    if tiles_rows.device.type != "cuda":
+        raise ValueError(f"deblock_rows_cuda takes CUDA or CPU tensors, got {tiles_rows.device}")
+    out = torch.empty_like(tiles_rows)
+    if tiles_rows.numel() == 0:
+        return out
+    lib = _load("cuda", build_library, _setup_cuda)
+    err = lib.gvct_deblock_rows(
+        tiles_rows.data_ptr(), out.data_ptr(), *(m.data_ptr() for m in maps),
+        beta, tc, by, bx, int(chroma), CHROMA_BLOCK_BX if chroma else BLOCK_BX,
+        tiles_rows.device.index,
+        torch.cuda.current_stream(tiles_rows.device).cuda_stream)
+    raise_on_launch(err, lib, "deblock_rows")
+    LAUNCHES["rows"] += 1
     return out
 
 
 def deblock_frame_cuda(y_ext, u_ext, v_ext, luma_maps, chroma_maps, beta, tc,
                        luma_only: bool = False, luma_block: int = BLOCK_BX,
-                       chroma_block: int = CHROMA_BLOCK_BX):
+                       chroma_block: int = CHROMA_BLOCK_BX, dtype=torch.int32):
     """Full-frame deblock of extended planes through the kernel: one luma
     launch, and one chroma launch for U and V together
-    (deblock_chroma_ext_cuda)."""
+    (deblock_chroma_ext_cuda).  dtype=torch.int16 runs K1-i16 for both
+    (the same bytes as the default torch.int32)."""
     yt = plane_to_tiles(y_ext).contiguous()
-    y_out = deblock_tiles_cuda(yt, *luma_maps, beta, tc, chroma=False, block_bx=luma_block)
+    y_out = deblock_tiles_cuda(yt, *luma_maps, beta, tc, chroma=False, block_bx=luma_block,
+                               dtype=dtype)
     y_plane = tiles_to_plane(y_out)
     if luma_only:
         return y_plane, u_ext, v_ext
     u_plane, v_plane = deblock_chroma_ext_cuda(u_ext, v_ext, chroma_maps, beta, tc,
-                                               chroma_block=chroma_block)
+                                               chroma_block=chroma_block, dtype=dtype)
     return y_plane, u_plane, v_plane
 
 
 def deblock_chroma_ext_cuda(u_ext, v_ext, chroma_maps, beta, tc,
-                            chroma_block: int = CHROMA_BLOCK_BX):
+                            chroma_block: int = CHROMA_BLOCK_BX, dtype=torch.int32):
     """Chroma-only deblock of extended U/V planes in one launch, their tile
-    grids stacked along By.  Chroma sweeps the reference's flat
-    (8*ncby, 8*ncbx) view (quirk Q9: sheared when the extended width is not
-    8-aligned; the flat remainder is untouched)."""
+    grids stacked along By, computed in `dtype` (torch.int32 or
+    torch.int16).  Chroma sweeps the reference's flat (8*ncby, 8*ncbx) view
+    (quirk Q9: sheared when the extended width is not 8-aligned; the flat
+    remainder is untouched)."""
     u_core, u_paste = split_covered(u_ext)
     v_core, v_paste = split_covered(v_ext)
     ut = plane_to_tiles(u_core)
     vt = plane_to_tiles(v_core)
     uv = torch.cat([ut, vt], dim=2)  # stack tile grids along By (contiguous)
     cmaps = [torch.cat([m, m], dim=0) for m in chroma_maps]
-    uv_out = deblock_tiles_cuda(uv, *cmaps, beta, tc, chroma=True, block_bx=chroma_block)
+    uv_out = deblock_tiles_cuda(uv, *cmaps, beta, tc, chroma=True, block_bx=chroma_block,
+                                dtype=dtype)
     cby = ut.shape[2]
     return (u_paste(tiles_to_plane(uv_out[:, :, :cby])),
             v_paste(tiles_to_plane(uv_out[:, :, cby:])))

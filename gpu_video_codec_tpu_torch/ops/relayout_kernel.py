@@ -52,8 +52,8 @@ def _setup_cuda(lib) -> None:
         fn.restype = ctypes.c_int
     lib.gvct_pack_yv12.argtypes = _PACK_ARGS + [ctypes.c_int, ctypes.c_void_p]
     lib.gvct_pack_yv12.restype = ctypes.c_int
-    lib.gvct_relayout_error_string.argtypes = [ctypes.c_int]
-    lib.gvct_relayout_error_string.restype = ctypes.c_char_p
+    lib.gvct_error_string.argtypes = [ctypes.c_int]
+    lib.gvct_error_string.restype = ctypes.c_char_p
 
 
 def load_host_library() -> ctypes.CDLL:
@@ -139,12 +139,6 @@ def _grid(h: int, w: int, pad: int, by_grid, bx_grid) -> tuple[int, int]:
     return byg, bxg
 
 
-def _raise_on(err: int, lib, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{lib.gvct_relayout_error_string(err).decode()} (cudaError {err})")
-
-
 def _cuda_lib(device):
     if device.type != "cuda":
         raise ValueError(f"the relayout kernels take CUDA or CPU tensors, got {device}")
@@ -194,7 +188,7 @@ def plane_to_tiles_cuda(x, pad: int, *, by_grid: int | None = None,
     err = lib.gvct_plane_to_tiles(x.data_ptr(), out.data_ptr(),
                                   *_geom_args(x, out, h, w, pad, byg, bxg),
                                   x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, lib, "plane_to_tiles")
+    ck.raise_on_launch(err, lib, "plane_to_tiles")
     LAUNCHES["fwd"] += 1
     return out
 
@@ -221,7 +215,7 @@ def tiles_to_plane_cuda(tiles, pad: int, h: int, w: int):
                                   *_geom_args(out, tiles, h, w, pad, byg, bxg),
                                   tiles.device.index,
                                   torch.cuda.current_stream(tiles.device).cuda_stream)
-    _raise_on(err, lib, "tiles_to_plane")
+    ck.raise_on_launch(err, lib, "tiles_to_plane")
     LAUNCHES["inv"] += 1
     return out
 
@@ -259,6 +253,6 @@ def pack_yv12_cuda(y, u, v):
     err = lib.gvct_pack_yv12(y.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
                              yn, cn, nb, *strides, out.stride(0) if out.dim() == 2 else 0,
                              y.device.index, torch.cuda.current_stream(y.device).cuda_stream)
-    _raise_on(err, lib, "pack_yv12")
+    ck.raise_on_launch(err, lib, "pack_yv12")
     LAUNCHES["pack"] += 1
     return out

@@ -35,3 +35,14 @@ def device_ms(fn, iters: int) -> tuple[float, bool]:
     end.synchronize()
     spin_s = spin0.elapsed_time(start) / 1e3
     return start.elapsed_time(end) / iters, queued_s < spin_s
+
+
+def in_turns(fns: dict, iters: dict) -> dict:
+    """Device ms per call of each named function, measured in turns
+    (first, second, ..., ..., second, first), best of the two runs each,
+    with whether every run was queued ahead of the device."""
+    order = list(fns) + list(fns)[::-1]
+    runs = {name: [] for name in fns}
+    for name in order:
+        runs[name].append(device_ms(fns[name], iters[name]))
+    return {name: (min(ms for ms, _ in r), all(ok for _, ok in r)) for name, r in runs.items()}
