@@ -13,7 +13,11 @@
 1b. Holds the relayout kernels T2 (plane -> tile-planes) and T3 (the
    inverse) and the pack kernel T4 against their plain versions, byte for
    byte: 1080p luma and U+V, the sheared 360x288 chroma core, a tail grid,
-   a batch of four 1080p frames; T4 at 1080p and 360x288.
+   a batch of four 1080p frames; views that start 1-15 bytes past a 16-byte
+   boundary on either side, with row strides that are not multiples of 4,
+   at 1080p and at Bx in {1, 2, 15, 16, 17, 31, 33} with pad 0 and 4 (no
+   byte outside the destination view may change); T3 straight into the
+   rows of a packed 1080p frame (out=); T4 at 1080p and 360x288.
 1c. Holds K1-i16 (int16 compute, luma and chroma), T5 (the rows layout)
    and T1 (SWAR, two tiles per thread) against their plain versions, and
    K1-i16 against K1, byte for byte, over QP {0,17,30,35,51}: 1080p luma
@@ -30,8 +34,9 @@
    each reporting bit-exact.
 3. Streams 16 distinct 1080p frames through StreamingDeblocker.run (the
    main path), checks each against the plain backend on the card and that
-   each frame launched the luma and the chroma kernel once; then again
-   with luma_only and across a mid-stream update_boundary_strength.
+   each frame launched T2 twice, K1 and K1c once and T3 twice (T2, K1 and
+   T3 once with luma_only); then again with luma_only, across a mid-stream
+   update_boundary_strength, and a sheared 360x288 stream.
 3b. The device-resident path (ResidentDeblocker): == golden at 1920x1080
    and 360x288; a batch of four distinct 1080p frames through ingest, three
    steps and readback == the plain backend, with exactly 2 T2, 3 K1, 3 K1c,
@@ -40,10 +45,12 @@
 4. Times the kernels and their plain versions, the packed step, the copy
    and the pipelined rate with CUDA events.
 4b. Times T2, T3 and T4 at the 1080p shapes beside their plain versions
-   and a one-call PyTorch yardstick, and the resident step, ingest and
-   readback at 1080p, batch 1 and 4.
+   and a one-call PyTorch yardstick (printing kernel / yardstick and the
+   fraction of the byte bound), and the resident step, ingest and readback
+   at 1080p, batch 1 and 4.
 4c. Lists the device kernels by name and time (torch.profiler) for the
-   resident path and the streaming packed step at 1080p.
+   resident path and the streaming packed step at 1080p; the step may run
+   no kernel but T2, K1, K1c and T3 (no layout copy, fill or write-back).
 4d. Times K1, K1-i16, T5 and T1 in turns at the race grid (136, 256), K1 on
    uniform noise there too, and K1-i16 luma and chroma at the 1080p grids,
    each beside its plain version and its byte bound.
@@ -244,6 +251,56 @@ def main() -> int:
             same("T3", what + " from the U-over-V stack",
                  rk.tiles_to_plane_cuda(stacked.movedim(2, 0), pad, hh, ww), x)
         print(f"T2/T3 == plain: {what} {tuple(x.shape)} -> {tuple(t.shape)}")
+    def at_residue(shape, off, row_pad=3):
+        """A random uint8 view of `shape` on the card that starts `off` bytes
+        past a 16-byte boundary, rows row_pad bytes wider than long, outer
+        strides one byte more than the extent inside them.  Returns (view,
+        the whole buffer)."""
+        strides = [shape[-1] + row_pad, 1]
+        for n in reversed(shape[1:-1]):
+            strides.insert(0, strides[0] * n + 1)
+        size = sum((n - 1) * st for n, st in zip(shape, strides)) + 1 + 32
+        big = torch.randint(0, 256, (size,), dtype=torch.uint8, device=dev)
+        start = (off - big.data_ptr()) % 16
+        return torch.as_strided(big, shape, strides, start), big
+
+    def expect(big, view, value):
+        want = big.clone()
+        torch.as_strided(want, view.shape, view.stride(), view.storage_offset()).copy_(value)
+        return want
+
+    misaligned = [("1080p luma", (), 1080, 1920, 4, 1, 7), ("1080p luma", (), 1080, 1920, 4, 12, 0),
+                  ("1080p U+V", (2,), 540, 960, 4, 13, 3), ("1080p U+V", (2,), 540, 960, 4, 0, 9)]
+    misaligned += [(f"Bx {bx}", lead, 12 if pad else 16, 8 * bx - 2 * pad, pad, bx % 16,
+                    (3 * bx + 5) % 16)
+                   for bx in (1, 2, 15, 16, 17, 31, 33) for pad in (0, 4) if 8 * bx > 2 * pad
+                   for lead in ((), (2,))]
+    for what, lead, hh, ww, pad, p_off, t_off in misaligned:
+        byg, bxg = (hh + 2 * pad) // 8, (ww + 2 * pad) // 8
+        x, _ = at_residue((*lead, hh, ww), p_off)
+        t, tbig = at_residue((*lead, 8, 8, byg, bxg), t_off)
+        want = expect(tbig, t, rk.plane_to_tiles_plain(x, pad))
+        rk.plane_to_tiles_cuda(x, pad, out=t)
+        same("T2", f"{what} {lead} pad {pad}, plane at +{p_off}, tiles at +{t_off}", tbig, want)
+        back, bbig = at_residue((*lead, hh, ww), p_off)
+        want = expect(bbig, back, rk.tiles_to_plane_plain(t, pad, hh, ww))
+        rk.tiles_to_plane_cuda(t, pad, hh, ww, out=back)
+        same("T3", f"{what} {lead} pad {pad}, tiles at +{t_off}, plane at +{p_off}", bbig, want)
+    print(f"T2/T3 == plain at {len(misaligned)} misaligned or odd-Bx geometries, "
+          f"bytes outside the views untouched")
+    packed = frames4[1].reshape(3 * h // 2, w).clone()
+    keep = packed.clone()
+    t_y = torch.randint(0, 256, (8, 8, 136, 241), dtype=torch.uint8, device=dev)
+    t_uv = torch.randint(0, 256, (2, 8, 8, 68, 121), dtype=torch.uint8, device=dev)
+    rk.tiles_to_plane_cuda(t_y, 4, h, w, out=packed[:h])
+    same("T3", "1080p luma into the packed frame's rows (out=)", packed[:h],
+         rk.tiles_to_plane_plain(t_y, 4, h, w))
+    same("T3", "chroma rows untouched by the luma out=", packed[h:], keep[h:])
+    uv_rows = packed[h:].view(2, h // 2, w // 2)
+    rk.tiles_to_plane_cuda(t_uv, 4, h // 2, w // 2, out=uv_rows)
+    same("T3", "1080p U+V into the packed frame's rows (out=)", uv_rows,
+         rk.tiles_to_plane_plain(t_uv, 4, h // 2, w // 2))
+    print("T3 out= == plain: 1080p luma and U+V rows of a packed frame")
     for what, buf, ww, hh in (("1080p", frames4[0], 1920, 1080), ("360x288", cif, 360, 288),
                               ("1080p batch of 4", frames4, 1920, 1080)):
         yn, cn = ww * hh, ww * hh // 4
@@ -381,7 +438,8 @@ def main() -> int:
     reset()
     outs = list(s.run(frames))
     launches = counts()
-    check(launches == only(K1=n, K1c=n), f"launches {launches}, want {n} K1 and K1c")
+    want = only(T2=2 * n, K1=n, K1c=n, T3=2 * n)
+    check(launches == want, f"stream launches {launches}, want {want}")
     plain = StreamingDeblocker(w, h, 35, backend="torch", depth=2, device=dev)
     refs = list(plain.run(frames))
     check(len(outs) == n and all(np.array_equal(o, r) for o, r in zip(outs, refs)),
@@ -392,7 +450,7 @@ def main() -> int:
     s_luma = StreamingDeblocker(w, h, 35, luma_only=True, device=dev)
     reset()
     outs_l = list(s_luma.run(frames))
-    check(counts() == only(K1=n), f"luma_only launches {counts()}")
+    check(counts() == only(T2=n, K1=n, T3=n), f"luma_only launches {counts()}")
     refs_l = StreamingDeblocker(w, h, 35, backend="torch", luma_only=True, device=dev).run(frames)
     check(all(np.array_equal(o, r) for o, r in zip(outs_l, refs_l)), "luma_only != plain")
     check(all(np.array_equal(o[w * h:], f[w * h:]) for o, f in zip(outs_l, frames)),
@@ -419,6 +477,17 @@ def main() -> int:
     check(not any(np.array_equal(o, r) for o, r in zip(outs_b[half:], outs[half:])),
           "the BS swap changed nothing")
     print(f"stream with mid-stream BS swap: {n} x 1080p == plain backend")
+
+    cw_, ch_, ns = 360, 288, 8  # sheared chroma (Q9): w % 16 == 8
+    cif_frames = [blocky_frame(rng, cw_, ch_) for _ in range(ns)]
+    reset()
+    outs_c = list(StreamingDeblocker(cw_, ch_, 35, device=dev).run(cif_frames))
+    check(counts() == only(T2=2 * ns, K1=ns, K1c=ns, T3=2 * ns),
+          f"sheared stream launches {counts()}")
+    refs_c = StreamingDeblocker(cw_, ch_, 35, backend="torch", device=dev).run(cif_frames)
+    check(all(np.array_equal(o, r) for o, r in zip(outs_c, refs_c)),
+          "sheared 360x288 stream != plain backend")
+    print(f"stream sheared: {ns} x 360x288 == plain backend; launches {counts()}")
 
     # -- 3b. the resident path ------------------------------------------------------
     for ww, hh in ((1920, 1080), (360, 288)):
@@ -539,28 +608,40 @@ def main() -> int:
          lambda: rk.pack_yv12_plain(*planes), lambda: torch.cat(planes),
          2 * (yn + 2 * cn)),
     )
+    y_flat, uv_flat, nothing = y1.reshape(-1), uv1.reshape(-1), y1.new_empty(0)
+    floor = in_turns({"luma": lambda: rk.pack_yv12_cuda(y_flat, nothing, nothing),
+                      "U+V": lambda: rk.pack_yv12_cuda(uv_flat, nothing, nothing)},
+                     {"luma": 200, "U+V": 200})
+    print("copy floor, T4 copying the same bytes in one launch: " + ", ".join(
+        f"{k} {ms * 1e3:.2f} us" for k, (ms, _) in floor.items()) + f" (device time; {smi})")
     rows = {}
     for kname, shape, kern, plain_fn, lib_fn, nbytes in timed:
         r = in_turns({"kernel": kern, "plain": plain_fn, "library": lib_fn},
                      {"kernel": 200, "plain": 50, "library": 200})
         row = {"shape": shape, "ms": r["kernel"][0], "plain_ms": r["plain"][0],
                "library_ms": r["library"][0], "bound_ms": bytes_bound_ms(nbytes)}
+        if kname in ("T2", "T3"):
+            row["copy_floor_ms"] = floor[shape.split()[1]][0]
         rows.setdefault(kname, []).append(row)
         print(f"{kname} {shape}: kernel {row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f}"
               f" us, library {row['library_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f}"
-              f" us (queued ahead: {all(ok for _, ok in r.values())}; device time; {smi})")
+              f" us; kernel / library {row['ms'] / row['library_ms']:.3f}, bound / kernel "
+              f"{row['bound_ms'] / row['ms']:.3f} (queued ahead: {all(ok for _, ok in r.values())}"
+              f"; device time; {smi})")
     for kname, what in (("T2", "plane_to_tiles"), ("T3", "tiles_to_plane"), ("T4", "pack_yv12")):
         main_row, *others = rows[kname]
         replaces = {"T2": "tools/kernel_relayout_exp.py:55", "T3": "tools/kernel_relayout_exp.py:87",
                     "T4": "tools/pack_exp.py:91"}[kname]
+        by_path = {"stream": launches[kname], "resident": res_launches[kname]}
         kernels.append({
             "name": f"{kname} {what} ({main_row['shape']})", "route": "cuda",
             "source": RELAYOUT_SOURCE, "replaces": replaces,
-            "launches": res_launches[kname], "launches_by_path": {"resident": res_launches[kname]},
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max_err[kname],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
             "library_ms": main_row["library_ms"],
+            **({"copy_floor_ms": main_row["copy_floor_ms"]} if "copy_floor_ms" in main_row else {}),
             **({"other_shapes": others} if others else {}),
         })
 
@@ -576,7 +657,9 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def trace(what: str, fn, reps: int = 20) -> None:
+    def trace(what: str, fn, reps: int = 20) -> list:
+        """Print and return (us per call, launches per call, name) of every
+        device kernel of `fn`; [] when the profiler shows no device time."""
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -591,18 +674,22 @@ def main() -> int:
         busy = sum(us for us, _, _ in rows)
         if not busy:
             print(f"profile {what}: the profiler shows no device time (not measured)")
-            return
+            return []
         print(f"profile {what}: kernels {busy:.1f} us per call, wall {wall_us:.1f} us per call, "
               f"device busy {100 * busy / wall_us:.0f}% ({smi})")
         for us, count, key in rows:
             print(f"  {us:8.2f} us  x{count:g}  {key[:90]}")
+        return rows
 
     rd1 = ResidentDeblocker(w, h, 35, device=dev)
     trace("resident 1080p ingest + step + readback to the device, batch 1",
           lambda: _readback(rd1.step(rd1.ingest(frames4[0])), w, h))
     trace("resident 1080p ingest + step + readback to the device, batch 4",
           lambda: _readback(rd1.step(rd1.ingest(frames4)), w, h), reps=5)
-    trace("streaming packed _step 1080p", lambda: s._step(buf))
+    step_rows = trace("streaming packed _step 1080p", lambda: s._step(buf))
+    ours = ("plane_to_tiles_kernel", "tiles_to_plane_kernel", "deblock")
+    stray = [key for _, _, key in step_rows if not any(k in key for k in ours)]
+    check(not stray, f"the streaming step ran kernels besides T2, K1, K1c and T3: {stray}")
 
     # -- 4d. K1, K1-i16, T5 and T1 side by side -----------------------------------------
     by, bx = 136, 256  # the race grid of rowslayout_exp and swar_exp

@@ -109,33 +109,71 @@ extern "C" int gvct_host_swar_op(int op, const uint32_t* a, const uint32_t* b,
   return 0;
 }
 
+namespace {
+
 // T2 (inverse = 0) or T3 (inverse = 1) over the launch grid of
-// relayout_kernel.cu, one block after another.  Returns 0, or -1 for a
-// geometry the kernel's launcher refuses.
-extern "C" int gvct_host_relayout(int inverse, const uint8_t* src, uint8_t* dst, int h, int w,
-                                  int pad, int by_grid, int bx_grid, int n_outer, int n_inner,
-                                  long long p_outer, long long p_inner, long long p_row,
-                                  long long t_outer, long long t_inner, long long t_r,
-                                  long long t_c, long long t_by) {
-  const gvct::RelayoutGeom g{h, w, pad, by_grid, bx_grid, n_inner, p_outer, p_inner,
-                             p_row, t_outer, t_inner, t_r, t_c, t_by};
-  if (!gvct::geometry_ok(g) || n_outer < 0) return -1;
-  uint8_t stage[gvct::kStageBytes];
+// relayout_kernel.cu, one block after another, each block's NT threads one
+// after another within each phase (NT = 1: one thread does the block's
+// work; NT = the kernel's block size: its partition of the work).
+template <int NT>
+int host_relayout(int inverse, const uint8_t* src, uint8_t* dst, int h, int w, int pad,
+                  int by_grid, int bx_grid, int n_outer, int n_inner, long long p_outer,
+                  long long p_inner, long long p_row, long long t_outer, long long t_inner,
+                  long long t_r, long long t_c, long long t_by) {
+  gvct::RelayoutGeom g;
+  if (!gvct::make_geom(&g, h, w, pad, by_grid, bx_grid, n_inner, p_outer, p_inner, p_row,
+                       t_outer, t_inner, t_r, t_c, t_by) ||
+      n_outer < 0) {
+    return -1;
+  }
+  alignas(16) uint8_t stage[gvct::kStageBytes];
   const long long nb = static_cast<long long>(n_outer) * n_inner;
   for (long long b = 0; b < nb; ++b) {
-    for (int by = 0; by < by_grid; ++by) {
+    const uint8_t* src_b = src + (inverse ? gvct::tiles_base(g, b) : gvct::plane_base(g, b));
+    uint8_t* dst_b = dst + (inverse ? gvct::plane_base(g, b) : gvct::tiles_base(g, b));
+    for (int row = 0; row < gvct::kTile * by_grid; ++row) {
       for (int bx0 = 0; bx0 < bx_grid; bx0 += gvct::kSpanTiles) {
-        if (inverse) {
-          gvct::inv_stage(src + gvct::tiles_base(g, b), stage, g, by, bx0, 0, 1);
-          gvct::inv_store(stage, dst + gvct::plane_base(g, b), g, by, bx0, 0, 1);
-        } else {
-          gvct::fwd_stage(src + gvct::plane_base(g, b), stage, g, by, bx0, 0, 1);
-          gvct::fwd_store(stage, dst + gvct::tiles_base(g, b), g, by, bx0, 0, 1);
+        for (int tid = 0; tid < NT; ++tid) {
+          if (inverse) {
+            gvct::inv_stage<NT>(src_b, dst_b, stage, g, row, bx0, tid);
+          } else {
+            gvct::fwd_stage<NT>(src_b, stage, g, row, bx0, tid);
+          }
+        }
+        for (int tid = 0; tid < NT; ++tid) {  // after the kernel's __syncthreads()
+          if (inverse) {
+            gvct::inv_store<NT>(stage, dst_b, g, row, bx0, tid);
+          } else {
+            gvct::fwd_store<NT>(stage, src_b, dst_b, g, row, bx0, tid);
+          }
         }
       }
     }
   }
   return 0;
+}
+
+}  // namespace
+
+// T2 (inverse = 0) or T3 (inverse = 1) over the launch grid of
+// relayout_kernel.cu, with `threads` = 1 or the kernel's block size (see
+// host_relayout).  Returns 0, or -1 for a geometry the kernel's launcher
+// refuses or another thread count.
+extern "C" int gvct_host_relayout(int threads, int inverse, const uint8_t* src, uint8_t* dst,
+                                  int h, int w, int pad, int by_grid, int bx_grid, int n_outer,
+                                  int n_inner, long long p_outer, long long p_inner,
+                                  long long p_row, long long t_outer, long long t_inner,
+                                  long long t_r, long long t_c, long long t_by) {
+  if (threads == 1) {
+    return host_relayout<1>(inverse, src, dst, h, w, pad, by_grid, bx_grid, n_outer, n_inner,
+                            p_outer, p_inner, p_row, t_outer, t_inner, t_r, t_c, t_by);
+  }
+  if (threads == gvct::kRelayoutThreads) {
+    return host_relayout<gvct::kRelayoutThreads>(inverse, src, dst, h, w, pad, by_grid,
+                                                 bx_grid, n_outer, n_inner, p_outer, p_inner,
+                                                 p_row, t_outer, t_inner, t_r, t_c, t_by);
+  }
+  return -1;
 }
 
 // T4 over the kernel's chunks.

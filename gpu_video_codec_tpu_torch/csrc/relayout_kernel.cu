@@ -1,4 +1,5 @@
-// Relayout and pack kernels of the device-resident path on Hopper (sm_90a):
+// Relayout and pack kernels of the streaming and device-resident paths on
+// Hopper (sm_90a):
 //
 // T2 plane_to_tiles_kernel: (.., h, w) interior planes -> tile-planes of the
 //    zero-extended plane.  Replaces tools/kernel_relayout_exp.py::fwd_inkernel
@@ -10,19 +11,36 @@
 //    tools/pack_exp.py::pack_pallas (_pack_kernel), three HBM->HBM DMAs on the
 //    TPU; TMA has no global->global copy, so this is a copy kernel.
 //
-// T2 and T3: one block of 256 threads per (tile row, 64 tiles along Bx,
-// plane of the batch).  It stages the block's 8 extended rows x 512 columns
-// (4 KB) in shared memory, reading one side and writing the other along its
-// contiguous axis: plane rows on one side, 64-byte runs along Bx of each of
-// the 64 tile planes on the other.  The index math is relayout_tile.cuh.
+// T2 and T3: one block of 128 threads per (plane of the batch, extended
+// row R = 8by + r, span of 256 tiles along Bx): 1,088 blocks at 1080p
+// luma and at 1080p U+V, about eight per SM, all resident at once.  The
+// block stages its row's 2,048 extended columns in shared memory (2 KB) and
+// moves every global byte in 16-byte accesses aligned by the actual
+// address: the plane row on one side, the 8 runs T[r, c, by, bx0 ..] of up
+// to 256 bytes (one per tile column c) on the other.  Each run is cut into
+// the aligned chunks that cover it (relayout_tile.cuh): whole chunks are
+// one uint4 access, a head or tail chunk is loaded whole and masked, and
+// stored in aligned 8/4/2/1-byte pieces.  The stage is shifted by the
+// address residue of the plane row, so plane chunks are aligned stage
+// chunks (uint4 shared accesses); the transpose is the tile side's gather
+// (T2) or scatter (T3) of a chunk's 16 bytes 8 stage bytes apart.  The
+// thread count is a compile-time constant: a thread's loops unroll and it
+// issues all of its global loads (1-2 chunks) before the first use, so the
+// whole plane is in flight at once (about 16 KB per SM at 1080p luma).
+// Index math inside a plane is 32-bit; the batch offset is 64-bit, once
+// per block.
 // T4: one thread per 16 bytes of the output, with 16-byte loads and stores
 // (plane offsets are multiples of 16 when w and h are multiples of 8).
 //
 // What bounds them: bytes.  Each moves its input once and its output once,
 // with no arithmetic to speak of: at 1080p T2 luma reads 2.07 MB and writes
-// 2.10 MB (1.25 us at 3.35 TB/s), T4 reads and writes 3.11 MB each (1.86 us).
-// A launch costs a few microseconds, comparable at these sizes; the design
-// keeps one launch per plane group (luma; U and V together; the pack).
+// 2.10 MB (1.25 us at 3.35 TB/s; chip_smoke.py computes the bounds), T4
+// reads and writes 3.11 MB each (1.86 us).  So T2 and T3 move 16 bytes per
+// access with the loads batched ahead of their uses.  The floor at these
+// sizes is one launch: a plain 16-byte copy of the same bytes (T4 on the
+// plane alone, timed by chip_smoke.py phase 4b) takes about twice the byte
+// bound.  The design keeps one launch per plane group (luma; U and V
+// together; the pack).
 
 #include <cuda_runtime.h>
 
@@ -30,32 +48,36 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = gvct::kRelayoutThreads;
 constexpr int kPackThreads = 256;
 constexpr int kMaxGridYZ = 65535;
 
 __global__ void __launch_bounds__(kThreads)
 plane_to_tiles_kernel(const uint8_t* __restrict__ plane, uint8_t* __restrict__ tiles,
                       gvct::RelayoutGeom g) {
-  __shared__ uint8_t stage[gvct::kStageBytes];
+  __shared__ __align__(16) uint8_t stage[gvct::kStageBytes];
   const long long b = blockIdx.z;
-  const int by = blockIdx.y;
+  const int row = blockIdx.y;
   const int bx0 = blockIdx.x * gvct::kSpanTiles;
-  gvct::fwd_stage(plane + gvct::plane_base(g, b), stage, g, by, bx0, threadIdx.x, blockDim.x);
+  const uint8_t* src = plane + gvct::plane_base(g, b);
+  gvct::fwd_stage<kThreads>(src, stage, g, row, bx0, threadIdx.x);
   __syncthreads();
-  gvct::fwd_store(stage, tiles + gvct::tiles_base(g, b), g, by, bx0, threadIdx.x, blockDim.x);
+  gvct::fwd_store<kThreads>(stage, src, tiles + gvct::tiles_base(g, b), g, row, bx0,
+                            threadIdx.x);
 }
 
 __global__ void __launch_bounds__(kThreads)
 tiles_to_plane_kernel(const uint8_t* __restrict__ tiles, uint8_t* __restrict__ plane,
                       gvct::RelayoutGeom g) {
-  __shared__ uint8_t stage[gvct::kStageBytes];
+  __shared__ __align__(16) uint8_t stage[gvct::kStageBytes];
   const long long b = blockIdx.z;
-  const int by = blockIdx.y;
+  const int row = blockIdx.y;
   const int bx0 = blockIdx.x * gvct::kSpanTiles;
-  gvct::inv_stage(tiles + gvct::tiles_base(g, b), stage, g, by, bx0, threadIdx.x, blockDim.x);
+  uint8_t* dst = plane + gvct::plane_base(g, b);
+  gvct::inv_stage<kThreads>(tiles + gvct::tiles_base(g, b), dst, stage, g, row, bx0,
+                            threadIdx.x);
   __syncthreads();
-  gvct::inv_store(stage, plane + gvct::plane_base(g, b), g, by, bx0, threadIdx.x, blockDim.x);
+  gvct::inv_store<kThreads>(stage, dst, g, row, bx0, threadIdx.x);
 }
 
 __global__ void __launch_bounds__(kPackThreads)
@@ -73,16 +95,18 @@ int launch_relayout(bool inverse, const void* src, void* dst, int h, int w, int 
                     int by_grid, int bx_grid, int n_outer, int n_inner, long long p_outer,
                     long long p_inner, long long p_row, long long t_outer, long long t_inner,
                     long long t_r, long long t_c, long long t_by, int device, void* stream) {
-  const gvct::RelayoutGeom g{h, w, pad, by_grid, bx_grid, n_inner, p_outer, p_inner,
-                             p_row, t_outer, t_inner, t_r, t_c, t_by};
+  gvct::RelayoutGeom g;
   const long long nb = static_cast<long long>(n_outer) * n_inner;
-  if (!gvct::geometry_ok(g) || n_outer < 0 || nb > kMaxGridYZ || by_grid > kMaxGridYZ) {
+  if (!gvct::make_geom(&g, h, w, pad, by_grid, bx_grid, n_inner, p_outer, p_inner, p_row,
+                       t_outer, t_inner, t_r, t_c, t_by) ||
+      n_outer < 0 || nb > kMaxGridYZ ||
+      static_cast<long long>(gvct::kTile) * by_grid > kMaxGridYZ) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (nb == 0) return 0;
-  const dim3 grid((bx_grid + gvct::kSpanTiles - 1) / gvct::kSpanTiles, by_grid,
+  const dim3 grid((bx_grid + gvct::kSpanTiles - 1) / gvct::kSpanTiles, gvct::kTile * by_grid,
                   static_cast<unsigned>(nb));
   auto s = static_cast<cudaStream_t>(stream);
   if (inverse) {
@@ -101,7 +125,8 @@ int launch_relayout(bool inverse, const void* src, void* dst, int h, int w, int 
 // tiles: the (8, 8, by_grid, bx_grid) tile-planes of each, strides t_* (Bx
 // contiguous).  Launches on `stream` without synchronizing; returns
 // cudaGetLastError() after the launch (0 = ok), cudaErrorInvalidValue for a
-// geometry the plain version rejects.
+// geometry the plain version rejects, a negative stride, or offsets inside
+// one plane or tile-planes block past 32 bits (relayout_tile.cuh make_geom).
 extern "C" int gvct_plane_to_tiles(const void* plane, void* tiles, int h, int w, int pad,
                                    int by_grid, int bx_grid, int n_outer, int n_inner,
                                    long long p_outer, long long p_inner, long long p_row,

@@ -2,8 +2,10 @@
 // -> plane) and the YV12 pack kernel (T4), shared by the CUDA kernels
 // (relayout_kernel.cu, built by nvcc) and the host build that the CPU tests
 // load (host_shim.cpp, built by g++).  The per-block work is written once,
-// here, as the loop a thread `tid` of `nthreads` runs; the kernel calls it
-// with threadIdx.x and blockDim.x, the host build with 0 and 1.
+// here, as the loop a thread `tid` of NT threads runs (NT a compile-time
+// constant, so the loops unroll); the kernel instantiates it with its block
+// size, the host build with NT = 1 (one thread does a block's work) and with
+// the kernel's NT (its threads run one after another in each phase).
 //
 // Tile-planes: T[r, c, by, bx] is extended pixel (8by + r, 8bx + c) of the
 // plane zero-extended by `pad` on every side (Q6: padding is 0), over a grid
@@ -11,8 +13,18 @@
 // padding (zero pixels).  Tile rows count by truncating division (Q9: at
 // 1080p chroma, (540 + 8) / 8 = 68 tile rows cover 544 of the 548 extended
 // rows; the 4 dropped rows are padding the reference never sweeps).
+//
+// Global accesses are 16 bytes wide and aligned by the actual address.  A
+// contiguous global run -- a plane row segment, or one (r, c, by) tile-plane
+// row segment -- is cut into the aligned 16-byte chunks that cover it: a
+// head chunk holding its first (up to 15 + 1) bytes, a body of whole chunks
+// and a tail chunk.  Whole chunks move as one 16-byte access.  A head or
+// tail chunk is LOADED whole too (an aligned 16-byte chunk never crosses a
+// page, and the bytes outside the run are masked off) and STORED in aligned
+// pieces of 8, 4, 2 and 1 bytes that cover exactly the run's bytes.
 #pragma once
 
+#include <climits>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
@@ -25,13 +37,25 @@
 #endif
 #endif
 
+#ifdef __CUDA_ARCH__
+#define GVCT_UNROLL _Pragma("unroll")
+#else
+#define GVCT_UNROLL
+#endif
+
 namespace gvct {
 
-constexpr int kTile = 8;                         // SAMPLE_BLOCK_SIZE
-constexpr int kSpanTiles = 64;                   // tiles of one block along Bx
-constexpr int kSpanCols = kTile * kSpanTiles;    // 512 extended columns
-constexpr int kStageBytes = kTile * kSpanCols;   // 8 extended rows x 512 columns
-constexpr int kPackChunk = 16;                   // bytes per T4 thread
+constexpr int kTile = 8;                              // SAMPLE_BLOCK_SIZE
+constexpr int kChunk = 16;                            // bytes per global access
+constexpr int kSpanTiles = 256;                       // tiles of one block along Bx
+constexpr int kSpanCols = kTile * kSpanTiles;         // 2,048 extended columns
+constexpr int kRowChunks = kSpanCols / kChunk + 1;    // chunks of a span row at any residue
+constexpr int kRunChunks = kSpanTiles / kChunk + 1;   // chunks of a 256-byte tile run
+constexpr int kRowItems = kRowChunks;                 // plane-side chunks of a block: 129
+constexpr int kRunItems = kTile * kRunChunks;         // tile-side chunks of a block: 136
+constexpr int kStageBytes = kRowChunks * kChunk;       // 2,064
+constexpr int kPackChunk = kChunk;                    // bytes per T4 thread
+constexpr int kRelayoutThreads = 128;                 // NT of the T2 and T3 kernels
 
 // Tiles covering an interior dim extended by `pad` on both sides
 // (truncating, cpu.h:141-142, 450-451).
@@ -43,10 +67,14 @@ GVCT_HD int covered_tiles(int interior, int pad) { return (interior + 2 * pad) /
 //   outer * p_outer + inner * p_inner + i * p_row + j
 // Tile byte of T[r, c, by, bx]:
 //   outer * t_outer + inner * t_inner + r * t_r + c * t_c + by * t_by + bx
+// Offsets inside one plane or one tile-planes block are 32-bit (make_geom
+// checks that they fit); the batch offsets are 64-bit, taken once a block.
 struct RelayoutGeom {
   int h, w, pad, by_grid, bx_grid, n_inner;
-  long long p_outer, p_inner, p_row;
-  long long t_outer, t_inner, t_r, t_c, t_by;
+  long long p_outer, p_inner;
+  int p_row;
+  long long t_outer, t_inner;
+  int t_r, t_c, t_by;
 };
 
 // The geometries the plain versions (utils/tiles.py interior_to_tiles,
@@ -59,6 +87,27 @@ GVCT_HD bool geometry_ok(const RelayoutGeom& g) {
          g.pad + g.h <= kTile * covered_tiles(g.h, g.pad);
 }
 
+// Build the launch geometry from the C entry points' arguments.  False for
+// a geometry the plain versions reject, a negative stride, or a plane or
+// tile-planes block whose offsets (plus a chunk of slack) overflow 32 bits.
+GVCT_HD bool make_geom(RelayoutGeom* g, int h, int w, int pad, int by_grid, int bx_grid,
+                       int n_inner, long long p_outer, long long p_inner, long long p_row,
+                       long long t_outer, long long t_inner, long long t_r, long long t_c,
+                       long long t_by) {
+  if (h <= 0 || w <= 0 || pad < 0 || by_grid <= 0 || bx_grid <= 0 || p_row < 0 || t_r < 0 ||
+      t_c < 0 || t_by < 0 || p_outer < 0 || p_inner < 0 || t_outer < 0 || t_inner < 0) {
+    return false;
+  }
+  const long long slack = static_cast<long long>(kTile) * bx_grid + 2 * kChunk;
+  const long long plane_end = (h + pad) * p_row + slack;
+  const long long tile_end = (kTile - 1) * (t_r + t_c) + (by_grid - 1) * t_by + slack;
+  if (plane_end > INT_MAX || tile_end > INT_MAX) return false;
+  *g = RelayoutGeom{h, w, pad, by_grid, bx_grid, n_inner, p_outer, p_inner,
+                    static_cast<int>(p_row), t_outer, t_inner, static_cast<int>(t_r),
+                    static_cast<int>(t_c), static_cast<int>(t_by)};
+  return geometry_ok(*g);
+}
+
 GVCT_HD long long plane_base(const RelayoutGeom& g, long long b) {
   return (b / g.n_inner) * g.p_outer + (b % g.n_inner) * g.p_inner;
 }
@@ -67,65 +116,277 @@ GVCT_HD long long tiles_base(const RelayoutGeom& g, long long b) {
   return (b / g.n_inner) * g.t_outer + (b % g.n_inner) * g.t_inner;
 }
 
-// Plane byte (from the batch base) of extended pixel (R, C), or -1 where it
-// is Q6 zero padding or lies in a grid padding tile (both are outside the
-// interior once geometry_ok holds).
-GVCT_HD long long interior_offset(const RelayoutGeom& g, int R, int C) {
-  const int i = R - g.pad;
-  const int j = C - g.pad;
-  if (i < 0 || i >= g.h || j < 0 || j >= g.w) return -1;
-  return i * g.p_row + j;
+GVCT_HD int min_i(int a, int b) { return a < b ? a : b; }
+GVCT_HD int max_i(int a, int b) { return a > b ? a : b; }
+
+// The byte offset of address `base + off` in its 16-byte chunk.
+GVCT_HD int residue(const uint8_t* base, int off) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(base) + static_cast<uintptr_t>(
+                              static_cast<intptr_t>(off))) & (kChunk - 1));
 }
 
-// Tile byte (from the batch base) of T[rc / 8, rc % 8, by, bx].
-GVCT_HD long long tile_offset(const RelayoutGeom& g, int rc, int by, int bx) {
-  return (rc / kTile) * g.t_r + (rc % kTile) * g.t_c + by * g.t_by + bx;
+// -- 16-byte chunks in registers -------------------------------------------------
+
+// Byte e of a chunk is byte e & 3 of word e >> 2 (both sides little-endian).
+struct Chunk {
+  uint32_t w[4];
+};
+
+GVCT_HD Chunk load16(const uint8_t* p) {  // p is 16-byte aligned
+#ifdef __CUDA_ARCH__
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  return Chunk{{v.x, v.y, v.z, v.w}};
+#else
+  Chunk c;
+  std::memcpy(c.w, p, kChunk);
+  return c;
+#endif
 }
 
-// A block stages the 8 extended rows of tile row `by` and the 512 columns of
-// its 64 tiles from bx0, row-major: T[r, c] of its tile t is staged byte
-// r * 512 + 8t + c.
-GVCT_HD int stage_index(int rc, int t) {
-  return (rc / kTile) * kSpanCols + t * kTile + rc % kTile;
+GVCT_HD void store16(uint8_t* p, const Chunk& c) {  // p is 16-byte aligned
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<uint4*>(p) = make_uint4(c.w[0], c.w[1], c.w[2], c.w[3]);
+#else
+  std::memcpy(p, c.w, kChunk);
+#endif
 }
 
-// T2, phase 1: stage the block's extended rows (plane reads run along rows).
-GVCT_HD void fwd_stage(const uint8_t* plane, uint8_t* stage, const RelayoutGeom& g,
-                       int by, int bx0, int tid, int nthreads) {
-  for (int k = tid; k < kStageBytes; k += nthreads) {
-    const long long off = interior_offset(g, by * kTile + k / kSpanCols,
-                                          bx0 * kTile + k % kSpanCols);
-    stage[k] = off < 0 ? 0 : plane[off];
+// Word i of a chunk for a run-time i, without indexing the array (which
+// would put it in local memory on the device).
+GVCT_HD uint32_t word_at(const Chunk& c, int i) {
+  return i == 0 ? c.w[0] : i == 1 ? c.w[1] : i == 2 ? c.w[2] : c.w[3];
+}
+
+// The chunk with every byte outside [lo, hi) set to 0.
+GVCT_HD Chunk keep_bytes(const Chunk& c, int lo, int hi) {
+  Chunk out;
+  GVCT_UNROLL
+  for (int i = 0; i < 4; ++i) {
+    const int l = min_i(max_i(lo - 4 * i, 0), 4);
+    const int h = min_i(max_i(hi - 4 * i, 0), 4);
+    const unsigned long long keep = ((1ull << (8 * h)) - 1) & ~((1ull << (8 * l)) - 1);
+    out.w[i] = c.w[i] & static_cast<uint32_t>(keep);
+  }
+  return out;
+}
+
+// Store one naturally aligned piece of 8, 4, 2 or 1 bytes: bytes [at, at +
+// n) of chunk c at p + at.
+GVCT_HD void store_piece(uint8_t* p, const Chunk& c, int at, int n) {
+  const uint32_t word = word_at(c, at >> 2);
+#ifdef __CUDA_ARCH__
+  if (n == 8) {
+    *reinterpret_cast<uint2*>(p + at) = make_uint2(word, word_at(c, (at >> 2) + 1));
+  } else if (n == 4) {
+    *reinterpret_cast<uint32_t*>(p + at) = word;
+  } else if (n == 2) {
+    *reinterpret_cast<uint16_t*>(p + at) = static_cast<uint16_t>(word >> (8 * (at & 3)));
+  } else {
+    p[at] = static_cast<uint8_t>(word >> (8 * (at & 3)));
+  }
+#else
+  const uint32_t bytes[2] = {word >> (8 * (at & 3)), n == 8 ? word_at(c, (at >> 2) + 1) : 0};
+  std::memcpy(p + at, bytes, n);  // little-endian: the piece's bytes in order
+#endif
+}
+
+// Store bytes [lo, hi) of chunk c at the 16-byte aligned address p,
+// touching no other byte: a whole chunk as one 16-byte store, a head chunk
+// (hi = 16) in naturally aligned pieces of 1, 2, 4, 8 upwards from lo, a
+// tail chunk (lo = 0) in pieces of 8, 4, 2, 1 up to hi, a run inside one
+// chunk byte by byte.
+GVCT_HD void store_bytes(uint8_t* p, const Chunk& c, int lo, int hi) {
+  if (lo == 0 && hi == kChunk) {
+    store16(p, c);
+  } else if (hi == kChunk) {
+    GVCT_UNROLL
+    for (int n = 1; n < kChunk; n *= 2) {
+      if (lo & n) {
+        store_piece(p, c, lo, n);
+        lo += n;
+      }
+    }
+  } else if (lo == 0) {
+    GVCT_UNROLL
+    for (int n = kChunk / 2; n >= 1; n /= 2) {
+      if (hi & n) {
+        store_piece(p, c, lo, n);
+        lo += n;
+      }
+    }
+  } else {
+    for (; lo < hi; ++lo) store_piece(p, c, lo, 1);
   }
 }
 
-// T2, phase 2: write the 64 tile planes' runs of up to 64 bytes along Bx.
-GVCT_HD void fwd_store(const uint8_t* stage, uint8_t* tiles, const RelayoutGeom& g,
-                       int by, int bx0, int tid, int nthreads) {
-  for (int k = tid; k < kStageBytes; k += nthreads) {
-    const int rc = k / kSpanTiles;
-    const int t = k % kSpanTiles;
-    if (bx0 + t < g.bx_grid) tiles[tile_offset(g, rc, by, bx0 + t)] = stage[stage_index(rc, t)];
+// -- one block's runs ------------------------------------------------------------
+//
+// A block handles one extended row R = 8by + r of one plane and the span
+// of tiles [bx0, bx0 + 256): on the plane side one run (the row's
+// interior bytes), on the tile side the 8 runs T[r, c, by, bx0 ..], one
+// per column c of the tile.  Its shared stage holds the span's 2,048
+// extended columns 8bx0 + k at stage byte shift + k, where `shift` is the
+// address residue of the row's plane-side column 0, so every aligned plane
+// chunk is an aligned stage chunk.  Tile (r, c) of span tile t is stage
+// column k = 8t + c.  (The 4 chunks of one run that a warp gathers or
+// scatters lie 128 bytes apart, in one bank: padding the stage to spread
+// them cost more address arithmetic per byte than the conflicts cost.)
+
+// The plane side of the block's row: the in-plane offset of its column 0
+// (may be negative: the columns left of the interior are padding), the
+// stage columns [lo, hi) that are interior pixels (empty on a padding row),
+// and the address residue of column 0.
+struct PlaneRow {
+  int off, lo, hi, shift;
+};
+
+GVCT_HD PlaneRow plane_row(const RelayoutGeom& g, const uint8_t* plane, int row, int bx0) {
+  const int i = row - g.pad;          // interior row
+  const int c0 = bx0 * kTile - g.pad;  // interior column of stage column 0
+  const bool inside = i >= 0 && i < g.h;
+  PlaneRow pr;
+  pr.off = (inside ? i * g.p_row : 0) + c0;
+  pr.lo = inside ? max_i(0, -c0) : 0;
+  pr.hi = inside ? min_i(kSpanCols, g.w - c0) : 0;
+  pr.shift = residue(plane, pr.off);
+  return pr;
+}
+
+// The tile side: tile-plane (r, c) of extended row `row` = 8by + r, tiles
+// [bx0, bx0 + n).
+struct TileRun {
+  int off, n, shift;
+};
+
+GVCT_HD TileRun tile_run(const RelayoutGeom& g, const uint8_t* tiles, int row, int c, int bx0) {
+  TileRun tr;
+  tr.off = (row % kTile) * g.t_r + c * g.t_c + (row / kTile) * g.t_by + bx0;
+  tr.n = min_i(kSpanTiles, g.bx_grid - bx0);
+  tr.shift = residue(tiles, tr.off);
+  return tr;
+}
+
+// Plane-side item q (q < kRowItems): the row's aligned chunk q.  Sets the
+// chunk's first stage column k0 and its interior bytes [lo, hi).
+GVCT_HD void plane_item(const PlaneRow& pr, int q, int* k0, int* lo, int* hi) {
+  *k0 = q * kChunk - pr.shift;
+  *lo = max_i(pr.lo - *k0, 0);
+  *hi = min_i(pr.hi - *k0, kChunk);
+}
+
+// Tile-side item k (k < kRunItems): aligned chunk q = k / 8 of run c = k % 8
+// (c fastest: a warp covers 64 bytes of each of the 8 runs).  Sets the
+// chunk's first span tile t0 and the run's bytes [lo, hi) of the chunk.
+GVCT_HD void tile_item(const TileRun& tr, int q, int* t0, int* lo, int* hi) {
+  *t0 = q * kChunk - tr.shift;
+  *lo = max_i(-*t0, 0);
+  *hi = min_i(tr.n - *t0, kChunk);
+}
+
+// T2, phase 1: fill the stage from the plane row, every load issued before
+// the first stage store.  Padding (Q6), rows past the interior and grid
+// padding columns are staged as 0.
+template <int NT>
+GVCT_HD void fwd_stage(const uint8_t* plane, uint8_t* stage, const RelayoutGeom& g, int row,
+                       int bx0, int tid) {
+  constexpr int kIters = (kRowItems + NT - 1) / NT;
+  const PlaneRow pr = plane_row(g, plane, row, bx0);
+  Chunk v[kIters];
+  GVCT_UNROLL
+  for (int it = 0; it < kIters; ++it) {
+    const int q = it * NT + tid;
+    int k0, lo, hi;
+    plane_item(pr, q, &k0, &lo, &hi);
+    v[it] = Chunk{{0, 0, 0, 0}};
+    if (q < kRowItems && lo < hi) v[it] = keep_bytes(load16(plane + (pr.off + k0)), lo, hi);
+  }
+  GVCT_UNROLL
+  for (int it = 0; it < kIters; ++it) {
+    const int q = it * NT + tid;
+    if (q < kRowItems) store16(stage + q * kChunk, v[it]);
   }
 }
 
-// T3, phase 1: stage the block's tiles (reads run along Bx).
-GVCT_HD void inv_stage(const uint8_t* tiles, uint8_t* stage, const RelayoutGeom& g,
-                       int by, int bx0, int tid, int nthreads) {
-  for (int k = tid; k < kStageBytes; k += nthreads) {
-    const int rc = k / kSpanTiles;
-    const int t = k % kSpanTiles;
-    stage[stage_index(rc, t)] = bx0 + t < g.bx_grid ? tiles[tile_offset(g, rc, by, bx0 + t)] : 0;
+// T2, phase 2: write the row's 8 tile-plane runs, each 16-byte chunk
+// gathered from the stage at a stride of 8 columns.
+template <int NT>
+GVCT_HD void fwd_store(const uint8_t* stage, const uint8_t* plane, uint8_t* tiles,
+                       const RelayoutGeom& g, int row, int bx0, int tid) {
+  constexpr int kIters = (kRunItems + NT - 1) / NT;
+  const int shift = plane_row(g, plane, row, bx0).shift;
+  GVCT_UNROLL
+  for (int it = 0; it < kIters; ++it) {
+    const int k = it * NT + tid;
+    if (k >= kRunItems) continue;
+    const int c = k % kTile;
+    const TileRun tr = tile_run(g, tiles, row, c, bx0);
+    int t0, lo, hi;
+    tile_item(tr, k / kTile, &t0, &lo, &hi);
+    if (lo >= hi) continue;
+    const int p0 = shift + c + 8 * t0;  // stage position of byte 0
+    Chunk v{{0, 0, 0, 0}};
+    GVCT_UNROLL
+    for (int e = 0; e < kChunk; ++e) {
+      if (e >= lo && e < hi) {
+        v.w[e >> 2] |= static_cast<uint32_t>(stage[p0 + 8 * e]) << (8 * (e & 3));
+      }
+    }
+    store_bytes(tiles + (tr.off + t0), v, lo, hi);
   }
 }
 
-// T3, phase 2: write the interior pixels of the staged rows (along rows).
-GVCT_HD void inv_store(const uint8_t* stage, uint8_t* plane, const RelayoutGeom& g,
-                       int by, int bx0, int tid, int nthreads) {
-  for (int k = tid; k < kStageBytes; k += nthreads) {
-    const long long off = interior_offset(g, by * kTile + k / kSpanCols,
-                                          bx0 * kTile + k % kSpanCols);
-    if (off >= 0) plane[off] = stage[k];
+// T3, phase 1: fill the stage from the 8 tile-plane runs, every load
+// issued before the first stage store; a chunk's bytes land 8 columns apart.
+template <int NT>
+GVCT_HD void inv_stage(const uint8_t* tiles, const uint8_t* plane, uint8_t* stage,
+                       const RelayoutGeom& g, int row, int bx0, int tid) {
+  constexpr int kIters = (kRunItems + NT - 1) / NT;
+  const int shift = plane_row(g, plane, row, bx0).shift;
+  Chunk v[kIters];
+  GVCT_UNROLL
+  for (int it = 0; it < kIters; ++it) {
+    const int k = it * NT + tid;
+    if (k < kRunItems) {
+      const TileRun tr = tile_run(g, tiles, row, k % kTile, bx0);
+      int t0, lo, hi;
+      tile_item(tr, k / kTile, &t0, &lo, &hi);
+      if (lo < hi) v[it] = load16(tiles + (tr.off + t0));
+    }
+  }
+  GVCT_UNROLL
+  for (int it = 0; it < kIters; ++it) {
+    const int k = it * NT + tid;
+    if (k >= kRunItems) continue;
+    const int c = k % kTile;
+    const TileRun tr = tile_run(g, tiles, row, c, bx0);
+    int t0, lo, hi;
+    tile_item(tr, k / kTile, &t0, &lo, &hi);
+    if (lo >= hi) continue;
+    const int p0 = shift + c + 8 * t0;
+    GVCT_UNROLL
+    for (int e = 0; e < kChunk; ++e) {
+      if (e >= lo && e < hi) {
+        stage[p0 + 8 * e] = static_cast<uint8_t>(v[it].w[e >> 2] >> (8 * (e & 3)));
+      }
+    }
+  }
+}
+
+// T3, phase 2: write the row's interior pixels, one aligned stage chunk to
+// one aligned plane chunk.
+template <int NT>
+GVCT_HD void inv_store(const uint8_t* stage, uint8_t* plane, const RelayoutGeom& g, int row,
+                       int bx0, int tid) {
+  constexpr int kIters = (kRowItems + NT - 1) / NT;
+  const PlaneRow pr = plane_row(g, plane, row, bx0);
+  GVCT_UNROLL
+  for (int it = 0; it < kIters; ++it) {
+    const int q = it * NT + tid;
+    int k0, lo, hi;
+    plane_item(pr, q, &k0, &lo, &hi);
+    if (q < kRowItems && lo < hi) {
+      store_bytes(plane + (pr.off + k0), load16(stage + q * kChunk), lo, hi);
+    }
   }
 }
 
@@ -146,17 +407,9 @@ GVCT_HD int pack_source(long long off, long long yn, long long cn, long long* at
   return 2;
 }
 
-// Copy 16 bytes; both addresses are 16-byte aligned (the wrapper checks).
-GVCT_HD void copy16(uint8_t* dst, const uint8_t* src) {
-#ifdef __CUDA_ARCH__
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-#else
-  std::memcpy(dst, src, kPackChunk);
-#endif
-}
-
 // T4: chunk k (16 bytes) of packed frame b.  Plane sizes are multiples of
-// 16, so no chunk straddles two planes.  Strides are per frame.
+// 16, so no chunk straddles two planes; every address is 16-byte aligned
+// (the wrapper checks).  Strides are per frame.
 GVCT_HD void pack_chunk(const uint8_t* y, const uint8_t* u, const uint8_t* v, uint8_t* out,
                         long long yn, long long cn, long long y_stride, long long u_stride,
                         long long v_stride, long long out_stride, long long b, long long k) {
@@ -164,7 +417,7 @@ GVCT_HD void pack_chunk(const uint8_t* y, const uint8_t* u, const uint8_t* v, ui
   const long long off = k * kPackChunk;
   const int p = pack_source(off, yn, cn, &at);
   const uint8_t* src = p == 0 ? y + b * y_stride : (p == 1 ? u + b * u_stride : v + b * v_stride);
-  copy16(out + b * out_stride + off, src + at);
+  store16(out + b * out_stride + off, load16(src + at));
 }
 
 }  // namespace gvct

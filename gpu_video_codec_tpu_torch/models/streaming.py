@@ -6,11 +6,12 @@ Counterpart of the main path of gpu_video_codec_tpu/models/streaming.py:
   as (3h/2, w) rows, from a ring of pinned host buffers on a copy stream;
   the compute stream waits on the copy's event, so the copy of frame i+1
   runs under the filter of frame i;
-* per frame, luma goes interior -> tile-planes -> deblock kernel ->
-  interior, and U and V share one chroma launch (utils/tiles.py,
+* per frame, luma goes interior -> tile-planes (T2) -> deblock kernel
+  (K1) -> interior (T3), and U and V go the same way as one batch, one
+  launch each of T2, K1c and T3 (ops/relayout_kernel.py,
   ops/cuda_kernel.py);
-* the filtered planes are written back into the frame's device buffer in
-  place (the counterpart of buffer donation on the TPU).
+* T3 writes the filtered planes straight into the frame's device buffer,
+  in place (the counterpart of buffer donation on the TPU).
 
 Reference parity map: ExecuteGpu's alloc/copy/launch/copy/save sequence
 (gpu.cu:1230-1306) becomes StreamingDeblocker.run(); the copy-vs-kernel
@@ -27,13 +28,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.cuda_kernel import (
-    BLOCK_BX, CHROMA_BLOCK_BX, deblock_chroma_ext_cuda, deblock_tiles_cuda,
-)
+from ..ops.cuda_kernel import BLOCK_BX, CHROMA_BLOCK_BX, deblock_tiles_cuda
 from ..ops.deblock import deblock_frame
+from ..ops.relayout_kernel import plane_to_tiles_cuda, tiles_to_plane_cuda
 from ..ops.tables import HALF_BLOCK, SAMPLE_BLOCK_SIZE, get_beta, get_tc
 from ..utils.bs import BoundaryStrength, segment_bs_maps_device
-from ..utils.tiles import interior_to_tiles, tiles_to_interior
+from ..utils.tiles import split_covered_data
 from ..utils.yuv import FramePlanes, check_dims
 
 
@@ -50,34 +50,42 @@ def _pack_out(buf, parts_at, inplace: bool):
 
 
 def _deblock_planes_impl(y, uv, lm, cm, beta, tc, w, h, luma_only, backend,
-                         luma_block=BLOCK_BX, chroma_block=CHROMA_BLOCK_BX):
+                         luma_block=BLOCK_BX, chroma_block=CHROMA_BLOCK_BX, out=None):
     """PLANES contract: y (h, w) + uv (2, h/2, w/2) uint8 -> (filtered y,
     filtered uv), same shapes, new tensors (uv itself under luma_only).
 
-    backend "cuda": luma goes interior -> tile-planes -> kernel ->
-    interior.  Chroma does the same, U and V as a batch of two with one
-    shared map, whenever the extended chroma width is 8-aligned (the
-    non-sheared Q9 case, every w % 16 == 0 geometry); sheared geometries
-    sweep the flat covered view (deblock_chroma_ext_cuda).
+    backend "cuda": luma goes interior -> tile-planes (T2) -> K1 ->
+    interior (T3); T2 does the Q6 zero padding.  U and V go the same way as
+    a batch of two, one launch each, with one shared map, whenever the
+    extended chroma width is 8-aligned (the non-sheared Q9 case, every
+    w % 16 == 0 geometry).  Sheared geometries (Q9) pad U and V and run
+    T2, K1c and T3 with pad 0 on the flat covered core of the padded pair,
+    whose uncovered remainder stays as it was.
+    out: optional (y, uv) destinations the cuda backend's T3 writes into
+    (any strides, last axis contiguous), returned in place of new tensors.
     backend "torch": the plain version on zero-extended planes."""
     p = HALF_BLOCK
     cw, ch = w // 2, h // 2
     pads = (p, p, p, p)
     if backend == "cuda":
-        yt = interior_to_tiles(y, p).contiguous()
-        y_out = deblock_tiles_cuda(yt, *lm, beta, tc, chroma=False, block_bx=luma_block)
-        y_int = tiles_to_interior(y_out, p, h, w)
+        y_dst, uv_dst = out or (None, None)
+        yt = deblock_tiles_cuda(plane_to_tiles_cuda(y, p), *lm, beta, tc, chroma=False,
+                                block_bx=luma_block)
+        y_int = tiles_to_plane_cuda(yt, p, h, w, out=y_dst)
         if luma_only:
             return y_int, uv
+        cmaps = [m[None] for m in cm]  # one shared map across the U/V batch
         if (cw + 2 * p) % SAMPLE_BLOCK_SIZE == 0:
-            uvt = interior_to_tiles(uv, p).contiguous()  # (2, 8, 8, cBy, cBx)
-            cmaps = [m[None] for m in cm]  # one shared map across the U/V batch
-            uv_out = deblock_tiles_cuda(uvt, *cmaps, beta, tc, chroma=True,
-                                        block_bx=chroma_block)
-            return y_int, tiles_to_interior(uv_out, p, ch, cw)
-        ue, ve = deblock_chroma_ext_cuda(F.pad(uv[0], pads), F.pad(uv[1], pads), cm,
-                                         beta, tc, chroma_block=chroma_block)
-        return y_int, torch.stack([ue[p : p + ch, p : p + cw], ve[p : p + ch, p : p + cw]])
+            uvt = deblock_tiles_cuda(plane_to_tiles_cuda(uv, p), *cmaps, beta, tc,
+                                     chroma=True, block_bx=chroma_block)
+            return y_int, tiles_to_plane_cuda(uvt, p, ch, cw, out=uv_dst)
+        uv_ext = F.pad(uv, pads)  # a fresh pair: T3 writes its covered core back in place
+        core, _ = split_covered_data(uv_ext)
+        uvt = deblock_tiles_cuda(plane_to_tiles_cuda(core, 0), *cmaps, beta, tc, chroma=True,
+                                 block_bx=chroma_block)
+        tiles_to_plane_cuda(uvt, 0, *core.shape[-2:], out=core)
+        uv_int = uv_ext[:, p : p + ch, p : p + cw]
+        return y_int, uv_int.contiguous() if uv_dst is None else uv_dst.copy_(uv_int)
     ye, ue, ve = deblock_frame(F.pad(y, pads), F.pad(uv[0], pads), F.pad(uv[1], pads),
                                lm, cm, beta, tc, luma_only=luma_only)
     y_int = ye[p : p + h, p : p + w]
@@ -93,9 +101,19 @@ def _deblock_yv12_packed_impl(buf, lm, cm, beta, tc, w, h, luma_only, backend,
 
     Luma is the leading h rows; the chroma rows are U then V, viewed as
     (2, h/2, w/2).  The filter is the planes contract; inplace=True writes
-    the result back into `buf` and returns it."""
+    the result back into `buf` and returns it, inplace=False returns a new
+    buffer and leaves `buf` untouched.  The cuda backend's T3 writes the
+    filtered planes straight into the destination buffer; rows it does not
+    filter (chroma under luma_only) keep their input bytes."""
     y = buf[:h]
-    uv = buf[h:].reshape(2, h // 2, w // 2)
+    uv = buf[h:].view(2, h // 2, w // 2)
+    if backend == "cuda":
+        dst = buf if inplace else torch.empty_like(buf)
+        if luma_only and not inplace:
+            dst[h:].copy_(buf[h:])
+        _deblock_planes_impl(y, uv, lm, cm, beta, tc, w, h, luma_only, backend, luma_block,
+                             chroma_block, out=(dst[:h], dst[h:].view(2, h // 2, w // 2)))
+        return dst
     y_int, uv_int = _deblock_planes_impl(y, uv, lm, cm, beta, tc, w, h, luma_only, backend,
                                          luma_block, chroma_block)
     parts = [(0, y_int)]
@@ -109,7 +127,8 @@ class StreamingDeblocker:
     overlap.  Frames are 1-D uint8 arrays of size 3*w*h/2 (or bytes).
 
     depth: frames in flight (2 = classic double buffering).
-    backend: "cuda" (the deblock kernel) or "torch" (its plain version).
+    backend: "cuda" (the hand-written kernels T2, K1/K1c and T3) or "torch"
+    (the plain version).
     device: the torch device that holds frames and runs the filter; a CUDA
     device must exist (nothing falls back to the CPU).  On a CPU device the
     "cuda" backend's wrapper runs the plain version.

@@ -3,11 +3,13 @@ wrappers.
 
 Counterpart of tools/kernel_relayout_exp.py (T2 fwd_inkernel, T3
 inv_inkernel) and tools/pack_exp.py (T4 pack_pallas), the in-kernel
-versions of the device-resident path's boundary operations:
+versions of the layout operations around the deblock kernel:
 
   plane_to_tiles_cuda  T2: (.., h, w) interior planes -> (.., 8, 8, By, Bx)
-                       tile-planes of the zero-extended plane (ingest)
-  tiles_to_plane_cuda  T3: the inverse (readback)
+                       tile-planes of the zero-extended plane (the
+                       streaming step; the resident ingest)
+  tiles_to_plane_cuda  T3: the inverse (the streaming step, straight into
+                       the frame buffer; the resident readback)
   pack_yv12_cuda       T4: Y, U, V planes -> one packed YV12 buffer (readback)
 
 The kernels (csrc/relayout_kernel.cu over the index math of
@@ -33,8 +35,10 @@ from ..utils.tiles import interior_to_tiles, tiles_to_interior
 LAUNCHES = {"fwd": 0, "inv": 0, "pack": 0}
 
 _SOURCES = ("relayout_kernel.cu",)
+HOST_THREADS = 128  # relayout_tile.cuh kRelayoutThreads: the T2/T3 block size
 _MAX_GRID_YZ = 65535
 _ALIGN = 16  # T4 moves 16 bytes per thread
+_INT32_MAX = 2**31 - 1  # offsets inside one plane or tile-planes block are 32-bit
 _GEOM_ARGS = [ctypes.c_int] * 7 + [ctypes.c_longlong] * 8
 _PACK_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] \
     + [ctypes.c_longlong] * 4
@@ -59,9 +63,10 @@ def _setup_cuda(lib) -> None:
 def load_host_library() -> ctypes.CDLL:
     """The g++ build of csrc/host_shim.cpp (ops/cuda_kernel.load_host_library)
     with the relayout kernels' block loops bound: gvct_host_relayout (T2 and
-    T3), gvct_host_pack_yv12 (T4) and gvct_host_covered_tiles."""
+    T3; its first argument is the thread count, 1 or HOST_THREADS),
+    gvct_host_pack_yv12 (T4) and gvct_host_covered_tiles."""
     lib = ck.load_host_library()
-    lib.gvct_host_relayout.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2 + _GEOM_ARGS
+    lib.gvct_host_relayout.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + _GEOM_ARGS
     lib.gvct_host_relayout.restype = ctypes.c_int
     lib.gvct_host_pack_yv12.argtypes = _PACK_ARGS
     lib.gvct_host_pack_yv12.restype = None
@@ -134,7 +139,7 @@ def _grid(h: int, w: int, pad: int, by_grid, bx_grid) -> tuple[int, int]:
         raise ValueError(f"grid ({byg}, {bxg}) is smaller than the covered tiles ({by}, {bx})")
     if pad + h > b * by:
         raise ValueError(f"interior rows [{pad}, {pad + h}) exceed covered rows {b * by}")
-    if byg > _MAX_GRID_YZ:
+    if b * byg > _MAX_GRID_YZ:  # one block row per extended row
         raise ValueError(f"tile grid too large for one launch: By={byg}")
     return byg, bxg
 
@@ -147,11 +152,18 @@ def _cuda_lib(device):
 
 def _geom_args(plane, tiles, h, w, pad, byg, bxg):
     """The launch's geometry arguments; plane and tiles share their leading
-    batch axes."""
+    batch axes.  Raises where relayout_tile.cuh::make_geom would refuse the
+    strides: offsets inside one plane or tile-planes block must fit 32 bits."""
     n_outer, n_inner, p_outer, p_inner = _lead(plane, "plane", 2)
     _, _, t_outer, t_inner = _lead(tiles, "tiles", 4)
+    b = SAMPLE_BLOCK_SIZE
+    t_r, t_c, t_by = tiles.stride(-4), tiles.stride(-3), tiles.stride(-2)
+    slack = b * bxg + 32
+    if ((h + pad) * plane.stride(-2) + slack > _INT32_MAX
+            or (b - 1) * (t_r + t_c) + (byg - 1) * t_by + slack > _INT32_MAX):
+        raise ValueError("a plane or tile-planes block spans more than 2**31 bytes")
     return (h, w, pad, byg, bxg, n_outer, n_inner, p_outer, p_inner, plane.stride(-2),
-            t_outer, t_inner, tiles.stride(-4), tiles.stride(-3), tiles.stride(-2))
+            t_outer, t_inner, t_r, t_c, t_by)
 
 
 # -- wrappers ----------------------------------------------------------------------
@@ -193,22 +205,33 @@ def plane_to_tiles_cuda(x, pad: int, *, by_grid: int | None = None,
     return out
 
 
-def tiles_to_plane_cuda(tiles, pad: int, h: int, w: int):
+def tiles_to_plane_cuda(tiles, pad: int, h: int, w: int, *, out=None):
     """T3: (.., 8, 8, By, Bx) uint8 tile-planes (any strides, Bx contiguous)
-    -> the new contiguous (.., h, w) interior [pad, pad + h) x [pad, pad + w)
-    of the extended plane they hold.  Grid tiles past the extended plane are
-    ignored.  Up to two leading batch axes.  The launch goes on the current
-    stream and does not synchronize.  CPU tensors take the plain version."""
+    -> the (.., h, w) interior [pad, pad + h) x [pad, pad + w) of the
+    extended plane they hold.  Grid tiles past the extended plane are
+    ignored.  Up to two leading batch axes.
+
+    out: optional destination of shape (.., h, w) with any strides but a
+    contiguous last axis -- e.g. the luma rows or the U/V pair of a packed
+    frame buffer, written in place.  Returns `out`, or a new contiguous
+    tensor.  The launch goes on the current stream and does not
+    synchronize.  CPU tensors take the plain version instead."""
     _check_u8(tiles, "tiles")
     if tiles.dim() < 4 or tuple(tiles.shape[-4:-2]) != (SAMPLE_BLOCK_SIZE, SAMPLE_BLOCK_SIZE):
         raise ValueError(f"tiles must be (.., 8, 8, By, Bx), got {tuple(tiles.shape)}")
     byg, bxg = tiles.shape[-2], tiles.shape[-1]
     _grid(h, w, pad, byg, bxg)
     _lead(tiles, "tiles", 4)
+    want = (*tiles.shape[:-4], h, w)
+    if out is None:
+        out = torch.empty(want, dtype=torch.uint8, device=tiles.device)
+    else:
+        _check_u8(out, "out", tiles.device)
+        if tuple(out.shape) != want:
+            raise ValueError(f"out has shape {tuple(out.shape)}, expected {want}")
     if tiles.device.type == "cpu":
-        return tiles_to_plane_plain(tiles, pad, h, w)
+        return out.copy_(tiles_to_plane_plain(tiles, pad, h, w))
     lib = _cuda_lib(tiles.device)
-    out = torch.empty((*tiles.shape[:-4], h, w), dtype=torch.uint8, device=tiles.device)
     if out.numel() == 0:
         return out
     err = lib.gvct_tiles_to_plane(tiles.data_ptr(), out.data_ptr(),

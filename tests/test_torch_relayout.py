@@ -11,6 +11,7 @@ nothing of JAX at module level, so they also run where JAX is not installed
 (`python -m pytest tests/test_torch_relayout.py -m cuda`).  Every
 comparison is byte-equal."""
 
+import math
 import shutil
 
 import numpy as np
@@ -182,6 +183,37 @@ def test_wrappers_reject_bad_operands(rng):
         rk.pack_yv12_cuda(flat[:64], flat[:32].reshape(2, 16), flat[:32].reshape(2, 16))
 
 
+def test_tiles_to_plane_out(rng):
+    """T3's out=: the luma rows and the U/V pair of a packed frame buffer,
+    and a view with wider rows, each written in place equal to plain, with
+    nothing else touched; bad destinations raise."""
+    h, w, p = 24, 48, 4
+    buf = torch.from_numpy(rng.integers(0, 256, (3 * h // 2, w), dtype=np.uint8))
+    keep = buf.clone()
+    yt = torch.from_numpy(rng.integers(0, 256, (8, 8, 4, 7), dtype=np.uint8))
+    uvt = torch.from_numpy(rng.integers(0, 256, (2, 8, 8, 2, 4), dtype=np.uint8))
+    assert rk.tiles_to_plane_cuda(yt, p, h, w, out=buf[:h]).data_ptr() == buf.data_ptr()
+    assert torch.equal(buf[:h], rk.tiles_to_plane_plain(yt, p, h, w))
+    assert torch.equal(buf[h:], keep[h:])
+    uv = buf[h:].view(2, h // 2, w // 2)
+    assert rk.tiles_to_plane_cuda(uvt, p, h // 2, w // 2, out=uv) is uv
+    assert torch.equal(uv, rk.tiles_to_plane_plain(uvt, p, h // 2, w // 2))
+    wide = torch.zeros((h, w + 5), dtype=torch.uint8)
+    rk.tiles_to_plane_cuda(yt, p, h, w, out=wide[:, :w])
+    assert torch.equal(wide[:, :w], buf[:h]) and not wide[:, w:].any()
+    with pytest.raises(ValueError, match="out has shape"):
+        rk.tiles_to_plane_cuda(yt, p, h, w, out=buf[: h - 1])
+    with pytest.raises(ValueError, match="out has shape"):
+        rk.tiles_to_plane_cuda(uvt, p, h // 2, w // 2, out=buf[:h])
+    with pytest.raises(ValueError, match="uint8"):
+        rk.tiles_to_plane_cuda(yt, p, h, w, out=torch.empty((h, w), dtype=torch.int32))
+    with pytest.raises(ValueError, match="last axis"):
+        rk.tiles_to_plane_cuda(yt, p, h, w, out=torch.empty((w, h), dtype=torch.uint8).t())
+    with pytest.raises(ValueError, match="expected"):
+        rk.tiles_to_plane_cuda(yt, p, h, w, out=torch.empty((h, w), dtype=torch.uint8,
+                                                           device="meta"))
+
+
 def test_missing_nvcc_names_the_relayout_source(monkeypatch, tmp_path):
     from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
 
@@ -222,8 +254,10 @@ def _random_geometry(rng):
 @pytest.mark.parametrize("seed", range(8))
 def test_host_relayout_matches_plain(host_lib, seed):
     """The kernels' block loops, over strided planes and strided
-    destinations, with the launch arguments the wrappers pass."""
+    destinations, with the launch arguments the wrappers pass, run by one
+    thread (odd seeds) or by the kernel's block of threads (even seeds)."""
     rng = np.random.default_rng(seed)
+    threads = rk.HOST_THREADS if seed % 2 == 0 else 1
     for _ in range(6):
         lead, h, w, pad, ey, ex = _random_geometry(rng)
         byg, bxg = _grid(h, w, pad, ey, ex)
@@ -235,25 +269,103 @@ def test_host_relayout_matches_plain(host_lib, seed):
             dests.append(_uv_stacked_out(lead, byg, bxg)[1])
         for dst in dests:
             assert host_lib.gvct_host_relayout(
-                0, x.data_ptr(), dst.data_ptr(), *rk._geom_args(x, dst, h, w, pad, byg, bxg)) == 0
+                threads, 0, x.data_ptr(), dst.data_ptr(),
+                *rk._geom_args(x, dst, h, w, pad, byg, bxg)) == 0
             assert torch.equal(dst, ref), (lead, h, w, pad, byg, bxg)
             back = torch.zeros((*lead, h, w), dtype=torch.uint8)
             tiles = _strided(rng, (*lead, 8, 8, byg, bxg)) if dst is out else dst
             assert host_lib.gvct_host_relayout(
-                1, tiles.data_ptr(), back.data_ptr(),
+                threads, 1, tiles.data_ptr(), back.data_ptr(),
                 *rk._geom_args(back, tiles, h, w, pad, byg, bxg)) == 0
             assert torch.equal(back, rk.tiles_to_plane_plain(tiles, pad, h, w))
+
+
+def _at_residue(rng, shape, off, row_pad=3, device="cpu"):
+    """A random uint8 view of `shape` that starts `off` bytes past a 16-byte
+    boundary, with rows `row_pad` bytes wider than they are long and every
+    outer stride one byte more than the extent inside it (so no stride is
+    a multiple of 4).  Returns (view, the whole buffer)."""
+    strides = [shape[-1] + row_pad, 1]
+    for n in reversed(shape[1:-1]):
+        strides.insert(0, strides[0] * n + 1)
+    size = off + sum((n - 1) * st for n, st in zip(shape, strides)) + 1 + 64
+    big = torch.empty(size + 16, dtype=torch.uint8, device=device)
+    big.copy_(torch.from_numpy(rng.integers(0, 256, size + 16, dtype=np.uint8)))
+    start = off - big.data_ptr() % 16 + (16 if big.data_ptr() % 16 > off else 0)
+    view = torch.as_strided(big, shape, strides, storage_offset=start)
+    assert view.data_ptr() % 16 == off and view.stride() == tuple(strides)
+    return view, big
+
+
+def _expect(big, view, value):
+    """`big` as it should read once `view` (a view into it) holds `value`
+    and no other byte changed."""
+    want = big.clone()
+    torch.as_strided(want, view.shape, view.stride(), view.storage_offset()).copy_(value)
+    return want
+
+
+def _host_round_trip(host_lib, rng, lead, h, w, pad, p_off, t_off, threads):
+    """T2 from a plane view at residue p_off into a tile view at residue
+    t_off, then T3 back into a second plane view at p_off: each equal to the
+    plain version, with every byte outside the destination view unchanged."""
+    byg, bxg = _grid(h, w, pad, 0, 0)
+    x, _ = _at_residue(rng, (*lead, h, w), p_off)
+    t, tbig = _at_residue(rng, (*lead, 8, 8, byg, bxg), t_off)
+    want = _expect(tbig, t, rk.plane_to_tiles_plain(x, pad, byg, bxg))
+    assert host_lib.gvct_host_relayout(
+        threads, 0, x.data_ptr(), t.data_ptr(), *rk._geom_args(x, t, h, w, pad, byg, bxg)) == 0
+    assert torch.equal(tbig, want), ("T2", lead, h, w, pad, p_off, t_off, threads)
+    t.copy_(torch.from_numpy(rng.integers(0, 256, t.shape, dtype=np.uint8)))
+    back, bbig = _at_residue(rng, (*lead, h, w), p_off)
+    want = _expect(bbig, back, rk.tiles_to_plane_plain(t, pad, h, w))
+    assert host_lib.gvct_host_relayout(
+        threads, 1, t.data_ptr(), back.data_ptr(),
+        *rk._geom_args(back, t, h, w, pad, byg, bxg)) == 0
+    assert torch.equal(bbig, want), ("T3", lead, h, w, pad, p_off, t_off, threads)
+
+
+@pytest.mark.parametrize("off", range(16))
+def test_host_relayout_every_base_residue(host_lib, off):
+    """Every start address residue mod 16, on the plane side and on the
+    tile side, with pad 4 (tile boundaries 4 bytes into a word) and pad 0,
+    alone and as a U+V pair."""
+    rng = np.random.default_rng(100 + off)
+    for lead, h, w, pad in (((), 20, 136, 4), ((2,), 16, 64, 0)):
+        for threads in (1, rk.HOST_THREADS):
+            _host_round_trip(host_lib, rng, lead, h, w, pad, off, 0, threads)
+            _host_round_trip(host_lib, rng, lead, h, w, pad, 0, off, threads)
+            _host_round_trip(host_lib, rng, lead, h, w, pad, off, 15 - off, threads)
+
+
+ODD_BX = [(bx, pad) for bx in (1, 2, 15, 16, 17, 31, 33, 241) for pad in (0, 4)
+          if 8 * bx > 2 * pad]
+
+
+@pytest.mark.parametrize("bx,pad", ODD_BX, ids=[f"bx{bx}-pad{pad}" for bx, pad in ODD_BX])
+def test_host_relayout_odd_bx(host_lib, bx, pad):
+    """Grids of Bx tiles around the chunk and span sizes (and 1080p luma's
+    241), at misaligned starts, held byte for byte against the plain
+    versions."""
+    rng = np.random.default_rng(bx * 10 + pad)
+    h = 12 if pad else 16  # pad 4: 12 + 8 rows in 2 tile rows, as 1080p chroma
+    for lead in ((), (2,)):
+        for threads in (1, rk.HOST_THREADS):
+            _host_round_trip(host_lib, rng, lead, h, 8 * bx - 2 * pad, pad, bx % 16,
+                             (3 * bx + 5) % 16, threads)
 
 
 def test_host_relayout_refuses_bad_geometry(host_lib):
     x = torch.zeros((16, 24), dtype=torch.uint8)
     t = torch.zeros((8, 8, 3, 4), dtype=torch.uint8)
     args = list(rk._geom_args(x, t, 16, 24, 4, 3, 4))
-    assert host_lib.gvct_host_relayout(0, x.data_ptr(), t.data_ptr(), *args) == 0
-    for i, bad in ((3, 2), (4, 3), (1, 20), (2, -1), (0, 14)):  # grid, w + 2pad, pad, rows
+    assert host_lib.gvct_host_relayout(1, 0, x.data_ptr(), t.data_ptr(), *args) == 0
+    for i, bad in ((3, 2), (4, 3), (1, 20), (2, -1), (0, 14),  # grid, w + 2pad, pad, rows
+                   (9, -24), (13, 2**31)):  # a negative row stride; 32-bit offsets
         wrong = args.copy()
         wrong[i] = bad
-        assert host_lib.gvct_host_relayout(0, x.data_ptr(), t.data_ptr(), *wrong) == -1, i
+        assert host_lib.gvct_host_relayout(1, 0, x.data_ptr(), t.data_ptr(), *wrong) == -1, i
+    assert host_lib.gvct_host_relayout(7, 0, x.data_ptr(), t.data_ptr(), *args) == -1
 
 
 def test_host_covered_tiles(host_lib):
@@ -339,3 +451,93 @@ def test_resident_on_card_matches_plain(rng, cuda_device, w, h):
     assert np.array_equal(out, ref.readback(ref.run_steps(ref.ingest(raws), 2)))
     on_card = torch.from_numpy(raws).to(cuda_device)  # ingest without a host copy
     assert np.array_equal(out, rd.readback(rd.run_steps(rd.ingest(on_card), 2)))
+
+
+def _card_round_trip(rng, dev, lead, h, w, pad, p_off, t_off):
+    """_host_round_trip through the wrappers on the card: T2 into a tile
+    view at residue t_off, T3 into a plane view at p_off (out=), each equal
+    to the plain version with no byte outside the view changed."""
+    byg, bxg = _grid(h, w, pad, 0, 0)
+    x, _ = _at_residue(rng, (*lead, h, w), p_off, device=dev)
+    t, tbig = _at_residue(rng, (*lead, 8, 8, byg, bxg), t_off, device=dev)
+    want = _expect(tbig, t, rk.plane_to_tiles_plain(x, pad, byg, bxg))
+    assert rk.plane_to_tiles_cuda(x, pad, out=t) is t
+    assert torch.equal(tbig, want), ("T2", lead, h, w, pad, p_off, t_off)
+    back, bbig = _at_residue(rng, (*lead, h, w), p_off, device=dev)
+    want = _expect(bbig, back, rk.tiles_to_plane_plain(t, pad, h, w))
+    assert rk.tiles_to_plane_cuda(t, pad, h, w, out=back) is back
+    assert torch.equal(bbig, want), ("T3", lead, h, w, pad, p_off, t_off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", range(16))
+def test_relayout_every_base_residue_on_card(cuda_device, off):
+    rng = np.random.default_rng(100 + off)
+    for lead, h, w, pad in (((), 20, 136, 4), ((2,), 16, 64, 0), ((), 1080, 1920, 4)):
+        _card_round_trip(rng, cuda_device, lead, h, w, pad, off, 0)
+        _card_round_trip(rng, cuda_device, lead, h, w, pad, 0, off)
+        _card_round_trip(rng, cuda_device, lead, h, w, pad, off, 15 - off)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bx,pad", ODD_BX, ids=[f"bx{bx}-pad{pad}" for bx, pad in ODD_BX])
+def test_relayout_odd_bx_on_card(cuda_device, bx, pad):
+    rng = np.random.default_rng(bx * 10 + pad)
+    h = 12 if pad else 16
+    for lead in ((), (2,)):
+        _card_round_trip(rng, cuda_device, lead, h, 8 * bx - 2 * pad, pad, bx % 16,
+                         (3 * bx + 5) % 16)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_tiles_to_plane_out_on_card(rng, cuda_device):
+    """T3 straight into the luma rows and the U/V pair of a 1080p packed
+    frame buffer equals plain, and leaves the other rows alone."""
+    h, w, p = 1080, 1920, 4
+    buf = torch.from_numpy(rng.integers(0, 256, (3 * h // 2, w), dtype=np.uint8)).to(cuda_device)
+    keep = buf.clone()
+    yt = torch.randint(0, 256, (8, 8, 136, 241), dtype=torch.uint8, device=cuda_device)
+    uvt = torch.randint(0, 256, (2, 8, 8, 68, 121), dtype=torch.uint8, device=cuda_device)
+    before = rk.LAUNCHES["inv"]
+    rk.tiles_to_plane_cuda(yt, p, h, w, out=buf[:h])
+    assert torch.equal(buf[:h], rk.tiles_to_plane_plain(yt, p, h, w))
+    assert torch.equal(buf[h:], keep[h:])
+    rk.tiles_to_plane_cuda(uvt, p, h // 2, w // 2, out=buf[h:].view(2, h // 2, w // 2))
+    assert torch.equal(buf[h:].view(2, h // 2, w // 2),
+                       rk.tiles_to_plane_plain(uvt, p, h // 2, w // 2))
+    assert rk.LAUNCHES["inv"] == before + 2
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("luma_only", [False, True], ids=["full", "luma_only"])
+@pytest.mark.parametrize("w,h", [(64, 48), (40, 24), (360, 288)],
+                         ids=["64x48", "sheared-40x24", "sheared-360x288"])
+def test_streaming_on_card_goes_through_t2_t3(rng, cuda_device, w, h, luma_only):
+    """The streaming packed step on the card launches T2, K1 and T3 once
+    each for luma and T2, K1c and T3 once each for U+V, in place or not,
+    and equals the plain backend."""
+    from gpu_video_codec_tpu_torch.models.streaming import StreamingDeblocker
+    from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
+
+    raw = rng.integers(0, 256, 3 * w * h // 2, dtype=np.uint8)
+    s = StreamingDeblocker(w, h, 35, luma_only=luma_only, device=cuda_device)
+    ref = StreamingDeblocker(w, h, 35, luma_only=luma_only, backend="torch",
+                             device=cuda_device)
+    want = ref._packed(s._put(raw), False)
+    for inplace in (False, True):
+        buf = s._put(raw)
+        keep = buf.clone()
+        before = {**rk.LAUNCHES, **ck.LAUNCHES}
+        out = s._packed(buf, inplace)
+        after = {**rk.LAUNCHES, **ck.LAUNCHES}
+        n = 1 if luma_only else 2
+        assert {k: after[k] - before[k] for k in before} == {
+            **dict.fromkeys(before, 0), "fwd": n, "inv": n, "luma": 1, "chroma": n - 1}
+        assert (out is buf) == inplace
+        assert torch.equal(out, want)
+        if not inplace:
+            assert torch.equal(buf, keep)
+    torch.cuda.synchronize()

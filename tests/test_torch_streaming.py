@@ -238,3 +238,51 @@ def test_packed_impl_backends_agree(rng):
             a, b = (_deblock_yv12_packed_impl(buf, s._lm, s._cm, s._beta, s._tc, w, h,
                                               luma_only, backend) for backend in BACKENDS)
             assert torch.equal(a, b), (w, h, luma_only)
+
+
+@pytest.mark.parametrize("luma_only", [False, True], ids=["full", "luma_only"])
+@pytest.mark.parametrize("w,h", [(64, 48), (40, 24), (360, 288)],
+                         ids=["64x48", "sheared-40x24", "sheared-360x288"])
+def test_cuda_backend_goes_through_t2_t3(rng, monkeypatch, w, h, luma_only):
+    """The cuda backend's packed and planes steps call T2 and T3
+    (plane_to_tiles_cuda, tiles_to_plane_cuda) -- once each for luma, once
+    more for U+V -- and never the plain relayout (interior_to_tiles,
+    tiles_to_interior) or deblock_chroma_ext_cuda, in place or not; the
+    bytes equal the JAX StreamingDeblocker's and golden."""
+    import gpu_video_codec_tpu_torch.models.streaming as st
+    import gpu_video_codec_tpu_torch.ops.cuda_kernel as ck
+    import gpu_video_codec_tpu_torch.utils.tiles as tl
+
+    calls = {"T2": 0, "T3": 0}
+
+    def spy(name, fn):
+        def counted(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    def banned(*args, **kwargs):
+        raise AssertionError("the cuda backend took the plain relayout")
+
+    monkeypatch.setattr(st, "plane_to_tiles_cuda", spy("T2", st.plane_to_tiles_cuda))
+    monkeypatch.setattr(st, "tiles_to_plane_cuda", spy("T3", st.tiles_to_plane_cuda))
+    for mod, name in ((tl, "interior_to_tiles"), (tl, "tiles_to_interior"),
+                      (ck, "deblock_chroma_ext_cuda"), (st, "interior_to_tiles"),
+                      (st, "tiles_to_interior"), (st, "deblock_chroma_ext_cuda")):
+        monkeypatch.setattr(mod, name, banned, raising=False)
+    raw = _raw_frame(rng, w, h)
+    want = _golden(raw, w, h, 35, luma_only=luma_only)
+    (ref,) = list(JaxStreaming(w, h, 35, backend="jnp", luma_only=luma_only).run([raw]))
+    assert np.array_equal(want, ref)
+    s = _sd(w, h, luma_only=luma_only)
+    for inplace in (False, True):
+        buf = torch.from_numpy(raw.reshape(3 * h // 2, w).copy())
+        out = s._packed(buf, inplace)
+        assert (out is buf) == inplace
+        if not inplace:
+            assert np.array_equal(buf.numpy().ravel(), raw)  # the input stays as it was
+        assert np.array_equal(out.numpy().ravel(), want)
+    y, uv = s.step_planes(*s.put_planes(raw))
+    assert np.array_equal(np.concatenate([y.numpy().ravel(), uv.numpy().ravel()]), want)
+    per_step = 1 if luma_only else 2
+    assert calls == {"T2": 3 * per_step, "T3": 3 * per_step}
