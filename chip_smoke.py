@@ -5,11 +5,14 @@
 
 0. Builds the kernels from gpu_video_codec_tpu_torch/csrc, one nvcc per
    library (deblock, relayout, SWAR), all started together, and prints
-   ptxas's registers and spills for every kernel entry.
+   ptxas's registers, spills and shared memory for every kernel entry, and
+   for K1/K1c (the quad kernel) at TB 32 and 64 tiles per block, from the
+   CUDA runtime: blocks and warps per SM, the 1080p grids' waves and the
+   staging word.
 1. Holds each variant of the deblock kernel against its plain PyTorch
    version on the card, byte for byte, at the main path's grids (1080p luma
-   and U+V chroma), a sheared chroma grid, tail grids and a batched luma
-   grid, over QP {0,17,30,35,51}.
+   and U+V chroma), a sheared chroma grid, tail grids (Bx 5, 1, 31, 33,
+   65) and a batched luma grid, over QP {0,17,30,35,51}, at TB 32 and 64.
 1b. Holds the relayout kernels T2 (plane -> tile-planes) and T3 (the
    inverse) and the pack kernel T4 against their plain versions, byte for
    byte: 1080p luma and U+V, the sheared 360x288 chroma core, a tail grid,
@@ -28,7 +31,8 @@
    golden NumPy oracle.
 2b. The int16 frame path: deblock_frame_cuda(dtype=torch.int16) on a
    synthetic 1920x1080 frame and a sheared 360x288 frame == golden, with
-   exactly one K1-i16 luma and one chroma launch per frame.
+   exactly one K1-i16 luma and one chroma launch, three T2 and three T3 per
+   frame (luma, U, V; no plain relayout or stacking copy on the card).
 2c. The three experiments' entry points (gpu_video_codec_tpu_torch/tools:
    int16_probe, rowslayout_exp, swar_exp --check and --race) on the card,
    each reporting bit-exact.
@@ -42,18 +46,22 @@
    steps and readback == the plain backend, with exactly 2 T2, 3 K1, 3 K1c,
    2 T3 and 1 T4 launches; luma_only (no K1c, chroma untouched); a BS
    update between steps.
-4. Times the kernels and their plain versions, the packed step, the copy
-   and the pipelined rate with CUDA events.
+4. Times K1 and K1c at TB 32 and 64 in turns with their plain versions,
+   the packed step, the copy and the pipelined rate with CUDA events.
 4b. Times T2, T3 and T4 at the 1080p shapes beside their plain versions
    and a one-call PyTorch yardstick (printing kernel / yardstick and the
    fraction of the byte bound), and the resident step, ingest and readback
    at 1080p, batch 1 and 4.
 4c. Lists the device kernels by name and time (torch.profiler) for the
-   resident path and the streaming packed step at 1080p; the step may run
-   no kernel but T2, K1, K1c and T3 (no layout copy, fill or write-back).
-4d. Times K1, K1-i16, T5 and T1 in turns at the race grid (136, 256), K1 on
-   uniform noise there too, and K1-i16 luma and chroma at the 1080p grids,
-   each beside its plain version and its byte bound.
+   resident path and the streaming packed step at 1080p; the step runs T2,
+   the quad K1 and K1c and T3 and no other kernel (no layout copy, fill or
+   write-back).
+4d. Times the quad K1 against the thread-per-tile K1-i16, T5 and T1 in
+   turns at the race grid (136, 256), on blocky tiles, on uniform noise
+   (cond1 fails almost everywhere) and, for K1 and K1-i16, with every BS
+   byte 0 (no segment filtered: what a design pays per tile whatever the
+   content), and K1-i16 luma and chroma at the 1080p grids, each beside
+   its plain version and its byte bound.
 
 Exits non-zero at the first failure.  Prints the card's name and power
 limit, a JSON line of per-kernel results, and last a JSON line with
@@ -76,6 +84,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 QPS = (0, 17, 30, 35, 51)
+BLOCKS = (32, 64)  # K1/K1c tiles per block (TB) held and timed
 KERNEL_SOURCE = "gpu_video_codec_tpu_torch/csrc/deblock_kernel.cu"
 TPU_KERNEL = "gpu_video_codec_tpu/ops/pallas_kernel.py:71"
 RELAYOUT_SOURCE = "gpu_video_codec_tpu_torch/csrc/relayout_kernel.cu"
@@ -155,7 +164,7 @@ def main() -> int:
     for path, log in builds:
         print(f"  -> {os.path.relpath(path, REPO)}")
         for line in log.splitlines():
-            if "entry function" in line or "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers", "spill", "smem")):
                 print(f"  ptxas: {line.strip()}")
         if not os.path.isfile(cuobjdump):
             print("  sass: cuobjdump not found (instruction counts not measured)")
@@ -172,6 +181,20 @@ def main() -> int:
                 entry = [line.split("Function : ")[1].strip(), 0]
             elif entry and line.lstrip().startswith("/*") and ";" in line:
                 entry[1] += 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grids_1080p = {"K1": (False, (8, 8, 136, 241)), "K1c": (True, (2, 8, 8, 68, 121))}
+    occupancy = {}
+    for kname, (chroma, shape) in grids_1080p.items():
+        for tb in BLOCKS:
+            occ = ck.deblock_tiles_occupancy(shape, chroma=chroma, block_bx=tb, device=dev)
+            blocks = -(-shape[-1] * shape[-2] // tb) * (shape[0] if len(shape) == 5 else 1)
+            occupancy[kname, tb] = {**occ, "grid_blocks": blocks,
+                                    "waves": blocks / (occ["blocks_per_sm"] * sms)}
+            print(f"occupancy {kname} TB {tb}: {occ['threads']} threads per block, "
+                  f"{occ['blocks_per_sm']} blocks = {occ['warps_per_sm']} warps per SM; the 1080p "
+                  f"grid {shape} is {blocks} blocks, {occupancy[kname, tb]['waves']:.2f} waves on "
+                  f"{sms} SMs ({4 * occupancy[kname, tb]['waves']:.2f} at batch 4); "
+                  f"{occ['word_bytes']}-byte staging accesses")
     rng = np.random.default_rng(2026)
 
     def counts() -> dict:
@@ -209,17 +232,19 @@ def main() -> int:
         ("luma tail", False, (8, 8, 3, 5), (3, 5)),
         ("chroma tail", True, (8, 8, 3, 5), (3, 5)),
         ("luma batched per-frame maps", False, (3, 8, 8, 136, 241), (3, 136, 241)),
-    ]
+    ] + [(f"{'chroma' if chroma else 'luma'} tail Bx {bx}", chroma, (8, 8, 2, bx), (2, bx))
+         for bx in (1, 31, 33, 65) for chroma in (False, True)]
     for name, chroma, shape, mshape in cases:
         for qp in QPS:
             tiles = torch.from_numpy(blocky_tiles(rng, shape)).to(dev)
             maps = [torch.from_numpy(rng.integers(0, 3, mshape, dtype=np.uint8)).to(dev)
                     for _ in range(4)]
             beta, tc = get_beta(qp), get_tc(qp)
-            out = ck.deblock_tiles_cuda(tiles, *maps, beta, tc, chroma=chroma)
-            same("K1c" if chroma else "K1", f"{name} qp {qp}", out,
-                 deblock_tiles_plain(tiles, *maps, beta, tc, chroma=chroma))
-        print(f"kernel == plain: {name} {shape}, QP {list(QPS)}")
+            ref = deblock_tiles_plain(tiles, *maps, beta, tc, chroma=chroma)
+            for tb in BLOCKS:
+                out = ck.deblock_tiles_cuda(tiles, *maps, beta, tc, chroma=chroma, block_bx=tb)
+                same("K1c" if chroma else "K1", f"{name} qp {qp} TB {tb}", out, ref)
+        print(f"kernel == plain: {name} {shape}, QP {list(QPS)}, TB {list(BLOCKS)}")
 
     # -- 1b. relayout and pack kernels vs plain on the card ------------------------
     w, h = 1920, 1080
@@ -404,7 +429,8 @@ def main() -> int:
         reset()
         y, u, v = ck.deblock_frame_cuda(*planes, lm, cm, beta35, tc35, dtype=torch.int16)
         got = counts()
-        check(got == only(**{"K1-i16": 1, "K1-i16c": 1}), f"int16 frame {w}x{h}: launches {got}")
+        check(got == only(**{"K1-i16": 1, "K1-i16c": 1, "T2": 3, "T3": 3}),
+              f"int16 frame {w}x{h}: launches {got}")
         i16_launches = {k: i16_launches[k] + got[k] for k in got}
         gold = deblock_frame_golden(fp, bs, 35)
         out = FramePlanes(y.cpu().numpy(), u.cpu().numpy(), v.cpu().numpy(), w, h)
@@ -539,27 +565,29 @@ def main() -> int:
         maps = [torch.from_numpy(rng.integers(0, 3, mshape, dtype=np.uint8)).to(dev)
                 for _ in range(4)]
         beta, tc = get_beta(35), get_tc(35)
-        # in turns: plain, kernel, kernel, plain
-        runs = {"plain": [], "kernel": []}
-        for which, iters in (("plain", 5), ("kernel", 200), ("kernel", 200), ("plain", 5)):
-            fn = ck.deblock_tiles_cuda if which == "kernel" else deblock_tiles_plain
-            runs[which].append(device_ms(lambda: fn(tiles, *maps, beta, tc, chroma=chroma),
-                                         iters))
+        # in turns: plain, TB 32, TB 64, TB 64, TB 32, plain
+        fns = {"plain": lambda: deblock_tiles_plain(tiles, *maps, beta, tc, chroma=chroma)}
+        for tb in BLOCKS:
+            fns[f"TB {tb}"] = lambda tb=tb: ck.deblock_tiles_cuda(tiles, *maps, beta, tc,
+                                                                  chroma=chroma, block_bx=tb)
+        r = in_turns(fns, {"plain": 5, **{f"TB {tb}": 200 for tb in BLOCKS}})
         short = name.split()[0]
+        block_bx = ck.CHROMA_BLOCK_BX if chroma else ck.BLOCK_BX
         by_path = {"stream": launches[short], "resident": res_launches[short]}
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max_err[short],
-            "ms": min(ms for ms, _ in runs["kernel"]),
-            "plain_ms": min(ms for ms, _ in runs["plain"]),
+            "ms": r[f"TB {block_bx}"][0], "plain_ms": r["plain"][0],
             # tiles read and written once, four BS maps read once
             "bound_ms": bytes_bound_ms(2 * tiles.numel() + 4 * maps[0].numel()),
             "bound_by": "bytes", "library_ms": None,
+            "block_bx": block_bx, "ms_by_block_bx": {tb: r[f"TB {tb}"][0] for tb in BLOCKS},
+            "warps_per_sm": occupancy[short, block_bx]["warps_per_sm"],
         })
-        print(f"{name} {shape}: " + "; ".join(
-            f"{which} " + " / ".join(f"{ms * 1e3:.2f} us (queued ahead: {ok})" for ms, ok in r)
-            for which, r in runs.items()) + f" (device time; {smi})")
+        print(f"{name} {shape}: " + ", ".join(f"{k} {ms * 1e3:.2f} us" for k, (ms, _) in r.items())
+              + f" (the path's TB {block_bx}; queued ahead: {all(ok for _, ok in r.values())}; "
+              f"device time; {smi})")
 
     raw = frames[1]
     buf = s._put(raw)
@@ -614,6 +642,10 @@ def main() -> int:
                      {"luma": 200, "U+V": 200})
     print("copy floor, T4 copying the same bytes in one launch: " + ", ".join(
         f"{k} {ms * 1e3:.2f} us" for k, (ms, _) in floor.items()) + f" (device time; {smi})")
+    for row, plane in zip(kernels[:2], ("luma", "U+V")):  # K1, K1c: their planes' bytes
+        row["copy_floor_ms"] = floor[plane][0]
+        print(f"{row['name']} / copy floor: " + ", ".join(
+            f"TB {tb} {ms / row['copy_floor_ms']:.3f}" for tb, ms in row["ms_by_block_bx"].items()))
     rows = {}
     for kname, shape, kern, plain_fn, lib_fn, nbytes in timed:
         r = in_turns({"kernel": kern, "plain": plain_fn, "library": lib_fn},
@@ -687,33 +719,50 @@ def main() -> int:
     trace("resident 1080p ingest + step + readback to the device, batch 4",
           lambda: _readback(rd1.step(rd1.ingest(frames4)), w, h), reps=5)
     step_rows = trace("streaming packed _step 1080p", lambda: s._step(buf))
-    ours = ("plane_to_tiles_kernel", "tiles_to_plane_kernel", "deblock")
+    ours = ("plane_to_tiles_kernel", "tiles_to_plane_kernel", "deblock_quad_kernel")
     stray = [key for _, _, key in step_rows if not any(k in key for k in ours)]
     check(not stray, f"the streaming step ran kernels besides T2, K1, K1c and T3: {stray}")
+    if step_rows:
+        missing = [k for k in ours if not any(k in key for _, _, key in step_rows)]
+        check(not missing, f"the streaming step did not run {missing}")
+        print("streaming step kernels: T2, the quad K1 and K1c, T3, and no other")
 
-    # -- 4d. K1, K1-i16, T5 and T1 side by side -----------------------------------------
+    # -- 4d. the quad K1 beside the thread-per-tile K1-i16, T5 and T1 --------------------
     by, bx = 136, 256  # the race grid of rowslayout_exp and swar_exp
     tiles, maps = tiles_maps((8, 8, by, bx), (by, bx))
     rows = tiles.permute(2, 0, 1, 3).contiguous()
     noise = torch.randint(0, 256, tiles.shape, dtype=torch.uint8, device=dev)
+    noise_rows = noise.permute(2, 0, 1, 3).contiguous()
+    off = [torch.zeros_like(m) for m in maps]  # BS 0: every segment gated off
     race = in_turns({
         "K1": lambda: ck.deblock_tiles_cuda(tiles, *maps, beta35, tc35),
         "K1-i16": lambda: ck.deblock_tiles_cuda(tiles, *maps, beta35, tc35, dtype=torch.int16),
         "T5": lambda: ck.deblock_rows_cuda(rows, *maps, beta35, tc35),
         "T1": lambda: sk.deblock_tiles_swar_cuda(tiles, *maps, beta35, tc35),
         "K1 on noise": lambda: ck.deblock_tiles_cuda(noise, *maps, beta35, tc35),
+        "K1-i16 on noise": lambda: ck.deblock_tiles_cuda(noise, *maps, beta35, tc35,
+                                                         dtype=torch.int16),
+        "T5 on noise": lambda: ck.deblock_rows_cuda(noise_rows, *maps, beta35, tc35),
         "T1 on noise": lambda: sk.deblock_tiles_swar_cuda(noise, *maps, beta35, tc35),
-    }, dict.fromkeys(("K1", "K1-i16", "T5", "T1", "K1 on noise", "T1 on noise"), 200))
+        "K1 BS 0": lambda: ck.deblock_tiles_cuda(tiles, *off, beta35, tc35),
+        "K1-i16 BS 0": lambda: ck.deblock_tiles_cuda(tiles, *off, beta35, tc35,
+                                                     dtype=torch.int16),
+    }, dict.fromkeys(("K1", "K1-i16", "T5", "T1", "K1 on noise", "K1-i16 on noise",
+                      "T5 on noise", "T1 on noise", "K1 BS 0", "K1-i16 BS 0"), 200))
     race_plain = in_turns({
         "int32": lambda: deblock_tiles_plain(tiles, *maps, beta35, tc35),
         "int16": lambda: deblock_tiles_plain(tiles, *maps, beta35, tc35, dtype=torch.int16),
         "rows": lambda: deblock_rows_plain(rows, *maps, beta35, tc35),
     }, {"int32": 5, "int16": 5, "rows": 5})
     race_bound = bytes_bound_ms(2 * tiles.numel() + 4 * maps[0].numel())
-    print(f"race grid (8, 8, {by}, {bx}), blocky tiles, QP 35: " + ", ".join(
-        f"{k} {ms * 1e3:.2f} us" for k, (ms, _) in race.items())
+    print(f"race grid (8, 8, {by}, {bx}), blocky tiles, QP 35, against the quad K1 (4 lanes "
+          f"per tile, TB {ck.BLOCK_BX}; K1-i16, T5 and T1 one thread per tile): " + ", ".join(
+              f"{k} {ms * 1e3:.2f} us" for k, (ms, _) in race.items())
         + f"; T1/K1 {race['T1'][0] / race['K1'][0]:.3f}, K1-i16/K1 "
-        f"{race['K1-i16'][0] / race['K1'][0]:.3f}, T5/K1 {race['T5'][0] / race['K1'][0]:.3f}; "
+        f"{race['K1-i16'][0] / race['K1'][0]:.3f}, T5/K1 {race['T5'][0] / race['K1'][0]:.3f}, "
+        f"noise/blocky: K1 {race['K1 on noise'][0] / race['K1'][0]:.3f}, K1-i16 "
+        f"{race['K1-i16 on noise'][0] / race['K1-i16'][0]:.3f}, T5 "
+        f"{race['T5 on noise'][0] / race['T5'][0]:.3f}; "
         f"plain " + ", ".join(f"{k} {ms * 1e3:.0f} us" for k, (ms, _) in race_plain.items())
         + f"; bound {race_bound * 1e3:.2f} us (kernels queued ahead: "
         f"{all(ok for _, ok in race.values())}; device time; {smi})")

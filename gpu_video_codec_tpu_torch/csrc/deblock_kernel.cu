@@ -1,70 +1,158 @@
-// HEVC deblock of a tile grid on Hopper (sm_90a): luma (K1) and chroma
-// (K1c) as one kernel templated on CHROMA and on the compute type T, int or
-// int16_t (K1-i16); and T5, the same per-tile math on the "rows" layout.
+// HEVC deblock of a tile grid on Hopper (sm_90a): luma (K1) and chroma (K1c)
+// as a quad of four lanes per tile (deblock_quad_kernel); the int16 variant
+// (K1-i16) and T5 with one thread per tile.
 //
-// K1 replaces the TPU kernel gpu_video_codec_tpu/ops/pallas_kernel.py::_kernel
-// (launched by deblock_tiles_pallas), which swept (8, 8, BLOCK_BY, BLOCK_BX)
-// VMEM blocks with tiles along the vector lanes.  Here one thread owns one
-// shifted 8x8 tile: it loads the tile's 64 bytes T[r, c, by, bx] and its four
-// BS bytes into registers, runs the four edge phases (deblock_tile.cuh) and
-// stores 64 bytes.  Threads run fastest along Bx, so each of the 64 plane
-// loads and stores is contiguous across a warp.  No shared memory: a
-// segment never leaves its tile, which also makes in == out safe.
+// K1 and K1c replace the TPU kernel
+// gpu_video_codec_tpu/ops/pallas_kernel.py::_kernel (:71, launched by
+// deblock_tiles_pallas at :197), which swept (8, 8, BLOCK_BY, BLOCK_BX)
+// VMEM blocks with tiles along the vector lanes.
 //
-// Grid (ceil(Bx / threads), By, NB); the guard `bx >= Bx` takes the place of
-// the padding tiles the TPU kernel needed.  Batched maps have a batch stride
-// of By*Bx (per-frame) or 0 (one map shared by the batch).
+// What bounds them: bytes.  Each tile is 64 B in, 4 BS bytes in and 64 B
+// out: at 1080p the luma grid (8, 8, 136, 241) moves 4.33 MB, 1.29 us at
+// 3.35 TB/s, and U+V (2, 8, 8, 68, 121) 2.14 MB, 0.64 us.  In practice one
+// launch that only copies the same bytes in 16-byte chunks takes 2.55-2.59
+// us (luma) and 2.28-2.32 us (U+V) on an H100 SXM (chip_smoke.py phase 4b),
+// so that copy floor, not half the bound, is what a deblock can approach.
 //
-// What bounds it: a 1080p frame is 32,776 luma + 16,456 chroma tiles, each
-// 64 B in + 4 B BS + 64 B out, about 6.5 MB (2 us at 3.35 TB/s), and a few
-// thousand int ops per tile.  At that size the launch, not the kernel, may
-// set the time.  The design keeps it to two launches per frame (luma, and U
-// and V together) and leaves batching frames into one launch (the batch
-// axis) and CUDA graphs to later work; wgmma and TMA do not apply to an
-// integer stencil.
+// Design.  One thread per tile (the first design) put 32,776 luma threads
+// on 132 SMs: about 8 warps per SM, 2 per scheduler, each thread one
+// dependent chain of 64 byte loads, four phases and 64 byte stores, with
+// nothing to hide its latency; and a warp ran the union of the filter
+// branches of 32 tiles.
+// Here a block owns TB consecutive tiles of a frame's flattened (By, Bx)
+// grid, with 4 * TB threads (deblock_quad.cuh):
+//   1. the block stages its 64 planes x TB bytes in shared memory with a
+//      coalesced cooperative load in 8-, 4- or 1-byte words (the widest
+//      the runs' alignment allows: a plane's TB tiles are TB consecutive
+//      bytes starting at a multiple of TB), every load issued before a
+//      store; each quad loads its tile's 4 BS bytes (one byte, broadcast);
+//   2. after __syncthreads, lane r of a tile reads tile rows r and 4 + r
+//      and runs upper-vert and lower-vert as two independent chains; each
+//      segment's decision needs its rows 0 and 3, so lanes 0 and 3 pack
+//      their terms into a word and two xor-shuffles sum it over the quad;
+//   3. it writes the rows back, __syncwarp, and reads column r and column
+//      4 + r rows 0-3 -- the stage is the transpose -- for left-hor then
+//      right-hor, whose Q side (quirk Q3) is the column left-hor just
+//      filtered in the same lane;
+//   4. after __syncthreads, a cooperative store in the load's words, exact
+//      to the byte at the grid's end.
+// 4x the threads (131,104 at 1080p luma; at most 64 registers by
+// __launch_bounds__, so at least 32 warps per SM), a quarter of the chain
+// per lane, and a warp's branches are the union over 8 tiles, not 32.
+// The grid is one wave at 1080p.  Lanes of tiles past the grid run every
+// exchange with BS 0 and store nothing: no thread leaves before a barrier
+// or a shuffle.  in == out is safe: a block loads all its bytes before it
+// stores any, and blocks own disjoint tiles.
+// What the design costs: every block loads, filters and stores in
+// lock-step inside the single wave, so the three phases add up rather than
+// overlap, and the quad issues more instructions per tile than one thread
+// per tile (each decision in four lanes, the stage traffic, the exchange);
+// staged one byte at a time, the load and store alone took longer than the
+// old kernel's whole run.  That work is paid per tile whatever the content:
+// with every BS byte 0 the kernel takes 85% of its time on filtered tiles,
+// so on content where cond1 fails and at batch 4, where one thread per tile
+// has latency enough hidden, it is no faster than one thread per tile
+// (PERF.md).
+//
+// What Hopper offers that does not apply: wgmma (there is no product; an
+// integer stencil); TMA (a tensor map needs global strides that are
+// multiples of 16 bytes, and the tile-plane stride By*Bx is 32,776 B for
+// luma, 8 mod 16, and 8,228 B for U+V, 4 mod 16); cp.async (4- to 16-byte
+// copies into shared memory need the same alignment the staging words
+// have, and would save the registers of a load that is issued in full
+// before any use anyway).
+//
+// Grid (ceil(By*Bx / TB), NB).  Batched maps have a batch stride of By*Bx
+// (per-frame) or 0 (one map shared by the batch).
 //
 // K1-i16 replaces the same TPU kernel called with dtype=int16
 // (pallas_kernel.py:139, driven by tools/int16_probe.py and
 // deblock_frame_pallas(dtype=)).  On the TPU int16 doubled the vector lanes
 // of a VPU-bound step.  A CUDA thread has no 16-bit lanes to double: its
 // registers are 32-bit and int16 arithmetic is int arithmetic plus the
-// narrowing that int16 wrap-around needs (deblock_tile.cuh::nar).  The
-// design keeps K1's thread-per-tile shape and only changes T, so the two
-// kernels differ in exactly the cost of int16 semantics on this card; the
-// bounds are K1's.
+// narrowing that int16 wrap-around needs (deblock_tile.cuh::nar).  It keeps
+// the thread-per-tile shape (one thread per tile, 128 per block) and the
+// per-row math of K1; its bounds are K1's.
 //
 // T5 replaces tools/rowslayout_exp.py::_rows_kernel (deblock_rows_layout),
 // which read the (By, r, c, Bx) layout a TPU relayout dot produces for free,
-// planes[r][c] = block[:, r, c, :].  Here it is K1's thread per tile with
+// planes[r][c] = block[:, r, c, :].  Here it is one thread per tile with
 // tile (by, bx) at by*64*Bx + (r*8+c)*Bx + bx instead of
-// (r*8+c)*By*Bx + by*Bx + bx: threads still run along Bx, so every one of
-// the 64 loads and stores coalesces across a warp, and a warp's 64 rows now
-// lie in one 64*Bx-byte span instead of 64 planes By*Bx bytes apart.  Its
-// bound is K1's bytes.  The grid is exact with a bounds guard; the JAX
-// divisibility demand on block_by/block_bx is a Pallas matter.
+// (r*8+c)*By*Bx + by*Bx + bx: threads run along Bx, so every one of the 64
+// loads and stores coalesces across a warp, and a warp's 64 rows lie in one
+// 64*Bx-byte span instead of 64 planes By*Bx bytes apart.  Its bound is
+// K1's bytes.  The grid is exact with a bounds guard; the JAX divisibility
+// demand on block_by/block_bx is a Pallas matter.
 
 #include <cuda_runtime.h>
 
-#include "deblock_tile.cuh"
+#include "deblock_quad.cuh"
 
 namespace {
 
-template <typename T, bool CHROMA>
-__global__ void deblock_tiles_kernel(const uint8_t* in, uint8_t* out,
-                                     const uint8_t* __restrict__ v1,
-                                     const uint8_t* __restrict__ v2,
-                                     const uint8_t* __restrict__ h1,
-                                     const uint8_t* __restrict__ h2,
-                                     gvct::Thresholds th, int by_n, int bx_n,
-                                     long long map_batch_stride) {
+// At most 64 registers: 4 blocks of the largest size fill the register file.
+template <bool CHROMA, int W>
+__global__ void __launch_bounds__(gvct::kQuadLanes * gvct::kQuadMaxTiles, 4)
+    deblock_quad_kernel(const uint8_t* in, uint8_t* out, const uint8_t* __restrict__ v1,
+                        const uint8_t* __restrict__ v2, const uint8_t* __restrict__ h1,
+                        const uint8_t* __restrict__ h2, gvct::Thresholds th, long long plane,
+                        long long map_batch_stride) {
+  __shared__ __align__(16) uint8_t stage[64 * gvct::kQuadStride];
+  const int tid = threadIdx.x;
+  const int tb = blockDim.x / gvct::kQuadLanes;
+  const long long cell = static_cast<long long>(blockIdx.x) * tb;
+  const int n = static_cast<int>(min(static_cast<long long>(tb), plane - cell));
+  const size_t b = blockIdx.y;
+  const size_t tiles = b * 64 * plane + cell;
+  gvct::QuadLane lane = gvct::quad_lane(tid);
+  gvct::quad_load_bs(lane, v1, v2, h1, h2, b * map_batch_stride + cell, n);
+  gvct::quad_stage_load<W>(in + tiles, plane, n, tb, stage, tid);
+  __syncthreads();
+
+  const unsigned quad = 0xFu << (tid & 28);  // the quad's lanes in its warp
+  auto quad_sum = [quad](uint32_t w) {
+    w += __shfl_xor_sync(quad, w, 1, gvct::kQuadLanes);
+    return w + __shfl_xor_sync(quad, w, 2, gvct::kQuadLanes);
+  };
+  gvct::quad_read_rows<CHROMA>(lane, stage);
+  if constexpr (CHROMA) {
+    gvct::quad_vert_chroma(lane, th);
+  } else {
+    uint32_t w[2];
+    gvct::quad_vert_words(lane, th, w);
+    const uint32_t sum[2] = {quad_sum(w[0]), quad_sum(w[1])};
+    gvct::quad_vert_luma(lane, sum, th);
+  }
+  gvct::quad_write_rows<CHROMA>(lane, stage);
+  __syncwarp(quad);
+  gvct::quad_read_cols<CHROMA>(lane, stage);
+  if constexpr (CHROMA) {
+    gvct::quad_hor_chroma(lane, th);
+  } else {
+    gvct::quad_left_luma(lane, quad_sum(gvct::quad_left_word(lane, th)), th);
+    gvct::quad_right_luma(lane, quad_sum(gvct::quad_right_word(lane, th)), th);
+  }
+  gvct::quad_write_cols<CHROMA>(lane, stage);
+  __syncthreads();
+  gvct::quad_stage_store<W>(stage, out + tiles, plane, n, tb, tid);
+}
+
+template <bool CHROMA>
+__global__ void deblock_tiles_i16_kernel(const uint8_t* in, uint8_t* out,
+                                         const uint8_t* __restrict__ v1,
+                                         const uint8_t* __restrict__ v2,
+                                         const uint8_t* __restrict__ h1,
+                                         const uint8_t* __restrict__ h2,
+                                         gvct::Thresholds th, int by_n, int bx_n,
+                                         long long map_batch_stride) {
   const int bx = blockIdx.x * blockDim.x + threadIdx.x;
   if (bx >= bx_n) return;
   const size_t plane = static_cast<size_t>(by_n) * bx_n;
   const size_t cell = static_cast<size_t>(blockIdx.y) * bx_n + bx;
   const size_t b = blockIdx.z;
-  gvct::deblock_tile_at<T, CHROMA>(in, out, v1, v2, h1, h2, plane,
-                                   b * 64 * plane + cell,
-                                   b * static_cast<size_t>(map_batch_stride) + cell, th);
+  gvct::deblock_tile_at<int16_t, CHROMA>(in, out, v1, v2, h1, h2, plane,
+                                         b * 64 * plane + cell,
+                                         b * static_cast<size_t>(map_batch_stride) + cell, th);
 }
 
 template <bool CHROMA>
@@ -79,36 +167,66 @@ __global__ void deblock_rows_kernel(const uint8_t* in, uint8_t* out,
   gvct::deblock_rows_tile<CHROMA>(in, out, v1, v2, h1, h2, bx_n, blockIdx.y, bx, th);
 }
 
-template <typename T>
-void launch_tiles(dim3 grid, dim3 block, cudaStream_t s, const uint8_t* i, uint8_t* o,
-                  const uint8_t* m1, const uint8_t* m2, const uint8_t* m3, const uint8_t* m4,
-                  const gvct::Thresholds& th, int by, int bx, long long map_batch_stride,
-                  int chroma) {
-  if (chroma) {
-    deblock_tiles_kernel<T, true><<<grid, block, 0, s>>>(i, o, m1, m2, m3, m4, th, by, bx,
-                                                         map_batch_stride);
-  } else {
-    deblock_tiles_kernel<T, false><<<grid, block, 0, s>>>(i, o, m1, m2, m3, m4, th, by, bx,
-                                                          map_batch_stride);
+using TilesKernel = void (*)(const uint8_t*, uint8_t*, const uint8_t*, const uint8_t*,
+                             const uint8_t*, const uint8_t*, gvct::Thresholds, long long,
+                             long long);
+
+template <bool CHROMA>
+TilesKernel quad_kernel(int word_bytes) {
+  return word_bytes == 8   ? deblock_quad_kernel<CHROMA, 8>
+         : word_bytes == 4 ? deblock_quad_kernel<CHROMA, 4>
+                           : deblock_quad_kernel<CHROMA, 1>;
+}
+
+// A launch of gvct_deblock_tiles: grid, threads per block and kernel (the
+// quad's; K1-i16's is picked at the launch), or threads == 0 for a
+// block_bx out of range.  K1/K1c: one block per
+// block_bx cells of a frame's flattened grid; K1-i16: per block_bx tiles of
+// a tile row.
+struct TilesLaunch {
+  dim3 grid;
+  int threads = 0, word_bytes = 1;
+  TilesKernel kernel = nullptr;
+  bool i16 = false;
+};
+
+TilesLaunch tiles_launch(int chroma, int int16, int block_bx, int nb, int by, int bx,
+                         const void* in, const void* out) {
+  TilesLaunch l;
+  const long long plane = static_cast<long long>(by) * bx;
+  if (int16) {
+    if (block_bx < 1 || block_bx > 1024) return l;
+    l.i16 = true;
+    l.threads = block_bx;
+    l.grid = dim3((bx + block_bx - 1) / block_bx, by, nb);
+    return l;
   }
+  if (block_bx < 1 || block_bx > gvct::kQuadMaxTiles) return l;
+  l.threads = gvct::kQuadLanes * block_bx;
+  l.word_bytes = gvct::quad_word_bytes(plane, block_bx, in, out);
+  l.kernel = chroma ? quad_kernel<true>(l.word_bytes) : quad_kernel<false>(l.word_bytes);
+  l.grid = dim3(static_cast<unsigned>((plane + block_bx - 1) / block_bx), nb);
+  return l;
 }
 
 }  // namespace
 
 // Launch on `stream` without synchronizing.  tiles: nb x (8, 8, by, bx)
 // uint8, contiguous; maps: (by, bx) uint8 each, batch stride
-// map_batch_stride.  int16 != 0 computes in int16_t (K1-i16).  Returns
-// cudaGetLastError() after the launch (0 = ok).
+// map_batch_stride.  int16 = 0: K1/K1c, block_bx tiles and 4 * block_bx
+// threads per block (block_bx 1..64); int16 != 0: K1-i16, block_bx tiles
+// and threads per block (1..1024).  Returns cudaGetLastError() after the
+// launch (0 = ok).
 extern "C" int gvct_deblock_tiles(const void* in, void* out, const void* v1,
                                   const void* v2, const void* h1, const void* h2,
                                   int beta, int tc, int nb, int by, int bx,
                                   long long map_batch_stride, int chroma, int int16,
-                                  int threads, int device, void* stream) {
+                                  int block_bx, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const TilesLaunch l = tiles_launch(chroma, int16, block_bx, nb, by, bx, in, out);
+  if (l.threads == 0) return static_cast<int>(cudaErrorInvalidValue);
   const gvct::Thresholds th = gvct::make_thresholds(beta, tc);
-  const dim3 grid((bx + threads - 1) / threads, by, nb);
-  const dim3 block(threads);
   auto s = static_cast<cudaStream_t>(stream);
   auto i = static_cast<const uint8_t*>(in);
   auto o = static_cast<uint8_t*>(out);
@@ -116,14 +234,36 @@ extern "C" int gvct_deblock_tiles(const void* in, void* out, const void* v1,
   auto m2 = static_cast<const uint8_t*>(v2);
   auto m3 = static_cast<const uint8_t*>(h1);
   auto m4 = static_cast<const uint8_t*>(h2);
-  if (int16) {
-    launch_tiles<int16_t>(grid, block, s, i, o, m1, m2, m3, m4, th, by, bx, map_batch_stride,
-                          chroma);
+  if (l.i16) {
+    if (chroma) {
+      deblock_tiles_i16_kernel<true><<<l.grid, l.threads, 0, s>>>(i, o, m1, m2, m3, m4, th, by,
+                                                                  bx, map_batch_stride);
+    } else {
+      deblock_tiles_i16_kernel<false><<<l.grid, l.threads, 0, s>>>(i, o, m1, m2, m3, m4, th, by,
+                                                                   bx, map_batch_stride);
+    }
   } else {
-    launch_tiles<int>(grid, block, s, i, o, m1, m2, m3, m4, th, by, bx, map_batch_stride,
-                      chroma);
+    l.kernel<<<l.grid, l.threads, 0, s>>>(i, o, m1, m2, m3, m4, th,
+                                          static_cast<long long>(by) * bx, map_batch_stride);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// For K1/K1c on an aligned (by, bx) grid with block_bx tiles per block:
+// out[0] the blocks one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] threads per
+// block, out[2] the bytes per global access of the staging.  Returns a CUDA
+// error code (0 = ok).
+extern "C" int gvct_deblock_tiles_occupancy(int chroma, int block_bx, int by, int bx, int device,
+                                            int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const TilesLaunch l = tiles_launch(chroma, 0, block_bx, 1, by, bx, nullptr, nullptr);
+  if (l.threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+  out[1] = l.threads;
+  out[2] = l.word_bytes;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], l.kernel, l.threads, 0));
 }
 
 // T5: the rows layout (by, 8, 8, bx) uint8, contiguous; maps (by, bx).

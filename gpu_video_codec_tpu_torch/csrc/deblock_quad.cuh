@@ -1,0 +1,399 @@
+// K1 and K1c as a quad of four lanes per tile (deblock_kernel.cu,
+// deblock_quad_kernel), shared by the CUDA kernel and the host build
+// (host_shim.cpp).  A block owns TB consecutive cells (tiles) of the
+// flattened (By, Bx) grid of one frame and 4 * TB threads.  The functions
+// below are a thread's work between the kernel's exchange points
+// (__syncthreads, __syncwarp, the quad's shuffles); the kernel runs them one
+// after another in each thread, the host build runs every thread of a block
+// through one function before the next.
+//
+// Thread tid is lane r = tid & 3 of tile t = tid >> 2, so a quad is four
+// adjacent lanes of one warp.  Lane r is segment row r in every phase:
+//   vertical phases: tile rows r and 4 + r (row r of upper-vert and of
+//     lower-vert: disjoint pixels, so two independent chains);
+//   horizontal phases: column r (left-hor row r, and right-hor row r's Q
+//     side, quirk Q3) and column 4 + r rows 0-3 (right-hor row r's P side),
+//     so right-hor reads the Q pixels left-hor wrote in the same lane.
+// A luma segment's decision reads its rows 0 and 3: lanes 0 and 3 pack
+// their row's terms into one word, lanes 1 and 2 contribute 0, and two
+// xor-shuffles sum the words over the quad (the host build: a sum over the
+// quad's array), so every lane holds the segment's terms.  The BS gate,
+// cond1 and the strong/normal choice are thus one per quad; only the
+// normal filter's per-row |delta0| gate differs by lane.
+//
+// Shared stage: plane (r, c) of the block's tiles at stage row k = 8r + c,
+// stride kQuadStride bytes, tile t at column t.  A warp's 8 tiles are 2
+// words of one row.  The stride is 17 words (the 32 banks are 32-bit
+// words), so the four lanes of a quad reading one tile row each (stage rows
+// k, k + 8, k + 16, k + 24: 8 words apart mod 32) or one column each (rows
+// k .. k + 3: 17 apart) hit different banks.  The stage is 64 x 68 bytes,
+// sized for the largest block, kQuadMaxTiles.
+//
+// The block moves its bytes between global memory and the stage in W-byte
+// words (W = 8, 4 or 1, the widest that every run's alignment allows,
+// quad_word_bytes): a plane's TB tiles are TB consecutive bytes at
+// plane * k + cell0, so with cell0 a multiple of TB the runs are W-aligned
+// when the plane size, TB and the base addresses are.
+#pragma once
+
+#include <cstring>
+
+#include "deblock_tile.cuh"
+
+namespace gvct {
+
+constexpr int kQuadLanes = 4;
+constexpr int kQuadMaxTiles = 64;  // 4 * 64 = 256 threads per block
+constexpr int kQuadStride = 4 * (kQuadMaxTiles / 4 + 1);  // 17 words: a row and a word of pad
+
+// The widest word, 8, 4 or 1 bytes, in which a launch's runs are aligned.
+GVCT_HD int quad_word_bytes(long long plane, int tb, const void* in, const void* out) {
+  const unsigned long long addr = static_cast<unsigned long long>(
+      reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out));
+  for (int w = 8; w > 1; w /= 2) {
+    if (w != 2 && plane % w == 0 && tb % w == 0 && addr % w == 0) return w;
+  }
+  return 1;
+}
+
+// W bytes held in 32-bit words (byte e is byte e & 3 of word e >> 2).
+template <int W>
+struct Word {
+  uint32_t w[W < 4 ? 1 : W / 4];
+};
+
+// The first `avail` of the W bytes at p (all W when avail >= W, in one
+// aligned access on the device), the rest 0.
+template <int W>
+GVCT_HD Word<W> read_word(const uint8_t* p, int avail) {
+  Word<W> x{};
+  if (avail >= W) {
+#ifdef __CUDA_ARCH__
+    if constexpr (W == 8) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      x.w[0] = v.x;
+      x.w[1] = v.y;
+    } else if constexpr (W == 4) {
+      x.w[0] = *reinterpret_cast<const uint32_t*>(p);
+    } else {
+      x.w[0] = *p;
+    }
+#else
+    std::memcpy(x.w, p, W);
+#endif
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e) {  // static indices keep x in registers
+      if (e < avail) x.w[e >> 2] |= static_cast<uint32_t>(p[e]) << (8 * (e & 3));
+    }
+  }
+  return x;
+}
+
+// Store the first `avail` bytes of x at p (all W in one access when
+// avail >= W); nothing when avail <= 0.
+template <int W>
+GVCT_HD void write_word(uint8_t* p, const Word<W>& x, int avail) {
+  if (avail >= W) {
+#ifdef __CUDA_ARCH__
+    if constexpr (W == 8) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(x.w[0], x.w[1]);
+    } else if constexpr (W == 4) {
+      *reinterpret_cast<uint32_t*>(p) = x.w[0];
+    } else {
+      *p = static_cast<uint8_t>(x.w[0]);
+    }
+#else
+    std::memcpy(p, x.w, W);
+#endif
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      if (e < avail) p[e] = static_cast<uint8_t>(x.w[e >> 2] >> (8 * (e & 3)));
+    }
+  }
+}
+
+// A word at a 4-aligned stage position (W = 4, 8) or any (W = 1).
+template <int W>
+GVCT_HD void stage_put(uint8_t* s, const Word<W>& x) {
+  if constexpr (W == 1) {
+    *s = static_cast<uint8_t>(x.w[0]);
+  } else {
+#ifdef __CUDA_ARCH__
+#pragma unroll
+    for (int i = 0; i < W / 4; ++i) reinterpret_cast<uint32_t*>(s)[i] = x.w[i];
+#else
+    std::memcpy(s, x.w, W);
+#endif
+  }
+}
+
+template <int W>
+GVCT_HD Word<W> stage_get(const uint8_t* s) {
+  Word<W> x{};
+  if constexpr (W == 1) {
+    x.w[0] = *s;
+  } else {
+#ifdef __CUDA_ARCH__
+#pragma unroll
+    for (int i = 0; i < W / 4; ++i) x.w[i] = reinterpret_cast<const uint32_t*>(s)[i];
+#else
+    std::memcpy(x.w, s, W);
+#endif
+  }
+  return x;
+}
+
+struct QuadLane {
+  int t, r;         // tile in the block, segment row
+  int bs[4];        // the tile's BS bytes (ver1, ver2, hor1, hor2), 0 past the grid
+  int a[8], b[8];   // vertical phases: tile rows r and 4 + r
+  int cl[8], cr[4]; // horizontal phases: column r, column 4 + r rows 0-3
+};
+
+GVCT_HD QuadLane quad_lane(int tid) {
+  QuadLane lane{};
+  lane.t = tid >> 2;
+  lane.r = tid & 3;
+  return lane;
+}
+
+// The tile's BS bytes: `map` is the block's first tile in each map, n the
+// block's tiles inside the grid.  The four lanes of a quad read one byte.
+GVCT_HD void quad_load_bs(QuadLane& lane, const uint8_t* v1, const uint8_t* v2,
+                          const uint8_t* h1, const uint8_t* h2, size_t map, int n) {
+  const bool inside = lane.t < n;
+  const size_t at = map + lane.t;
+  lane.bs[0] = inside ? v1[at] : 0;
+  lane.bs[1] = inside ? v2[at] : 0;
+  lane.bs[2] = inside ? h1[at] : 0;
+  lane.bs[3] = inside ? h2[at] : 0;
+}
+
+// Words a thread keeps in flight in the cooperative load and store.  With
+// 1-byte words the 16 accesses go in two groups, one after the other (the
+// group loop stays rolled): all 16 addresses live at once spilled past the
+// 64 registers the kernel's launch bounds allow.
+constexpr int kQuadInFlight = 8;
+
+// The block's cooperative load, in W-byte words: thread tid reads word m =
+// tid % (TB / W) of the 16 / W planes k = 4W * j + tid / (TB / W)
+// (consecutive threads read consecutive words of one plane), a group of
+// loads before its stage stores.  `src` is the block's first tile in plane
+// 0; bytes past the grid's n tiles are staged as 0.  TB % W == 0.
+template <int W>
+GVCT_HD void quad_stage_load(const uint8_t* src, size_t plane, int n, int tb, uint8_t* stage,
+                             int tid) {
+  constexpr int kWords = 16 / W, kGroup = kWords < kQuadInFlight ? kWords : kQuadInFlight;
+  const int wpp = tb / W;
+  const int k0 = tid / wpp, m = tid - k0 * wpp;
+#pragma unroll 1
+  for (int j0 = 0; j0 < kWords; j0 += kGroup) {
+    Word<W> v[kGroup];
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const int k = 4 * W * (j0 + j) + k0;
+      v[j] = read_word<W>(src + static_cast<size_t>(k) * plane + W * m, n - W * m);
+    }
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      stage_put<W>(stage + (4 * W * (j0 + j) + k0) * kQuadStride + W * m, v[j]);
+    }
+  }
+}
+
+// The block's cooperative store, the load's mapping; nothing past the grid.
+template <int W>
+GVCT_HD void quad_stage_store(const uint8_t* stage, uint8_t* dst, size_t plane, int n, int tb,
+                              int tid) {
+  constexpr int kWords = 16 / W, kGroup = kWords < kQuadInFlight ? kWords : kQuadInFlight;
+  const int wpp = tb / W;
+  const int k0 = tid / wpp, m = tid - k0 * wpp;
+#pragma unroll 1
+  for (int j0 = 0; j0 < kWords; j0 += kGroup) {
+    Word<W> v[kGroup];
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      v[j] = stage_get<W>(stage + (4 * W * (j0 + j) + k0) * kQuadStride + W * m);
+    }
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const int k = 4 * W * (j0 + j) + k0;
+      write_word<W>(dst + static_cast<size_t>(k) * plane + W * m, v[j], n - W * m);
+    }
+  }
+}
+
+// Tile rows r and 4 + r: all 8 columns (luma), columns 2-5 (chroma).
+template <bool CHROMA>
+GVCT_HD void quad_read_rows(QuadLane& lane, const uint8_t* stage) {
+  const uint8_t* a = stage + lane.r * 8 * kQuadStride + lane.t;
+  const uint8_t* b = a + 32 * kQuadStride;
+#pragma unroll
+  for (int c = CHROMA ? 2 : 0; c < (CHROMA ? 6 : 8); ++c) {
+    lane.a[c] = a[c * kQuadStride];
+    lane.b[c] = b[c * kQuadStride];
+  }
+}
+
+// The columns the vertical phases may change: 1-6 (luma), 3-4 (chroma).
+template <bool CHROMA>
+GVCT_HD void quad_write_rows(const QuadLane& lane, uint8_t* stage) {
+  uint8_t* a = stage + lane.r * 8 * kQuadStride + lane.t;
+  uint8_t* b = a + 32 * kQuadStride;
+#pragma unroll
+  for (int c = CHROMA ? 3 : 1; c < (CHROMA ? 5 : 7); ++c) {
+    a[c * kQuadStride] = static_cast<uint8_t>(lane.a[c]);
+    b[c * kQuadStride] = static_cast<uint8_t>(lane.b[c]);
+  }
+}
+
+// Column r (rows 0-7 luma, 2-5 chroma) and column 4 + r (rows 0-3 luma,
+// 2-3 chroma), after the whole quad wrote its rows.
+template <bool CHROMA>
+GVCT_HD void quad_read_cols(QuadLane& lane, const uint8_t* stage) {
+  const uint8_t* l = stage + lane.r * kQuadStride + lane.t;
+  const uint8_t* r = l + 4 * kQuadStride;
+#pragma unroll
+  for (int i = CHROMA ? 2 : 0; i < (CHROMA ? 6 : 8); ++i) lane.cl[i] = l[i * 8 * kQuadStride];
+#pragma unroll
+  for (int i = CHROMA ? 2 : 0; i < 4; ++i) lane.cr[i] = r[i * 8 * kQuadStride];
+}
+
+// The pixels the horizontal phases may change: column r rows 1-6 and
+// column 4 + r rows 1-3 (luma); rows 3-4 and row 3 (chroma).
+template <bool CHROMA>
+GVCT_HD void quad_write_cols(const QuadLane& lane, uint8_t* stage) {
+  uint8_t* l = stage + lane.r * kQuadStride + lane.t;
+  uint8_t* r = l + 4 * kQuadStride;
+#pragma unroll
+  for (int i = CHROMA ? 3 : 1; i < (CHROMA ? 5 : 7); ++i) {
+    l[i * 8 * kQuadStride] = static_cast<uint8_t>(lane.cl[i]);
+  }
+#pragma unroll
+  for (int i = CHROMA ? 3 : 1; i < 4; ++i) {
+    r[i * 8 * kQuadStride] = static_cast<uint8_t>(lane.cr[i]);
+  }
+}
+
+// -- luma ----------------------------------------------------------------------
+
+// The lane's word for the quad sum: its row's dp and dq (at most 510 each,
+// so a sum of two fits 10 bits) and a count of rows that fail the strong
+// conditions, from rows 0 and 3 only.
+GVCT_HD uint32_t quad_word(const RowTerms& rt, int r) {
+  return (r == 0 || r == 3) ? static_cast<uint32_t>(rt.dp) | static_cast<uint32_t>(rt.dq) << 10 |
+                                  static_cast<uint32_t>(!rt.strong) << 20
+                            : 0u;
+}
+
+// The segment's terms from the quad sum of quad_word.
+GVCT_HD RowTerms segment_terms(uint32_t sum) {
+  return RowTerms{static_cast<int>(sum & 1023), static_cast<int>(sum >> 10 & 1023),
+                  (sum >> 20) == 0};
+}
+
+// P and Q of a segment row that lies along a row array: p[j] = row[3 - j],
+// q[j] = row[4 + j] (vertical phases, and left-hor along column r).
+GVCT_HD void split_row(const int (&row)[8], int (&p)[4], int (&q)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    p[j] = row[3 - j];
+    q[j] = row[4 + j];
+  }
+}
+
+GVCT_HD void join_row(int (&row)[8], const int (&p)[4], const int (&q)[4]) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    row[3 - j] = p[j];
+    row[4 + j] = q[j];
+  }
+}
+
+// Right-hor row r: P from column 4 + r, Q from column r (Q3).
+GVCT_HD void split_right(const QuadLane& lane, int (&p)[4], int (&q)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    p[j] = lane.cr[3 - j];
+    q[j] = lane.cl[4 + j];
+  }
+}
+
+GVCT_HD void join_right(QuadLane& lane, const int (&p)[4], const int (&q)[4]) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    lane.cr[3 - j] = p[j];
+    lane.cl[4 + j] = q[j];
+  }
+}
+
+// The lane's row of one luma segment, given the quad sum of its words.
+GVCT_HD void quad_luma_row(int (&p)[4], int (&q)[4], int bs, uint32_t sum, const Thresholds& th) {
+  if (gated_on<false>(bs)) luma_row<int>(p, q, luma_decision<int>(segment_terms(sum), th), th);
+}
+
+// Upper-vert and lower-vert words: w[0] of row r, w[1] of row 4 + r.
+GVCT_HD void quad_vert_words(const QuadLane& lane, const Thresholds& th, uint32_t (&w)[2]) {
+  int p[4], q[4];
+  split_row(lane.a, p, q);
+  w[0] = quad_word(row_terms<int>(p, q, th), lane.r);
+  split_row(lane.b, p, q);
+  w[1] = quad_word(row_terms<int>(p, q, th), lane.r);
+}
+
+// sum = the quad sums of quad_vert_words' w[0] and w[1].
+GVCT_HD void quad_vert_luma(QuadLane& lane, const uint32_t (&sum)[2], const Thresholds& th) {
+  int p[4], q[4];
+  split_row(lane.a, p, q);
+  quad_luma_row(p, q, lane.bs[0], sum[0], th);
+  join_row(lane.a, p, q);
+  split_row(lane.b, p, q);
+  quad_luma_row(p, q, lane.bs[1], sum[1], th);
+  join_row(lane.b, p, q);
+}
+
+GVCT_HD uint32_t quad_left_word(const QuadLane& lane, const Thresholds& th) {
+  int p[4], q[4];
+  split_row(lane.cl, p, q);
+  return quad_word(row_terms<int>(p, q, th), lane.r);
+}
+
+GVCT_HD void quad_left_luma(QuadLane& lane, uint32_t sum, const Thresholds& th) {
+  int p[4], q[4];
+  split_row(lane.cl, p, q);
+  quad_luma_row(p, q, lane.bs[2], sum, th);
+  join_row(lane.cl, p, q);
+}
+
+GVCT_HD uint32_t quad_right_word(const QuadLane& lane, const Thresholds& th) {
+  int p[4], q[4];
+  split_right(lane, p, q);
+  return quad_word(row_terms<int>(p, q, th), lane.r);
+}
+
+GVCT_HD void quad_right_luma(QuadLane& lane, uint32_t sum, const Thresholds& th) {
+  int p[4], q[4];
+  split_right(lane, p, q);
+  quad_luma_row(p, q, lane.bs[3], sum, th);
+  join_right(lane, p, q);
+}
+
+// -- chroma: no decision, so no exchange -------------------------------------------
+
+GVCT_HD void quad_chroma_row(int& p0, int p1, int& q0, int q1, int bs, int tc) {
+  if (gated_on<true>(bs)) chroma_row<int>(p0, p1, q0, q1, tc);
+}
+
+GVCT_HD void quad_vert_chroma(QuadLane& lane, const Thresholds& th) {
+  quad_chroma_row(lane.a[3], lane.a[2], lane.a[4], lane.a[5], lane.bs[0], th.tc);
+  quad_chroma_row(lane.b[3], lane.b[2], lane.b[4], lane.b[5], lane.bs[1], th.tc);
+}
+
+GVCT_HD void quad_hor_chroma(QuadLane& lane, const Thresholds& th) {
+  quad_chroma_row(lane.cl[3], lane.cl[2], lane.cl[4], lane.cl[5], lane.bs[2], th.tc);
+  quad_chroma_row(lane.cr[3], lane.cr[2], lane.cl[4], lane.cl[5], lane.bs[3], th.tc);
+}
+
+}  // namespace gvct

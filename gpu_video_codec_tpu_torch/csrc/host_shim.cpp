@@ -1,9 +1,11 @@
 // Host (g++) build of the kernels' per-tile math and indexing, for the CPU
 // tests: each loop below visits the tiles, blocks or chunks that the CUDA
 // grid assigns to its threads and calls the same functions the kernels do
-// (deblock_tile.cuh, swar_tile.cuh, relayout_tile.cuh).
+// (deblock_tile.cuh, deblock_quad.cuh, swar_tile.cuh, relayout_tile.cuh).
 
-#include "deblock_tile.cuh"
+#include <vector>
+
+#include "deblock_quad.cuh"
 #include "relayout_tile.cuh"
 #include "swar_tile.cuh"
 
@@ -28,18 +30,126 @@ void host_deblock_tiles(const uint8_t* in, uint8_t* out, const uint8_t* v1, cons
   }
 }
 
-}  // namespace
-
-// K1 / K1c (int) and K1-i16 (int16_t) over the kernel's grid.
-extern "C" void gvct_host_deblock_tiles(const uint8_t* in, uint8_t* out,
-                                        const uint8_t* v1, const uint8_t* v2,
-                                        const uint8_t* h1, const uint8_t* h2,
-                                        int beta, int tc, int nb, int by, int bx,
-                                        long long map_batch_stride, int chroma) {
-  host_deblock_tiles<int>(in, out, v1, v2, h1, h2, beta, tc, nb, by, bx, map_batch_stride,
-                          chroma);
+// One block of deblock_kernel.cu's quad kernel: cells [cell, cell + tb) of
+// frame b's flattened grid, its 4 * tb threads one after another between
+// the kernel's exchange points; `wv`, `wl` and `wr` stand in for the
+// shuffles: every thread publishes its words there, and each lane of a
+// quad takes the sum of its quad's four.
+template <bool CHROMA, int W>
+void host_quad_block(const uint8_t* in, uint8_t* out, const uint8_t* v1, const uint8_t* v2,
+                     const uint8_t* h1, const uint8_t* h2, const gvct::Thresholds& th, int tb,
+                     long long plane, long long map_batch_stride, size_t b, long long cell) {
+  const int nt = gvct::kQuadLanes * tb;
+  const int n = plane - cell < tb ? static_cast<int>(plane - cell) : tb;
+  const size_t tiles = b * 64 * plane + cell;
+  std::vector<uint8_t> stage(64 * gvct::kQuadStride);
+  std::vector<gvct::QuadLane> lanes(nt);
+  std::vector<uint32_t> wv(2 * nt), wl(nt), wr(nt);
+  auto quad_sum = [](const std::vector<uint32_t>& w, int tid, int stride, int i) {
+    const int q = tid & ~3;
+    return w[stride * q + i] + w[stride * (q + 1) + i] + w[stride * (q + 2) + i] +
+           w[stride * (q + 3) + i];
+  };
+  for (int tid = 0; tid < nt; ++tid) {
+    lanes[tid] = gvct::quad_lane(tid);
+    gvct::quad_load_bs(lanes[tid], v1, v2, h1, h2, b * map_batch_stride + cell, n);
+    gvct::quad_stage_load<W>(in + tiles, plane, n, tb, stage.data(), tid);
+  }
+  // __syncthreads()
+  for (int tid = 0; tid < nt; ++tid) {
+    gvct::quad_read_rows<CHROMA>(lanes[tid], stage.data());
+    if (!CHROMA) {
+      uint32_t w[2];
+      gvct::quad_vert_words(lanes[tid], th, w);
+      wv[2 * tid] = w[0];
+      wv[2 * tid + 1] = w[1];
+    }
+  }
+  for (int tid = 0; tid < nt; ++tid) {  // after the shuffles
+    if (CHROMA) {
+      gvct::quad_vert_chroma(lanes[tid], th);
+    } else {
+      const uint32_t sum[2] = {quad_sum(wv, tid, 2, 0), quad_sum(wv, tid, 2, 1)};
+      gvct::quad_vert_luma(lanes[tid], sum, th);
+    }
+    gvct::quad_write_rows<CHROMA>(lanes[tid], stage.data());
+  }
+  // __syncwarp()
+  for (int tid = 0; tid < nt; ++tid) {
+    gvct::quad_read_cols<CHROMA>(lanes[tid], stage.data());
+    if (CHROMA) {
+      gvct::quad_hor_chroma(lanes[tid], th);
+    } else {
+      wl[tid] = gvct::quad_left_word(lanes[tid], th);
+    }
+  }
+  if (!CHROMA) {
+    for (int tid = 0; tid < nt; ++tid) {
+      gvct::quad_left_luma(lanes[tid], quad_sum(wl, tid, 1, 0), th);
+      wr[tid] = gvct::quad_right_word(lanes[tid], th);
+    }
+    for (int tid = 0; tid < nt; ++tid) {
+      gvct::quad_right_luma(lanes[tid], quad_sum(wr, tid, 1, 0), th);
+    }
+  }
+  for (int tid = 0; tid < nt; ++tid) gvct::quad_write_cols<CHROMA>(lanes[tid], stage.data());
+  // __syncthreads()
+  for (int tid = 0; tid < nt; ++tid) {
+    gvct::quad_stage_store<W>(stage.data(), out + tiles, plane, n, tb, tid);
+  }
 }
 
+template <bool CHROMA, int W>
+void host_quad(const uint8_t* in, uint8_t* out, const uint8_t* v1, const uint8_t* v2,
+               const uint8_t* h1, const uint8_t* h2, const gvct::Thresholds& th, int tb,
+               int nb, long long plane, long long map_batch_stride) {
+  for (size_t b = 0; b < static_cast<size_t>(nb); ++b) {
+    for (long long cell = 0; cell < plane; cell += tb) {
+      host_quad_block<CHROMA, W>(in, out, v1, v2, h1, h2, th, tb, plane, map_batch_stride, b,
+                                 cell);
+    }
+  }
+}
+
+template <bool CHROMA>
+void host_quad_words(int w, const uint8_t* in, uint8_t* out, const uint8_t* v1,
+                     const uint8_t* v2, const uint8_t* h1, const uint8_t* h2,
+                     const gvct::Thresholds& th, int tb, int nb, long long plane,
+                     long long map_batch_stride) {
+  (w == 8   ? host_quad<CHROMA, 8>
+   : w == 4 ? host_quad<CHROMA, 4>
+            : host_quad<CHROMA, 1>)(in, out, v1, v2, h1, h2, th, tb, nb, plane,
+                                    map_batch_stride);
+}
+
+}  // namespace
+
+// K1 / K1c (the quad kernel of deblock_kernel.cu) over its grid: blocks of
+// tb tiles (1..64) and 4 * tb threads, staged in the words the kernel
+// would use for these pointers (gvct_host_quad_word_bytes).  Returns 0, or
+// -1 for a tb out of range.
+extern "C" int gvct_host_deblock_tiles_quad(int tb, const uint8_t* in, uint8_t* out,
+                                            const uint8_t* v1, const uint8_t* v2,
+                                            const uint8_t* h1, const uint8_t* h2, int beta,
+                                            int tc, int nb, int by, int bx,
+                                            long long map_batch_stride, int chroma) {
+  if (tb < 1 || tb > gvct::kQuadMaxTiles) return -1;
+  const gvct::Thresholds th = gvct::make_thresholds(beta, tc);
+  const long long plane = static_cast<long long>(by) * bx;
+  const int w = gvct::quad_word_bytes(plane, tb, in, out);
+  (chroma ? host_quad_words<true> : host_quad_words<false>)(w, in, out, v1, v2, h1, h2, th, tb,
+                                                            nb, plane, map_batch_stride);
+  return 0;
+}
+
+// The bytes per global access of the quad kernel's staging for a grid of
+// `plane` tiles per plane, tb tiles per block and these pointers.
+extern "C" int gvct_host_quad_word_bytes(long long plane, int tb, const void* in,
+                                         const void* out) {
+  return gvct::quad_word_bytes(plane, tb, in, out);
+}
+
+// K1-i16's thread-per-tile template over its grid.
 extern "C" void gvct_host_deblock_tiles_i16(const uint8_t* in, uint8_t* out,
                                             const uint8_t* v1, const uint8_t* v2,
                                             const uint8_t* h1, const uint8_t* h2,

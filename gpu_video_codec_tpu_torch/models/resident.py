@@ -178,7 +178,8 @@ class ResidentDeblocker:
     versions).  device: the torch device that holds the state; a CUDA
     device must exist (nothing falls back to the CPU).  On a CPU device the
     "cuda" backend's wrappers run the plain versions.
-    luma_block/chroma_block: CUDA threads per block of K1 and K1c.
+    luma_block/chroma_block: tiles per block of K1 and K1c (the kernel runs
+    four threads per tile).
     """
 
     def __init__(self, width: int, height: int, qp: int, *,

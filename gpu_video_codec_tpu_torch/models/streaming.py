@@ -132,7 +132,8 @@ class StreamingDeblocker:
     device: the torch device that holds frames and runs the filter; a CUDA
     device must exist (nothing falls back to the CPU).  On a CPU device the
     "cuda" backend's wrapper runs the plain version.
-    luma_block/chroma_block: CUDA threads per block of the two launches.
+    luma_block/chroma_block: tiles per block of K1 and K1c (the kernel runs
+    four threads per tile).
     """
 
     def __init__(self, width: int, height: int, qp: int, *,

@@ -1,13 +1,14 @@
 """The hand-written CUDA deblock kernels: build, ctypes binding and wrappers.
 
-Counterpart of gpu_video_codec_tpu/ops/pallas_kernel.py.  The kernel
-(csrc/deblock_kernel.cu over the per-tile math in csrc/deblock_tile.cuh)
-runs one thread per shifted 8x8 tile, luma or chroma by template, on the
-tile-planes layout of utils/tiles.py, computing in int (K1, K1c) or, with
-dtype=torch.int16, in int16 (K1-i16, the JAX package's dtype=jnp.int16).
-The same library holds T5 (deblock_rows_cuda), the kernel of
-tools/rowslayout_exp.py: K1's per-tile math on the (By, 8, 8, Bx) "rows"
-layout.
+Counterpart of gpu_video_codec_tpu/ops/pallas_kernel.py.  The kernels
+(csrc/deblock_kernel.cu over the per-row math of csrc/deblock_tile.cuh)
+deblock the tile-planes layout of utils/tiles.py, luma or chroma by
+template: K1 and K1c compute in int with four threads per shifted 8x8 tile
+and a block's tiles staged in shared memory (csrc/deblock_quad.cuh);
+K1-i16 (dtype=torch.int16, the JAX package's dtype=jnp.int16) computes in
+int16 with one thread per tile.  The same library holds T5
+(deblock_rows_cuda), the kernel of tools/rowslayout_exp.py: the
+thread-per-tile math on the (By, 8, 8, Bx) "rows" layout.
 
 The library is built at first use with nvcc, from csrc/ only, into
 build/torch_kernels/ beside the package, under a name keyed on a hash of
@@ -16,8 +17,9 @@ and is loaded with ctypes (no PyTorch headers, so the build takes seconds).
 
 deblock_tiles_cuda and deblock_rows_cuda launch their kernel for a CUDA
 tensor and raise on any failure; for a CPU tensor they run the plain
-version (ops/deblock.deblock_tiles_plain, deblock_rows_plain).  LAUNCHES
-counts kernel launches.
+version (ops/deblock.deblock_tiles_plain, deblock_rows_plain).  The frame
+wrappers (deblock_frame_cuda, deblock_chroma_ext_cuda) relayout with T2 and
+T3 (ops/relayout_kernel.py).  LAUNCHES counts kernel launches.
 """
 
 from __future__ import annotations
@@ -33,13 +35,19 @@ from pathlib import Path
 import torch
 
 from .deblock import deblock_rows_plain, deblock_tiles_plain
-from ..utils.tiles import plane_to_tiles, split_covered, tiles_to_plane
+from ..utils.tiles import split_covered_data
 
-# CUDA threads per block, laid along the tile grid's Bx axis (one thread
-# per tile).  Callers may pass their own (StreamingDeblocker's
-# luma_block/chroma_block).
-BLOCK_BX = 128
-CHROMA_BLOCK_BX = 128
+# Tiles per block of K1 and K1c: consecutive tiles of the flattened
+# (By, Bx) grid, QUAD threads each, at most MAX_QUAD_BLOCK_BX (the size of
+# the kernel's shared-memory stage).  Callers may pass their own
+# (StreamingDeblocker's luma_block/chroma_block).
+QUAD = 4
+MAX_QUAD_BLOCK_BX = 64
+BLOCK_BX = 64
+CHROMA_BLOCK_BX = 64
+# Threads (one per tile) per block of the thread-per-tile kernels: K1-i16,
+# T5 and T1 (ops/swar_kernel.py, two tiles per thread).
+TILE_THREADS = 128
 
 # Kernel launches per variant since import (or since a caller reset them):
 # K1, K1c, K1-i16 luma and chroma, T5 (luma and chroma).
@@ -51,7 +59,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _KERNEL_SOURCES = ("deblock_kernel.cu",)
 _HOST_SOURCES = ("host_shim.cpp",)
-_HEADERS = ("deblock_tile.cuh", "relayout_tile.cuh", "swar_tile.cuh")
+_HEADERS = ("deblock_tile.cuh", "deblock_quad.cuh", "relayout_tile.cuh", "swar_tile.cuh")
 _DTYPES = (torch.int32, torch.int16)
 
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's standard place
@@ -126,6 +134,9 @@ _LAUNCH_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # threads, device,
 def _setup_cuda(lib) -> None:
     lib.gvct_deblock_tiles.argtypes = _TILE_ARGS + [ctypes.c_int] + _LAUNCH_ARGS
     lib.gvct_deblock_tiles.restype = ctypes.c_int
+    lib.gvct_deblock_tiles_occupancy.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.gvct_deblock_tiles_occupancy.restype = ctypes.c_int
     lib.gvct_deblock_rows.argtypes = GRID_ARGS + _LAUNCH_ARGS
     lib.gvct_deblock_rows.restype = ctypes.c_int
     lib.gvct_error_string.argtypes = [ctypes.c_int]
@@ -133,9 +144,13 @@ def _setup_cuda(lib) -> None:
 
 
 def _setup_host(lib) -> None:
-    for fn in (lib.gvct_host_deblock_tiles, lib.gvct_host_deblock_tiles_i16):
-        fn.argtypes = _TILE_ARGS
-        fn.restype = None
+    lib.gvct_host_deblock_tiles_i16.argtypes = _TILE_ARGS
+    lib.gvct_host_deblock_tiles_i16.restype = None
+    lib.gvct_host_deblock_tiles_quad.argtypes = [ctypes.c_int] + _TILE_ARGS
+    lib.gvct_host_deblock_tiles_quad.restype = ctypes.c_int
+    lib.gvct_host_quad_word_bytes.argtypes = [ctypes.c_longlong, ctypes.c_int] + [
+        ctypes.c_void_p] * 2
+    lib.gvct_host_quad_word_bytes.restype = ctypes.c_int
     lib.gvct_host_deblock_rows.argtypes = GRID_ARGS
     lib.gvct_host_deblock_rows.restype = None
 
@@ -144,8 +159,10 @@ def load_host_library() -> ctypes.CDLL:
     """g++ build of csrc/host_shim.cpp: the kernels' per-tile math and
     indexing compiled for the CPU, so tests can hold the CUDA source's
     arithmetic against the plain version where nvcc is absent
-    (gvct_host_deblock_tiles for K1/K1c, gvct_host_deblock_tiles_i16 for
-    K1-i16, gvct_host_deblock_rows for T5; ops/relayout_kernel.py and
+    (gvct_host_deblock_tiles_quad(tb, ...) for K1/K1c, a block's 4 * tb
+    threads run one after another between the kernel's exchange points;
+    gvct_host_deblock_tiles_i16 for K1-i16, gvct_host_deblock_rows for T5,
+    both one thread per tile; ops/relayout_kernel.py and
     ops/swar_kernel.py bind the rest)."""
     gxx = shutil.which("g++")
     if gxx is None:
@@ -220,9 +237,12 @@ def deblock_tiles_cuda(tiles, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,
     tiles: (8, 8, By, Bx) uint8 with (By, Bx) BS maps, or batched
     (NB, 8, 8, By, Bx) with (NB, By, Bx) per-frame or (1, By, Bx) shared
     maps; all contiguous uint8 on one device.  beta, tc: ints.
-    block_bx: threads per block (default BLOCK_BX / CHROMA_BLOCK_BX).
     dtype: the compute type, torch.int32 (K1, K1c) or torch.int16
     (K1-i16; the same bytes).
+    block_bx: tiles per block, as in the JAX package (consecutive along Bx;
+    K1 and K1c's blocks run on into the next tile row); K1 and K1c run QUAD
+    threads per tile (1..MAX_QUAD_BLOCK_BX; default BLOCK_BX /
+    CHROMA_BLOCK_BX), K1-i16 one (1..1024; default TILE_THREADS).
     Returns a new tensor of the input's shape.  The launch goes on the
     current stream and does not synchronize.  CPU tensors take the plain
     version instead.
@@ -232,27 +252,56 @@ def deblock_tiles_cuda(tiles, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,
     if dtype not in _DTYPES:
         raise ValueError(f"dtype must be torch.int32 or torch.int16, got {dtype}")
     nb, map_stride = _check(tiles, maps, beta, tc)
+    int16 = dtype == torch.int16
+    block_bx = _block_bx(chroma, int16, block_bx)
     if tiles.device.type == "cpu":
         return deblock_tiles_plain(tiles, *maps, beta, tc, chroma=chroma, dtype=dtype)
     if tiles.device.type != "cuda":
         raise ValueError(f"deblock_tiles_cuda takes CUDA or CPU tensors, got {tiles.device}")
-    threads = block_bx or (CHROMA_BLOCK_BX if chroma else BLOCK_BX)
-    if not 1 <= threads <= 1024:
-        raise ValueError(f"block_bx must be in 1..1024, got {threads}")
     out = torch.empty_like(tiles)
     if tiles.numel() == 0:
         return out
     lib = _load("cuda", build_library, _setup_cuda)
     by, bx = tiles.shape[-2], tiles.shape[-1]
-    int16 = dtype == torch.int16
     stream = torch.cuda.current_stream(tiles.device).cuda_stream
     err = lib.gvct_deblock_tiles(
         tiles.data_ptr(), out.data_ptr(), *(m.data_ptr() for m in maps),
-        beta, tc, nb, by, bx, map_stride, int(chroma), int(int16), threads,
+        beta, tc, nb, by, bx, map_stride, int(chroma), int(int16), block_bx,
         tiles.device.index, stream)
     raise_on_launch(err, lib, "deblock")
     LAUNCHES[("chroma" if chroma else "luma") + ("_i16" if int16 else "")] += 1
     return out
+
+
+def _block_bx(chroma: bool, int16: bool, block_bx: int | None) -> int:
+    """deblock_tiles_cuda's tiles per block (its default when None); raises
+    for a block the kernel cannot take."""
+    if block_bx is None:
+        block_bx = TILE_THREADS if int16 else (CHROMA_BLOCK_BX if chroma else BLOCK_BX)
+    most = 1024 if int16 else MAX_QUAD_BLOCK_BX
+    if not 1 <= block_bx <= most:
+        raise ValueError(f"block_bx must satisfy 1 <= block_bx <= {most}, got {block_bx}")
+    return block_bx
+
+
+def deblock_tiles_occupancy(shape, chroma: bool = False, block_bx: int | None = None,
+                            device=None) -> dict:
+    """K1/K1c's kernel for tiles of `shape` (.., By, Bx) on aligned
+    tensors of `device` (default: the current CUDA device): the blocks one
+    SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and
+    the bytes per global access of its staging.  Returns {"block_bx",
+    "threads", "word_bytes", "blocks_per_sm", "warps_per_sm"}."""
+    block_bx = _block_bx(chroma, False, block_bx)
+    device = torch.device("cuda", torch.cuda.current_device()) if device is None \
+        else torch.device(device)
+    lib = _load("cuda", build_library, _setup_cuda)
+    out = (ctypes.c_int * 3)()
+    err = lib.gvct_deblock_tiles_occupancy(int(chroma), block_bx, shape[-2], shape[-1],
+                                           device.index, out)
+    raise_on_launch(err, lib, "deblock occupancy")
+    blocks, threads, word = out
+    return {"block_bx": block_bx, "threads": threads, "word_bytes": word,
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * ((threads + 31) // 32)}
 
 
 def deblock_rows_cuda(tiles_rows, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,
@@ -280,8 +329,7 @@ def deblock_rows_cuda(tiles_rows, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,
     lib = _load("cuda", build_library, _setup_cuda)
     err = lib.gvct_deblock_rows(
         tiles_rows.data_ptr(), out.data_ptr(), *(m.data_ptr() for m in maps),
-        beta, tc, by, bx, int(chroma), CHROMA_BLOCK_BX if chroma else BLOCK_BX,
-        tiles_rows.device.index,
+        beta, tc, by, bx, int(chroma), TILE_THREADS, tiles_rows.device.index,
         torch.cuda.current_stream(tiles_rows.device).cuda_stream)
     raise_on_launch(err, lib, "deblock_rows")
     LAUNCHES["rows"] += 1
@@ -289,16 +337,21 @@ def deblock_rows_cuda(tiles_rows, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,
 
 
 def deblock_frame_cuda(y_ext, u_ext, v_ext, luma_maps, chroma_maps, beta, tc,
-                       luma_only: bool = False, luma_block: int = BLOCK_BX,
-                       chroma_block: int = CHROMA_BLOCK_BX, dtype=torch.int32):
-    """Full-frame deblock of extended planes through the kernel: one luma
+                       luma_only: bool = False, luma_block: int | None = None,
+                       chroma_block: int | None = None, dtype=torch.int32):
+    """Full-frame deblock of extended planes through the kernels: one luma
     launch, and one chroma launch for U and V together
-    (deblock_chroma_ext_cuda).  dtype=torch.int16 runs K1-i16 for both
-    (the same bytes as the default torch.int32)."""
-    yt = plane_to_tiles(y_ext).contiguous()
-    y_out = deblock_tiles_cuda(yt, *luma_maps, beta, tc, chroma=False, block_bx=luma_block,
-                               dtype=dtype)
-    y_plane = tiles_to_plane(y_out)
+    (deblock_chroma_ext_cuda).  The luma plane goes to tile-planes and back
+    through T2 and T3 (ops/relayout_kernel.py, pad 0 on the extended plane;
+    on a CPU tensor their plain versions).  dtype=torch.int16 runs K1-i16
+    for both (the same bytes as the default torch.int32).
+    luma_block/chroma_block: deblock_tiles_cuda's block_bx (default: its
+    own for the dtype)."""
+    from . import relayout_kernel as rk  # it imports this module
+
+    y_out = deblock_tiles_cuda(rk.plane_to_tiles_cuda(y_ext, 0), *luma_maps, beta, tc,
+                               chroma=False, block_bx=luma_block, dtype=dtype)
+    y_plane = rk.tiles_to_plane_cuda(y_out, 0, *y_ext.shape[-2:])
     if luma_only:
         return y_plane, u_ext, v_ext
     u_plane, v_plane = deblock_chroma_ext_cuda(u_ext, v_ext, chroma_maps, beta, tc,
@@ -307,20 +360,30 @@ def deblock_frame_cuda(y_ext, u_ext, v_ext, luma_maps, chroma_maps, beta, tc,
 
 
 def deblock_chroma_ext_cuda(u_ext, v_ext, chroma_maps, beta, tc,
-                            chroma_block: int = CHROMA_BLOCK_BX, dtype=torch.int32):
-    """Chroma-only deblock of extended U/V planes in one launch, their tile
-    grids stacked along By, computed in `dtype` (torch.int32 or
-    torch.int16).  Chroma sweeps the reference's flat (8*ncby, 8*ncbx) view
-    (quirk Q9: sheared when the extended width is not 8-aligned; the flat
-    remainder is untouched)."""
-    u_core, u_paste = split_covered(u_ext)
-    v_core, v_paste = split_covered(v_ext)
-    ut = plane_to_tiles(u_core)
-    vt = plane_to_tiles(v_core)
-    uv = torch.cat([ut, vt], dim=2)  # stack tile grids along By (contiguous)
-    cmaps = [torch.cat([m, m], dim=0) for m in chroma_maps]
-    uv_out = deblock_tiles_cuda(uv, *cmaps, beta, tc, chroma=True, block_bx=chroma_block,
-                                dtype=dtype)
-    cby = ut.shape[2]
-    return (u_paste(tiles_to_plane(uv_out[:, :, :cby])),
-            v_paste(tiles_to_plane(uv_out[:, :, cby:])))
+                            chroma_block: int | None = None, dtype=torch.int32):
+    """Chroma-only deblock of extended U/V planes in one launch, computed in
+    `dtype` (torch.int32 or torch.int16).  Chroma sweeps the reference's
+    flat (8*ncby, 8*ncbx) view of each plane (quirk Q9: sheared when the
+    extended width is not 8-aligned; the flat remainder is untouched): each
+    plane's covered core goes through T2 (pad 0) into one U-over-V tile
+    stack, the kernel runs it as a batch of two with one shared map, and T3
+    writes each core into a new plane that holds the input's remainder."""
+    from . import relayout_kernel as rk  # it imports this module
+
+    planes = (u_ext, v_ext)
+    cores = [split_covered_data(x)[0] for x in planes]
+    vh, vw = cores[0].shape
+    tiles = torch.empty((2, 8, 8, vh // 8, vw // 8), dtype=torch.uint8, device=u_ext.device)
+    for core, dst in zip(cores, tiles):
+        rk.plane_to_tiles_cuda(core, 0, out=dst)
+    tiles = deblock_tiles_cuda(tiles, *(m[None] for m in chroma_maps), beta, tc, chroma=True,
+                               block_bx=chroma_block, dtype=dtype)
+    outs = []
+    for x, t in zip(planes, tiles):
+        out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+        core, rem = split_covered_data(out)
+        if rem.numel():
+            rem.copy_(split_covered_data(x)[1])
+        rk.tiles_to_plane_cuda(t, 0, vh, vw, out=core)
+        outs.append(out)
+    return outs[0], outs[1]

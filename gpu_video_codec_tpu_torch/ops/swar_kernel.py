@@ -90,7 +90,7 @@ def deblock_tiles_swar_cuda(tiles, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,
     lib = ck._load("swar", build_library, _setup_cuda)
     err = lib.gvct_swar_tiles(tiles.data_ptr(), out.data_ptr(), *(m.data_ptr() for m in maps),
                               beta, tc, by, bx, int(chroma),
-                              ck.CHROMA_BLOCK_BX if chroma else ck.BLOCK_BX, tiles.device.index,
+                              ck.TILE_THREADS, tiles.device.index,
                               torch.cuda.current_stream(tiles.device).cuda_stream)
     ck.raise_on_launch(err, lib, "SWAR deblock")
     LAUNCHES["swar"] += 1

@@ -14,6 +14,7 @@ also run where JAX is not installed
 is byte-equal (all the math is integer)."""
 
 import ctypes
+import functools
 import shutil
 
 import numpy as np
@@ -192,8 +193,8 @@ def _host(fn, tiles, maps, beta, tc, chroma):
                          ids=["2d-tail", "batched-shared", "batched-per-frame", "2d-wide"])
 def test_host_int16_tile_math_matches_plain(rng, host_lib, form, chroma):
     """gvct_host_deblock_tiles_i16 (K1-i16's per-tile math and grid) ==
-    deblock_tiles_plain(dtype=torch.int16) == the int32 host build, over
-    random QPs in 0..51."""
+    deblock_tiles_plain(dtype=torch.int16) == K1's int32 host build (the
+    quad kernel's blocks), over random QPs in 0..51."""
     shape, mshape = form
     changed = 0
     for qp in (0, 51, *rng.integers(1, 51, 4)):
@@ -203,8 +204,8 @@ def test_host_int16_tile_math_matches_plain(rng, host_lib, form, chroma):
         ref = deblock_tiles_plain(torch.from_numpy(tiles), *map(torch.from_numpy, maps),
                                   beta, tc, chroma=chroma, dtype=torch.int16)
         assert np.array_equal(out, ref.numpy()), qp
-        assert np.array_equal(out, _host(host_lib.gvct_host_deblock_tiles, tiles, maps, beta,
-                                          tc, chroma)), qp
+        k1 = functools.partial(host_lib.gvct_host_deblock_tiles_quad, ck.BLOCK_BX)
+        assert np.array_equal(out, _host(k1, tiles, maps, beta, tc, chroma)), qp
         changed += int((out != tiles).sum())
     assert changed > 0
 

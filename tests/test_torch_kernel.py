@@ -2,8 +2,10 @@
 
 Here on the CPU: the deblock_tiles_cuda wrapper on CPU tensors (its plain
 version) against the JAX deblock_tiles_pallas in interpret mode, the
-wrapper's checks, and the kernel's own per-tile math and indexing
-(csrc/deblock_tile.cuh) compiled with g++ through csrc/host_shim.cpp.
+wrapper's checks, and the kernel's own math and indexing
+(csrc/deblock_quad.cuh over csrc/deblock_tile.cuh) compiled with g++
+through csrc/host_shim.cpp (tests/test_torch_quad.py holds it at more
+geometries).
 Tests marked `cuda` launch the kernel itself and skip without a card;
 they import nothing of JAX, so they also run where JAX is not installed
 (`python -m pytest tests/test_torch_kernel.py -m cuda`).  Every comparison
@@ -130,6 +132,68 @@ def test_frame_and_chroma_ext_cpu_match_jax(rng, w, h):
     assert torch.equal(y_only[0], out[0]) and np.array_equal(y_only[1].numpy(), planes[1])
 
 
+@pytest.mark.parametrize("luma_only", [False, True], ids=["full", "luma_only"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int16], ids=["int32", "int16"])
+@pytest.mark.parametrize("w,h", [(64, 72), (88, 72)], ids=["64x72", "sheared-88x72"])
+def test_frame_cuda_goes_through_t2_t3(rng, monkeypatch, w, h, dtype, luma_only):
+    """deblock_frame_cuda and deblock_chroma_ext_cuda relayout with T2 and
+    T3 (plane_to_tiles_cuda, tiles_to_plane_cuda) -- once each for luma,
+    once per plane for U and V -- and, outside the kernels' wrappers, never
+    with the plain relayout (utils/tiles.py's plane_to_tiles,
+    tiles_to_plane and join_covered, the relayout kernels' plain versions)
+    or a torch.stack / torch.cat of the planes.  The path is the same on
+    the CPU and on the card, where the wrappers launch the kernels instead
+    of their plain versions; the bytes equal the JAX deblock_frame's."""
+    import jax.numpy as jnp
+
+    import gpu_video_codec_tpu.ops.deblock as jdeblock
+    from gpu_video_codec_tpu_torch.ops import relayout_kernel as rk
+    from gpu_video_codec_tpu_torch.utils import tiles as ut
+
+    calls = {"T2": 0, "T3": 0, "deblock": 0}
+    inside = [0]  # wrappers entered and not yet left
+
+    def spy(name, fn):
+        def counted(*args, **kwargs):
+            calls[name] += 1
+            inside[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                inside[0] -= 1
+        return counted
+
+    def wrappers_only(name, fn):
+        def guarded(*args, **kwargs):
+            assert inside[0], f"the frame path called {name} outside the kernels' wrappers"
+            return fn(*args, **kwargs)
+        return guarded
+
+    monkeypatch.setattr(rk, "plane_to_tiles_cuda", spy("T2", rk.plane_to_tiles_cuda))
+    monkeypatch.setattr(rk, "tiles_to_plane_cuda", spy("T3", rk.tiles_to_plane_cuda))
+    monkeypatch.setattr(ck, "deblock_tiles_cuda", spy("deblock", ck.deblock_tiles_cuda))
+    for mod, name in ((ut, "plane_to_tiles"), (ut, "tiles_to_plane"), (ut, "join_covered"),
+                      (rk, "plane_to_tiles_plain"), (rk, "tiles_to_plane_plain"),
+                      (torch, "stack"), (torch, "cat")):
+        monkeypatch.setattr(mod, name, wrappers_only(name, getattr(mod, name)))
+    qp = 37
+    planes = [extend_plane(rng.integers(0, 256, s, dtype=np.uint8))
+              for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    bs = BoundaryStrength.intra_default(w, h)
+    lm, cm = luma_segment_maps(bs), chroma_segment_maps(bs)
+    out = ck.deblock_frame_cuda(*map(torch.from_numpy, planes),
+                                [torch.from_numpy(m) for m in lm],
+                                [torch.from_numpy(m) for m in cm], get_beta(qp), get_tc(qp),
+                                luma_only=luma_only, dtype=dtype)
+    ref = jdeblock.deblock_frame(*map(jnp.asarray, planes), [jnp.asarray(m) for m in lm],
+                                 [jnp.asarray(m) for m in cm], get_beta(qp), get_tc(qp),
+                                 luma_only=luma_only)
+    for a, b in zip(out, ref):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    per_frame = 1 if luma_only else 3
+    assert calls == {"T2": per_frame, "T3": per_frame, "deblock": 1 if luma_only else 2}
+
+
 def test_missing_nvcc_names_the_command(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -148,15 +212,16 @@ def host_lib():
 
 
 def _host_deblock(lib, tiles, maps, beta, tc, chroma):
-    """Run the kernel's per-tile math over a tile-planes array on the host,
-    with the CUDA grid's own indexing."""
+    """Run K1/K1c's blocks (the quad kernel, the default block size) over a
+    tile-planes array on the host, with the CUDA grid's own indexing."""
     out = np.empty_like(tiles)
     nb = tiles.shape[0] if tiles.ndim == 5 else 1
     by, bx = tiles.shape[-2:]
     stride = 0 if tiles.ndim == 5 and maps[0].shape[0] == 1 else by * bx
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
-    lib.gvct_host_deblock_tiles(ptr(tiles), ptr(out), *(ptr(m) for m in maps),
-                                beta, tc, nb, by, bx, stride, int(chroma))
+    assert lib.gvct_host_deblock_tiles_quad(ck.BLOCK_BX, ptr(tiles), ptr(out),
+                                            *(ptr(m) for m in maps), beta, tc, nb, by, bx,
+                                            stride, int(chroma)) == 0
     return out
 
 
@@ -179,14 +244,15 @@ def test_host_tile_math_matches_plain(rng, host_lib, form, chroma):
 
 
 def test_host_tile_math_in_place(rng, host_lib):
-    """in == out is allowed: a tile's segments never leave the tile."""
+    """in == out is allowed: a block stages all its tiles before it stores
+    any, and a tile's segments never leave the tile."""
     tiles = _tiles(rng, (8, 8, 5, 6))
     maps = _maps(rng, (5, 6))
     ref = _host_deblock(host_lib, tiles, maps, 64, 20, False)
     buf = tiles.copy()
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
-    host_lib.gvct_host_deblock_tiles(ptr(buf), ptr(buf), *(ptr(m) for m in maps),
-                                     64, 20, 1, 5, 6, 30, 0)
+    host_lib.gvct_host_deblock_tiles_quad(ck.BLOCK_BX, ptr(buf), ptr(buf),
+                                          *(ptr(m) for m in maps), 64, 20, 1, 5, 6, 30, 0)
     assert np.array_equal(buf, ref)
 
 
@@ -227,7 +293,13 @@ def test_frame_cuda_matches_plain_on_card(rng, cuda_device):
     bs = BoundaryStrength.intra_default(w, h)
     lm = [torch.from_numpy(m).to(cuda_device) for m in luma_segment_maps(bs)]
     cm = [torch.from_numpy(m).to(cuda_device) for m in chroma_segment_maps(bs)]
+    from gpu_video_codec_tpu_torch.ops import relayout_kernel as rk
+
+    before = {**ck.LAUNCHES, **rk.LAUNCHES}
     out = ck.deblock_frame_cuda(*planes, lm, cm, get_beta(qp), get_tc(qp))
+    after = {**ck.LAUNCHES, **rk.LAUNCHES}
+    ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert ran == {"fwd": 3, "luma": 1, "chroma": 1, "inv": 3}  # T2, K1, K1c, T3
     ref = deblock_frame(*planes, lm, cm, get_beta(qp), get_tc(qp))
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
