@@ -37,25 +37,41 @@
    int16_probe, rowslayout_exp, swar_exp --check and --race) on the card,
    each reporting bit-exact.
 3. Streams 16 distinct 1080p frames through StreamingDeblocker.run (the
-   main path), checks each against the plain backend on the card and that
-   each frame launched T2 twice, K1 and K1c once and T3 twice (T2, K1 and
-   T3 once with luma_only); then again with luma_only, across a mid-stream
-   update_boundary_strength, and a sheared 360x288 stream.
+   main path: a ring of device slots whose steps are CUDA graph replays,
+   with the read-back overlapped), checks each against the plain backend
+   on the card and that each frame launched T2 twice, K1 and K1c once and
+   T3 twice (T2, K1 and T3 once with luma_only), counting replays; then
+   again with luma_only, across a mid-stream update_boundary_strength
+   (after the ring's graphs were captured), and a sheared 360x288 stream.
 3b. The device-resident path (ResidentDeblocker): == golden at 1920x1080
    and 360x288; a batch of four distinct 1080p frames through ingest, three
    steps and readback == the plain backend, with exactly 2 T2, 3 K1, 3 K1c,
    2 T3 and 1 T4 launches; luma_only (no K1c, chroma untouched); a BS
    update between steps.
+3c. CUDA graphs against eager steps of the plain backend on a copy, byte
+   for byte, on blocky frames at QP 35: StreamingDeblocker._chain(buf, n)
+   at 1920x1080 for n in {1, 3, 50} and at the sheared 360x288 for n = 3,
+   each with n x (T2 2, K1 1, K1c 1, T3 2) launches at the capturing call
+   and at a replay alone; ResidentDeblocker.run_steps(tf, 3) on one 1080p
+   frame and a batch of four (K1 3, K1c 3 per call): two successive results
+   both right, in memory of their own, and the input state unchanged.
 4. Times K1 and K1c at TB 32 and 64 in turns with their plain versions,
-   the packed step, the copy and the pipelined rate with CUDA events.
+   the packed step (a graph replay), the copy and the pipelined rate with
+   CUDA events; prints time_breakdown(measure_d2h=True) (dispatch per
+   replayed step beside an eager step's, the profiler's device split, the
+   synchronous end-to-end frame) and the pipelined rate with and without
+   read-back.
 4b. Times T2, T3 and T4 at the 1080p shapes beside their plain versions
    and a one-call PyTorch yardstick (printing kernel / yardstick and the
    fraction of the byte bound), and the resident step, ingest and readback
-   at 1080p, batch 1 and 4.
+   at 1080p, batch 1 and 4, with the host dispatch per eager step and per
+   step of run_steps and the device time of run_steps' copy-out.
 4c. Lists the device kernels by name and time (torch.profiler) for the
-   resident path and the streaming packed step at 1080p; the step runs T2,
-   the quad K1 and K1c and T3 and no other kernel (no layout copy, fill or
-   write-back).
+   resident path and the streaming packed step at 1080p, replayed from its
+   graph and run eagerly; the replay runs T2, the quad K1 and K1c and T3
+   and no other kernel (no layout copy, fill or write-back), and
+   utils.tracing.profiled_device_us's total agrees with the profiler's
+   key_averages() within 2%.
 4d. Times the quad K1 against the thread-per-tile K1-i16, T5 and T1 in
    turns at the race grid (136, 256), on blocky tiles, on uniform noise
    (cond1 fails almost everywhere) and, for K1 and K1-i16, with every BS
@@ -144,6 +160,7 @@ def main() -> int:
     )
     from gpu_video_codec_tpu_torch.utils.tiles import split_covered_data
     from gpu_video_codec_tpu_torch.utils.timing import device_ms, in_turns
+    from gpu_video_codec_tpu_torch.utils.tracing import profiled_device_us
     from gpu_video_codec_tpu_torch.utils.yuv import (
         FramePlanes, planes_from_yv12_bytes, yv12_bytes_from_planes,
     )
@@ -495,14 +512,18 @@ def main() -> int:
         sd.update_boundary_strength(bs)
         return got + list(sd.run(frames[half:]))
 
-    outs_b = swapped(StreamingDeblocker(w, h, 35, device=dev))
+    s_swap = StreamingDeblocker(w, h, 35, device=dev)
+    reset()
+    outs_b = swapped(s_swap)
+    check(counts() == only(T2=2 * n, K1=n, K1c=n, T3=2 * n) and s_swap._run_ring is not None,
+          f"BS swap stream launches {counts()}: not through the graph ring")
     refs_b = swapped(StreamingDeblocker(w, h, 35, backend="torch", device=dev))
     check(all(np.array_equal(o, r) for o, r in zip(outs_b, refs_b)), "BS swap != plain")
     check(all(np.array_equal(o, r) for o, r in zip(outs_b[:half], outs[:half])),
           "frames before the BS swap changed")
     check(not any(np.array_equal(o, r) for o, r in zip(outs_b[half:], outs[half:])),
           "the BS swap changed nothing")
-    print(f"stream with mid-stream BS swap: {n} x 1080p == plain backend")
+    print(f"stream with mid-stream BS swap: {n} x 1080p through the graph ring == plain backend")
 
     cw_, ch_, ns = 360, 288, 8  # sheared chroma (Q9): w % 16 == 8
     cif_frames = [blocky_frame(rng, cw_, ch_) for _ in range(ns)]
@@ -556,6 +577,56 @@ def main() -> int:
     check(not np.array_equal(outs_rb, outs_r), "the resident BS update changed nothing")
     print(f"resident with a BS update after step 1: batch of {nb} x 1080p == plain backend")
 
+    # -- 3c. CUDA graphs against eager plain steps -------------------------------------
+    def chain_check(ww: int, hh: int, n_steps: int, raw) -> None:
+        sg = StreamingDeblocker(ww, hh, 35, device=dev)
+        sp = StreamingDeblocker(ww, hh, 35, backend="torch", device=dev)
+        src = torch.from_numpy(raw.reshape(3 * hh // 2, ww)).to(dev)
+        ref = src.clone()
+        for _ in range(n_steps):
+            sp._step(ref)
+        buf = src.clone()
+        want_l = only(T2=2 * n_steps, K1=n_steps, K1c=n_steps, T3=2 * n_steps)
+        for call in ("capturing call", "replay"):
+            buf.copy_(src)
+            reset()
+            check(sg._chain(buf, n_steps) is buf, "_chain did not work in place")
+            check(counts() == want_l, f"_chain {ww}x{hh} n={n_steps} ({call}) launches "
+                                      f"{counts()}, want {want_l}")
+            torch.cuda.synchronize()
+            check(torch.equal(buf, ref), f"_chain {ww}x{hh} n={n_steps} ({call}) != "
+                                         f"{n_steps} eager plain steps")
+        check(not torch.equal(ref, src), f"_chain {ww}x{hh}: the filter changed nothing")
+        print(f"graphs: _chain {ww}x{hh} n={n_steps} == {n_steps} eager plain steps, at the "
+              f"capturing call and a replay; launches {want_l} each")
+
+    for n_steps in (1, 3, 50):
+        chain_check(w, h, n_steps, frames[1])
+    chain_check(360, 288, 3, cif_frames[0])
+    for what, state_in in (("one 1080p frame", frames[1]), ("a batch of four 1080p frames",
+                                                           np.stack(frames[1:8:2]))):
+        rg = ResidentDeblocker(w, h, 35, device=dev)
+        rp = ResidentDeblocker(w, h, 35, backend="torch", device=dev)
+        tf = rg.ingest(state_in)
+        keep = [t.clone() for t in tf]
+        ref = rp.run_steps(rp.ingest(state_in), 3)
+        results = []
+        for call in ("capturing call", "replay"):
+            reset()
+            results.append(rg.run_steps(tf, 3))
+            check(counts() == only(K1=3, K1c=3), f"run_steps {what} ({call}) launches {counts()}")
+        torch.cuda.synchronize()
+        for r in results:
+            check(all(torch.equal(a, b) for a, b in zip(r, ref)),
+                  f"run_steps {what} != 3 eager plain steps (or overwritten by the next call)")
+        a, b = results
+        check(a.y.data_ptr() != b.y.data_ptr() and a.uv.data_ptr() != b.uv.data_ptr(),
+              f"run_steps {what}: two results share memory")
+        check(all(torch.equal(t, k) for t, k in zip(tf, keep)),
+              f"run_steps {what} changed its input")
+        print(f"graphs: run_steps(tf, 3) on {what} == 3 eager plain steps twice over, results "
+              f"distinct, input unchanged; K1 3, K1c 3 per call")
+
     # -- 4. times --------------------------------------------------------------
     kernels = []
     for name, chroma, shape, mshape in (
@@ -594,9 +665,19 @@ def main() -> int:
     step_ms, bound = device_ms(lambda: s._step(buf), 50)
     print(f"packed _step 1080p: {step_ms * 1e3:.1f} us/frame device time "
           f"(host queued ahead: {bound}; {smi})")
-    tb = s.time_breakdown(raw, n=50)
-    print("time_breakdown 1080p: " + ", ".join(f"{k[:-2]} {v * 1e6:.1f} us"
-                                              for k, v in tb.items()) + f" ({smi})")
+    tb = s.time_breakdown(raw, n=50, measure_d2h=True)
+    torch.cuda.synchronize()
+    eager = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(50):
+            s._packed(buf, True)
+        eager = min(eager, (time.perf_counter() - t0) / 50)
+        torch.cuda.synchronize()
+    print(f"time_breakdown 1080p: h2d {tb['h2d_s'] * 1e6:.1f} us, kernel {tb['kernel_s'] * 1e6:.1f}"
+          f" us, dispatch {tb['dispatch_s'] * 1e6:.1f} us per _step (one graph replay; an eager "
+          f"step {eager * 1e6:.1f} us), e2e_sync {tb['e2e_sync_s'] * 1e6:.1f} us, device_split_us "
+          f"{tb.get('device_split_us', 'not measured')} ({smi})")
     for rb in (False, True):
         tp = s.throughput(raw, n_frames=100, readback=rb, repeats=3)
         print(f"throughput 1080p readback={rb}: {tp['fps']:.1f} fps, "
@@ -682,8 +763,9 @@ def main() -> int:
         st = rd.step_time(frame, iters=50, repeats=2)
         print(f"resident 1080p batch {nb_t}: step {st['step_us']:.1f} us, ingest "
               f"{st['ingest_us']:.1f} us, readback {st['readback_us']:.1f} us (device time, "
-              f"queued ahead: {st['queued_ahead']}); dispatch {st['dispatch_us']:.1f} us/step "
-              f"({smi})")
+              f"queued ahead: {st['queued_ahead']}); dispatch {st['dispatch_us']:.1f} us per eager "
+              f"step, {st['dispatch_n_us']:.1f} us per step of run_steps(tf, 50); run_steps' "
+              f"copy-out {st['copy_out_us']:.1f} us (device time) ({smi})")
 
     # -- 4c. where the time goes: device kernels by name (torch.profiler) ------------
     from torch.autograd import DeviceType
@@ -718,14 +800,23 @@ def main() -> int:
           lambda: _readback(rd1.step(rd1.ingest(frames4[0])), w, h))
     trace("resident 1080p ingest + step + readback to the device, batch 4",
           lambda: _readback(rd1.step(rd1.ingest(frames4)), w, h), reps=5)
-    step_rows = trace("streaming packed _step 1080p", lambda: s._step(buf))
+    trace("streaming packed step 1080p, eager (_packed)", lambda: s._packed(buf, True))
+    step_rows = trace("streaming packed _step 1080p, one graph replay", lambda: s._step(buf))
     ours = ("plane_to_tiles_kernel", "tiles_to_plane_kernel", "deblock_quad_kernel")
     stray = [key for _, _, key in step_rows if not any(k in key for k in ours)]
     check(not stray, f"the streaming step ran kernels besides T2, K1, K1c and T3: {stray}")
     if step_rows:
         missing = [k for k in ours if not any(k in key for _, _, key in step_rows)]
         check(not missing, f"the streaming step did not run {missing}")
-        print("streaming step kernels: T2, the quad K1 and K1c, T3, and no other")
+        print("streaming step kernels in a graph replay: T2, the quad K1 and K1c, T3, and no other")
+        busy = sum(us for us, _, _ in step_rows)
+        prof = profiled_device_us(lambda: s._step(buf), iters=20)
+        check(prof is not None, "profiled_device_us found no device lane in the trace")
+        print(f"profiled_device_us (Chrome trace, device-lane leaves): {prof[0]:.2f} us per replay "
+              f"against key_averages() {busy:.2f} us, ratio {prof[0] / busy:.4f}; buckets "
+              + ", ".join(f"{k} {v:.2f}" for k, v in prof[1].items()) + f" ({smi})")
+        check(abs(prof[0] / busy - 1) <= 0.02, "profiled_device_us and key_averages() differ by "
+                                               "more than 2%")
 
     # -- 4d. the quad K1 beside the thread-per-tile K1-i16, T5 and T1 --------------------
     by, bx = 136, 256  # the race grid of rowslayout_exp and swar_exp

@@ -164,10 +164,13 @@ def run(cfg: DeblockConfig, bench: bool = False) -> dict:
         if bench:
             with open(cfg.input, "rb") as f:
                 first_raw = f.read(frame_bytes)
-            result["timing"] = {
-                k.replace("_s", "_us"): round(v * 1e6, 1)
-                for k, v in s.time_breakdown(first_raw).items()
-            }
+            timing = {}
+            for k, v in s.time_breakdown(first_raw).items():
+                if isinstance(v, dict):  # device_split_us: already µs by category
+                    timing[k] = v
+                else:
+                    timing[k.removesuffix("_s") + "_us"] = round(v * 1e6, 1)
+            result["timing"] = timing
             result["timing_unit"] = "us/frame"
     else:
         from .models.golden import deblock_frame_golden

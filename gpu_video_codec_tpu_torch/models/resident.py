@@ -6,7 +6,9 @@ layout cost once, at the pipeline's boundaries:
 
   ingest(raw)    one host-to-device copy + T2 (plane -> tile-planes) for
                  luma and one T2 for U and V together
-  step(state)    the deblock kernels K1 and K1c and nothing else
+  step(state)    the deblock kernels K1 and K1c and nothing else;
+                 run_steps(state, n) chains n of them as one CUDA graph
+                 replay on a CUDA device (a loop on the CPU)
   readback(st)   T3 (tile-planes -> planes) for luma and for U+V, T4 (pack
                  into one YV12 buffer), one device-to-host copy
 
@@ -39,8 +41,12 @@ from ..ops.relayout_kernel import (
 )
 from ..ops.tables import HALF_BLOCK, SAMPLE_BLOCK_SIZE as _B, get_beta, get_tc
 from ..utils.bs import BoundaryStrength, segment_bs_maps_device
+from ..utils.graphs import CapturedStep, GraphCache, graphed, tensor_key
 from ..utils.tiles import join_covered, split_covered_data
 from ..utils.yuv import check_dims
+
+# _step_n's graphs by state, maps and n
+_GRAPHS = GraphCache(maxsize=8)
 
 
 class StepOperands(NamedTuple):
@@ -162,6 +168,46 @@ def _step_core(tf: TileFrame, lm, cm, beta, tc, luma_only: bool, backend: str = 
     return TileFrame(y, uv, tf.u_rem, tf.v_rem)
 
 
+def _core_steps(n, beta, tc, luma_only, backend, lb, cb):
+    """fn(y, uv, u_rem, v_rem, *lm, *cm): n chained _step_core steps."""
+    def steps(y, uv, u_rem, v_rem, *maps):
+        tf = TileFrame(y, uv, u_rem, v_rem)
+        for _ in range(n):
+            tf = _step_core(tf, maps[:4], maps[4:], beta, tc, luma_only, backend, lb, cb)
+        return tf
+    return steps
+
+
+def _step_n(tf: TileFrame, lm, cm, beta, tc, n, luma_only, backend="cuda",
+            lb=BLOCK_BX, cb=CHROMA_BLOCK_BX) -> TileFrame:
+    """n chained resident steps; returns a new TileFrame and leaves tf as it
+    was.
+
+    With the cuda backend on a CUDA device this is ONE replay of a CUDA
+    graph of the n steps (the counterpart of the JAX package's single
+    dispatch of a fori_loop), captured at the first call on this state and
+    kept in a bounded cache by the state's and maps' addresses, shapes and
+    n.  The planes the steps write live in the graph's pool, which its next
+    replay overwrites, so the result gets memory of its own (a clone of
+    each; planes passed through -- chroma under luma_only, the remainders
+    -- are tf's, as in an eager step).  Elsewhere: the loop of eager
+    steps."""
+    if n <= 0:
+        return tf
+    args = (n, beta, tc, luma_only, backend, lb, cb)
+    steps = _core_steps(*args)
+    if not graphed(backend, tf.y.device):
+        return steps(*tf, *lm, *cm)
+
+    def written(*operands):  # the pool's planes only: the graph keeps what this returns
+        out = steps(*operands)
+        return out.y, None if luma_only else out.uv
+
+    key = (tensor_key(*tf, *lm, *cm), *args)
+    y, uv = _GRAPHS.get(key, lambda: CapturedStep(written, (*tf, *lm, *cm))).replay()
+    return TileFrame(y.clone(), tf.uv if uv is None else uv.clone(), tf.u_rem, tf.v_rem)
+
+
 class ResidentDeblocker:
     """Deblocks frames that live on the device in tile-planes layout.
 
@@ -204,33 +250,46 @@ class ResidentDeblocker:
         self._beta = get_beta(qp)
         self._tc = get_tc(qp)
         self._lb, self._cb = int(luma_block), int(chroma_block)
+        self._lm = self._cm = None
         self.update_boundary_strength(bs or BoundaryStrength.intra_default(width, height))
 
     def update_boundary_strength(self, bs: BoundaryStrength) -> None:
         """Swap in new BS arrays (the SetBoundaryStrenght story,
         cpu.h:120-132); the segment gate maps are built on the device
-        (utils.bs.segment_bs_maps_device), chroma stacked U over V."""
+        (utils.bs.segment_bs_maps_device), chroma stacked U over V.  After
+        the first install the maps are rewritten IN PLACE on the current
+        stream, so captured graphs read the new maps and steps queued before
+        the call still read the old ones."""
         if (bs.width, bs.height) != (self.width, self.height):
             raise ValueError("BoundaryStrength geometry mismatch")
         w, h = self.width, self.height
         ny, nx = h // _B + 1, w // _B + 1
         cny, cnx = (h // 2) // _B + 1, (w // 2) // _B + 1
-        self._lm = segment_bs_maps_device(bs.vert, bs.hor, w, ny, nx, ny, nx,
-                                          device=self.device)
+        lm = segment_bs_maps_device(bs.vert, bs.hor, w, ny, nx, ny, nx, device=self.device)
         cm = segment_bs_maps_device(bs.chroma_vert, bs.chroma_hor, w // 2, cny, cnx, ny, nx,
                                     device=self.device)
-        self._cm = tuple(torch.cat([m, m], dim=0) for m in cm)
+        if self._lm is None:
+            self._lm = tuple(lm)
+            self._cm = tuple(torch.cat([m, m], dim=0) for m in cm)
+            return
+        for dst, src in zip(self._lm, lm):
+            dst.copy_(src)
+        for dst, src in zip(self._cm, cm):
+            torch.cat([src, src], dim=0, out=dst)
 
     # -- public operand/shape contract ----------------------------------------
 
     @property
     def operands(self) -> StepOperands:
-        """The step's operands as one tuple."""
-        return StepOperands(self._lm, self._cm, self._beta, self._tc)
+        """The step's operands as one tuple: copies of the maps, which
+        update_boundary_strength rewrites in place."""
+        return StepOperands(tuple(m.clone() for m in self._lm),
+                            tuple(m.clone() for m in self._cm), self._beta, self._tc)
 
     def install_operands(self, ops: StepOperands) -> None:
         """Replace the step's operands (e.g. with copies placed elsewhere).
-        Shapes and dtypes must match what `operands` returned."""
+        Shapes and dtypes must match what `operands` returned.  The deblocker
+        then owns the maps: update_boundary_strength rewrites them in place."""
         self._lm, self._cm, self._beta, self._tc = ops
 
     @property
@@ -304,11 +363,12 @@ class ResidentDeblocker:
                           self._backend, self._lb, self._cb)
 
     def run_steps(self, tf: TileFrame, n: int) -> TileFrame:
-        """n chained deblock steps on the device (identical to calling
-        step() n times, which is what it does)."""
-        for _ in range(int(n)):
-            tf = self.step(tf)
-        return tf
+        """n chained deblock steps (identical to calling step() n times):
+        one CUDA graph replay with the cuda backend on a CUDA device, a loop
+        elsewhere (_step_n).  tf stays as it was, and the result is not
+        overwritten by a later call."""
+        return _step_n(tf, self._lm, self._cm, self._beta, self._tc, int(n), self._luma_only,
+                       self._backend, self._lb, self._cb)
 
     def readback(self, tf: TileFrame) -> np.ndarray:
         """Device TileFrame -> filtered packed YV12 on the host."""
@@ -329,11 +389,15 @@ class ResidentDeblocker:
             (the T2 launches, no host-to-device copy);
         readback_us -- the device part of readback (T3 + T4, no copy to
             the host);
+        copy_out_us -- the device time run_steps spends giving its result
+            memory of its own (the clones out of the graph's pool);
         queued_ahead -- whether the host queued every timed run before the
             spin ended (if not, host gaps are in the times).
 
         dispatch_us -- host wall time per individually dispatched chained
-        step, synchronized at the end."""
+            step, synchronized at the end;
+        dispatch_n_us -- host wall time per step of run_steps(tf, iters)
+            (one graph replay), synchronized at the end."""
         from ..utils.timing import device_ms
 
         if self.device.type != "cuda":
@@ -345,7 +409,8 @@ class ResidentDeblocker:
         torch.cuda.synchronize(self.device)
         runs = {"step": lambda: self.step(tf),
                 "ingest": lambda: _ingest(buf, w, h, self._backend),
-                "readback": lambda: _readback(tf, w, h, self._backend)}
+                "readback": lambda: _readback(tf, w, h, self._backend),
+                "copy_out": lambda: (tf.y.clone(), tf.uv if self._luma_only else tf.uv.clone())}
         out, ahead = {}, True
         with torch.cuda.device(self.device):
             for name, fn in runs.items():
@@ -354,7 +419,8 @@ class ResidentDeblocker:
                     ms, ok = device_ms(fn, iters)
                     best, ahead = min(best, ms), ahead and ok
                 out[f"{name}_us"] = best * 1e3
-            dispatch = float("inf")
+            dispatch = dispatch_n = float("inf")
+            self.run_steps(tf, iters)  # captures the graph
             for _ in range(repeats):
                 t = tf
                 t0 = time.perf_counter()
@@ -362,12 +428,17 @@ class ResidentDeblocker:
                     t = self.step(t)
                 torch.cuda.synchronize(self.device)
                 dispatch = min(dispatch, (time.perf_counter() - t0) / iters)
+                t0 = time.perf_counter()
+                self.run_steps(tf, iters)
+                torch.cuda.synchronize(self.device)
+                dispatch_n = min(dispatch_n, (time.perf_counter() - t0) / iters)
         frames = buf.shape[0] if buf.dim() == 2 else 1
         return {
             **out,
             "step_s": out["step_us"] / 1e6,
             "mpix_s": frames * w * h / out["step_us"],
             "dispatch_us": dispatch * 1e6,
+            "dispatch_n_us": dispatch_n * 1e6,
             "queued_ahead": ahead,
             "frames": frames,
             "device": torch.cuda.get_device_name(self.device),

@@ -89,6 +89,25 @@ def test_cli_errors(tmp_path, testdata_dir, capsys):
     assert "CUDA" in capsys.readouterr().err
 
 
+def test_cli_bench_passes_device_split_through(testdata_dir, capsys, monkeypatch):
+    """--bench turns time_breakdown's seconds into µs and passes the nested
+    device_split_us (already µs) through.  The JAX CLI maps every value
+    through round(v * 1e6, 1) (gpu_video_codec_tpu/cli.py:261-264) and
+    would raise on that dict: a reference defect the port does not inherit."""
+    from gpu_video_codec_tpu_torch.models.streaming import StreamingDeblocker
+
+    split = {"deblock_kernels": 7.81, "layout_and_copies": 12.4, "other": 0.0}
+    monkeypatch.setattr(StreamingDeblocker, "time_breakdown", lambda self, frame: {
+        "h2d_s": 5.1e-4, "kernel_s": 3.12e-5, "dispatch_s": 2.93e-5,
+        "device_split_us": split, "e2e_sync_s": 4.46e-3})
+    inp = os.path.join(testdata_dir, CIF)
+    assert main(["-i", inp, "-W", "352", "-H", "288", "--device", "cpu", "--bench"]) == 0
+    res = json.loads(capsys.readouterr().out)
+    assert res["timing"] == {"h2d_us": 510.0, "kernel_us": 31.2, "dispatch_us": 29.3,
+                             "device_split_us": split, "e2e_sync_us": 4460.0}
+    assert res["timing_unit"] == "us/frame"
+
+
 def test_cli_batch_resident_with_tail(tmp_path, testdata_dir, capsys):
     """--batch 2 over three frames: one batch of two, then the tail frame as
     a batch of its own, each frame equal to golden."""

@@ -109,6 +109,22 @@ def test_resident_run_steps_matches_step_loop(rng):
     assert rd.run_steps(state, 0) is state
 
 
+@pytest.mark.parametrize("w,h", [(64, 48), (88, 72)], ids=["64x48", "sheared-88x72"])
+def test_resident_run_steps_matches_jax(rng, w, h):
+    """run_steps(tf, 3) == the JAX run_steps (one dispatch of three steps) at
+    every boundary, byte for byte, and leaves the input state as it was."""
+    raw = _raw(rng, w, h)
+    rd = ResidentDeblocker(w, h, 35, device=CPU)
+    jrd = jres.ResidentDeblocker(w, h, 35)
+    tf, jtf = rd.ingest(raw), jrd.ingest(raw)
+    keep = [t.clone() for t in tf]
+    out, jout = rd.run_steps(tf, 3), jrd.run_steps(jtf, 3)
+    _assert_state_matches_jax(out, jout)
+    assert all(torch.equal(t, k) for t, k in zip(tf, keep))
+    assert np.array_equal(rd.readback(out), jrd.readback(jout))
+    assert np.array_equal(rd.readback(out), _golden_packed(raw, w, h, 35, passes=3))
+
+
 @pytest.mark.parametrize("w,h", GEOMS)
 def test_resident_luma_only(rng, w, h):
     raw = _raw(rng, w, h)

@@ -179,6 +179,23 @@ def test_step_in_place_and_borrow(rng):
     assert np.array_equal(out.numpy().ravel(), _golden(raw, w, h, 35))
 
 
+@pytest.mark.parametrize("w,h", [(64, 48), (88, 72)], ids=["64x48", "sheared-88x72"])
+def test_chain_matches_jax_chain(rng, w, h):
+    """_chain(buf, 3) == the JAX _chain (three steps in one dispatch) and
+    three golden passes, byte for byte; the port's works in place."""
+    raw = _raw_frame(rng, w, h)
+    s = _sd(w, h)
+    buf = s._put(raw)
+    assert s._chain(buf, 3) is buf
+    js = JaxStreaming(w, h, 35, backend="jnp")
+    ref = np.asarray(js._chain(js._put(raw), 3)).ravel()
+    assert np.array_equal(buf.numpy().ravel(), ref)
+    want = raw
+    for _ in range(3):
+        want = _golden(want, w, h, 35)
+    assert np.array_equal(ref, want)
+
+
 def test_pack_out_semantics():
     buf = torch.zeros((6, 4), dtype=torch.uint8)
     parts = [(0, torch.ones((2, 4), dtype=torch.uint8)),
