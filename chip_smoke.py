@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 0. Builds the kernels from gpu_video_codec_tpu_torch/csrc, one nvcc per
-   library (deblock, relayout, SWAR), all started together, and prints
+   library (deblock, relayout, SWAR), and the native CPU runtime
+   (gpu_video_codec_tpu_torch/runtime/src, g++), all started together, and
+   prints
    ptxas's registers, spills and shared memory for every kernel entry, and
    for K1/K1c (the quad kernel) at TB 32 and 64 tiles per block, from the
    CUDA runtime: blocks and warps per SM, the 1080p grids' waves and the
@@ -21,6 +23,9 @@
    at 1080p and at Bx in {1, 2, 15, 16, 17, 31, 33} with pad 0 and 4 (no
    byte outside the destination view may change); T3 straight into the
    rows of a packed 1080p frame (out=); T4 at 1080p and 360x288.
+   The flat view (Q9, flat=True): T2 with its flat tail and T3 from it or
+   in place, on the sheared 360x288 and 1928x1080 U+V pairs and the 1080p
+   extended pair with pad 0.
 1c. Holds K1-i16 (int16 compute, luma and chroma), T5 (the rows layout)
    and T1 (SWAR, two tiles per thread) against their plain versions, and
    K1-i16 against K1, byte for byte, over QP {0,17,30,35,51}: 1080p luma
@@ -55,6 +60,22 @@
    and at a replay alone; ResidentDeblocker.run_steps(tf, 3) on one 1080p
    frame and a batch of four (K1 3, K1c 3 per call): two successive results
    both right, in memory of their own, and the input state unchanged.
+3d. The driver layer: DeblockPipeline at 1920x1080 with the cuda, torch,
+   golden and native backends, byte-equal to golden, the cuda backend with
+   T2 3, K1 1, K1c 1, T3 3 per frame; batch() of four frames == four single
+   calls, with one K1 and one K1c (T2 2, T3 2); the host-to-host time per
+   frame of both and the native runtime's at 1, 2, 4 and 8 threads, with
+   the host's CPU model and nproc.
+3e. compat: ReadYuvFrame (cuda and native) on the three bundled frames ==
+   golden; ExecuteCpu's thread sweep and ExecuteGpu's kernel_s, h2d_s and
+   total_s at 1080p, printed, each output == golden.
+3f. The CLI with --backend native --num-threads 2 --bench == golden; the
+   three examples (gpu_video_codec_tpu_torch/examples) on the card.
+3g. Sheared chroma (Q9) at 360x288: a 4-frame stream, a resident batch of
+   four and a pipeline batch of four == golden with their exact launches;
+   the sheared _step's device time; torch.profiler lists the kernels of a
+   graph-replayed _step and of a resident ingest + step + readback: the
+   port's T2, K1, K1c, T3 (and T4) and no other.
 4. Times K1 and K1c at TB 32 and 64 in turns with their plain versions,
    the packed step (a graph replay), the copy and the pipelined rate with
    CUDA events; prints time_breakdown(measure_d2h=True) (dispatch per
@@ -146,7 +167,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    from gpu_video_codec_tpu_torch import compat
+    from gpu_video_codec_tpu_torch.examples import one_shot, resident_chain, streaming
     from gpu_video_codec_tpu_torch.models.golden import deblock_frame_golden
+    from gpu_video_codec_tpu_torch.models.pipeline import DeblockPipeline
     from gpu_video_codec_tpu_torch.models.resident import ResidentDeblocker, _readback
     from gpu_video_codec_tpu_torch.models.streaming import StreamingDeblocker
     from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
@@ -154,6 +178,7 @@ def main() -> int:
     from gpu_video_codec_tpu_torch.ops import swar_kernel as sk
     from gpu_video_codec_tpu_torch.ops.deblock import deblock_rows_plain, deblock_tiles_plain
     from gpu_video_codec_tpu_torch.ops.tables import get_beta, get_tc
+    from gpu_video_codec_tpu_torch.runtime import native
     from gpu_video_codec_tpu_torch.tools import int16_probe, rowslayout_exp, swar_exp
     from gpu_video_codec_tpu_torch.utils.bs import (
         BoundaryStrength, chroma_segment_maps, luma_segment_maps,
@@ -173,9 +198,12 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     libs = (ck.build_library, rk.build_library, sk.build_library)
-    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per library, started together
+    with ThreadPoolExecutor(len(libs) + 1) as pool:  # one compiler per library, together
+        native_build = pool.submit(native.build_library)  # g++, the host runtime
         builds = list(pool.map(lambda build: build(), libs))
-    print(f"kernel build (three libraries): {time.perf_counter() - t0:.1f} s")
+        native_lib = native_build.result()
+    print(f"kernel build (three CUDA libraries and the native runtime): "
+          f"{time.perf_counter() - t0:.1f} s; native -> {os.path.relpath(native_lib, REPO)}")
     cuobjdump = os.path.join(os.path.dirname(ck._nvcc()), "cuobjdump")
     cxxfilt = shutil.which("c++filt")
     for path, log in builds:
@@ -293,6 +321,27 @@ def main() -> int:
             same("T3", what + " from the U-over-V stack",
                  rk.tiles_to_plane_cuda(stacked.movedim(2, 0), pad, hh, ww), x)
         print(f"T2/T3 == plain: {what} {tuple(x.shape)} -> {tuple(t.shape)}")
+    uv1928 = torch.from_numpy(rng.integers(0, 256, (2, 540, 964), dtype=np.uint8)).to(dev)
+    for what, x, pad in (
+            ("sheared 360x288 U+V", cif[360 * 288 :].reshape(2, 144, 180), 4),
+            ("sheared 1928x1080 U+V (tail holds rows)", uv1928, 4),
+            ("1080p extended U+V, pad 0", torch.nn.functional.pad(uv1, (4, 4, 4, 4)), 0)):
+        hh, ww = x.shape[-2:]
+        rem = torch.empty((2, rk.flat_view(hh, ww, pad)[2]), dtype=torch.uint8, device=dev)
+        t = rk.plane_to_tiles_cuda(x, pad, flat=True, rem_out=rem)
+        same("T2", what + ", flat view", t, rk.plane_to_tiles_plain(x, pad, flat=True))
+        same("T2", what + ", flat tail", rem, rk.flat_tail_plain(x, pad))
+        rnd = torch.randint(0, 256, t.shape, dtype=torch.uint8, device=dev)
+        same("T3", what + ", flat view", rk.tiles_to_plane_cuda(rnd, pad, hh, ww, flat=True,
+                                                                rem=rem),
+             rk.tiles_to_plane_plain(rnd, pad, hh, ww, True, rem))
+        dst = x.clone()
+        rk.tiles_to_plane_cuda(rnd, pad, hh, ww, out=dst, flat=True)
+        same("T3", what + ", flat view in place", dst,
+             rk.tiles_to_plane_plain(rnd, pad, hh, ww, True, None, x))
+        print(f"T2/T3 flat view == plain: {what} {tuple(x.shape)} -> {tuple(t.shape)}, "
+              f"tail {rem.shape[-1]} bytes")
+
     def at_residue(shape, off, row_pad=3):
         """A random uint8 view of `shape` on the card that starts `off` bytes
         past a 16-byte boundary, rows row_pad bytes wider than long, outer
@@ -405,6 +454,7 @@ def main() -> int:
         print(f"T1 refuses an odd Bx: {e}")
 
     # -- 2. golden -----------------------------------------------------------
+    golds = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, w, h in (("image1_352x288_yv12.yuv", 352, 288),
                            ("mother-daughter_352x288_yv12.yuv", 352, 288),
@@ -420,6 +470,7 @@ def main() -> int:
                 raw = f.read()
             gold = deblock_frame_golden(planes_from_yv12_bytes(raw, w, h),
                                         BoundaryStrength.intra_default(w, h), 35)
+            golds[name] = gold  # the bundled frames' oracle, again in phase 5b
             with open(dst, "rb") as f:
                 check(f.read() == yv12_bytes_from_planes(gold), f"CLI output of {name} != golden")
             print(f"CLI == golden: {name} ({json.loads(res.stdout)['device']})")
@@ -429,6 +480,7 @@ def main() -> int:
         t0 = time.perf_counter()
         gold = deblock_frame_golden(planes_from_yv12_bytes(raw, w, h),
                                     BoundaryStrength.intra_default(w, h), 35)
+        golds[w, h] = (raw, gold)  # again in phase 5
         check(out.tobytes() == yv12_bytes_from_planes(gold), f"StreamingDeblocker {w}x{h} != golden")
         check(not np.array_equal(out, raw), f"{w}x{h}: the filter changed nothing")
         print(f"StreamingDeblocker == golden: {w}x{h} "
@@ -627,6 +679,197 @@ def main() -> int:
         print(f"graphs: run_steps(tf, 3) on {what} == 3 eager plain steps twice over, results "
               f"distinct, input unchanged; K1 3, K1c 3 per call")
 
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def trace(what: str, fn, reps: int = 20) -> list:
+        """Print and return (us per call, launches per call, name) of every
+        device kernel of `fn`; [] when the profiler shows no device time."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6 / reps
+        rows = sorted(((getattr(e, "self_device_time_total", 0) / reps, e.count / reps, e.key)
+                       for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                      reverse=True)
+        busy = sum(us for us, _, _ in rows)
+        if not busy:
+            print(f"profile {what}: the profiler shows no device time (not measured)")
+            return []
+        print(f"profile {what}: kernels {busy:.1f} us per call, wall {wall_us:.1f} us per call, "
+              f"device busy {100 * busy / wall_us:.0f}% ({smi})")
+        for us, count, key in rows:
+            print(f"  {us:8.2f} us  x{count:g}  {key[:90]}")
+        return rows
+
+    # -- 3d. the driver layer: DeblockPipeline at 1080p ---------------------------------
+    raw, gold = golds[1920, 1080]
+    fp = planes_from_yv12_bytes(raw, w, h)
+
+    def same_planes(a, b) -> bool:
+        return all(np.array_equal(getattr(a, k), getattr(b, k)) for k in "yuv")
+
+    reset()
+    pipe = DeblockPipeline(w, h, 35, device=dev)
+    out = pipe(fp)
+    pipe_launches = counts()
+    check(pipe_launches == only(T2=3, K1=1, K1c=1, T3=3),
+          f"pipeline 1080p launches {pipe_launches}, want T2 3, K1 1, K1c 1, T3 3")
+    for backend in ("cuda", "torch", "golden", "native"):
+        got = out if backend == "cuda" else DeblockPipeline(w, h, 35, backend=backend,
+                                                            device=dev)(fp)
+        check(same_planes(got, gold), f"DeblockPipeline({backend!r}) 1080p != golden")
+    print(f"pipeline 1080p: cuda, torch, golden and native byte-equal (== golden); cuda "
+          f"launches per frame {pipe_launches}")
+    batch_frames = [planes_from_yv12_bytes(f, w, h) for f in frames[:4]]
+    reset()
+    outs_p = pipe.batch(batch_frames)
+    batch_launches = counts()
+    check(batch_launches == only(T2=2, K1=1, K1c=1, T3=2),
+          f"pipeline batch of 4 launches {batch_launches}, want T2 2, K1 1, K1c 1, T3 2")
+    reset()
+    singles = [pipe(f) for f in batch_frames]
+    check(all(same_planes(a, b) for a, b in zip(outs_p, singles)),
+          "pipeline batch of 4 != four single calls")
+    for k, v in batch_launches.items():
+        pipe_launches[k] += v
+    print(f"pipeline batch of 4 x 1080p == four single calls; launches {batch_launches}")
+
+    def host_ms(fn, reps: int) -> list[float]:
+        """Host wall ms of each of `reps` calls of fn (each ends synchronized)."""
+        fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    with open("/proc/cpuinfo") as f:  # the first core's fields
+        cpuinfo = dict(line.split(":", 1) for line in f.read().split("\n\n")[0].splitlines()
+                       if ":" in line)
+    cpuinfo = {k.strip(): v.strip() for k, v in cpuinfo.items()}
+    cpu_model = cpuinfo.get("model name", "unknown")
+    if cpu_model == "unknown":  # some hosts hide the name: give vendor, family, model
+        cpu_model = (f"{cpuinfo.get('vendor_id', '?')} family {cpuinfo.get('cpu family', '?')} "
+                     f"model {cpuinfo.get('model', '?')}")
+    nproc = len(os.sched_getaffinity(0))
+    t_single = host_ms(lambda: pipe(fp), 20)
+    t_batch = host_ms(lambda: pipe.batch(batch_frames), 10)
+    print(f"pipeline cuda 1080p host to host: {min(t_single):.2f} ms (median "
+          f"{np.median(t_single):.2f}) per frame; batch of 4 {min(t_batch) / 4:.2f} ms (median "
+          f"{np.median(t_batch) / 4:.2f}) per frame ({smi}; host {cpu_model}, nproc {nproc})")
+    bs1080 = BoundaryStrength.intra_default(w, h)
+    native_ms = {}
+    for nt in (1, 2, 4, 8):
+        native_ms[nt] = host_ms(lambda nt=nt: native.deblock_frame_native(
+            fp, bs1080, 35, num_threads=nt), 5)
+    print("native 1080p ms per frame by OpenMP threads: " + ", ".join(
+        f"{nt}: {min(t):.2f} (median {np.median(t):.2f})" for nt, t in native_ms.items())
+        + f" (isa {native.active_isa()}; host {cpu_model}, nproc {nproc})")
+
+    # -- 3e. compat: the reference's flow and drivers ---------------------------------
+    reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, ww, hh in (("image1_352x288_yv12.yuv", 352, 288),
+                             ("mother-daughter_352x288_yv12.yuv", 352, 288),
+                             ("image2_768x576.yuv", 768, 576)):
+            for backend in ("cuda", "native"):
+                dst = os.path.join(tmp, f"{backend}.yuv")
+                frame = compat.ReadYuvFrame(os.path.join(REPO, "testdata", name), ww, hh, Qp=35,
+                                            backend=backend, device=dev)
+                frame.DeblockingFilter(4)
+                frame.Save(dst)
+                with open(dst, "rb") as f:
+                    check(f.read() == yv12_bytes_from_planes(golds[name]),
+                          f"compat ReadYuvFrame({backend!r}) {name} != golden")
+        src = os.path.join(tmp, "in1080.yuv")
+        with open(src, "wb") as f:
+            f.write(raw.tobytes())
+        cpu_t = compat.ExecuteCpu(src, os.path.join(tmp, "cpu.yuv"), w, h, 35)
+        gpu_t = compat.ExecuteGpu(src, os.path.join(tmp, "gpu.yuv"), w, h, 35, device=dev)
+        for what in ("cpu", "gpu"):
+            with open(os.path.join(tmp, f"{what}.yuv"), "rb") as f:
+                check(f.read() == yv12_bytes_from_planes(gold), f"Execute{what.title()} != golden")
+    compat_launches = counts()
+    check(all(compat_launches[k] > 0 for k in ("T2", "K1", "K1c", "T3")),
+          f"compat did not launch T2, K1, K1c and T3: {compat_launches}")
+    print(f"compat: ReadYuvFrame (cuda, native) == golden on the three bundled frames; "
+          f"launches {compat_launches}")
+    print("ExecuteCpu 1080p seconds by threads: " + ", ".join(
+        f"{nt}: {t * 1e3:.2f} ms" for nt, t in cpu_t.items())
+        + f" (host {cpu_model}, nproc {nproc})")
+    print(f"ExecuteGpu 1080p: kernel_s {gpu_t['kernel_s'] * 1e6:.1f} us, h2d_s "
+          f"{gpu_t['h2d_s'] * 1e6:.1f} us, total_s {gpu_t['total_s'] * 1e6:.1f} us ({smi})")
+
+    # -- 3f. the CLI's native backend and the examples on the card ------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        name = "mother-daughter_352x288_yv12.yuv"
+        dst = os.path.join(tmp, "out.yuv")
+        res = subprocess.run(
+            [sys.executable, "-m", "gpu_video_codec_tpu_torch.cli", "-i",
+             os.path.join(REPO, "testdata", name), "-W", "352", "-H", "288", "--qp", "35",
+             "-o", dst, "--backend", "native", "--num-threads", "2", "--bench"],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        check(res.returncode == 0, f"CLI --backend native: {res.stderr[-2000:]}")
+        with open(dst, "rb") as f:
+            check(f.read() == yv12_bytes_from_planes(golds[name]), "CLI native != golden")
+        print(f"CLI --backend native --num-threads 2 == golden: {res.stdout.strip()}")
+    for mod in (one_shot, streaming, resident_chain):
+        check(mod.main([]) == 0, f"example {mod.__name__} failed on the card")
+
+    # -- 3g. sheared chroma (Q9) through T2/T3 alone, 360x288 ------------------------------
+    sw, sh = 360, 288
+    sheared4 = np.stack(cif_frames[:4])
+    reset()
+    outs_s = list(StreamingDeblocker(sw, sh, 35, device=dev).run(cif_frames[:4]))
+    rd_s = ResidentDeblocker(sw, sh, 35, device=dev)
+    outs_sr = rd_s.readback(rd_s.step(rd_s.ingest(sheared4)))
+    sheared_planes = [planes_from_yv12_bytes(f, sw, sh) for f in cif_frames[:4]]
+    outs_sp = DeblockPipeline(sw, sh, 35, device=dev).batch(sheared_planes)
+    sheared_launches = counts()
+    want = only(T2=2 * 4 + 2 + 2, K1=4 + 1 + 1, K1c=4 + 1 + 1, T3=2 * 4 + 2 + 2, T4=1)
+    check(sheared_launches == want, f"sheared launches {sheared_launches}, want {want}")
+    gold_s = [yv12_bytes_from_planes(deblock_frame_golden(
+        p, BoundaryStrength.intra_default(sw, sh), 35)) for p in sheared_planes]
+    check(all(o.tobytes() == g for o, g in zip(outs_s, gold_s)), "sheared stream != golden")
+    check(all(o.tobytes() == g for o, g in zip(outs_sr, gold_s)), "sheared resident != golden")
+    check(all(yv12_bytes_from_planes(o) == g for o, g in zip(outs_sp, gold_s)),
+          "sheared pipeline batch != golden")
+    print(f"sheared 360x288: 4-frame stream, resident batch of 4, pipeline batch of 4 == golden; "
+          f"launches {sheared_launches}")
+    s_sheared = StreamingDeblocker(sw, sh, 35, device=dev)
+    sbuf = s_sheared._put(cif_frames[0])
+    sheared_step_ms, ahead = device_ms(lambda: s_sheared._step(sbuf), 100)
+    print(f"sheared 360x288 packed _step (a graph replay): {sheared_step_ms * 1e3:.2f} us device "
+          f"time (queued ahead: {ahead}; {smi})")
+    sheared_dev = torch.from_numpy(sheared4[:1]).to(dev)
+    port_kernels = ("plane_to_tiles_kernel", "tiles_to_plane_kernel", "deblock_quad_kernel",
+                    "pack_yv12_kernel")
+    # eager launches first: a graph replay shows its kernels to a profiler
+    # that has traced before in the process (phase 4c's order)
+    for what, fn in (("sheared 360x288 streaming step, eager (_packed)",
+                      lambda: s_sheared._packed(sbuf, True)),
+                     ("sheared 360x288 resident ingest + step + readback to the device",
+                      lambda: _readback(rd_s.step(rd_s.ingest(sheared_dev)), sw, sh)),
+                     ("sheared 360x288 streaming _step, one graph replay",
+                      lambda: s_sheared._step(sbuf))):
+        rows = trace(what, fn)
+        check(bool(rows), f"{what}: the profiler listed no device kernel")
+        stray = [key for _, _, key in rows if not any(k in key for k in port_kernels)]
+        check(not stray, f"{what} ran kernels besides the port's: {stray}")
+        missing = [k for k in port_kernels[:3] if not any(k in key for _, _, key in rows)]
+        check(not missing, f"{what} did not run {missing}")
+        print(f"{what}: T2, the quad K1 and K1c, T3 (and T4 on the resident path), and no "
+              f"other kernel")
+
+    new_paths = {"pipeline": pipe_launches, "compat": compat_launches,
+                 "sheared": sheared_launches}
+
     # -- 4. times --------------------------------------------------------------
     kernels = []
     for name, chroma, shape, mshape in (
@@ -644,7 +887,8 @@ def main() -> int:
         r = in_turns(fns, {"plain": 5, **{f"TB {tb}": 200 for tb in BLOCKS}})
         short = name.split()[0]
         block_bx = ck.CHROMA_BLOCK_BX if chroma else ck.BLOCK_BX
-        by_path = {"stream": launches[short], "resident": res_launches[short]}
+        by_path = {"stream": launches[short], "resident": res_launches[short],
+                   **{path: n[short] for path, n in new_paths.items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -745,7 +989,8 @@ def main() -> int:
         main_row, *others = rows[kname]
         replaces = {"T2": "tools/kernel_relayout_exp.py:55", "T3": "tools/kernel_relayout_exp.py:87",
                     "T4": "tools/pack_exp.py:91"}[kname]
-        by_path = {"stream": launches[kname], "resident": res_launches[kname]}
+        by_path = {"stream": launches[kname], "resident": res_launches[kname],
+                   **{path: n[kname] for path, n in new_paths.items()}}
         kernels.append({
             "name": f"{kname} {what} ({main_row['shape']})", "route": "cuda",
             "source": RELAYOUT_SOURCE, "replaces": replaces,
@@ -768,33 +1013,6 @@ def main() -> int:
               f"copy-out {st['copy_out_us']:.1f} us (device time) ({smi})")
 
     # -- 4c. where the time goes: device kernels by name (torch.profiler) ------------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def trace(what: str, fn, reps: int = 20) -> list:
-        """Print and return (us per call, launches per call, name) of every
-        device kernel of `fn`; [] when the profiler shows no device time."""
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6 / reps
-        rows = sorted(((getattr(e, "self_device_time_total", 0) / reps, e.count / reps, e.key)
-                       for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                      reverse=True)
-        busy = sum(us for us, _, _ in rows)
-        if not busy:
-            print(f"profile {what}: the profiler shows no device time (not measured)")
-            return []
-        print(f"profile {what}: kernels {busy:.1f} us per call, wall {wall_us:.1f} us per call, "
-              f"device busy {100 * busy / wall_us:.0f}% ({smi})")
-        for us, count, key in rows:
-            print(f"  {us:8.2f} us  x{count:g}  {key[:90]}")
-        return rows
-
     rd1 = ResidentDeblocker(w, h, 35, device=dev)
     trace("resident 1080p ingest + step + readback to the device, batch 1",
           lambda: _readback(rd1.step(rd1.ingest(frames4[0])), w, h))

@@ -11,10 +11,16 @@ is checked against byte for byte.  Same layout and names:
   csrc/     the kernels' CUDA C++ sources
   tools/    the kernel-variant experiments (int16_probe, rowslayout_exp,
             swar_exp) as entry points
-  models/   the golden NumPy oracle, the streaming packed-YV12 pipeline and
-            the device-resident tile-planes path
+  models/   the golden NumPy oracle, the frame pipeline and its backends
+            (cuda, torch, golden, native), the streaming packed-YV12
+            pipeline and the device-resident tile-planes path
+  runtime/  the native C++ OpenMP CPU runtime (the JAX package's sources,
+            built with g++ at first use) with its ctypes binding
   utils/    YV12 I/O, boundary-strength subsystem, tile-planes layout,
             configuration
+  compat.py the reference's class API and drivers (ReadYuvFrame,
+            ExecuteCpu, ExecuteGpu, GetGpuDeviceInfo)
+  examples/ self-checking examples of the public API
 This package imports torch and numpy, never jax.
 """
 

@@ -2,7 +2,7 @@
 actual argument parsing instead of hand-edited constants.
 
     python -m gpu_video_codec_tpu_torch.cli --input in.yuv --width 352 \
-        --height 288 --qp 35 --output out.yuv [--backend cuda|torch|golden]
+        --height 288 --qp 35 --output out.yuv [--backend cuda|torch|golden|native]
     python -m gpu_video_codec_tpu_torch.cli --device-info
     python -m gpu_video_codec_tpu_torch.cli --input ... --bench   # timing split
     python -m gpu_video_codec_tpu_torch.cli --input ... --batch 4  # resident, 4 frames a launch
@@ -20,7 +20,9 @@ from .utils.config import BACKENDS, DeblockConfig
 
 def device_info() -> dict:
     """GetGpuDeviceInfo equivalent (main.cu:92-107): per CUDA device its
-    name, total global memory, SM count and warp size."""
+    name, total global memory, SM count and warp size; and, where the
+    native runtime builds, its SIMD tier and OpenMP threads (the reference
+    prints CPU info beside the GPU's)."""
     import torch
 
     devices = []
@@ -35,12 +37,20 @@ def device_info() -> dict:
                 "warp_size": getattr(props, "warp_size", None),
                 "capability": f"{props.major}.{props.minor}",
             })
-    return {
+    info = {
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "num_devices": len(devices),
         "devices": devices,
     }
+    from .runtime import native
+
+    if native.available():
+        info["native_runtime"] = {
+            "isa": native.active_isa(),
+            "omp_max_threads": native.load().gvct_num_threads(),
+        }
+    return info
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,10 +68,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device of the cuda/torch backends (default cuda)")
     p.add_argument("--luma-only", action="store_true", help="skip chroma filtering")
     p.add_argument("--frames", type=int, help="max frames to process from a stream")
+    p.add_argument("--num-threads", type=int, default=0,
+                   help="native backend OpenMP thread count (0 = default)")
     p.add_argument("--depth", type=int, default=2, help="streaming frames in flight")
     p.add_argument("--bench", action="store_true",
                    help="add a per-frame timing breakdown to the JSON result "
-                        "(copy vs step on a CUDA device, filter time for golden)")
+                        "(copy vs step on a CUDA device, filter time on the host "
+                        "backends golden and native)")
     p.add_argument("--batch", type=int,
                    help="process N frames per kernel launch through the device-resident "
                         "pipeline (models/resident.py)")
@@ -173,19 +186,22 @@ def run(cfg: DeblockConfig, bench: bool = False) -> dict:
             result["timing"] = timing
             result["timing_unit"] = "us/frame"
     else:
-        from .models.golden import deblock_frame_golden
-        from .utils.bs import BoundaryStrength
+        from .models.pipeline import DeblockPipeline
         from .utils.yuv import planes_from_yv12_bytes, yv12_bytes_from_planes
 
-        bs = BoundaryStrength.intra_default(cfg.width, cfg.height)
+        pipe = DeblockPipeline(cfg.width, cfg.height, cfg.qp, luma_only=cfg.luma_only,
+                               backend=cfg.backend, num_threads=cfg.num_threads)
+        if cfg.backend == "native":
+            from .runtime import native
+
+            native.load()  # built and loaded before the timed frames
         sink = open(cfg.output, "wb") if cfg.output else None
         try:
             t0 = time.perf_counter()
             per_frame = []
             for raw in _raw_frames(cfg.input, frame_bytes, n):
                 f0 = time.perf_counter()
-                out = deblock_frame_golden(planes_from_yv12_bytes(raw, cfg.width, cfg.height),
-                                           bs, cfg.qp, luma_only=cfg.luma_only)
+                out = pipe(planes_from_yv12_bytes(raw, cfg.width, cfg.height))
                 per_frame.append(time.perf_counter() - f0)
                 if sink is not None:
                     sink.write(yv12_bytes_from_planes(out))
@@ -214,7 +230,8 @@ def main(argv: list[str] | None = None) -> int:
         cfg = DeblockConfig(
             input=args.input, width=args.width, height=args.height, qp=args.qp,
             output=args.output, backend=args.backend, luma_only=args.luma_only,
-            frames=args.frames, depth=args.depth, device=args.device,
+            frames=args.frames, num_threads=args.num_threads, depth=args.depth,
+            device=args.device,
         ).validate()
         if args.batch is not None:
             # the batched mode runs the device-resident pipeline through the

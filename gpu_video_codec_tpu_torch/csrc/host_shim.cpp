@@ -229,32 +229,54 @@ template <int NT>
 int host_relayout(int inverse, const uint8_t* src, uint8_t* dst, int h, int w, int pad,
                   int by_grid, int bx_grid, int n_outer, int n_inner, long long p_outer,
                   long long p_inner, long long p_row, long long t_outer, long long t_inner,
-                  long long t_r, long long t_c, long long t_by) {
+                  long long t_r, long long t_c, long long t_by, int flat, uint8_t* rem,
+                  long long r_outer, long long r_inner) {
   gvct::RelayoutGeom g;
   if (!gvct::make_geom(&g, h, w, pad, by_grid, bx_grid, n_inner, p_outer, p_inner, p_row,
-                       t_outer, t_inner, t_r, t_c, t_by) ||
-      n_outer < 0) {
+                       t_outer, t_inner, t_r, t_c, t_by, flat, r_outer, r_inner) ||
+      n_outer < 0 || (rem != nullptr && !flat)) {
     return -1;
   }
   alignas(16) uint8_t stage[gvct::kStageBytes];
   const long long nb = static_cast<long long>(n_outer) * n_inner;
+  const int tile_rows = gvct::kTile * by_grid;
+  const int rows = tile_rows + (rem != nullptr ? gvct::tail_blocks(g) : 0);
   for (long long b = 0; b < nb; ++b) {
     const uint8_t* src_b = src + (inverse ? gvct::tiles_base(g, b) : gvct::plane_base(g, b));
     uint8_t* dst_b = dst + (inverse ? gvct::plane_base(g, b) : gvct::tiles_base(g, b));
-    for (int row = 0; row < gvct::kTile * by_grid; ++row) {
-      for (int bx0 = 0; bx0 < bx_grid; bx0 += gvct::kSpanTiles) {
+    for (int row = 0; row < rows; ++row) {
+      if (row >= tile_rows) {  // a flat-tail block (block x 0 only)
         for (int tid = 0; tid < NT; ++tid) {
           if (inverse) {
+            gvct::inv_tail<NT>(rem + gvct::rem_base(g, b), dst_b, g, row - tile_rows, tid);
+          } else {
+            gvct::fwd_tail<NT>(src_b, rem + gvct::rem_base(g, b), g, row - tile_rows, tid);
+          }
+        }
+        continue;
+      }
+      const bool flat_path = flat && gvct::flat_path(g, row);
+      for (int bx0 = 0; bx0 < bx_grid; bx0 += gvct::kSpanTiles) {
+        for (int tid = 0; tid < NT; ++tid) {
+          if (inverse && flat_path) {
+            gvct::inv_stage_at<NT>(src_b, 0, stage, g, row, bx0, tid);
+          } else if (inverse) {
             gvct::inv_stage<NT>(src_b, dst_b, stage, g, row, bx0, tid);
+          } else if (flat_path) {
+            gvct::fwd_stage_flat<NT>(src_b, stage, g, row, bx0, tid);
           } else {
             gvct::fwd_stage<NT>(src_b, stage, g, row, bx0, tid);
           }
         }
         for (int tid = 0; tid < NT; ++tid) {  // after the kernel's __syncthreads()
-          if (inverse) {
-            gvct::inv_store<NT>(stage, dst_b, g, row, bx0, tid);
-          } else {
+          if (!inverse && flat_path) {
+            gvct::fwd_store_at<NT>(stage, 0, dst_b, g, row, bx0, tid);
+          } else if (!inverse) {
             gvct::fwd_store<NT>(stage, src_b, dst_b, g, row, bx0, tid);
+          } else if (flat_path) {
+            gvct::inv_store_flat<NT>(stage, dst_b, g, row, bx0, tid);
+          } else {
+            gvct::inv_store<NT>(stage, dst_b, g, row, bx0, tid);
           }
         }
       }
@@ -263,27 +285,53 @@ int host_relayout(int inverse, const uint8_t* src, uint8_t* dst, int h, int w, i
   return 0;
 }
 
+int host_relayout_any(int threads, int inverse, const uint8_t* src, uint8_t* dst, int h, int w,
+                      int pad, int by_grid, int bx_grid, int n_outer, int n_inner,
+                      long long p_outer, long long p_inner, long long p_row, long long t_outer,
+                      long long t_inner, long long t_r, long long t_c, long long t_by, int flat,
+                      uint8_t* rem, long long r_outer, long long r_inner) {
+  if (threads == 1) {
+    return host_relayout<1>(inverse, src, dst, h, w, pad, by_grid, bx_grid, n_outer, n_inner,
+                            p_outer, p_inner, p_row, t_outer, t_inner, t_r, t_c, t_by, flat,
+                            rem, r_outer, r_inner);
+  }
+  if (threads == gvct::kRelayoutThreads) {
+    return host_relayout<gvct::kRelayoutThreads>(
+        inverse, src, dst, h, w, pad, by_grid, bx_grid, n_outer, n_inner, p_outer, p_inner,
+        p_row, t_outer, t_inner, t_r, t_c, t_by, flat, rem, r_outer, r_inner);
+  }
+  return -1;
+}
+
 }  // namespace
 
 // T2 (inverse = 0) or T3 (inverse = 1) over the launch grid of
-// relayout_kernel.cu, with `threads` = 1 or the kernel's block size (see
-// host_relayout).  Returns 0, or -1 for a geometry the kernel's launcher
-// refuses or another thread count.
+// relayout_kernel.cu on the rows view, with `threads` = 1 or the kernel's
+// block size (see host_relayout).  Returns 0, or -1 for a geometry the
+// kernel's launcher refuses or another thread count.
 extern "C" int gvct_host_relayout(int threads, int inverse, const uint8_t* src, uint8_t* dst,
                                   int h, int w, int pad, int by_grid, int bx_grid, int n_outer,
                                   int n_inner, long long p_outer, long long p_inner,
                                   long long p_row, long long t_outer, long long t_inner,
                                   long long t_r, long long t_c, long long t_by) {
-  if (threads == 1) {
-    return host_relayout<1>(inverse, src, dst, h, w, pad, by_grid, bx_grid, n_outer, n_inner,
-                            p_outer, p_inner, p_row, t_outer, t_inner, t_r, t_c, t_by);
-  }
-  if (threads == gvct::kRelayoutThreads) {
-    return host_relayout<gvct::kRelayoutThreads>(inverse, src, dst, h, w, pad, by_grid,
-                                                 bx_grid, n_outer, n_inner, p_outer, p_inner,
-                                                 p_row, t_outer, t_inner, t_r, t_c, t_by);
-  }
-  return -1;
+  return host_relayout_any(threads, inverse, src, dst, h, w, pad, by_grid, bx_grid, n_outer,
+                           n_inner, p_outer, p_inner, p_row, t_outer, t_inner, t_r, t_c, t_by,
+                           0, nullptr, 0, 0);
+}
+
+// The same with the kernels' last four arguments: flat = 1 for the flat
+// view (Q9), and the flat tail buffer rem (null: no tail blocks) with its
+// batch strides.
+extern "C" int gvct_host_relayout_flat(int threads, int inverse, const uint8_t* src,
+                                       uint8_t* dst, int h, int w, int pad, int by_grid,
+                                       int bx_grid, int n_outer, int n_inner, long long p_outer,
+                                       long long p_inner, long long p_row, long long t_outer,
+                                       long long t_inner, long long t_r, long long t_c,
+                                       long long t_by, int flat, uint8_t* rem,
+                                       long long r_outer, long long r_inner) {
+  return host_relayout_any(threads, inverse, src, dst, h, w, pad, by_grid, bx_grid, n_outer,
+                           n_inner, p_outer, p_inner, p_row, t_outer, t_inner, t_r, t_c, t_by,
+                           flat, rem, r_outer, r_inner);
 }
 
 // T4 over the kernel's chunks.

@@ -29,6 +29,11 @@
 // whole plane is in flight at once (about 16 KB per SM at 1080p luma).
 // Index math inside a plane is 32-bit; the batch offset is 64-bit, once
 // per block.
+// The flat view (Q9 sheared chroma, w % 16 == 8): the same blocks, the
+// plane side byte by byte through relayout_tile.cuh's index map instead of
+// the aligned row chunks, and the flat tail in extra blocks of the same
+// launch (grid rows 8 * By and up), so that a sheared frame runs T2 and T3
+// and no PyTorch copy.  It is not on any common frame size's path.
 // T4: one thread per 16 bytes of the output, with 16-byte loads and stores
 // (plane offsets are multiples of 16 when w and h are multiples of 8).
 //
@@ -52,30 +57,67 @@ constexpr int kThreads = gvct::kRelayoutThreads;
 constexpr int kPackThreads = 256;
 constexpr int kMaxGridYZ = 65535;
 
+// FLAT = false: the rows view, the code of every 8-aligned plane.  FLAT =
+// true: the flat view (Q9), a separate instantiation, so that the rows
+// view's code is not touched by it: its blocks take the row path where the
+// view is 8-aligned rows, the flat path otherwise, and the flat tail in the
+// grid rows past 8 * by_grid.
+template <bool FLAT>
 __global__ void __launch_bounds__(kThreads)
 plane_to_tiles_kernel(const uint8_t* __restrict__ plane, uint8_t* __restrict__ tiles,
-                      gvct::RelayoutGeom g) {
+                      uint8_t* __restrict__ rem, gvct::RelayoutGeom g) {
   __shared__ __align__(16) uint8_t stage[gvct::kStageBytes];
   const long long b = blockIdx.z;
   const int row = blockIdx.y;
   const int bx0 = blockIdx.x * gvct::kSpanTiles;
   const uint8_t* src = plane + gvct::plane_base(g, b);
+  uint8_t* dst = tiles + gvct::tiles_base(g, b);
+  if (FLAT) {
+    if (row >= gvct::kTile * g.by_grid) {  // a flat-tail block: returns whole, before any barrier
+      if (blockIdx.x == 0) {
+        gvct::fwd_tail<kThreads>(src, rem + gvct::rem_base(g, b), g,
+                                 row - gvct::kTile * g.by_grid, threadIdx.x);
+      }
+      return;
+    }
+    if (gvct::flat_path(g, row)) {
+      gvct::fwd_stage_flat<kThreads>(src, stage, g, row, bx0, threadIdx.x);
+      __syncthreads();
+      gvct::fwd_store_at<kThreads>(stage, 0, dst, g, row, bx0, threadIdx.x);
+      return;
+    }
+  }
   gvct::fwd_stage<kThreads>(src, stage, g, row, bx0, threadIdx.x);
   __syncthreads();
-  gvct::fwd_store<kThreads>(stage, src, tiles + gvct::tiles_base(g, b), g, row, bx0,
-                            threadIdx.x);
+  gvct::fwd_store<kThreads>(stage, src, dst, g, row, bx0, threadIdx.x);
 }
 
+template <bool FLAT>
 __global__ void __launch_bounds__(kThreads)
 tiles_to_plane_kernel(const uint8_t* __restrict__ tiles, uint8_t* __restrict__ plane,
-                      gvct::RelayoutGeom g) {
+                      const uint8_t* __restrict__ rem, gvct::RelayoutGeom g) {
   __shared__ __align__(16) uint8_t stage[gvct::kStageBytes];
   const long long b = blockIdx.z;
   const int row = blockIdx.y;
   const int bx0 = blockIdx.x * gvct::kSpanTiles;
+  const uint8_t* src = tiles + gvct::tiles_base(g, b);
   uint8_t* dst = plane + gvct::plane_base(g, b);
-  gvct::inv_stage<kThreads>(tiles + gvct::tiles_base(g, b), dst, stage, g, row, bx0,
-                            threadIdx.x);
+  if (FLAT) {
+    if (row >= gvct::kTile * g.by_grid) {  // a flat-tail block
+      if (blockIdx.x == 0) {
+        gvct::inv_tail<kThreads>(rem + gvct::rem_base(g, b), dst, g,
+                                 row - gvct::kTile * g.by_grid, threadIdx.x);
+      }
+      return;
+    }
+    if (gvct::flat_path(g, row)) {
+      gvct::inv_stage_at<kThreads>(src, 0, stage, g, row, bx0, threadIdx.x);
+      __syncthreads();
+      gvct::inv_store_flat<kThreads>(stage, dst, g, row, bx0, threadIdx.x);
+      return;
+    }
+  }
+  gvct::inv_stage<kThreads>(src, dst, stage, g, row, bx0, threadIdx.x);
   __syncthreads();
   gvct::inv_store<kThreads>(stage, dst, g, row, bx0, threadIdx.x);
 }
@@ -94,27 +136,33 @@ pack_yv12_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ u,
 int launch_relayout(bool inverse, const void* src, void* dst, int h, int w, int pad,
                     int by_grid, int bx_grid, int n_outer, int n_inner, long long p_outer,
                     long long p_inner, long long p_row, long long t_outer, long long t_inner,
-                    long long t_r, long long t_c, long long t_by, int device, void* stream) {
+                    long long t_r, long long t_c, long long t_by, int flat, void* rem,
+                    long long r_outer, long long r_inner, int device, void* stream) {
   gvct::RelayoutGeom g;
   const long long nb = static_cast<long long>(n_outer) * n_inner;
   if (!gvct::make_geom(&g, h, w, pad, by_grid, bx_grid, n_inner, p_outer, p_inner, p_row,
-                       t_outer, t_inner, t_r, t_c, t_by) ||
-      n_outer < 0 || nb > kMaxGridYZ ||
-      static_cast<long long>(gvct::kTile) * by_grid > kMaxGridYZ) {
+                       t_outer, t_inner, t_r, t_c, t_by, flat, r_outer, r_inner) ||
+      n_outer < 0 || nb > kMaxGridYZ || (rem != nullptr && !flat)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const long long rows = static_cast<long long>(gvct::kTile) * by_grid +
+                         (rem != nullptr ? gvct::tail_blocks(g) : 0);
+  if (rows > kMaxGridYZ) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (nb == 0) return 0;
-  const dim3 grid((bx_grid + gvct::kSpanTiles - 1) / gvct::kSpanTiles, gvct::kTile * by_grid,
-                  static_cast<unsigned>(nb));
+  const dim3 grid((bx_grid + gvct::kSpanTiles - 1) / gvct::kSpanTiles,
+                  static_cast<unsigned>(rows), static_cast<unsigned>(nb));
   auto s = static_cast<cudaStream_t>(stream);
+  auto in = static_cast<const uint8_t*>(src);
+  auto out = static_cast<uint8_t*>(dst);
+  auto r = static_cast<uint8_t*>(rem);
   if (inverse) {
-    tiles_to_plane_kernel<<<grid, kThreads, 0, s>>>(static_cast<const uint8_t*>(src),
-                                                   static_cast<uint8_t*>(dst), g);
+    (flat ? tiles_to_plane_kernel<true> : tiles_to_plane_kernel<false>)<<<grid, kThreads, 0, s>>>(
+        in, out, r, g);
   } else {
-    plane_to_tiles_kernel<<<grid, kThreads, 0, s>>>(static_cast<const uint8_t*>(src),
-                                                   static_cast<uint8_t*>(dst), g);
+    (flat ? plane_to_tiles_kernel<true> : plane_to_tiles_kernel<false>)<<<grid, kThreads, 0, s>>>(
+        in, out, r, g);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -123,29 +171,37 @@ int launch_relayout(bool inverse, const void* src, void* dst, int h, int w, int 
 
 // T2.  plane: n_outer x n_inner interior (h, w) planes, strides p_*;
 // tiles: the (8, 8, by_grid, bx_grid) tile-planes of each, strides t_* (Bx
-// contiguous).  Launches on `stream` without synchronizing; returns
-// cudaGetLastError() after the launch (0 = ok), cudaErrorInvalidValue for a
-// geometry the plain version rejects, a negative stride, or offsets inside
-// one plane or tile-planes block past 32 bits (relayout_tile.cuh make_geom).
+// contiguous); flat = 1 tiles the flat view of the padded plane (Q9,
+// relayout_tile.cuh), and then rem, if not null, receives each plane's
+// flat tail (rem_n bytes, batch strides r_*).  Launches on `stream`
+// without synchronizing; returns cudaGetLastError() after the launch (0 =
+// ok), cudaErrorInvalidValue for a geometry the plain version rejects, a
+// negative stride, or offsets inside one plane or tile-planes block past
+// 32 bits (relayout_tile.cuh make_geom).
 extern "C" int gvct_plane_to_tiles(const void* plane, void* tiles, int h, int w, int pad,
                                    int by_grid, int bx_grid, int n_outer, int n_inner,
                                    long long p_outer, long long p_inner, long long p_row,
                                    long long t_outer, long long t_inner, long long t_r,
-                                   long long t_c, long long t_by, int device, void* stream) {
+                                   long long t_c, long long t_by, int flat, void* rem,
+                                   long long r_outer, long long r_inner, int device,
+                                   void* stream) {
   return launch_relayout(false, plane, tiles, h, w, pad, by_grid, bx_grid, n_outer, n_inner,
-                         p_outer, p_inner, p_row, t_outer, t_inner, t_r, t_c, t_by, device,
-                         stream);
+                         p_outer, p_inner, p_row, t_outer, t_inner, t_r, t_c, t_by, flat, rem,
+                         r_outer, r_inner, device, stream);
 }
 
-// T3: the same operands, tile-planes -> interior planes.
+// T3: the same operands, tile-planes -> interior planes; with flat = 1 and
+// rem not null, the interior pixels of the flat tail are written from rem.
 extern "C" int gvct_tiles_to_plane(const void* tiles, void* plane, int h, int w, int pad,
                                    int by_grid, int bx_grid, int n_outer, int n_inner,
                                    long long p_outer, long long p_inner, long long p_row,
                                    long long t_outer, long long t_inner, long long t_r,
-                                   long long t_c, long long t_by, int device, void* stream) {
+                                   long long t_c, long long t_by, int flat, const void* rem,
+                                   long long r_outer, long long r_inner, int device,
+                                   void* stream) {
   return launch_relayout(true, tiles, plane, h, w, pad, by_grid, bx_grid, n_outer, n_inner,
-                         p_outer, p_inner, p_row, t_outer, t_inner, t_r, t_c, t_by, device,
-                         stream);
+                         p_outer, p_inner, p_row, t_outer, t_inner, t_r, t_c, t_by, flat,
+                         const_cast<void*>(rem), r_outer, r_inner, device, stream);
 }
 
 // T4.  nb frames: y (yn bytes), u and v (cn bytes) -> out (yn + 2cn bytes),

@@ -14,6 +14,20 @@
 // 1080p chroma, (540 + 8) / 8 = 68 tile rows cover 544 of the 548 extended
 // rows; the 4 dropped rows are padding the reference never sweeps).
 //
+// The flat view (Q9, `flat` = 1): the tile-planes are those of the
+// reference's chroma sweep, which reads the padded plane's bytes as one flat
+// run viewed as (vh, vw) = (8 * rows // 8, 8 * cols // 8) of the padded
+// plane: T[r, c, by, bx] is padded byte f = (8by + r) * vw + 8bx + c, i.e.
+// padded pixel (f / pw, f % pw) with pw = w + 2 pad -- interior pixel
+// (f / pw - pad, f % pw - pad) when that lies inside, else 0.  When pw is a
+// multiple of 8 the view is the first vh padded rows and the kernels take
+// the row path below; otherwise ("sheared", w % 16 == 8 chroma) the plane
+// side goes byte by byte through that index map.  The padded bytes past
+// the view (f >= vh * vw, the flat tail, which can hold real bottom rows)
+// are never filtered: T2 can copy them out to a flat buffer `rem` and T3
+// write the interior ones back from it, in extra blocks of the same launch
+// (grid rows 8 * by_grid and up), so a fresh output needs no other copy.
+//
 // Global accesses are 16 bytes wide and aligned by the actual address.  A
 // contiguous global run -- a plane row segment, or one (r, c, by) tile-plane
 // row segment -- is cut into the aligned 16-byte chunks that cover it: a
@@ -67,6 +81,8 @@ GVCT_HD int covered_tiles(int interior, int pad) { return (interior + 2 * pad) /
 //   outer * p_outer + inner * p_inner + i * p_row + j
 // Tile byte of T[r, c, by, bx]:
 //   outer * t_outer + inner * t_inner + r * t_r + c * t_c + by * t_by + bx
+// Flat tail byte m (flat view only; rem_n bytes a plane):
+//   outer * r_outer + inner * r_inner + m
 // Offsets inside one plane or one tile-planes block are 32-bit (make_geom
 // checks that they fit); the batch offsets are 64-bit, taken once a block.
 struct RelayoutGeom {
@@ -75,14 +91,23 @@ struct RelayoutGeom {
   int p_row;
   long long t_outer, t_inner;
   int t_r, t_c, t_by;
+  int flat;           // the flat view (Q9) instead of the padded plane's rows
+  int sheared;        // flat with pw % 8 != 0: the byte-wise plane side
+  int pw, vh, vw;     // padded width; the tiled view's rows and columns
+  int rem_n;          // flat tail bytes per plane (flat view only, else 0)
+  long long r_outer, r_inner;
 };
 
-// The geometries the plain versions (utils/tiles.py interior_to_tiles,
-// tiles_to_interior) accept: an 8-aligned extended width, a grid at least
-// as large as the covered tiles, and every interior row inside them.
+// The geometries the plain versions (ops/relayout_kernel.py) accept.  Rows
+// view: an 8-aligned extended width, a grid at least as large as the
+// covered tiles, and every interior row inside them.  Flat view: any
+// interior, a grid at least as large as the view's tiles.
 GVCT_HD bool geometry_ok(const RelayoutGeom& g) {
-  return g.h > 0 && g.w > 0 && g.pad >= 0 && g.n_inner > 0 &&
-         (g.w + 2 * g.pad) % kTile == 0 &&
+  if (g.h <= 0 || g.w <= 0 || g.pad < 0 || g.n_inner <= 0) return false;
+  if (g.flat) {
+    return g.vh > 0 && g.vw > 0 && g.by_grid >= g.vh / kTile && g.bx_grid >= g.vw / kTile;
+  }
+  return (g.w + 2 * g.pad) % kTile == 0 &&
          g.by_grid >= covered_tiles(g.h, g.pad) && g.bx_grid >= covered_tiles(g.w, g.pad) &&
          g.pad + g.h <= kTile * covered_tiles(g.h, g.pad);
 }
@@ -93,19 +118,35 @@ GVCT_HD bool geometry_ok(const RelayoutGeom& g) {
 GVCT_HD bool make_geom(RelayoutGeom* g, int h, int w, int pad, int by_grid, int bx_grid,
                        int n_inner, long long p_outer, long long p_inner, long long p_row,
                        long long t_outer, long long t_inner, long long t_r, long long t_c,
-                       long long t_by) {
+                       long long t_by, int flat = 0, long long r_outer = 0,
+                       long long r_inner = 0) {
   if (h <= 0 || w <= 0 || pad < 0 || by_grid <= 0 || bx_grid <= 0 || p_row < 0 || t_r < 0 ||
-      t_c < 0 || t_by < 0 || p_outer < 0 || p_inner < 0 || t_outer < 0 || t_inner < 0) {
+      t_c < 0 || t_by < 0 || p_outer < 0 || p_inner < 0 || t_outer < 0 || t_inner < 0 ||
+      r_outer < 0 || r_inner < 0 || (flat != 0 && flat != 1)) {
     return false;
   }
   const long long slack = static_cast<long long>(kTile) * bx_grid + 2 * kChunk;
   const long long plane_end = (h + pad) * p_row + slack;
   const long long tile_end = (kTile - 1) * (t_r + t_c) + (by_grid - 1) * t_by + slack;
-  if (plane_end > INT_MAX || tile_end > INT_MAX) return false;
+  const long long padded = static_cast<long long>(h + 2 * pad) * (w + 2 * pad);
+  if (plane_end > INT_MAX || tile_end > INT_MAX || padded + slack > INT_MAX) return false;
+  const int pw = w + 2 * pad;
+  const int vh = kTile * covered_tiles(h, pad), vw = kTile * covered_tiles(w, pad);
   *g = RelayoutGeom{h, w, pad, by_grid, bx_grid, n_inner, p_outer, p_inner,
                     static_cast<int>(p_row), t_outer, t_inner, static_cast<int>(t_r),
-                    static_cast<int>(t_c), static_cast<int>(t_by)};
+                    static_cast<int>(t_c), static_cast<int>(t_by), flat,
+                    flat && pw % kTile != 0, pw, vh, vw,
+                    flat ? static_cast<int>(padded - static_cast<long long>(vh) * vw) : 0,
+                    r_outer, r_inner};
   return geometry_ok(*g);
+}
+
+// Blocks of grid row 8 * by_grid and up that the flat tail takes (one per
+// kSpanCols bytes), when the launch copies it.
+GVCT_HD int tail_blocks(const RelayoutGeom& g) { return (g.rem_n + kSpanCols - 1) / kSpanCols; }
+
+GVCT_HD long long rem_base(const RelayoutGeom& g, long long b) {
+  return (b / g.n_inner) * g.r_outer + (b % g.n_inner) * g.r_inner;
 }
 
 GVCT_HD long long plane_base(const RelayoutGeom& g, long long b) {
@@ -252,6 +293,33 @@ GVCT_HD PlaneRow plane_row(const RelayoutGeom& g, const uint8_t* plane, int row,
   return pr;
 }
 
+// Whether a flat-view block's plane side goes byte by byte (the sheared
+// view, and the view's grid-padding rows past vh when its width is
+// 8-aligned); its stage then starts at byte 0 (shift 0).  Every other
+// block takes the row path, its stage shifted by the plane row's residue.
+GVCT_HD bool flat_path(const RelayoutGeom& g, int row) { return g.sheared || row >= g.vh; }
+
+// The sheared plane side: padded byte f of the flat run (f < (h + 2 pad) *
+// pw) as the in-plane offset of its interior pixel, or -1 for padding.
+// Walk a run with flat_next instead of dividing again per byte.
+struct FlatPos {
+  int pr, pc;  // padded row and column
+};
+
+GVCT_HD FlatPos flat_pos(const RelayoutGeom& g, int f) { return FlatPos{f / g.pw, f % g.pw}; }
+
+GVCT_HD int flat_offset(const RelayoutGeom& g, const FlatPos& p) {
+  const int i = p.pr - g.pad, j = p.pc - g.pad;
+  return (i >= 0 && i < g.h && j >= 0 && j < g.w) ? i * g.p_row + j : -1;
+}
+
+GVCT_HD void flat_next(const RelayoutGeom& g, FlatPos* p) {
+  if (++p->pc == g.pw) {
+    p->pc = 0;
+    ++p->pr;
+  }
+}
+
 // The tile side: tile-plane (r, c) of extended row `row` = 8by + r, tiles
 // [bx0, bx0 + n).
 struct TileRun {
@@ -308,12 +376,12 @@ GVCT_HD void fwd_stage(const uint8_t* plane, uint8_t* stage, const RelayoutGeom&
 }
 
 // T2, phase 2: write the row's 8 tile-plane runs, each 16-byte chunk
-// gathered from the stage at a stride of 8 columns.
+// gathered from the stage (its column 0 at byte `shift`) at a stride of 8
+// columns.
 template <int NT>
-GVCT_HD void fwd_store(const uint8_t* stage, const uint8_t* plane, uint8_t* tiles,
-                       const RelayoutGeom& g, int row, int bx0, int tid) {
+GVCT_HD void fwd_store_at(const uint8_t* stage, int shift, uint8_t* tiles,
+                          const RelayoutGeom& g, int row, int bx0, int tid) {
   constexpr int kIters = (kRunItems + NT - 1) / NT;
-  const int shift = plane_row(g, plane, row, bx0).shift;
   GVCT_UNROLL
   for (int it = 0; it < kIters; ++it) {
     const int k = it * NT + tid;
@@ -335,13 +403,20 @@ GVCT_HD void fwd_store(const uint8_t* stage, const uint8_t* plane, uint8_t* tile
   }
 }
 
-// T3, phase 1: fill the stage from the 8 tile-plane runs, every load
-// issued before the first stage store; a chunk's bytes land 8 columns apart.
+// T2, phase 2 on the row path: the stage shifted by the plane row's residue.
 template <int NT>
-GVCT_HD void inv_stage(const uint8_t* tiles, const uint8_t* plane, uint8_t* stage,
+GVCT_HD void fwd_store(const uint8_t* stage, const uint8_t* plane, uint8_t* tiles,
                        const RelayoutGeom& g, int row, int bx0, int tid) {
+  fwd_store_at<NT>(stage, plane_row(g, plane, row, bx0).shift, tiles, g, row, bx0, tid);
+}
+
+// T3, phase 1: fill the stage (its column 0 at byte `shift`) from the 8
+// tile-plane runs, every load issued before the first stage store; a
+// chunk's bytes land 8 columns apart.
+template <int NT>
+GVCT_HD void inv_stage_at(const uint8_t* tiles, int shift, uint8_t* stage,
+                          const RelayoutGeom& g, int row, int bx0, int tid) {
   constexpr int kIters = (kRunItems + NT - 1) / NT;
-  const int shift = plane_row(g, plane, row, bx0).shift;
   Chunk v[kIters];
   GVCT_UNROLL
   for (int it = 0; it < kIters; ++it) {
@@ -372,6 +447,13 @@ GVCT_HD void inv_stage(const uint8_t* tiles, const uint8_t* plane, uint8_t* stag
   }
 }
 
+// T3, phase 1 on the row path: the stage shifted by the plane row's residue.
+template <int NT>
+GVCT_HD void inv_stage(const uint8_t* tiles, const uint8_t* plane, uint8_t* stage,
+                       const RelayoutGeom& g, int row, int bx0, int tid) {
+  inv_stage_at<NT>(tiles, plane_row(g, plane, row, bx0).shift, stage, g, row, bx0, tid);
+}
+
 // T3, phase 2: write the row's interior pixels, one aligned stage chunk to
 // one aligned plane chunk.
 template <int NT>
@@ -386,6 +468,112 @@ GVCT_HD void inv_store(const uint8_t* stage, uint8_t* plane, const RelayoutGeom&
     plane_item(pr, q, &k0, &lo, &hi);
     if (q < kRowItems && lo < hi) {
       store_bytes(plane + (pr.off + k0), load16(stage + q * kChunk), lo, hi);
+    }
+  }
+}
+
+// -- the flat path and the flat tail -----------------------------------------------
+//
+// On the flat path (flat_path) a block's stage holds the view's row `row`, virtual
+// columns 8bx0 + k at stage byte k (shift 0): stage chunk q (q < 128) is
+// the 16 view bytes from f = row * vw + 8bx0 + 16q on, gathered from the
+// plane byte by byte (at most 16 consecutive padded bytes: a chunk crosses
+// a padded row end at most twice), or scattered back to it.
+
+constexpr int kSpanChunks = kSpanCols / kChunk;  // 128 stage chunks of a span
+
+// T2, phase 1 on the flat path: view bytes outside the interior, past the
+// view's columns or rows (grid padding) are staged as 0.
+template <int NT>
+GVCT_HD void fwd_stage_flat(const uint8_t* plane, uint8_t* stage, const RelayoutGeom& g,
+                            int row, int bx0, int tid) {
+  constexpr int kIters = (kSpanChunks + NT - 1) / NT;
+  GVCT_UNROLL
+  for (int it = 0; it < kIters; ++it) {
+    const int q = it * NT + tid;
+    if (q >= kSpanChunks) continue;
+    const int vc = bx0 * kTile + q * kChunk;
+    Chunk v{{0, 0, 0, 0}};
+    if (row < g.vh && vc < g.vw) {
+      FlatPos p = flat_pos(g, row * g.vw + vc);
+      GVCT_UNROLL
+      for (int e = 0; e < kChunk; ++e) {
+        const int off = flat_offset(g, p);
+        if (vc + e < g.vw && off >= 0) {
+          v.w[e >> 2] |= static_cast<uint32_t>(plane[off]) << (8 * (e & 3));
+        }
+        flat_next(g, &p);
+      }
+    }
+    store16(stage + q * kChunk, v);
+  }
+}
+
+// T3, phase 2 on the flat path: the view bytes that are interior pixels go
+// back to the plane; no other plane byte is written.
+template <int NT>
+GVCT_HD void inv_store_flat(const uint8_t* stage, uint8_t* plane, const RelayoutGeom& g,
+                            int row, int bx0, int tid) {
+  constexpr int kIters = (kSpanChunks + NT - 1) / NT;
+  GVCT_UNROLL
+  for (int it = 0; it < kIters; ++it) {
+    const int q = it * NT + tid;
+    const int vc = bx0 * kTile + q * kChunk;
+    if (q >= kSpanChunks || row >= g.vh || vc >= g.vw) continue;
+    const Chunk v = load16(stage + q * kChunk);
+    FlatPos p = flat_pos(g, row * g.vw + vc);
+    GVCT_UNROLL
+    for (int e = 0; e < kChunk; ++e) {
+      const int off = flat_offset(g, p);
+      if (vc + e < g.vw && off >= 0) {
+        plane[off] = static_cast<uint8_t>(word_at(v, e >> 2) >> (8 * (e & 3)));
+      }
+      flat_next(g, &p);
+    }
+  }
+}
+
+// The flat tail, bytes [part * kSpanCols, (part + 1) * kSpanCols) of
+// rem_n: T2 copies them out to rem (0 for padding), T3 writes the interior
+// ones back from rem.  Each thread takes 16 consecutive bytes an item:
+// bytes [m0, m0 + n) of the tail, from padded byte `view + m0` on.
+GVCT_HD int tail_item(const RelayoutGeom& g, int part, int q, int* m0) {
+  *m0 = part * kSpanCols + q * kChunk;
+  return q < kSpanChunks ? min_i(kChunk, g.rem_n - *m0) : 0;
+}
+
+template <int NT>
+GVCT_HD void fwd_tail(const uint8_t* plane, uint8_t* rem, const RelayoutGeom& g, int part,
+                      int tid) {
+  constexpr int kIters = (kSpanChunks + NT - 1) / NT;
+  GVCT_UNROLL
+  for (int it = 0; it < kIters; ++it) {
+    int m0;
+    const int n = tail_item(g, part, it * NT + tid, &m0);
+    if (n <= 0) continue;
+    FlatPos p = flat_pos(g, g.vh * g.vw + m0);
+    for (int e = 0; e < n; ++e) {
+      const int off = flat_offset(g, p);
+      rem[m0 + e] = off >= 0 ? plane[off] : 0;
+      flat_next(g, &p);
+    }
+  }
+}
+
+template <int NT>
+GVCT_HD void inv_tail(const uint8_t* rem, uint8_t* plane, const RelayoutGeom& g, int part,
+                      int tid) {
+  constexpr int kIters = (kSpanChunks + NT - 1) / NT;
+  GVCT_UNROLL
+  for (int it = 0; it < kIters; ++it) {
+    int m0;
+    const int n = tail_item(g, part, it * NT + tid, &m0);
+    if (n <= 0) continue;
+    FlatPos p = flat_pos(g, g.vh * g.vw + m0);
+    for (int e = 0; e < n; ++e) {
+      const int off = flat_offset(g, p);
+      if (off >= 0) plane[off] = rem[m0 + e];
+      flat_next(g, &p);
     }
   }
 }

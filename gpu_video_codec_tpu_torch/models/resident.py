@@ -20,7 +20,9 @@ a frame batch through every kernel as one launch, with one shared BS map.
 
 Quirk handling is that of every other path: chroma sweeps the flat
 (8*ncby, 8*ncbx) view (Q9, utils/tiles.split_covered_data), with the
-uncovered flat remainder carried through the state untouched.
+uncovered flat remainder carried through the state untouched; on sheared
+geometries T2 and T3 address that view and remainder themselves
+(ops/relayout_kernel.py, flat=True).
 """
 
 from __future__ import annotations
@@ -31,18 +33,16 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..ops.cuda_kernel import BLOCK_BX, CHROMA_BLOCK_BX, deblock_tiles_cuda
 from ..ops.deblock import deblock_tiles_plain
 from ..ops.relayout_kernel import (
-    pack_yv12_cuda, pack_yv12_plain, plane_to_tiles_cuda, plane_to_tiles_plain,
-    tiles_to_plane_cuda, tiles_to_plane_plain,
+    flat_tail_plain, flat_view, pack_yv12_cuda, pack_yv12_plain, plane_to_tiles_cuda,
+    plane_to_tiles_plain, tiles_to_plane_cuda, tiles_to_plane_plain,
 )
 from ..ops.tables import HALF_BLOCK, SAMPLE_BLOCK_SIZE as _B, get_beta, get_tc
 from ..utils.bs import BoundaryStrength, segment_bs_maps_device
 from ..utils.graphs import CapturedStep, GraphCache, graphed, tensor_key
-from ..utils.tiles import join_covered, split_covered_data
 from ..utils.yuv import check_dims
 
 # _step_n's graphs by state, maps and n
@@ -79,8 +79,10 @@ class TileFrame(NamedTuple):
     v_rem: torch.Tensor
 
 
-def _plane_to_tiles_plain(x, pad, *, out):
-    return out.copy_(plane_to_tiles_plain(x, pad))
+def _plane_to_tiles_plain(x, pad, *, out, flat=False, rem_out=None):
+    if rem_out is not None:
+        rem_out.copy_(flat_tail_plain(x, pad))
+    return out.copy_(plane_to_tiles_plain(x, pad, flat=flat))
 
 
 def _deblock_plain(tiles, *operands, chroma, block_bx):
@@ -105,8 +107,9 @@ def _ingest(buf, w: int, h: int, backend: str = "cuda") -> TileFrame:
     Luma goes interior -> tile-planes in one T2 launch (the Q6 zero padding
     is the kernel's).  U and V go through one more T2 launch, written as
     (.., 8, 8, 2, cBy, cBx) -- the U-over-V stack K1c takes.  On sheared
-    geometries the Q9 flat view is defined on the padded plane, so chroma
-    is padded first and its covered core goes through T2 with pad 0."""
+    geometries (Q9) that launch tiles the flat view of the padded planes
+    (flat=True) and copies their flat tails out into the state's
+    remainders, straight from the packed buffer."""
     t2 = _KERNELS[backend][0]
     p = HALF_BLOCK
     cw, ch = w // 2, h // 2
@@ -117,23 +120,31 @@ def _ingest(buf, w: int, h: int, backend: str = "cuda") -> TileFrame:
                     dtype=torch.uint8, device=buf.device)
     t2(y_int, p, out=y)
     uv_int = buf[..., w * h :].reshape(*lead, 2, ch, cw)
-    if _sheared(w):
-        uv_ext = F.pad(uv_int, (p, p, p, p))
-        src, rem = split_covered_data(uv_ext)
-        pad = 0
-        u_rem, v_rem = rem[..., 0, :], rem[..., 1, :]
-    else:
-        src, pad = uv_int, p
-        u_rem = v_rem = buf.new_empty((*lead, 0))
-    cby, cbx = (src.shape[-2] + 2 * pad) // _B, (src.shape[-1] + 2 * pad) // _B
+    vh, vw, tail = flat_view(ch, cw, p)
+    flat = _sheared(w)
+    rem = buf.new_empty((*lead, 2, tail if flat else 0))
+    cby, cbx = vh // _B, vw // _B
     uv = torch.empty((*lead, _B, _B, 2, cby, cbx), dtype=torch.uint8, device=buf.device)
-    t2(src, pad, out=uv.movedim(n + 2, n))  # U and V land as (8, 8, 2, cBy, cBx)
-    return TileFrame(y, uv.reshape(*lead, _B, _B, 2 * cby, cbx), u_rem, v_rem)
+    # U and V land as (8, 8, 2, cBy, cBx)
+    t2(uv_int, p, out=uv.movedim(n + 2, n), flat=flat, rem_out=rem if flat else None)
+    return TileFrame(y, uv.reshape(*lead, _B, _B, 2 * cby, cbx), rem[..., 0, :], rem[..., 1, :])
+
+
+def _rem_pair(tf: TileFrame):
+    """The (.., 2, n) view of the state's U and V remainders, which _ingest
+    makes as the two rows of one buffer (no copy)."""
+    u, v = tf.u_rem, tf.v_rem
+    step = v.data_ptr() - u.data_ptr()
+    if (u.shape != v.shape or u.stride() != v.stride() or step < u.shape[-1]
+            or u.untyped_storage().data_ptr() != v.untyped_storage().data_ptr()):
+        raise ValueError("u_rem and v_rem must be two rows of one buffer, as ingest makes them")
+    return torch.as_strided(u, (*u.shape[:-1], 2, u.shape[-1]), (*u.stride()[:-1], step, 1))
 
 
 def _readback(tf: TileFrame, w: int, h: int, backend: str = "cuda"):
     """TileFrame -> filtered packed YV12 uint8 (.., 3wh/2) on the device:
-    T3 for luma, T3 for U and V together, T4 to pack."""
+    T3 for luma, T3 for U and V together (on sheared geometries from the
+    flat view, the flat tails from the state's remainders), T4 to pack."""
     _, t3, t4, _ = _KERNELS[backend]
     p = HALF_BLOCK
     cw, ch = w // 2, h // 2
@@ -143,10 +154,7 @@ def _readback(tf: TileFrame, w: int, h: int, backend: str = "cuda"):
     cby, cbx = tf.uv.shape[-2] // 2, tf.uv.shape[-1]
     uv_t = tf.uv.reshape(*lead, _B, _B, 2, cby, cbx).movedim(n + 2, n)
     if _sheared(w):
-        core = t3(uv_t, 0, _B * cby, _B * cbx)
-        rem = torch.stack([tf.u_rem, tf.v_rem], dim=-2)
-        uv_ext = join_covered(core, rem, ch + 2 * p, cw + 2 * p)
-        uv_int = uv_ext[..., p : p + ch, p : p + cw].contiguous()
+        uv_int = t3(uv_t, p, ch, cw, flat=True, rem=_rem_pair(tf))
     else:
         uv_int = t3(uv_t, p, ch, cw)
     return t4(y_int.reshape(*lead, h * w), uv_int[..., 0, :, :].reshape(*lead, ch * cw),

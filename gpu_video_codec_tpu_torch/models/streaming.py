@@ -38,11 +38,12 @@ import torch.nn.functional as F
 
 from ..ops.cuda_kernel import BLOCK_BX, CHROMA_BLOCK_BX, deblock_tiles_cuda
 from ..ops.deblock import deblock_frame
-from ..ops.relayout_kernel import plane_to_tiles_cuda, tiles_to_plane_cuda
+from ..ops.relayout_kernel import (
+    flat_view, plane_to_tiles_cuda, tail_holds_interior, tiles_to_plane_cuda,
+)
 from ..ops.tables import HALF_BLOCK, SAMPLE_BLOCK_SIZE, get_beta, get_tc
 from ..utils.bs import BoundaryStrength, segment_bs_maps_device
 from ..utils.graphs import CapturedStep, GraphCache, graphed, tensor_key
-from ..utils.tiles import split_covered_data
 from ..utils.tracing import profiled_device_us
 from ..utils.yuv import FramePlanes, check_dims
 
@@ -70,11 +71,11 @@ def _deblock_planes_impl(y, uv, lm, cm, beta, tc, w, h, luma_only, backend,
 
     backend "cuda": luma goes interior -> tile-planes (T2) -> K1 ->
     interior (T3); T2 does the Q6 zero padding.  U and V go the same way as
-    a batch of two, one launch each, with one shared map, whenever the
-    extended chroma width is 8-aligned (the non-sheared Q9 case, every
-    w % 16 == 0 geometry).  Sheared geometries (Q9) pad U and V and run
-    T2, K1c and T3 with pad 0 on the flat covered core of the padded pair,
-    whose uncovered remainder stays as it was.
+    a batch of two, one launch each, with one shared map.  Sheared
+    geometries (Q9, w % 16 == 8) take T2's and T3's flat view of the padded
+    pair (flat=True) straight from and to the interior planes; where the
+    flat tail past the view holds interior pixels, T2 copies it out and T3
+    writes it back (rem), so it leaves the step as it came in.
     out: optional (y, uv) destinations the cuda backend's T3 writes into
     (any strides, last axis contiguous), returned in place of new tensors.
     backend "torch": the plain version on zero-extended planes."""
@@ -89,17 +90,12 @@ def _deblock_planes_impl(y, uv, lm, cm, beta, tc, w, h, luma_only, backend,
         if luma_only:
             return y_int, uv
         cmaps = [m[None] for m in cm]  # one shared map across the U/V batch
-        if (cw + 2 * p) % SAMPLE_BLOCK_SIZE == 0:
-            uvt = deblock_tiles_cuda(plane_to_tiles_cuda(uv, p), *cmaps, beta, tc,
-                                     chroma=True, block_bx=chroma_block)
-            return y_int, tiles_to_plane_cuda(uvt, p, ch, cw, out=uv_dst)
-        uv_ext = F.pad(uv, pads)  # a fresh pair: T3 writes its covered core back in place
-        core, _ = split_covered_data(uv_ext)
-        uvt = deblock_tiles_cuda(plane_to_tiles_cuda(core, 0), *cmaps, beta, tc, chroma=True,
-                                 block_bx=chroma_block)
-        tiles_to_plane_cuda(uvt, 0, *core.shape[-2:], out=core)
-        uv_int = uv_ext[:, p : p + ch, p : p + cw]
-        return y_int, uv_int.contiguous() if uv_dst is None else uv_dst.copy_(uv_int)
+        flat = (cw + 2 * p) % SAMPLE_BLOCK_SIZE != 0
+        rem = (torch.empty((2, flat_view(ch, cw, p)[2]), dtype=torch.uint8, device=uv.device)
+               if flat and tail_holds_interior(ch, cw, p) else None)
+        uvt = deblock_tiles_cuda(plane_to_tiles_cuda(uv, p, flat=flat, rem_out=rem), *cmaps,
+                                 beta, tc, chroma=True, block_bx=chroma_block)
+        return y_int, tiles_to_plane_cuda(uvt, p, ch, cw, out=uv_dst, flat=flat, rem=rem)
     ye, ue, ve = deblock_frame(F.pad(y, pads), F.pad(uv[0], pads), F.pad(uv[1], pads),
                                lm, cm, beta, tc, luma_only=luma_only)
     y_int = ye[p : p + h, p : p + w]
@@ -522,7 +518,9 @@ class StreamingDeblocker:
                (utils.tracing.profiled_device_us); absent where the trace
                has none;
         e2e_sync_s (measure_d2h=True): host wall time of a synchronous
-               put -> step -> read back of one frame."""
+               put -> step -> read back of one frame, after one untimed
+               such frame (a fresh buffer's step graph is captured at its
+               first step; the timed ones reuse its memory and graph)."""
         self._require_cuda("time_breakdown")
         arr = self._host_frame(frame)
         buf = self._step(self._put(arr))  # warm-up: builds the kernels, captures the graph
@@ -541,6 +539,7 @@ class StreamingDeblocker:
                                       for k in ("deblock_kernels", "layout_and_copies", "other")}
         if measure_d2h:
             reps = max(1, n // 10)
+            self._fetch(self._step(self._put(arr)))
             t0 = time.perf_counter()
             for _ in range(reps):
                 self._fetch(self._step(self._put(arr)))

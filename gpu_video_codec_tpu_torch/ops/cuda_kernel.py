@@ -35,7 +35,6 @@ from pathlib import Path
 import torch
 
 from .deblock import deblock_rows_plain, deblock_tiles_plain
-from ..utils.tiles import split_covered_data
 
 # Tiles per block of K1 and K1c: consecutive tiles of the flattened
 # (By, Bx) grid, QUAD threads each, at most MAX_QUAD_BLOCK_BX (the size of
@@ -365,25 +364,21 @@ def deblock_chroma_ext_cuda(u_ext, v_ext, chroma_maps, beta, tc,
     `dtype` (torch.int32 or torch.int16).  Chroma sweeps the reference's
     flat (8*ncby, 8*ncbx) view of each plane (quirk Q9: sheared when the
     extended width is not 8-aligned; the flat remainder is untouched): each
-    plane's covered core goes through T2 (pad 0) into one U-over-V tile
-    stack, the kernel runs it as a batch of two with one shared map, and T3
-    writes each core into a new plane that holds the input's remainder."""
+    plane goes through T2's flat view (pad 0) into one U-over-V tile stack,
+    copying its flat tail out, the kernel runs the stack as a batch of two
+    with one shared map, and T3 writes each plane anew, its flat tail from
+    the copy."""
     from . import relayout_kernel as rk  # it imports this module
 
     planes = (u_ext, v_ext)
-    cores = [split_covered_data(x)[0] for x in planes]
-    vh, vw = cores[0].shape
+    hh, ww = u_ext.shape
+    vh, vw, n = rk.flat_view(hh, ww, 0)
     tiles = torch.empty((2, 8, 8, vh // 8, vw // 8), dtype=torch.uint8, device=u_ext.device)
-    for core, dst in zip(cores, tiles):
-        rk.plane_to_tiles_cuda(core, 0, out=dst)
+    rems = torch.empty((2, n), dtype=torch.uint8, device=u_ext.device)
+    for x, dst, rem in zip(planes, tiles, rems):
+        rk.plane_to_tiles_cuda(x, 0, out=dst, flat=True, rem_out=rem)
     tiles = deblock_tiles_cuda(tiles, *(m[None] for m in chroma_maps), beta, tc, chroma=True,
                                block_bx=chroma_block, dtype=dtype)
-    outs = []
-    for x, t in zip(planes, tiles):
-        out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
-        core, rem = split_covered_data(out)
-        if rem.numel():
-            rem.copy_(split_covered_data(x)[1])
-        rk.tiles_to_plane_cuda(t, 0, vh, vw, out=core)
-        outs.append(out)
-    return outs[0], outs[1]
+    u_out, v_out = (rk.tiles_to_plane_cuda(t, 0, hh, ww, flat=True, rem=rem)
+                    for t, rem in zip(tiles, rems))
+    return u_out, v_out

@@ -12,9 +12,10 @@ import dataclasses
 from ..ops.tables import SAMPLE_BLOCK_SIZE
 
 
-# "cuda": the hand-written deblock kernel; "torch": the plain PyTorch
-# version of the same math; "golden": the scalar NumPy oracle.
-BACKENDS = ("cuda", "torch", "golden")
+# "cuda": the hand-written kernels; "torch": the plain PyTorch version of
+# the same math; "golden": the scalar NumPy oracle; "native": the C++
+# OpenMP CPU runtime (runtime/native.py).
+BACKENDS = ("cuda", "torch", "golden", "native")
 
 
 @dataclasses.dataclass
@@ -27,6 +28,7 @@ class DeblockConfig:
     backend: str = "cuda"
     luma_only: bool = False
     frames: int | None = None  # max frames to read from a stream
+    num_threads: int = 0       # native backend OpenMP threads (0 = default)
     depth: int = 2             # streaming pipeline frames in flight
     device: str = "cuda"       # torch device of the cuda/torch backends
 
@@ -45,4 +47,6 @@ class DeblockConfig:
             raise ValueError("frames must be positive")
         if self.depth <= 0:
             raise ValueError("depth must be positive")
+        if self.num_threads < 0:
+            raise ValueError("num_threads must be >= 0")
         return self

@@ -22,7 +22,7 @@ def _gold(path, w, h, qp, luma_only=False):
     return yv12_bytes_from_planes(out)
 
 
-@pytest.mark.parametrize("backend", ["cuda", "torch", "golden"])
+@pytest.mark.parametrize("backend", ["cuda", "torch", "golden", "native"])
 def test_cli_roundtrip(tmp_path, testdata_dir, capsys, backend):
     inp = os.path.join(testdata_dir, CIF)
     out = str(tmp_path / "out.yuv")
@@ -142,10 +142,59 @@ def test_cli_batch_errors(tmp_path, testdata_dir, capsys):
 
 
 def test_parser_leaves_out_resident_and_multistream_modes():
-    """The multi-stream modes are not ported; the resident --batch mode is."""
+    """The multi-stream modes are not ported; the resident --batch mode and
+    the native backend's --num-threads are."""
     opts = {a for action in build_parser()._actions for a in action.option_strings}
-    assert {"--streams", "--mesh", "--num-threads"}.isdisjoint(opts)
-    assert "--batch" in opts and build_parser().parse_args([]).batch is None
+    assert {"--streams", "--mesh"}.isdisjoint(opts)
+    assert {"--batch", "--num-threads"} <= opts and build_parser().parse_args([]).batch is None
     with pytest.raises(SystemExit):
         build_parser().parse_args(["--backend", "pallas"])
     assert build_parser().parse_args([]).backend == "cuda"
+    assert build_parser().parse_args([]).num_threads == 0
+
+
+def test_cli_native_threads_matches_jax_cli(tmp_path, testdata_dir, capsys):
+    """--backend native --num-threads 2, as the JAX CLI runs it."""
+    from gpu_video_codec_tpu.runtime import native as jnative
+
+    inp = os.path.join(testdata_dir, "image2_768x576.yuv")
+    mine, ref = str(tmp_path / "mine.yuv"), str(tmp_path / "ref.yuv")
+    assert main(["-i", inp, "-W", "768", "-H", "576", "--qp", "35", "-o", mine,
+                 "--backend", "native", "--num-threads", "2"]) == 0
+    res = json.loads(capsys.readouterr().out)
+    assert (res["frames"], res["backend"]) == (1, "native")
+    with open(mine, "rb") as f:
+        got = f.read()
+    assert got == _gold(inp, 768, 576, 35)
+    if jnative.available():
+        assert jax_main(["-i", inp, "-W", "768", "-H", "576", "--qp", "35", "-o", ref,
+                         "--backend", "native", "--num-threads", "2"]) == 0
+        capsys.readouterr()
+        with open(ref, "rb") as f:
+            assert got == f.read()
+
+
+@pytest.mark.parametrize("backend", ["native", "golden"])
+def test_cli_bench_host_backends(testdata_dir, capsys, backend):
+    """--bench on a host backend reports the filter's host time per frame."""
+    inp = os.path.join(testdata_dir, CIF)
+    assert main(["-i", inp, "-W", "352", "-H", "288", "--backend", backend,
+                 "--num-threads", "2", "--bench"]) == 0
+    res = json.loads(capsys.readouterr().out)
+    assert res["timing"]["filter_us"] > 0 and res["timing_unit"] == "us/frame"
+
+
+def test_cli_device_info_native_runtime(capsys):
+    from gpu_video_codec_tpu_torch.runtime import native
+
+    assert main(["--device-info"]) == 0
+    info = json.loads(capsys.readouterr().out)
+    assert info["native_runtime"] == {"isa": native.active_isa(),
+                                      "omp_max_threads": native.load().gvct_num_threads()}
+
+
+def test_cli_rejects_negative_threads(testdata_dir, capsys):
+    inp = os.path.join(testdata_dir, CIF)
+    assert main(["-i", inp, "-W", "352", "-H", "288", "--backend", "native",
+                 "--num-threads", "-1"]) == 1
+    assert "num_threads" in capsys.readouterr().err

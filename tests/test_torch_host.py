@@ -144,10 +144,11 @@ def test_from_arrays(rng):
 
 
 def test_config_backends():
-    assert BACKENDS == ("cuda", "torch", "golden")
+    assert BACKENDS == ("cuda", "torch", "golden", "native")
     assert DeblockConfig("x", 64, 48).validate().backend == "cuda"
+    assert DeblockConfig("x", 64, 48).validate().num_threads == 0
     for bad in (dict(backend="pallas"), dict(width=50), dict(qp=-1), dict(depth=0),
-                dict(frames=0)):
+                dict(frames=0), dict(num_threads=-1)):
         kw = dict(input="x", width=64, height=48) | bad
         with pytest.raises(ValueError):
             DeblockConfig(**kw).validate()
