@@ -93,12 +93,31 @@
    and no other kernel (no layout copy, fill or write-back), and
    utils.tracing.profiled_device_us's total agrees with the profiler's
    key_averages() within 2%.
+3h. The mesh paths (gpu_video_codec_tpu_torch/parallel) on slots of
+   cuda:0: MultiStreamDeblocker at 1920x1080, 4 streams x 8 steps, depth
+   2, on a (1, 1) mesh == the plain backend (the first and last batch ==
+   golden, computed in four worker processes), again with a BS swap
+   before batch 3 (earlier batches in flight) and with luma_only; the
+   sheared 360x288 with 4 streams (== golden); 3840x2160 with 2 streams x
+   2 steps; 3 streams on [cuda:0] * 2 as (1, 2) (chunks of 2 and 1);
+   deblock_batch_sharded of extended 1080p planes on (1, 2) and (1, 3)
+   slots (uneven slabs), eager and as graph replays, == one slot;
+   MeshResidentDeblocker, a batch of 4 x 3 steps on (2, 1) slots ==
+   ResidentDeblocker; the CLI --streams 4 --mesh 1,1 on 10 frames ==
+   golden, tail included.  Every run's launches: T2 2, K1 1, K1c 1, T3 2
+   per slot and batch; the profile of the batched packed step holds only
+   the port's kernels.
 4d. Times the quad K1 against the thread-per-tile K1-i16, T5 and T1 in
    turns at the race grid (136, 256), on blocky tiles, on uniform noise
    (cond1 fails almost everywhere) and, for K1 and K1-i16, with every BS
    byte 0 (no segment filtered: what a design pays per tile whatever the
    content), and K1-i16 luma and chroma at the 1080p grids, each beside
    its plain version and its byte bound.
+4e. Times the batched packed step at 1080p for k = 1, 4 and 8 frames
+   beside the single-frame _step (CUDA events, in turns), and the frames
+   per second of MultiStreamDeblocker.run at 4 streams x 1080p against
+   StreamingDeblocker.run on the same frames, with and without read-back
+   (host wall clock, in turns).
 
 Exits non-zero at the first failure.  Prints the card's name and power
 limit, a JSON line of per-kernel results, and last a JSON line with
@@ -155,6 +174,18 @@ def blocky_frame(rng, w, h):
         return np.clip(img + rng.integers(-2, 3, img.shape), 0, 255).astype(np.uint8)
     return np.concatenate([plane(h, w).ravel(), plane(h // 2, w // 2).ravel(),
                            plane(h // 2, w // 2).ravel()])
+
+
+def golden_packed(args) -> bytes:
+    """(raw packed frame, w, h) -> the golden oracle's packed output at QP
+    35 (run in worker processes: a 1080p frame takes seconds)."""
+    from gpu_video_codec_tpu_torch.models.golden import deblock_frame_golden
+    from gpu_video_codec_tpu_torch.utils.bs import BoundaryStrength
+    from gpu_video_codec_tpu_torch.utils.yuv import planes_from_yv12_bytes, yv12_bytes_from_planes
+
+    raw, w, h = args
+    return yv12_bytes_from_planes(deblock_frame_golden(
+        planes_from_yv12_bytes(raw, w, h), BoundaryStrength.intra_default(w, h), 35))
 
 
 def bytes_bound_ms(nbytes: int) -> float:
@@ -867,8 +898,197 @@ def main() -> int:
         print(f"{what}: T2, the quad K1 and K1c, T3 (and T4 on the resident path), and no "
               f"other kernel")
 
+    # -- 3h. the mesh paths (parallel/): slots of cuda:0 -------------------------------
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    from gpu_video_codec_tpu_torch.parallel import (
+        MeshResidentDeblocker, MultiStreamDeblocker, deblock_batch_sharded,
+        deblock_batch_sharded_jit, make_mesh,
+    )
+    from gpu_video_codec_tpu_torch.parallel import mesh as pmesh
+
+    mesh_launches = only()
+
+    def mesh_run(what: str, fn, want: dict):
+        """fn() with the counts at 0 just before and read just after; checks
+        them against `want` and adds them to the mesh path's launches."""
+        reset()
+        out = fn()
+        torch.cuda.synchronize()
+        got = counts()
+        check(got == only(**want), f"{what}: launches {got}, want {want}")
+        for k, v in got.items():
+            mesh_launches[k] += v
+        return out
+
+    def slots(k: int, n_data: int = 1):
+        return make_mesh(n_data, k // n_data, [dev] * k)
+
+    steps_ms, n_ms = 8, 4  # 4 streams x 8 steps at 1080p
+    streams = [[frames[(n_ms * t + i) % n] for t in range(steps_ms)] for i in range(n_ms)]
+    golden_pool = ProcessPoolExecutor(4, mp_context=get_context("spawn"))
+    try:
+        gold_jobs = golden_pool.map(golden_packed, [
+            (streams[i][t].tobytes(), w, h) for t in (0, steps_ms - 1) for i in range(n_ms)])
+
+        def multistream(mesh, ww, hh, strs, backend="cuda", luma_only=False, swap_at=None,
+                        swap_bs=None):
+            """MultiStreamDeblocker.run_batches over the streams, depth 2; with
+            swap_at, update_boundary_strength(swap_bs) before batch swap_at is
+            dispatched (earlier batches still in flight)."""
+            ms = MultiStreamDeblocker(mesh, len(strs), ww, hh, 35, backend=backend,
+                                      luma_only=luma_only)
+
+            def batches():
+                for t in range(len(strs[0])):
+                    if t == swap_at:
+                        ms.update_boundary_strength(swap_bs)
+                    yield [st[t] for st in strs]
+            return list(ms.run_batches(batches()))
+
+        def same_batches(what, got, ref):
+            check(len(got) == len(ref) and all(
+                len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+                for a, b in zip(got, ref)), f"{what} != plain backend")
+
+        per_batch = {"T2": 2, "K1": 1, "K1c": 1, "T3": 2}
+
+        def batch_launches(batches_: int, active_slots: int, luma_only=False) -> dict:
+            k = batches_ * active_slots
+            return ({"T2": k, "K1": k, "T3": k} if luma_only else
+                    {name: v * k for name, v in per_batch.items()})
+
+        mesh11 = slots(1)
+        outs_m = mesh_run("MultiStreamDeblocker 4 x 1080p, (1, 1)",
+                          lambda: multistream(mesh11, w, h, streams),
+                          batch_launches(steps_ms, 1))
+        same_batches("MultiStreamDeblocker 4 x 1080p",
+                     outs_m, multistream(mesh11, w, h, streams, backend="torch"))
+        outs_sw = mesh_run("MultiStreamDeblocker 4 x 1080p, BS swap before batch 3",
+                           lambda: multistream(mesh11, w, h, streams, swap_at=3, swap_bs=bs),
+                           batch_launches(steps_ms, 1))
+        same_batches("MultiStreamDeblocker BS swap", outs_sw,
+                     multistream(mesh11, w, h, streams, backend="torch", swap_at=3, swap_bs=bs))
+        check(all(np.array_equal(a, b) for t in range(3) for a, b in zip(outs_sw[t], outs_m[t]))
+              and not any(np.array_equal(a, b) for a, b in zip(outs_sw[3], outs_m[3])),
+              "the BS swap did not take effect at batch 3 exactly")
+        outs_lo = mesh_run("MultiStreamDeblocker luma_only",
+                           lambda: multistream(mesh11, w, h, streams, luma_only=True),
+                           batch_launches(steps_ms, 1, luma_only=True))
+        same_batches("MultiStreamDeblocker luma_only", outs_lo,
+                     multistream(mesh11, w, h, streams, backend="torch", luma_only=True))
+        golds_m = list(gold_jobs)
+        check([o.tobytes() for o in outs_m[0] + outs_m[-1]] == golds_m,
+              "MultiStreamDeblocker 1080p first and last batch != golden")
+        print(f"mesh: MultiStreamDeblocker {n_ms} streams x {steps_ms} steps x 1080p on a (1, 1) "
+              f"mesh of cuda:0 == plain backend (first and last batch == golden), with a BS "
+              f"swap before batch 3 and luma_only; per batch T2 2, K1 1, K1c 1, T3 2")
+
+        cif_streams = [[cif_frames[(4 * t + i) % ns] for t in range(3)] for i in range(4)]
+        outs_cm = mesh_run("MultiStreamDeblocker 4 x 360x288",
+                           lambda: multistream(mesh11, cw_, ch_, cif_streams),
+                           batch_launches(3, 1))
+        same_batches("MultiStreamDeblocker sheared 360x288", outs_cm,
+                     multistream(mesh11, cw_, ch_, cif_streams, backend="torch"))
+        check(all(o.tobytes() == golden_packed((cif_streams[i][t].tobytes(), cw_, ch_))
+                  for t in (0, 2) for i, o in enumerate(outs_cm[t])),
+              "MultiStreamDeblocker 360x288 != golden")
+        uhd = [[blocky_frame(rng, 3840, 2160) for _ in range(2)] for _ in range(2)]
+        outs_4k = mesh_run("MultiStreamDeblocker 2 x 3840x2160",
+                           lambda: multistream(mesh11, 3840, 2160, uhd), batch_launches(2, 1))
+        same_batches("MultiStreamDeblocker 3840x2160", outs_4k,
+                     multistream(mesh11, 3840, 2160, uhd, backend="torch"))
+        mesh12 = slots(2)
+        outs_un = mesh_run("MultiStreamDeblocker 3 x 1080p on (1, 2): chunks 2 + 1",
+                           lambda: multistream(mesh12, w, h, streams[:3]),
+                           batch_launches(steps_ms, 2))
+        same_batches("MultiStreamDeblocker uneven chunks", outs_un,
+                     [b[:3] for b in outs_m])
+        print("mesh: MultiStreamDeblocker sheared 360x288 (4 streams, == golden), 3840x2160 "
+              "(2 streams x 2 steps) == plain backend; 3 streams on [cuda:0] * 2 as (1, 2) "
+              "(chunks 2 + 1) == the (1, 1) run; T2 2, K1 1, K1c 1, T3 2 per slot and batch")
+
+        # deblock_batch_sharded: extended 1080p planes, uneven tile-row slabs
+        ext = [torch.nn.functional.pad(p, (4, 4, 4, 4)) for p in (
+            y4[:2], frames4[:2, w * h : w * h * 5 // 4].reshape(2, h // 2, w // 2),
+            frames4[:2, w * h * 5 // 4 :].reshape(2, h // 2, w // 2))]
+        bs_d = BoundaryStrength.intra_default(w, h)
+        lm_d = [torch.from_numpy(m).to(dev) for m in luma_segment_maps(bs_d)]
+        cm_d = [torch.from_numpy(m).to(dev) for m in chroma_segment_maps(bs_d)]
+        one = [p.clone() for p in ext]
+        deblock_batch_sharded(mesh11, *one, lm_d, cm_d, beta35, tc35)
+        for shape in ((1, 2), (1, 3)):
+            mesh_s = slots(shape[1])
+            for fn in (deblock_batch_sharded, deblock_batch_sharded_jit):
+                planes_s = [p.clone() for p in ext]
+                k = shape[1]  # every slot has a luma and a chroma slab
+                mesh_run(f"{fn.__name__} {shape}",
+                         lambda: fn(mesh_s, *planes_s, lm_d, cm_d, beta35, tc35),
+                         {"T2": 3 * k, "K1": k, "K1c": k, "T3": 3 * k})
+                check(all(torch.equal(a, b) for a, b in zip(planes_s, one)),
+                      f"{fn.__name__} on {shape} slots != one slot")
+        check(not torch.equal(one[0], ext[0]), "deblock_batch_sharded changed nothing")
+        print("mesh: deblock_batch_sharded of two extended 1080p frames on (1, 2) and (1, 3) "
+              "slots of cuda:0 (luma slabs of 68/68 and 46/46/44 tile rows), eager and graph "
+              "replays, == one slot")
+
+        batch4 = np.stack(frames[:4])
+        mrd = MeshResidentDeblocker(slots(2, n_data=2), w, h, 35)
+        outs_mr = mesh_run("MeshResidentDeblocker batch 4 x 3 steps on (2, 1)",
+                           lambda: mrd.readback(mrd.step(mrd.ingest(batch4), 3)),
+                           {"T2": 4, "K1": 6, "K1c": 6, "T3": 4, "T4": 2})
+        rd_one = ResidentDeblocker(w, h, 35, device=dev)
+        check(np.array_equal(outs_mr, rd_one.readback(rd_one.run_steps(rd_one.ingest(batch4), 3))),
+              "MeshResidentDeblocker != ResidentDeblocker")
+        print("mesh: MeshResidentDeblocker batch of 4 x 1080p, 3 steps on [cuda:0] * 2 as (2, 1) "
+              "== ResidentDeblocker; launches T2 4, K1 6, K1c 6, T3 4, T4 2")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            names = ("mother-daughter_352x288_yv12.yuv", "image1_352x288_yv12.yuv")
+            raws10 = [open(os.path.join(REPO, "testdata", names[i % 2]), "rb").read()
+                      for i in range(10)]
+            src, dst = os.path.join(tmp, "ten.yuv"), os.path.join(tmp, "out.yuv")
+            with open(src, "wb") as f:
+                f.write(b"".join(raws10))
+            res = subprocess.run(
+                [sys.executable, "-m", "gpu_video_codec_tpu_torch.cli", "-i", src, "-W", "352",
+                 "-H", "288", "--qp", "35", "-o", dst, "--streams", "4", "--mesh", "1,1"],
+                cwd=REPO, capture_output=True, text=True, timeout=300)
+            check(res.returncode == 0, f"CLI --streams: {res.stderr[-2000:]}")
+            check(json.loads(res.stdout)["frames"] == 10, f"CLI --streams frames: {res.stdout}")
+            with open(dst, "rb") as f:
+                check(f.read() == b"".join(yv12_bytes_from_planes(golds[n])
+                                           for n in names * 5),
+                      "CLI --streams 4 --mesh 1,1 != golden")
+        print(f"mesh: CLI --streams 4 --mesh 1,1 on 10 frames (two batches and a tail of 2) "
+              f"== golden: {res.stdout.strip()}")
+    finally:
+        golden_pool.shutdown(cancel_futures=True)
+
+    bufs_k = {k: torch.from_numpy(np.stack([frames[i % n] for i in range(k)])
+                                  .reshape(k, 3 * h // 2, w)).to(dev) for k in (1, 4, 8)}
+
+    def packed_step(k: int):
+        return lambda: pmesh.deblock_packed_batch_sharded_jit(
+            mesh11, bufs_k[k], s._lm, s._cm, beta35, tc35, w=w, h=h)
+
+    step_rows_m = trace("mesh: batched packed step 1080p, k = 4 frames, one graph replay",
+                        packed_step(4))
+    stray = [key for _, _, key in step_rows_m if not any(k in key for k in port_kernels)]
+    check(bool(step_rows_m) and not stray,
+          f"the batched packed step ran kernels besides the port's: {stray}")
+    # the launch counters give the counts (mesh_run); the profiler may drop
+    # events at its window's edges, so its listing is held to the names only
+    missing = [k for k in ("plane_to_tiles_kernel", "tiles_to_plane_kernel",
+                           "deblock_quad_kernel<false", "deblock_quad_kernel<true")
+               if not any(k in key for _, _, key in step_rows_m)]
+    check(not missing, f"the batched packed step did not run {missing}")
+    print("mesh: the batched packed step's profile holds T2, the quad K1 and K1c, T3 and no "
+          "other kernel (no copy, fill, cat or stack)")
+
     new_paths = {"pipeline": pipe_launches, "compat": compat_launches,
-                 "sheared": sheared_launches}
+                 "sheared": sheared_launches, "mesh": mesh_launches}
 
     # -- 4. times --------------------------------------------------------------
     kernels = []
@@ -1115,6 +1335,56 @@ def main() -> int:
             "bound_ms": race_bound, "bound_by": "bytes", "library_ms": None,
             "k1_ms_same_grid": race["K1"][0],
         })
+
+    # -- 4e. the mesh paths' times ------------------------------------------------------
+    fns = {"_step": lambda: s._step(buf), **{f"k={k}": packed_step(k) for k in (1, 4, 8)}}
+    r = in_turns(fns, dict.fromkeys(fns, 50))
+    print("batched packed step 1080p (deblock_packed_batch_sharded_jit, one slot): " + ", ".join(
+        f"{name} {ms * 1e3:.2f} us" + (f" ({ms * 1e3 / int(name[2:]):.2f} us per frame)"
+                                       if name != "_step" else "")
+        for name, (ms, _) in r.items())
+        + f" (queued ahead: {all(ok for _, ok in r.values())}; device time; {smi})")
+    steps_r = 32  # 128 frames a run
+    streams_r = [[frames[(n_ms * t + i) % n] for t in range(steps_r)] for i in range(n_ms)]
+    flat_frames = [streams_r[i][t] for t in range(steps_r) for i in range(n_ms)]
+    ms4 = MultiStreamDeblocker(mesh11, n_ms, w, h, 35)
+    ring_s, compute_s = s._device_ring()
+
+    def stream_rb():
+        for _ in s.run(flat_frames):
+            pass
+
+    def stream_norb():
+        for f in flat_frames:
+            ring_s.submit(f.reshape(3 * h // 2, w), compute_s, False)
+
+    def multi_rb():
+        for _ in ms4.run(streams_r):
+            pass
+
+    def multi_norb():
+        for t in range(steps_r):
+            ms4._dispatch([st[t] for st in streams_r], readback=False)
+
+    rates = {name: [] for name in ("stream", "multi", "stream no-rb", "multi no-rb")}
+    for fn in (stream_rb, multi_rb, stream_norb, multi_norb):
+        fn()  # warm-up: rings and graphs
+    torch.cuda.synchronize()
+    for _ in range(3):
+        for name, fn in (("stream", stream_rb), ("multi", multi_rb), ("multi", multi_rb),
+                         ("stream", stream_rb), ("stream no-rb", stream_norb),
+                         ("multi no-rb", multi_norb), ("multi no-rb", multi_norb),
+                         ("stream no-rb", stream_norb)):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            rates[name].append(len(flat_frames) / (time.perf_counter() - t0))
+    print(f"1080p fps over the same {len(flat_frames)} frames, in turns (S M M S), 6 runs each "
+          f"(host wall clock to a synchronize): " + "; ".join(
+              f"{name} median {np.median(v):.0f} (min {min(v):.0f}, max {max(v):.0f})"
+              for name, v in rates.items())
+          + f" -- StreamingDeblocker.run vs MultiStreamDeblocker.run at {n_ms} streams, with "
+          f"and without read-back ({smi}; host {cpu_model}, nproc {nproc})")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,6 +6,7 @@ actual argument parsing instead of hand-edited constants.
     python -m gpu_video_codec_tpu_torch.cli --device-info
     python -m gpu_video_codec_tpu_torch.cli --input ... --bench   # timing split
     python -m gpu_video_codec_tpu_torch.cli --input ... --batch 4  # resident, 4 frames a launch
+    python -m gpu_video_codec_tpu_torch.cli --input ... --streams 4 --mesh 1,1  # multi-stream
 """
 
 from __future__ import annotations
@@ -78,6 +79,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", type=int,
                    help="process N frames per kernel launch through the device-resident "
                         "pipeline (models/resident.py)")
+    p.add_argument("--streams", type=int,
+                   help="treat INPUT as N concatenated streams processed concurrently over "
+                        "a mesh of device slots (multi-stream mode)")
+    p.add_argument("--mesh", metavar="DATA,SPATIAL",
+                   help="mesh shape for --streams, e.g. 2,4 (default: from the CUDA device "
+                        "count)")
     p.add_argument("--device-info", action="store_true", help="print device info and exit")
     return p
 
@@ -93,6 +100,78 @@ def _raw_frames(path: str, frame_bytes: int, max_frames: int | None):
                 break
             count += 1
             yield data
+
+
+def run_multistream(cfg: DeblockConfig, n_streams: int, mesh_spec: str | None) -> dict:
+    """Multi-stream mode: frames of INPUT are assigned round-robin to
+    n_streams concurrent streams and each batch of n_streams frames is
+    deblocked in one mesh step (BASELINE config 5).  Outputs keep the
+    input's frame order.  A last short batch is filled with zero frames
+    (a fixed point of the filter) whose outputs are dropped, so every input
+    frame is filtered and written (the JAX CLI drops the tail frames).
+
+    --device cuda (the default) builds the mesh over every CUDA device
+    (make_mesh); any other device, e.g. cpu or cuda:0, fills every slot."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from .parallel import MultiStreamDeblocker, default_mesh_shape, make_mesh
+
+    if n_streams < 1:
+        raise ValueError(f"--streams must be >= 1, got {n_streams}")
+    if cfg.backend not in ("cuda", "torch"):
+        raise ValueError(
+            f"--streams requires a device backend ('cuda' or 'torch'), got {cfg.backend!r}")
+    if mesh_spec:
+        n_data, n_spatial = (int(x) for x in mesh_spec.split(","))
+    else:
+        n_data, n_spatial = default_mesh_shape(torch.cuda.device_count())
+    devices = None if cfg.device == "cuda" else [cfg.device] * (n_data * n_spatial)
+    mesh = make_mesh(n_data, n_spatial, devices)
+    ms = MultiStreamDeblocker(mesh, n_streams, cfg.width, cfg.height, cfg.qp,
+                              backend=cfg.backend, luma_only=cfg.luma_only, depth=cfg.depth)
+
+    frame_bytes = 3 * cfg.width * cfg.height // 2
+    n_avail = os.path.getsize(cfg.input) // frame_bytes
+    n = n_avail if cfg.frames is None else min(cfg.frames, n_avail)
+    if n == 0:
+        raise ValueError(f"no complete {cfg.width}x{cfg.height} frames in {cfg.input}")
+    zero = np.zeros(frame_bytes, np.uint8)
+
+    def batches():
+        group: list = []
+        for raw in _raw_frames(cfg.input, frame_bytes, n):
+            group.append(raw)
+            if len(group) == n_streams:
+                yield group
+                group = []
+        if group:
+            yield group + [zero] * (n_streams - len(group))
+
+    sink = open(cfg.output, "wb") if cfg.output else None
+    done = 0
+    try:
+        t0 = time.perf_counter()
+        # overlapped: `depth` batches in flight (the next batch's H2D under
+        # the current batch's kernels), not a serial step() loop
+        for outs in ms.run_batches(batches()):
+            outs = outs[: n - done]  # the tail batch's zero frames are dropped
+            for out in outs:
+                if sink is not None:
+                    sink.write(out.tobytes())
+            done += len(outs)
+        dt = time.perf_counter() - t0
+    finally:
+        if sink is not None:
+            sink.close()
+    return {
+        "frames": done, "streams": n_streams,
+        "mesh": {"data": n_data, "spatial": n_spatial},
+        "backend": cfg.backend, "qp": cfg.qp, "device": str(mesh.device(0)),
+        "seconds": dt, "fps": done / dt,
+    }
 
 
 def run_batched(cfg: DeblockConfig, batch: int) -> dict:
@@ -233,6 +312,9 @@ def main(argv: list[str] | None = None) -> int:
             frames=args.frames, num_threads=args.num_threads, depth=args.depth,
             device=args.device,
         ).validate()
+        if args.batch is not None and args.streams is not None:
+            raise ValueError("--batch and --streams are mutually exclusive "
+                             "(batched resident vs mesh multi-stream mode)")
         if args.batch is not None:
             # the batched mode runs the device-resident pipeline through the
             # kernels: reject rather than silently override --backend
@@ -242,6 +324,11 @@ def main(argv: list[str] | None = None) -> int:
             if args.bench:
                 raise ValueError("--bench is not supported with --batch; "
                                  "ResidentDeblocker.step_time times the resident path")
+        if args.streams is not None and args.bench:
+            raise ValueError("--bench is not supported with --streams")
+        if args.streams is not None:
+            result = run_multistream(cfg, args.streams, args.mesh)
+        elif args.batch is not None:
             result = run_batched(cfg, args.batch)
         else:
             result = run(cfg, bench=args.bench)

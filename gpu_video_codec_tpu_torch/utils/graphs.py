@@ -54,21 +54,28 @@ class CapturedStep:
 
     pool: a memory pool to share with other graphs (another graph's
     .pool()); safe only for graphs that never replay concurrently and keep
-    no output in the pool that another replay could overwrite."""
+    no output in the pool that another replay could overwrite.
+
+    The warm-up and the capture run on the device of args, on a side stream
+    of that device (torch.cuda.graph's default capture stream belongs to
+    the device that was current when it was first made); replay() runs on
+    the current stream, which must be one of that device."""
 
     def __init__(self, fn, args, pool=None):
+        device = args[0].device
         before = [dict(c) for c in COUNTERS]
-        fn(*(a.clone() for a in args))
-        warm = [dict(c) for c in COUNTERS]
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self.graph, pool=pool):
-                self.out = fn(*args)
-            self.launches = [{k: c[k] - w[k] for k in c if c[k] != w[k]}
-                             for c, w in zip(COUNTERS, warm)]
-        finally:
-            for c, b in zip(COUNTERS, before):
-                c.update(b)
+        with torch.cuda.device(device):
+            fn(*(a.clone() for a in args))
+            warm = [dict(c) for c in COUNTERS]
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(self.graph, pool=pool, stream=torch.cuda.Stream(device)):
+                    self.out = fn(*args)
+                self.launches = [{k: c[k] - w[k] for k in c if c[k] != w[k]}
+                                 for c, w in zip(COUNTERS, warm)]
+            finally:
+                for c, b in zip(COUNTERS, before):
+                    c.update(b)
 
     def pool(self):
         return self.graph.pool()

@@ -4,6 +4,7 @@ and the JAX package's CLI output, plus its error paths."""
 import json
 import os
 
+import numpy as np
 import pytest
 
 from gpu_video_codec_tpu.cli import main as jax_main
@@ -142,11 +143,13 @@ def test_cli_batch_errors(tmp_path, testdata_dir, capsys):
 
 
 def test_parser_leaves_out_resident_and_multistream_modes():
-    """The multi-stream modes are not ported; the resident --batch mode and
-    the native backend's --num-threads are."""
+    """Every mode of the JAX CLI is ported: the resident --batch mode, the
+    native backend's --num-threads and the multi-stream --streams/--mesh
+    (none set by default)."""
     opts = {a for action in build_parser()._actions for a in action.option_strings}
-    assert {"--streams", "--mesh"}.isdisjoint(opts)
-    assert {"--batch", "--num-threads"} <= opts and build_parser().parse_args([]).batch is None
+    assert {"--batch", "--num-threads", "--streams", "--mesh"} <= opts
+    defaults = build_parser().parse_args([])
+    assert defaults.batch is None and defaults.streams is None and defaults.mesh is None
     with pytest.raises(SystemExit):
         build_parser().parse_args(["--backend", "pallas"])
     assert build_parser().parse_args([]).backend == "cuda"
@@ -198,3 +201,76 @@ def test_cli_rejects_negative_threads(testdata_dir, capsys):
     assert main(["-i", inp, "-W", "352", "-H", "288", "--backend", "native",
                  "--num-threads", "-1"]) == 1
     assert "num_threads" in capsys.readouterr().err
+
+
+def _stream_file(tmp_path, n, w=64, h=48):
+    rng = np.random.default_rng(8)
+    frames = [rng.integers(0, 256, 3 * w * h // 2, dtype=np.uint8) for _ in range(n)]
+    inp = tmp_path / "streams.yuv"
+    inp.write_bytes(b"".join(f.tobytes() for f in frames))
+    return inp, frames
+
+
+def _gold_raw(raw, w, h, qp=35):
+    from gpu_video_codec_tpu_torch.utils.yuv import planes_from_yv12_bytes
+
+    out = deblock_frame_golden(planes_from_yv12_bytes(raw.tobytes(), w, h),
+                               BoundaryStrength.intra_default(w, h), qp)
+    return yv12_bytes_from_planes(out)
+
+
+@pytest.mark.parametrize("mesh", ["1,2", "2,2"])
+def test_cli_streams_matches_jax_cli(tmp_path, capsys, mesh):
+    """--streams 2 (and 4) --mesh over five 64x48 frames: on the frames the
+    JAX CLI keeps (whole batches) the two outputs are byte-equal."""
+    n_streams = 2 if mesh == "1,2" else 4
+    inp, _ = _stream_file(tmp_path, 5)
+    mine, ref = tmp_path / "mine.yuv", tmp_path / "ref.yuv"
+    args = ["-i", str(inp), "-W", "64", "-H", "48", "--qp", "35", "--streams",
+            str(n_streams), "--mesh", mesh]
+    assert main(args + ["-o", str(mine), "--device", "cpu"]) == 0
+    res = json.loads(capsys.readouterr().out)
+    assert (res["frames"], res["streams"], res["device"]) == (5, n_streams, "cpu")
+    assert res["mesh"] == dict(zip(("data", "spatial"), map(int, mesh.split(","))))
+    assert jax_main(args + ["-o", str(ref), "--backend", "jnp"]) == 0
+    kept = json.loads(capsys.readouterr().out)["frames"]
+    assert kept == 5 - 5 % n_streams
+    assert mine.read_bytes()[: ref.stat().st_size] == ref.read_bytes()
+
+
+def test_cli_streams_filters_the_tail_the_jax_cli_drops(tmp_path, capsys):
+    """Exemption from the JAX CLI (gpu_video_codec_tpu/cli.py:145-147, which
+    keeps whole batches only and drops the tail frames): the port fills the
+    last short batch with zero frames, drops their outputs, and filters and
+    writes every input frame; --frames counts input frames."""
+    w, h = 64, 48
+    inp, frames = _stream_file(tmp_path, 5)
+    out = tmp_path / "out.yuv"
+    assert main(["-i", str(inp), "-W", "64", "-H", "48", "--qp", "35", "-o", str(out),
+                 "--device", "cpu", "--streams", "2", "--mesh", "1,2"]) == 0
+    assert json.loads(capsys.readouterr().out)["frames"] == 5
+    assert out.read_bytes() == b"".join(_gold_raw(f, w, h) for f in frames)
+    assert main(["-i", str(inp), "-W", "64", "-H", "48", "--qp", "35", "-o", str(out),
+                 "--device", "cpu", "--streams", "4", "--frames", "3"]) == 0
+    assert json.loads(capsys.readouterr().out)["frames"] == 3
+    assert out.read_bytes() == b"".join(_gold_raw(f, w, h) for f in frames[:3])
+
+
+def test_cli_streams_errors(tmp_path, capsys):
+    """The JAX CLI's mutual-exclusion errors (cli.py:310-327) and the mode's
+    own; with the default device and no CUDA the mesh raises (exit 1)."""
+    inp, _ = _stream_file(tmp_path, 2)
+    base = ["-i", str(inp), "-W", "64", "-H", "48", "--device", "cpu"]
+    for extra, msg in ((["--streams", "2", "--batch", "2"], "mutually exclusive"),
+                       (["--streams", "2", "--bench"], "--bench is not supported with --streams"),
+                       (["--streams", "0"], "--streams must be >= 1"),
+                       (["--streams", "2", "--backend", "golden"], "requires a device backend"),
+                       (["--streams", "3", "--mesh", "2,1"], "must divide by the data axis"),
+                       (["--streams", "2", "--mesh", "1x2"], "error")):
+        assert main(base + extra) == 1, extra
+        assert msg in capsys.readouterr().err, extra
+    assert jax_main(base[:-2] + ["--streams", "2", "--batch", "2"]) == 1
+    assert "mutually exclusive" in capsys.readouterr().err
+    if not __import__("torch").cuda.is_available():
+        assert main(base[:-2] + ["--streams", "2"]) == 1
+        assert "CUDA is not available" in capsys.readouterr().err

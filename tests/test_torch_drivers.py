@@ -24,7 +24,7 @@ from gpu_video_codec_tpu_torch.utils.yuv import (
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-EXAMPLES = ("one_shot", "streaming", "resident_chain")
+EXAMPLES = ("one_shot", "streaming", "resident_chain", "multi_stream", "mesh_streams")
 
 
 @pytest.fixture

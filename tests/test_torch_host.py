@@ -209,6 +209,8 @@ def test_port_imports_without_jax():
         "or m.startswith('gpu_video_codec_tpu.')]\n"
         "assert not bad, bad\n"
         "assert len(names) >= 14, names\n"
+        "assert {pkg.__name__ + '.parallel.' + m for m in ('mesh', 'multistream', "
+        "'resident_mesh')} <= set(names), names\n"
         "print('ok', len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
