@@ -5,12 +5,17 @@
 
 0. Builds the kernels from gpu_video_codec_tpu_torch/csrc, one nvcc per
    library (deblock, relayout, SWAR), and the native CPU runtime
-   (gpu_video_codec_tpu_torch/runtime/src, g++), all started together, and
-   prints
-   ptxas's registers, spills and shared memory for every kernel entry, and
-   for K1/K1c (the quad kernel) at TB 32 and 64 tiles per block, from the
-   CUDA runtime: blocks and warps per SM, the 1080p grids' waves and the
-   staging word.
+   (gpu_video_codec_tpu_torch/runtime/src, g++), all started together;
+   prints ptxas's registers, spills and shared memory and the static SASS
+   count of every kernel entry; checks that no entry of the quad kernels
+   (K1, K1c, K1-i16, K1-i16c, T1) spills and that K1/K1c at T = int keep
+   the registers and SASS counts they had before the compute type became a
+   template parameter (QUAD_INT_COUNTS); prints the commonest static SASS
+   opcodes of the luma entries of K1, K1-i16 and T1; and prints, from the
+   CUDA runtime, blocks and warps per SM and the staging word for K1/K1c
+   at TB 32 and 64 tiles per block (with the 1080p grids' waves), for
+   K1-i16/K1-i16c at their default TB and for T1 at its default block of
+   pairs at the race grid.
 1. Holds each variant of the deblock kernel against its plain PyTorch
    version on the card, byte for byte, at the main path's grids (1080p luma
    and U+V chroma), a sheared chroma grid, tail grids (Bx 5, 1, 31, 33,
@@ -26,11 +31,14 @@
    The flat view (Q9, flat=True): T2 with its flat tail and T3 from it or
    in place, on the sheared 360x288 and 1928x1080 U+V pairs and the 1080p
    extended pair with pad 0.
-1c. Holds K1-i16 (int16 compute, luma and chroma), T5 (the rows layout)
-   and T1 (SWAR, two tiles per thread) against their plain versions, and
-   K1-i16 against K1, byte for byte, over QP {0,17,30,35,51}: 1080p luma
-   and U+V grids, the race grid (136, 256), the sheared chroma stack, tail
-   grids; T1 refuses an odd Bx.
+1c. Holds K1-i16 and K1-i16c (the quad kernel at int16_t) at TB 32 and 64,
+   T5 (the rows layout) and T1 (SWAR, a quad of four lanes per tile pair)
+   against their plain versions, and K1-i16 and T1 against K1, byte for
+   byte, over QP {0,17,30,35,51}: 1080p luma and U+V grids, the race grid
+   (136, 256), the sheared chroma stack, tail grids (a batched one with
+   per-frame maps; for T1 Bx/2 = 35 and 36, staged in byte and 4-byte
+   words); T1 with every BS byte 0 returns its input; T1 refuses an odd
+   Bx.
 2. Runs the CLI on the three bundled frames, and StreamingDeblocker on a
    synthetic 1920x1080 frame and a sheared 360x288 frame, against the
    golden NumPy oracle.
@@ -107,12 +115,13 @@
    golden, tail included.  Every run's launches: T2 2, K1 1, K1c 1, T3 2
    per slot and batch; the profile of the batched packed step holds only
    the port's kernels.
-4d. Times the quad K1 against the thread-per-tile K1-i16, T5 and T1 in
-   turns at the race grid (136, 256), on blocky tiles, on uniform noise
-   (cond1 fails almost everywhere) and, for K1 and K1-i16, with every BS
-   byte 0 (no segment filtered: what a design pays per tile whatever the
-   content), and K1-i16 luma and chroma at the 1080p grids, each beside
-   its plain version and its byte bound.
+4d. Times the quad K1 against K1-i16 (the quad at int16_t), T5 (one
+   thread per tile) and T1 (a quad per tile pair) in turns at the race
+   grid (136, 256), on blocky tiles, on uniform noise (cond1 fails almost
+   everywhere) and, for K1, K1-i16 and T1, with every BS byte 0 (no
+   segment filtered: what a design pays per tile whatever the content),
+   and K1-i16 luma and chroma at the 1080p grids beside K1/K1c, each
+   beside its plain version and its byte bound.
 4e. Times the batched packed step at 1080p for k = 1, 4 and 8 frames
    beside the single-frame _step (CUDA events, in turns), and the frames
    per second of MultiStreamDeblocker.run at 4 streams x 1080p against
@@ -128,11 +137,13 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -146,22 +157,17 @@ TPU_KERNEL = "gpu_video_codec_tpu/ops/pallas_kernel.py:71"
 RELAYOUT_SOURCE = "gpu_video_codec_tpu_torch/csrc/relayout_kernel.cu"
 SWAR_SOURCE = "gpu_video_codec_tpu_torch/csrc/swar_kernel.cu"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak bandwidth
+RACE_SHAPE = (8, 8, 136, 256)  # the race grid of rowslayout_exp and swar_exp
+# deblock_quad_kernel<CHROMA, W> before its compute type became a template
+# parameter: (CHROMA, W) -> (ptxas registers, cuobjdump static SASS count)
+# with CUDA 12.8's nvcc for sm_90a; T = int must compile to the same
+QUAD_INT_COUNTS = {(False, 8): (47, 960), (False, 1): (46, 1032), (False, 4): (53, 992),
+                   (True, 8): (32, 384), (True, 1): (44, 416), (True, 4): (32, 384)}
 
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke FAILED: {what}")
-
-
-def blocky_tiles(rng, shape):
-    """uint8 tile-planes of flat blocks with small steps at the edges the
-    filter looks at (so strong and normal filters fire), a quarter of the
-    tiles uniform noise."""
-    cell = shape[:-4] + (1, 1) + shape[-2:]
-    t = rng.integers(40, 216, cell) + rng.integers(-3, 4, shape)
-    t[..., 4:, :, :, :] += rng.integers(-20, 21, cell)
-    t = np.where(rng.random(cell) < 0.25, rng.integers(0, 256, shape), t)
-    return np.clip(t, 0, 255).astype(np.uint8)
 
 
 def blocky_frame(rng, w, h):
@@ -211,6 +217,7 @@ def main() -> int:
     from gpu_video_codec_tpu_torch.ops.tables import get_beta, get_tc
     from gpu_video_codec_tpu_torch.runtime import native
     from gpu_video_codec_tpu_torch.tools import int16_probe, rowslayout_exp, swar_exp
+    from gpu_video_codec_tpu_torch.tools.kernel_time import blocky_tiles
     from gpu_video_codec_tpu_torch.utils.bs import (
         BoundaryStrength, chroma_segment_maps, luma_segment_maps,
     )
@@ -237,11 +244,22 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s; native -> {os.path.relpath(native_lib, REPO)}")
     cuobjdump = os.path.join(os.path.dirname(ck._nvcc()), "cuobjdump")
     cxxfilt = shutil.which("c++filt")
+    entries = {}  # mangled name -> {"registers", "spill_stores", "spill_loads", "smem", "sass"}
     for path, log in builds:
         print(f"  -> {os.path.relpath(path, REPO)}")
+        entry = None
         for line in log.splitlines():
             if any(k in line for k in ("entry function", "registers", "spill", "smem")):
                 print(f"  ptxas: {line.strip()}")
+            if m := re.search(r"entry function '([^']+)'", line):
+                entry = entries.setdefault(m.group(1), {"sass": None, "smem": 0})
+            elif entry is not None and (m := re.search(
+                    r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+                entry["spill_stores"], entry["spill_loads"] = int(m.group(1)), int(m.group(2))
+            elif entry is not None and (m := re.search(r"Used (\d+) registers", line)):
+                entry["registers"] = int(m.group(1))
+                if m := re.search(r"(\d+) bytes smem", line):
+                    entry["smem"] = int(m.group(1))
         if not os.path.isfile(cuobjdump):
             print("  sass: cuobjdump not found (instruction counts not measured)")
             continue
@@ -254,9 +272,40 @@ def main() -> int:
                     name = subprocess.run([cxxfilt, entry[0]], capture_output=True,
                                           text=True).stdout.strip() if cxxfilt else entry[0]
                     print(f"  sass: {name}: {entry[1]} instructions (static)")
-                entry = [line.split("Function : ")[1].strip(), 0]
+                    e = entries.setdefault(entry[0], {"smem": 0})
+                    e["sass"], e["opcodes"] = entry[1], entry[2]
+                entry = [line.split("Function : ")[1].strip(), 0, Counter()]
             elif entry and line.lstrip().startswith("/*") and ";" in line:
                 entry[1] += 1
+                if m := re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line):
+                    entry[2][m.group(1)] += 1
+    # the quad kernels' entries by (kernel, CHROMA, W, compute type), from
+    # their mangled names: deblock_quad_kernel<CHROMA, W, T> (T int for K1,
+    # short for K1-i16) and swar_quad_kernel<CHROMA, W> (T1)
+    quads = {}
+    for mangled, e in entries.items():
+        if m := re.search(r"deblock_quad_kernelILb([01])ELi(\d)E([is])E", mangled):
+            quads["K1" if m.group(3) == "i" else "K1-i16", m.group(1) == "1", int(m.group(2))] = e
+        elif m := re.search(r"swar_quad_kernelILb([01])ELi(\d)EE", mangled):
+            quads["T1", m.group(1) == "1", int(m.group(2))] = e
+    check(len(quads) == 18, f"expected 18 quad entries (K1, K1-i16, T1 x chroma x W), "
+                            f"found {sorted(quads)}")
+    for key, e in sorted(quads.items()):
+        check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
+              f"{key}: spills ({e.get('spill_stores')} B stored, {e.get('spill_loads')} B loaded)")
+        if key[0] == "K1":
+            want = QUAD_INT_COUNTS[key[1:]]
+            got = (e.get("registers"), e["sass"] if e["sass"] is not None else want[1])
+            check(got == want, f"K1 quad {key[1:]} at T = int: (registers, static SASS) {got}, "
+                               f"was {want} before the compute type became a parameter")
+    for key in (("K1", False, 8), ("K1-i16", False, 8), ("T1", False, 8)):
+        if quads[key].get("opcodes"):
+            print(f"static SASS opcodes of {key[0]} luma, 8-byte words: " + ", ".join(
+                f"{op} {n}" for op, n in quads[key]["opcodes"].most_common(12)))
+    print("quad entries, (chroma, W): registers / spills / smem / static SASS: " + "; ".join(
+        f"{k} {c} W{w} {e.get('registers')} / {e.get('spill_stores')} / {e['smem']} / {e['sass']}"
+        for (k, c, w), e in sorted(quads.items()))
+          + "; K1 at T = int unchanged, no spills")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     grids_1080p = {"K1": (False, (8, 8, 136, 241)), "K1c": (True, (2, 8, 8, 68, 121))}
     occupancy = {}
@@ -271,6 +320,21 @@ def main() -> int:
                   f"grid {shape} is {blocks} blocks, {occupancy[kname, tb]['waves']:.2f} waves on "
                   f"{sms} SMs ({4 * occupancy[kname, tb]['waves']:.2f} at batch 4); "
                   f"{occ['word_bytes']}-byte staging accesses")
+    for kname, (chroma, shape) in grids_1080p.items():
+        occ = ck.deblock_tiles_occupancy(shape, chroma=chroma, device=dev, dtype=torch.int16)
+        occupancy[kname.replace("K1", "K1-i16"), occ["block_bx"]] = occ
+        print(f"occupancy {kname.replace('K1', 'K1-i16')} TB {occ['block_bx']} (the quad at "
+              f"int16_t): {occ['blocks_per_sm']} blocks = {occ['warps_per_sm']} warps per SM, "
+              f"{occ['word_bytes']}-byte staging accesses at {shape}")
+    occ = sk.swar_occupancy(RACE_SHAPE, device=dev)
+    blocks = -(-RACE_SHAPE[-1] // 2 // sk.BLOCK) * RACE_SHAPE[-2]
+    occupancy["T1", sk.BLOCK] = {**occ, "grid_blocks": blocks,
+                                 "resident_warps_per_sm": blocks * occ["threads"] // 32 / sms}
+    print(f"occupancy T1 block {sk.BLOCK} pairs: {occ['threads']} threads per block, "
+          f"{occ['blocks_per_sm']} blocks = {occ['warps_per_sm']} warps per SM at most; the race "
+          f"grid {RACE_SHAPE} is {blocks} blocks, "
+          f"{occupancy['T1', sk.BLOCK]['resident_warps_per_sm']:.1f} warps per SM; "
+          f"{occ['word_bytes']}-byte staging accesses")
     rng = np.random.default_rng(2026)
 
     def counts() -> dict:
@@ -441,20 +505,24 @@ def main() -> int:
 
     for name, chroma, shape, mshape in (
             ("luma 1080p", False, (8, 8, 136, 241), (136, 241)),
-            ("luma race grid", False, (8, 8, 136, 256), (136, 256)),
+            ("luma race grid", False, RACE_SHAPE, RACE_SHAPE[2:]),
             ("luma tail", False, (8, 8, 3, 5), (3, 5)),
+            ("luma tail Bx 65, batched per-frame maps", False, (3, 8, 8, 2, 65), (3, 2, 65)),
             ("chroma U+V 1080p shared map", True, (2, 8, 8, 68, 121), (1, 68, 121)),
-            ("chroma sheared 360x288 U|V stacked", True, (8, 8, 38, 23), (38, 23))):
+            ("chroma sheared 360x288 U|V stacked", True, (8, 8, 38, 23), (38, 23)),
+            ("chroma tail Bx 33", True, (8, 8, 2, 33), (2, 33))):
         kind = "K1-i16c" if chroma else "K1-i16"
         for qp in QPS:
             tiles, maps = tiles_maps(shape, mshape)
             beta, tc = get_beta(qp), get_tc(qp)
-            out = ck.deblock_tiles_cuda(tiles, *maps, beta, tc, chroma=chroma, dtype=torch.int16)
-            same(kind, f"{name} qp {qp}", out, deblock_tiles_plain(
-                tiles, *maps, beta, tc, chroma=chroma, dtype=torch.int16))
-            same(kind, f"{name} qp {qp} against K1", out,
-                 ck.deblock_tiles_cuda(tiles, *maps, beta, tc, chroma=chroma))
-        print(f"{kind} == plain == K1: {name} {shape}, QP {list(QPS)}")
+            ref = deblock_tiles_plain(tiles, *maps, beta, tc, chroma=chroma, dtype=torch.int16)
+            k1 = ck.deblock_tiles_cuda(tiles, *maps, beta, tc, chroma=chroma)
+            for tb in BLOCKS:
+                out = ck.deblock_tiles_cuda(tiles, *maps, beta, tc, chroma=chroma,
+                                            block_bx=tb, dtype=torch.int16)
+                same(kind, f"{name} qp {qp} TB {tb}", out, ref)
+                same(kind, f"{name} qp {qp} TB {tb} against K1", out, k1)
+        print(f"{kind} == plain == K1: {name} {shape}, QP {list(QPS)}, TB {list(BLOCKS)}")
     for name, chroma, (by, bx) in (("luma 1080p", False, (136, 241)),
                                    ("luma race grid", False, (136, 256)),
                                    ("chroma 1080p", True, (136, 241)),
@@ -467,16 +535,32 @@ def main() -> int:
             same("T5", f"{name} qp {qp}", ck.deblock_rows_cuda(rows, *maps, beta, tc, chroma=chroma),
                  deblock_rows_plain(rows, *maps, beta, tc, chroma=chroma))
         print(f"T5 == plain: {name} {(by, 8, 8, bx)}, QP {list(QPS)}")
-    for name, chroma, (by, bx) in (("luma race grid", False, (136, 256)),
-                                   ("chroma 1080p U+V stack, even", True, (68, 120)),
-                                   ("luma tail", False, (3, 4)), ("chroma tail", True, (3, 4))):
+    # T1 stages in 8-byte words where Bx/2 is a multiple of 8, 4-byte words
+    # where it is 4 mod 8 and bytes where it is odd
+    for name, chroma, (by, bx) in (
+            ("luma race grid", False, RACE_SHAPE[2:]), ("chroma race grid", True, RACE_SHAPE[2:]),
+            ("luma 1080p width, even", False, (136, 240)),
+            ("chroma 1080p U+V stack, even", True, (68, 120)),
+            ("luma tail, Bx/2 35, byte words", False, (5, 70)),
+            ("chroma tail, Bx/2 35, byte words", True, (5, 70)),
+            ("luma tail, Bx/2 36, 4-byte words", False, (3, 72)),
+            ("chroma tail, Bx/2 36, 4-byte words", True, (3, 72)),
+            ("luma tail", False, (3, 4)), ("chroma tail", True, (3, 4))):
         for qp in QPS:
             tiles, maps = tiles_maps((8, 8, by, bx), (by, bx))
             beta, tc = get_beta(qp), get_tc(qp)
-            same("T1", f"{name} qp {qp}",
-                 sk.deblock_tiles_swar_cuda(tiles, *maps, beta, tc, chroma=chroma),
+            out = sk.deblock_tiles_swar_cuda(tiles, *maps, beta, tc, chroma=chroma)
+            same("T1", f"{name} qp {qp}", out,
                  deblock_tiles_plain(tiles, *maps, beta, tc, chroma=chroma))
-        print(f"T1 == plain: {name} {(8, 8, by, bx)}, QP {list(QPS)}")
+            same("T1", f"{name} qp {qp} against K1", out,
+                 ck.deblock_tiles_cuda(tiles, *maps, beta, tc, chroma=chroma))
+        print(f"T1 == plain == K1: {name} {(8, 8, by, bx)}, QP {list(QPS)}")
+    for chroma in (False, True):
+        tiles, maps = tiles_maps(RACE_SHAPE, RACE_SHAPE[2:])
+        off = [torch.zeros_like(m) for m in maps]
+        same("T1", f"race grid, every BS byte 0, chroma={chroma}",
+             sk.deblock_tiles_swar_cuda(tiles, *off, 38, 4, chroma=chroma), tiles)
+    print("T1 with every BS byte 0 == its input: race grid, luma and chroma")
     tiles, maps = tiles_maps((8, 8, 3, 5), (3, 5))
     try:
         sk.deblock_tiles_swar_cuda(tiles, *maps, 38, 4)
@@ -1256,9 +1340,9 @@ def main() -> int:
         check(abs(prof[0] / busy - 1) <= 0.02, "profiled_device_us and key_averages() differ by "
                                                "more than 2%")
 
-    # -- 4d. the quad K1 beside the thread-per-tile K1-i16, T5 and T1 --------------------
-    by, bx = 136, 256  # the race grid of rowslayout_exp and swar_exp
-    tiles, maps = tiles_maps((8, 8, by, bx), (by, bx))
+    # -- 4d. the quad K1 beside K1-i16, T5 and T1 --------------------------------------
+    by, bx = RACE_SHAPE[2:]
+    tiles, maps = tiles_maps(RACE_SHAPE, (by, bx))
     rows = tiles.permute(2, 0, 1, 3).contiguous()
     noise = torch.randint(0, 256, tiles.shape, dtype=torch.uint8, device=dev)
     noise_rows = noise.permute(2, 0, 1, 3).contiguous()
@@ -1276,8 +1360,9 @@ def main() -> int:
         "K1 BS 0": lambda: ck.deblock_tiles_cuda(tiles, *off, beta35, tc35),
         "K1-i16 BS 0": lambda: ck.deblock_tiles_cuda(tiles, *off, beta35, tc35,
                                                      dtype=torch.int16),
+        "T1 BS 0": lambda: sk.deblock_tiles_swar_cuda(tiles, *off, beta35, tc35),
     }, dict.fromkeys(("K1", "K1-i16", "T5", "T1", "K1 on noise", "K1-i16 on noise",
-                      "T5 on noise", "T1 on noise", "K1 BS 0", "K1-i16 BS 0"), 200))
+                      "T5 on noise", "T1 on noise", "K1 BS 0", "K1-i16 BS 0", "T1 BS 0"), 200))
     race_plain = in_turns({
         "int32": lambda: deblock_tiles_plain(tiles, *maps, beta35, tc35),
         "int16": lambda: deblock_tiles_plain(tiles, *maps, beta35, tc35, dtype=torch.int16),
@@ -1285,16 +1370,27 @@ def main() -> int:
     }, {"int32": 5, "int16": 5, "rows": 5})
     race_bound = bytes_bound_ms(2 * tiles.numel() + 4 * maps[0].numel())
     print(f"race grid (8, 8, {by}, {bx}), blocky tiles, QP 35, against the quad K1 (4 lanes "
-          f"per tile, TB {ck.BLOCK_BX}; K1-i16, T5 and T1 one thread per tile): " + ", ".join(
+          f"per tile, TB {ck.BLOCK_BX}; K1-i16 the same quad at int16_t; T5 one thread per "
+          f"tile; T1 4 lanes per tile pair, {sk.BLOCK} pairs a block): " + ", ".join(
               f"{k} {ms * 1e3:.2f} us" for k, (ms, _) in race.items())
         + f"; T1/K1 {race['T1'][0] / race['K1'][0]:.3f}, K1-i16/K1 "
         f"{race['K1-i16'][0] / race['K1'][0]:.3f}, T5/K1 {race['T5'][0] / race['K1'][0]:.3f}, "
         f"noise/blocky: K1 {race['K1 on noise'][0] / race['K1'][0]:.3f}, K1-i16 "
         f"{race['K1-i16 on noise'][0] / race['K1-i16'][0]:.3f}, T5 "
-        f"{race['T5 on noise'][0] / race['T5'][0]:.3f}; "
+        f"{race['T5 on noise'][0] / race['T5'][0]:.3f}, T1 "
+        f"{race['T1 on noise'][0] / race['T1'][0]:.3f}; BS 0/blocky: K1 "
+        f"{race['K1 BS 0'][0] / race['K1'][0]:.3f}, K1-i16 "
+        f"{race['K1-i16 BS 0'][0] / race['K1-i16'][0]:.3f}, T1 "
+        f"{race['T1 BS 0'][0] / race['T1'][0]:.3f}; "
         f"plain " + ", ".join(f"{k} {ms * 1e3:.0f} us" for k, (ms, _) in race_plain.items())
         + f"; bound {race_bound * 1e3:.2f} us (kernels queued ahead: "
         f"{all(ok for _, ok in race.values())}; device time; {smi})")
+    def entry_stats(kname: str, occ: dict) -> dict:
+        """Phase 0's numbers for the quad entry a timed launch ran."""
+        e = quads["T1" if kname == "T1" else "K1-i16", kname.endswith("c"), occ["word_bytes"]]
+        return {"registers": e["registers"], "spill_bytes": e["spill_stores"],
+                "static_sass": e["sass"], "warps_per_sm": occ["warps_per_sm"]}
+
     i16_rows = {}
     for kname, chroma, shape, mshape in (("K1-i16", False, (8, 8, 136, 241), (136, 241)),
                                          ("K1-i16c", True, (2, 8, 8, 68, 121), (1, 68, 121))):
@@ -1322,6 +1418,7 @@ def main() -> int:
             "max_abs_err": max_err[kname], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": "bytes", "library_ms": None,
             **({"race_grid_ms": race["K1-i16"][0]} if kname == "K1-i16" else {}),
+            **entry_stats(kname, occupancy[kname, ck.BLOCK_BX]),
         })
     for kname, name, source, replaces, plain in (
             ("T5", "T5 rows-layout deblock (8, 8, 136, 256) as (136, 8, 8, 256)", KERNEL_SOURCE,
@@ -1334,6 +1431,7 @@ def main() -> int:
             "max_abs_err": max_err[kname], "ms": race[kname][0], "plain_ms": race_plain[plain][0],
             "bound_ms": race_bound, "bound_by": "bytes", "library_ms": None,
             "k1_ms_same_grid": race["K1"][0],
+            **(entry_stats("T1", occupancy["T1", sk.BLOCK]) if kname == "T1" else {}),
         })
 
     # -- 4e. the mesh paths' times ------------------------------------------------------

@@ -1,11 +1,15 @@
-// K1 and K1c as a quad of four lanes per tile (deblock_kernel.cu,
-// deblock_quad_kernel), shared by the CUDA kernel and the host build
-// (host_shim.cpp).  A block owns TB consecutive cells (tiles) of the
-// flattened (By, Bx) grid of one frame and 4 * TB threads.  The functions
-// below are a thread's work between the kernel's exchange points
+// K1, K1c, K1-i16 and K1-i16c as a quad of four lanes per tile
+// (deblock_kernel.cu, deblock_quad_kernel), shared by the CUDA kernel and
+// the host build (host_shim.cpp).  A block owns TB consecutive cells (tiles)
+// of the flattened (By, Bx) grid of one frame and 4 * TB threads.  The
+// functions below are a thread's work between the kernel's exchange points
 // (__syncthreads, __syncwarp, the quad's shuffles); the kernel runs them one
 // after another in each thread, the host build runs every thread of a block
-// through one function before the next.
+// through one function before the next.  The compute type T (int for K1/K1c,
+// int16_t for K1-i16/K1-i16c) is a template parameter of the lane functions,
+// passed on to deblock_tile.cuh's row math; a lane's rows hold pixel values
+// 0-255 as int whatever T.  T1 (swar_tile.cuh) reuses the lane geometry and
+// the staging words with a tile PAIR per quad (QuadLane<swar::hw2>).
 //
 // Thread tid is lane r = tid & 3 of tile t = tid >> 2, so a quad is four
 // adjacent lanes of one warp.  Lane r is segment row r in every phase:
@@ -145,15 +149,30 @@ GVCT_HD Word<W> stage_get(const uint8_t* s) {
   return x;
 }
 
-struct QuadLane {
-  int t, r;         // tile in the block, segment row
-  int bs[4];        // the tile's BS bytes (ver1, ver2, hor1, hor2), 0 past the grid
-  int a[8], b[8];   // vertical phases: tile rows r and 4 + r
-  int cl[8], cr[4]; // horizontal phases: column r, column 4 + r rows 0-3
+// A lane's pixel E as the stage holds it: one byte per tile at column t
+// (E = int, K1); swar_tile.cuh specializes it for T1's tile pairs.
+template <typename E>
+struct StageCell;
+
+template <>
+struct StageCell<int> {
+  static constexpr int kStride = kQuadStride;  // bytes per stage row
+  static constexpr int kBytes = 1;             // bytes per tile (pair) in a row
+  GVCT_HD static int get(const uint8_t* s) { return *s; }
+  GVCT_HD static void put(uint8_t* s, int v) { *s = static_cast<uint8_t>(v); }
 };
 
-GVCT_HD QuadLane quad_lane(int tid) {
-  QuadLane lane{};
+template <typename E = int>
+struct QuadLane {
+  int t, r;       // tile (pair) in the block, segment row
+  E bs[4];        // K1: the tile's BS bytes (ver1, ver2, hor1, hor2), 0 past the grid
+  E a[8], b[8];   // vertical phases: tile rows r and 4 + r
+  E cl[8], cr[4]; // horizontal phases: column r, column 4 + r rows 0-3
+};
+
+template <typename E = int>
+GVCT_HD QuadLane<E> quad_lane(int tid) {
+  QuadLane<E> lane{};
   lane.t = tid >> 2;
   lane.r = tid & 3;
   return lane;
@@ -161,7 +180,7 @@ GVCT_HD QuadLane quad_lane(int tid) {
 
 // The tile's BS bytes: `map` is the block's first tile in each map, n the
 // block's tiles inside the grid.  The four lanes of a quad read one byte.
-GVCT_HD void quad_load_bs(QuadLane& lane, const uint8_t* v1, const uint8_t* v2,
+GVCT_HD void quad_load_bs(QuadLane<>& lane, const uint8_t* v1, const uint8_t* v2,
                           const uint8_t* h1, const uint8_t* h2, size_t map, int n) {
   const bool inside = lane.t < n;
   const size_t at = map + lane.t;
@@ -225,63 +244,78 @@ GVCT_HD void quad_stage_store(const uint8_t* stage, uint8_t* dst, size_t plane, 
   }
 }
 
+// The lane's cell in stage row k (plane k).
+template <typename E>
+GVCT_HD const uint8_t* stage_cell(const uint8_t* stage, int k, int t) {
+  return stage + k * StageCell<E>::kStride + t * StageCell<E>::kBytes;
+}
+template <typename E>
+GVCT_HD uint8_t* stage_cell(uint8_t* stage, int k, int t) {
+  return stage + k * StageCell<E>::kStride + t * StageCell<E>::kBytes;
+}
+
 // Tile rows r and 4 + r: all 8 columns (luma), columns 2-5 (chroma).
-template <bool CHROMA>
-GVCT_HD void quad_read_rows(QuadLane& lane, const uint8_t* stage) {
-  const uint8_t* a = stage + lane.r * 8 * kQuadStride + lane.t;
-  const uint8_t* b = a + 32 * kQuadStride;
+template <bool CHROMA, typename E>
+GVCT_HD void quad_read_rows(QuadLane<E>& lane, const uint8_t* stage) {
+  using C = StageCell<E>;
+  const uint8_t* a = stage_cell<E>(stage, lane.r * 8, lane.t);
+  const uint8_t* b = a + 32 * C::kStride;
 #pragma unroll
   for (int c = CHROMA ? 2 : 0; c < (CHROMA ? 6 : 8); ++c) {
-    lane.a[c] = a[c * kQuadStride];
-    lane.b[c] = b[c * kQuadStride];
+    lane.a[c] = C::get(a + c * C::kStride);
+    lane.b[c] = C::get(b + c * C::kStride);
   }
 }
 
 // The columns the vertical phases may change: 1-6 (luma), 3-4 (chroma).
-template <bool CHROMA>
-GVCT_HD void quad_write_rows(const QuadLane& lane, uint8_t* stage) {
-  uint8_t* a = stage + lane.r * 8 * kQuadStride + lane.t;
-  uint8_t* b = a + 32 * kQuadStride;
+template <bool CHROMA, typename E>
+GVCT_HD void quad_write_rows(const QuadLane<E>& lane, uint8_t* stage) {
+  using C = StageCell<E>;
+  uint8_t* a = stage_cell<E>(stage, lane.r * 8, lane.t);
+  uint8_t* b = a + 32 * C::kStride;
 #pragma unroll
   for (int c = CHROMA ? 3 : 1; c < (CHROMA ? 5 : 7); ++c) {
-    a[c * kQuadStride] = static_cast<uint8_t>(lane.a[c]);
-    b[c * kQuadStride] = static_cast<uint8_t>(lane.b[c]);
+    C::put(a + c * C::kStride, lane.a[c]);
+    C::put(b + c * C::kStride, lane.b[c]);
   }
 }
 
 // Column r (rows 0-7 luma, 2-5 chroma) and column 4 + r (rows 0-3 luma,
 // 2-3 chroma), after the whole quad wrote its rows.
-template <bool CHROMA>
-GVCT_HD void quad_read_cols(QuadLane& lane, const uint8_t* stage) {
-  const uint8_t* l = stage + lane.r * kQuadStride + lane.t;
-  const uint8_t* r = l + 4 * kQuadStride;
+template <bool CHROMA, typename E>
+GVCT_HD void quad_read_cols(QuadLane<E>& lane, const uint8_t* stage) {
+  using C = StageCell<E>;
+  const uint8_t* l = stage_cell<E>(stage, lane.r, lane.t);
+  const uint8_t* r = l + 4 * C::kStride;
 #pragma unroll
-  for (int i = CHROMA ? 2 : 0; i < (CHROMA ? 6 : 8); ++i) lane.cl[i] = l[i * 8 * kQuadStride];
+  for (int i = CHROMA ? 2 : 0; i < (CHROMA ? 6 : 8); ++i) lane.cl[i] = C::get(l + i * 8 * C::kStride);
 #pragma unroll
-  for (int i = CHROMA ? 2 : 0; i < 4; ++i) lane.cr[i] = r[i * 8 * kQuadStride];
+  for (int i = CHROMA ? 2 : 0; i < 4; ++i) lane.cr[i] = C::get(r + i * 8 * C::kStride);
 }
 
 // The pixels the horizontal phases may change: column r rows 1-6 and
 // column 4 + r rows 1-3 (luma); rows 3-4 and row 3 (chroma).
-template <bool CHROMA>
-GVCT_HD void quad_write_cols(const QuadLane& lane, uint8_t* stage) {
-  uint8_t* l = stage + lane.r * kQuadStride + lane.t;
-  uint8_t* r = l + 4 * kQuadStride;
+template <bool CHROMA, typename E>
+GVCT_HD void quad_write_cols(const QuadLane<E>& lane, uint8_t* stage) {
+  using C = StageCell<E>;
+  uint8_t* l = stage_cell<E>(stage, lane.r, lane.t);
+  uint8_t* r = l + 4 * C::kStride;
 #pragma unroll
-  for (int i = CHROMA ? 3 : 1; i < (CHROMA ? 5 : 7); ++i) {
-    l[i * 8 * kQuadStride] = static_cast<uint8_t>(lane.cl[i]);
-  }
+  for (int i = CHROMA ? 3 : 1; i < (CHROMA ? 5 : 7); ++i) C::put(l + i * 8 * C::kStride, lane.cl[i]);
 #pragma unroll
-  for (int i = CHROMA ? 3 : 1; i < 4; ++i) {
-    r[i * 8 * kQuadStride] = static_cast<uint8_t>(lane.cr[i]);
-  }
+  for (int i = CHROMA ? 3 : 1; i < 4; ++i) C::put(r + i * 8 * C::kStride, lane.cr[i]);
 }
 
 // -- luma ----------------------------------------------------------------------
 
-// The lane's word for the quad sum: its row's dp and dq (at most 510 each,
-// so a sum of two fits 10 bits) and a count of rows that fail the strong
-// conditions, from rows 0 and 3 only.
+// A row's dp and dq are |p2 - 2 p1 + p0| of pixels 0-255: at most 510 in int
+// and in int16_t alike (no int16 wrap), so the quad's sum of two rows fits
+// a 10-bit field and K1-i16 exchanges the same words as K1.
+constexpr int kMaxRowD = 2 * 255;
+static_assert(2 * kMaxRowD < (1 << 10), "a segment's dp or dq must fit its 10-bit field");
+
+// The lane's word for the quad sum: its row's dp and dq and a count of rows
+// that fail the strong conditions, from rows 0 and 3 only.
 GVCT_HD uint32_t quad_word(const RowTerms& rt, int r) {
   return (r == 0 || r == 3) ? static_cast<uint32_t>(rt.dp) | static_cast<uint32_t>(rt.dq) << 10 |
                                   static_cast<uint32_t>(!rt.strong) << 20
@@ -296,7 +330,8 @@ GVCT_HD RowTerms segment_terms(uint32_t sum) {
 
 // P and Q of a segment row that lies along a row array: p[j] = row[3 - j],
 // q[j] = row[4 + j] (vertical phases, and left-hor along column r).
-GVCT_HD void split_row(const int (&row)[8], int (&p)[4], int (&q)[4]) {
+template <typename E>
+GVCT_HD void split_row(const E (&row)[8], E (&p)[4], E (&q)[4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     p[j] = row[3 - j];
@@ -304,7 +339,8 @@ GVCT_HD void split_row(const int (&row)[8], int (&p)[4], int (&q)[4]) {
   }
 }
 
-GVCT_HD void join_row(int (&row)[8], const int (&p)[4], const int (&q)[4]) {
+template <typename E>
+GVCT_HD void join_row(E (&row)[8], const E (&p)[4], const E (&q)[4]) {
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     row[3 - j] = p[j];
@@ -313,7 +349,8 @@ GVCT_HD void join_row(int (&row)[8], const int (&p)[4], const int (&q)[4]) {
 }
 
 // Right-hor row r: P from column 4 + r, Q from column r (Q3).
-GVCT_HD void split_right(const QuadLane& lane, int (&p)[4], int (&q)[4]) {
+template <typename E>
+GVCT_HD void split_right(const QuadLane<E>& lane, E (&p)[4], E (&q)[4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     p[j] = lane.cr[3 - j];
@@ -321,7 +358,8 @@ GVCT_HD void split_right(const QuadLane& lane, int (&p)[4], int (&q)[4]) {
   }
 }
 
-GVCT_HD void join_right(QuadLane& lane, const int (&p)[4], const int (&q)[4]) {
+template <typename E>
+GVCT_HD void join_right(QuadLane<E>& lane, const E (&p)[4], const E (&q)[4]) {
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     lane.cr[3 - j] = p[j];
@@ -330,70 +368,80 @@ GVCT_HD void join_right(QuadLane& lane, const int (&p)[4], const int (&q)[4]) {
 }
 
 // The lane's row of one luma segment, given the quad sum of its words.
+template <typename T>
 GVCT_HD void quad_luma_row(int (&p)[4], int (&q)[4], int bs, uint32_t sum, const Thresholds& th) {
-  if (gated_on<false>(bs)) luma_row<int>(p, q, luma_decision<int>(segment_terms(sum), th), th);
+  if (gated_on<false>(bs)) luma_row<T>(p, q, luma_decision<T>(segment_terms(sum), th), th);
 }
 
 // Upper-vert and lower-vert words: w[0] of row r, w[1] of row 4 + r.
-GVCT_HD void quad_vert_words(const QuadLane& lane, const Thresholds& th, uint32_t (&w)[2]) {
+template <typename T>
+GVCT_HD void quad_vert_words(const QuadLane<>& lane, const Thresholds& th, uint32_t (&w)[2]) {
   int p[4], q[4];
   split_row(lane.a, p, q);
-  w[0] = quad_word(row_terms<int>(p, q, th), lane.r);
+  w[0] = quad_word(row_terms<T>(p, q, th), lane.r);
   split_row(lane.b, p, q);
-  w[1] = quad_word(row_terms<int>(p, q, th), lane.r);
+  w[1] = quad_word(row_terms<T>(p, q, th), lane.r);
 }
 
 // sum = the quad sums of quad_vert_words' w[0] and w[1].
-GVCT_HD void quad_vert_luma(QuadLane& lane, const uint32_t (&sum)[2], const Thresholds& th) {
+template <typename T>
+GVCT_HD void quad_vert_luma(QuadLane<>& lane, const uint32_t (&sum)[2], const Thresholds& th) {
   int p[4], q[4];
   split_row(lane.a, p, q);
-  quad_luma_row(p, q, lane.bs[0], sum[0], th);
+  quad_luma_row<T>(p, q, lane.bs[0], sum[0], th);
   join_row(lane.a, p, q);
   split_row(lane.b, p, q);
-  quad_luma_row(p, q, lane.bs[1], sum[1], th);
+  quad_luma_row<T>(p, q, lane.bs[1], sum[1], th);
   join_row(lane.b, p, q);
 }
 
-GVCT_HD uint32_t quad_left_word(const QuadLane& lane, const Thresholds& th) {
+template <typename T>
+GVCT_HD uint32_t quad_left_word(const QuadLane<>& lane, const Thresholds& th) {
   int p[4], q[4];
   split_row(lane.cl, p, q);
-  return quad_word(row_terms<int>(p, q, th), lane.r);
+  return quad_word(row_terms<T>(p, q, th), lane.r);
 }
 
-GVCT_HD void quad_left_luma(QuadLane& lane, uint32_t sum, const Thresholds& th) {
+template <typename T>
+GVCT_HD void quad_left_luma(QuadLane<>& lane, uint32_t sum, const Thresholds& th) {
   int p[4], q[4];
   split_row(lane.cl, p, q);
-  quad_luma_row(p, q, lane.bs[2], sum, th);
+  quad_luma_row<T>(p, q, lane.bs[2], sum, th);
   join_row(lane.cl, p, q);
 }
 
-GVCT_HD uint32_t quad_right_word(const QuadLane& lane, const Thresholds& th) {
+template <typename T>
+GVCT_HD uint32_t quad_right_word(const QuadLane<>& lane, const Thresholds& th) {
   int p[4], q[4];
   split_right(lane, p, q);
-  return quad_word(row_terms<int>(p, q, th), lane.r);
+  return quad_word(row_terms<T>(p, q, th), lane.r);
 }
 
-GVCT_HD void quad_right_luma(QuadLane& lane, uint32_t sum, const Thresholds& th) {
+template <typename T>
+GVCT_HD void quad_right_luma(QuadLane<>& lane, uint32_t sum, const Thresholds& th) {
   int p[4], q[4];
   split_right(lane, p, q);
-  quad_luma_row(p, q, lane.bs[3], sum, th);
+  quad_luma_row<T>(p, q, lane.bs[3], sum, th);
   join_right(lane, p, q);
 }
 
 // -- chroma: no decision, so no exchange -------------------------------------------
 
+template <typename T>
 GVCT_HD void quad_chroma_row(int& p0, int p1, int& q0, int q1, int bs, int tc) {
-  if (gated_on<true>(bs)) chroma_row<int>(p0, p1, q0, q1, tc);
+  if (gated_on<true>(bs)) chroma_row<T>(p0, p1, q0, q1, tc);
 }
 
-GVCT_HD void quad_vert_chroma(QuadLane& lane, const Thresholds& th) {
-  quad_chroma_row(lane.a[3], lane.a[2], lane.a[4], lane.a[5], lane.bs[0], th.tc);
-  quad_chroma_row(lane.b[3], lane.b[2], lane.b[4], lane.b[5], lane.bs[1], th.tc);
+template <typename T>
+GVCT_HD void quad_vert_chroma(QuadLane<>& lane, const Thresholds& th) {
+  quad_chroma_row<T>(lane.a[3], lane.a[2], lane.a[4], lane.a[5], lane.bs[0], th.tc);
+  quad_chroma_row<T>(lane.b[3], lane.b[2], lane.b[4], lane.b[5], lane.bs[1], th.tc);
 }
 
-GVCT_HD void quad_hor_chroma(QuadLane& lane, const Thresholds& th) {
-  quad_chroma_row(lane.cl[3], lane.cl[2], lane.cl[4], lane.cl[5], lane.bs[2], th.tc);
-  quad_chroma_row(lane.cr[3], lane.cr[2], lane.cl[4], lane.cl[5], lane.bs[3], th.tc);
+template <typename T>
+GVCT_HD void quad_hor_chroma(QuadLane<>& lane, const Thresholds& th) {
+  quad_chroma_row<T>(lane.cl[3], lane.cl[2], lane.cl[4], lane.cl[5], lane.bs[2], th.tc);
+  quad_chroma_row<T>(lane.cr[3], lane.cr[2], lane.cl[4], lane.cl[5], lane.bs[3], th.tc);
 }
 
 }  // namespace gvct

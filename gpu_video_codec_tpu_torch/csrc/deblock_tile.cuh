@@ -2,13 +2,13 @@
 // kernels (deblock_kernel.cu, built by nvcc) and the host build that the
 // CPU tests load (host_shim.cpp, built by g++).  The filter math of one
 // segment row (row_terms, luma_decision, strong_row, normal_row,
-// chroma_row) is written once here; the thread-per-tile loop below and
-// the quad of deblock_quad.cuh (K1, K1c) both call it.
+// chroma_row) is written once here; the thread-per-tile loop below (T5)
+// and the quad of deblock_quad.cuh (K1, K1c, K1-i16, K1-i16c) both call it.
 //
-// A tile is the 64 pixels of one shifted 8x8 tile, t[row * 8 + col], held
-// in the compute type T: int (T5) or int16_t (K1-i16, the JAX package's
-// dtype=int16 path).  deblock_tile<T, CHROMA> runs the four edge
-// phases in the reference's order (quirk Q7): upper-vert, lower-vert,
+// The compute type T is int (K1, K1c, T5) or int16_t (K1-i16, K1-i16c, the
+// JAX package's dtype=int16 path).  A tile is the 64 pixels of one shifted
+// 8x8 tile, t[row * 8 + col], held in T.  deblock_tile<T, CHROMA> runs the
+// four edge phases in the reference's order (quirk Q7): upper-vert, lower-vert,
 // left-hor, right-hor, each gated by its BS byte (luma: BS > 0, chroma:
 // BS == 2; cpu.h:164, 463).  Segment geometry is
 // ops/deblock.py::_SEGMENT_GEOMETRY, including the Q3 P/Q column mismatch of
@@ -94,8 +94,8 @@ GVCT_HD constexpr int q_at(int r, int j) {
 // -- the filter math of one segment row ------------------------------------------
 //
 // Written once, per row, and called by both kernel designs: the thread per
-// tile below (K1-i16, T5) and the quad of four lanes per tile
-// (deblock_quad.cuh, K1 and K1c).  p[j] and q[j] are the row's pixels at
+// tile below (T5) and the quad of four lanes per tile (deblock_quad.cuh,
+// K1, K1c, K1-i16, K1-i16c).  p[j] and q[j] are the row's pixels at
 // distance j from the edge on the P and Q side.
 
 // The BS gate of a segment (luma: BS > 0, chroma: BS == 2; cpu.h:164, 463).
@@ -214,7 +214,7 @@ GVCT_HD void chroma_row(int& p0, int p1, int& q0, int q1, int tc) {
   p0 = np;
 }
 
-// -- one thread per tile (K1-i16, T5) ----------------------------------------------
+// -- one thread per tile (T5) -------------------------------------------------------
 
 // Luma segment: 4 rows x 4 pixels per side, distances 0-2 may change
 // (cpu.h:1359-1429).  cond1 is tested on dp and dq alone, before the strong
@@ -285,9 +285,8 @@ GVCT_HD void deblock_tile(T (&t)[64], const int (&bs)[4], const Thresholds& th) 
 }
 
 // Load, filter and store the tile whose pixel (r, c) lies at
-// tile + (r * 8 + c) * plane: plane = By*Bx for the tile-planes layout
-// T[r, c, by, bx] (K1-i16), plane = Bx for the rows layout R[by, r, c, bx]
-// (T5).  Its four BS bytes are at `map` in each map.  `in` may equal
+// tile + (r * 8 + c) * plane (plane = Bx for T5's rows layout
+// R[by, r, c, bx]).  Its four BS bytes are at `map` in each map.  `in` may equal
 // `out`: a tile's segments never leave the tile, and all 64 loads precede
 // the stores.
 template <typename T, bool CHROMA>

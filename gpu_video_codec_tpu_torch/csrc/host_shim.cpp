@@ -2,6 +2,8 @@
 // tests: each loop below visits the tiles, blocks or chunks that the CUDA
 // grid assigns to its threads and calls the same functions the kernels do
 // (deblock_tile.cuh, deblock_quad.cuh, swar_tile.cuh, relayout_tile.cuh).
+// A quad kernel's block (K1, K1c, K1-i16, K1-i16c, T1) runs its threads one
+// after another between the kernel's exchange points.
 
 #include <vector>
 
@@ -11,31 +13,20 @@
 
 namespace {
 
-template <typename T>
-void host_deblock_tiles(const uint8_t* in, uint8_t* out, const uint8_t* v1, const uint8_t* v2,
-                        const uint8_t* h1, const uint8_t* h2, int beta, int tc, int nb, int by,
-                        int bx, long long map_batch_stride, int chroma) {
-  const gvct::Thresholds th = gvct::make_thresholds(beta, tc);
-  const size_t plane = static_cast<size_t>(by) * bx;
-  for (size_t b = 0; b < static_cast<size_t>(nb); ++b) {
-    for (size_t cell = 0; cell < plane; ++cell) {
-      const size_t tile = b * 64 * plane + cell;
-      const size_t map = b * static_cast<size_t>(map_batch_stride) + cell;
-      if (chroma) {
-        gvct::deblock_tile_at<T, true>(in, out, v1, v2, h1, h2, plane, tile, map, th);
-      } else {
-        gvct::deblock_tile_at<T, false>(in, out, v1, v2, h1, h2, plane, tile, map, th);
-      }
-    }
-  }
+// The sum over thread tid's quad of word i of each thread's `stride` words
+// in w: the quad's xor-shuffles.
+uint32_t quad_sum(const std::vector<uint32_t>& w, int tid, int stride, int i) {
+  const int q = tid & ~3;
+  return w[stride * q + i] + w[stride * (q + 1) + i] + w[stride * (q + 2) + i] +
+         w[stride * (q + 3) + i];
 }
 
-// One block of deblock_kernel.cu's quad kernel: cells [cell, cell + tb) of
-// frame b's flattened grid, its 4 * tb threads one after another between
-// the kernel's exchange points; `wv`, `wl` and `wr` stand in for the
-// shuffles: every thread publishes its words there, and each lane of a
-// quad takes the sum of its quad's four.
-template <bool CHROMA, int W>
+// One block of deblock_kernel.cu's quad kernel at compute type T: cells
+// [cell, cell + tb) of frame b's flattened grid, its 4 * tb threads one
+// after another between the kernel's exchange points; `wv`, `wl` and `wr`
+// stand in for the shuffles: every thread publishes its words there, and
+// each lane of a quad takes the sum of its quad's four.
+template <bool CHROMA, int W, typename T>
 void host_quad_block(const uint8_t* in, uint8_t* out, const uint8_t* v1, const uint8_t* v2,
                      const uint8_t* h1, const uint8_t* h2, const gvct::Thresholds& th, int tb,
                      long long plane, long long map_batch_stride, size_t b, long long cell) {
@@ -43,13 +34,8 @@ void host_quad_block(const uint8_t* in, uint8_t* out, const uint8_t* v1, const u
   const int n = plane - cell < tb ? static_cast<int>(plane - cell) : tb;
   const size_t tiles = b * 64 * plane + cell;
   std::vector<uint8_t> stage(64 * gvct::kQuadStride);
-  std::vector<gvct::QuadLane> lanes(nt);
+  std::vector<gvct::QuadLane<>> lanes(nt);
   std::vector<uint32_t> wv(2 * nt), wl(nt), wr(nt);
-  auto quad_sum = [](const std::vector<uint32_t>& w, int tid, int stride, int i) {
-    const int q = tid & ~3;
-    return w[stride * q + i] + w[stride * (q + 1) + i] + w[stride * (q + 2) + i] +
-           w[stride * (q + 3) + i];
-  };
   for (int tid = 0; tid < nt; ++tid) {
     lanes[tid] = gvct::quad_lane(tid);
     gvct::quad_load_bs(lanes[tid], v1, v2, h1, h2, b * map_batch_stride + cell, n);
@@ -60,17 +46,17 @@ void host_quad_block(const uint8_t* in, uint8_t* out, const uint8_t* v1, const u
     gvct::quad_read_rows<CHROMA>(lanes[tid], stage.data());
     if (!CHROMA) {
       uint32_t w[2];
-      gvct::quad_vert_words(lanes[tid], th, w);
+      gvct::quad_vert_words<T>(lanes[tid], th, w);
       wv[2 * tid] = w[0];
       wv[2 * tid + 1] = w[1];
     }
   }
   for (int tid = 0; tid < nt; ++tid) {  // after the shuffles
     if (CHROMA) {
-      gvct::quad_vert_chroma(lanes[tid], th);
+      gvct::quad_vert_chroma<T>(lanes[tid], th);
     } else {
       const uint32_t sum[2] = {quad_sum(wv, tid, 2, 0), quad_sum(wv, tid, 2, 1)};
-      gvct::quad_vert_luma(lanes[tid], sum, th);
+      gvct::quad_vert_luma<T>(lanes[tid], sum, th);
     }
     gvct::quad_write_rows<CHROMA>(lanes[tid], stage.data());
   }
@@ -78,18 +64,18 @@ void host_quad_block(const uint8_t* in, uint8_t* out, const uint8_t* v1, const u
   for (int tid = 0; tid < nt; ++tid) {
     gvct::quad_read_cols<CHROMA>(lanes[tid], stage.data());
     if (CHROMA) {
-      gvct::quad_hor_chroma(lanes[tid], th);
+      gvct::quad_hor_chroma<T>(lanes[tid], th);
     } else {
-      wl[tid] = gvct::quad_left_word(lanes[tid], th);
+      wl[tid] = gvct::quad_left_word<T>(lanes[tid], th);
     }
   }
   if (!CHROMA) {
     for (int tid = 0; tid < nt; ++tid) {
-      gvct::quad_left_luma(lanes[tid], quad_sum(wl, tid, 1, 0), th);
-      wr[tid] = gvct::quad_right_word(lanes[tid], th);
+      gvct::quad_left_luma<T>(lanes[tid], quad_sum(wl, tid, 1, 0), th);
+      wr[tid] = gvct::quad_right_word<T>(lanes[tid], th);
     }
     for (int tid = 0; tid < nt; ++tid) {
-      gvct::quad_right_luma(lanes[tid], quad_sum(wr, tid, 1, 0), th);
+      gvct::quad_right_luma<T>(lanes[tid], quad_sum(wr, tid, 1, 0), th);
     }
   }
   for (int tid = 0; tid < nt; ++tid) gvct::quad_write_cols<CHROMA>(lanes[tid], stage.data());
@@ -99,47 +85,60 @@ void host_quad_block(const uint8_t* in, uint8_t* out, const uint8_t* v1, const u
   }
 }
 
-template <bool CHROMA, int W>
+template <bool CHROMA, int W, typename T>
 void host_quad(const uint8_t* in, uint8_t* out, const uint8_t* v1, const uint8_t* v2,
                const uint8_t* h1, const uint8_t* h2, const gvct::Thresholds& th, int tb,
                int nb, long long plane, long long map_batch_stride) {
   for (size_t b = 0; b < static_cast<size_t>(nb); ++b) {
     for (long long cell = 0; cell < plane; cell += tb) {
-      host_quad_block<CHROMA, W>(in, out, v1, v2, h1, h2, th, tb, plane, map_batch_stride, b,
-                                 cell);
+      host_quad_block<CHROMA, W, T>(in, out, v1, v2, h1, h2, th, tb, plane, map_batch_stride, b,
+                                    cell);
     }
   }
 }
 
-template <bool CHROMA>
-void host_quad_words(int w, const uint8_t* in, uint8_t* out, const uint8_t* v1,
-                     const uint8_t* v2, const uint8_t* h1, const uint8_t* h2,
-                     const gvct::Thresholds& th, int tb, int nb, long long plane,
-                     long long map_batch_stride) {
-  (w == 8   ? host_quad<CHROMA, 8>
-   : w == 4 ? host_quad<CHROMA, 4>
-            : host_quad<CHROMA, 1>)(in, out, v1, v2, h1, h2, th, tb, nb, plane,
-                                    map_batch_stride);
+// The quad kernel over its grid at compute type T: blocks of tb tiles
+// (1..64) and 4 * tb threads, staged in the words the kernel would use for
+// these pointers (gvct_host_quad_word_bytes).  Returns 0, or -1 for a tb
+// out of range.
+template <typename T>
+int host_quad_grid(int tb, const uint8_t* in, uint8_t* out, const uint8_t* v1, const uint8_t* v2,
+                   const uint8_t* h1, const uint8_t* h2, int beta, int tc, int nb, int by,
+                   int bx, long long map_batch_stride, int chroma) {
+  if (tb < 1 || tb > gvct::kQuadMaxTiles) return -1;
+  const gvct::Thresholds th = gvct::make_thresholds(beta, tc);
+  const long long plane = static_cast<long long>(by) * bx;
+  const int w = gvct::quad_word_bytes(plane, tb, in, out);
+  const auto run = chroma ? (w == 8   ? host_quad<true, 8, T>
+                             : w == 4 ? host_quad<true, 4, T>
+                                      : host_quad<true, 1, T>)
+                          : (w == 8   ? host_quad<false, 8, T>
+                             : w == 4 ? host_quad<false, 4, T>
+                                      : host_quad<false, 1, T>);
+  run(in, out, v1, v2, h1, h2, th, tb, nb, plane, map_batch_stride);
+  return 0;
 }
 
 }  // namespace
 
-// K1 / K1c (the quad kernel of deblock_kernel.cu) over its grid: blocks of
-// tb tiles (1..64) and 4 * tb threads, staged in the words the kernel
-// would use for these pointers (gvct_host_quad_word_bytes).  Returns 0, or
-// -1 for a tb out of range.
+// K1 / K1c: the quad kernel at T = int (host_quad_grid).
 extern "C" int gvct_host_deblock_tiles_quad(int tb, const uint8_t* in, uint8_t* out,
                                             const uint8_t* v1, const uint8_t* v2,
                                             const uint8_t* h1, const uint8_t* h2, int beta,
                                             int tc, int nb, int by, int bx,
                                             long long map_batch_stride, int chroma) {
-  if (tb < 1 || tb > gvct::kQuadMaxTiles) return -1;
-  const gvct::Thresholds th = gvct::make_thresholds(beta, tc);
-  const long long plane = static_cast<long long>(by) * bx;
-  const int w = gvct::quad_word_bytes(plane, tb, in, out);
-  (chroma ? host_quad_words<true> : host_quad_words<false>)(w, in, out, v1, v2, h1, h2, th, tb,
-                                                            nb, plane, map_batch_stride);
-  return 0;
+  return host_quad_grid<int>(tb, in, out, v1, v2, h1, h2, beta, tc, nb, by, bx,
+                             map_batch_stride, chroma);
+}
+
+// K1-i16 / K1-i16c: the same quad kernel at T = int16_t.
+extern "C" int gvct_host_deblock_tiles_i16(int tb, const uint8_t* in, uint8_t* out,
+                                           const uint8_t* v1, const uint8_t* v2,
+                                           const uint8_t* h1, const uint8_t* h2, int beta,
+                                           int tc, int nb, int by, int bx,
+                                           long long map_batch_stride, int chroma) {
+  return host_quad_grid<int16_t>(tb, in, out, v1, v2, h1, h2, beta, tc, nb, by, bx,
+                                 map_batch_stride, chroma);
 }
 
 // The bytes per global access of the quad kernel's staging for a grid of
@@ -147,16 +146,6 @@ extern "C" int gvct_host_deblock_tiles_quad(int tb, const uint8_t* in, uint8_t* 
 extern "C" int gvct_host_quad_word_bytes(long long plane, int tb, const void* in,
                                          const void* out) {
   return gvct::quad_word_bytes(plane, tb, in, out);
-}
-
-// K1-i16's thread-per-tile template over its grid.
-extern "C" void gvct_host_deblock_tiles_i16(const uint8_t* in, uint8_t* out,
-                                            const uint8_t* v1, const uint8_t* v2,
-                                            const uint8_t* h1, const uint8_t* h2,
-                                            int beta, int tc, int nb, int by, int bx,
-                                            long long map_batch_stride, int chroma) {
-  host_deblock_tiles<int16_t>(in, out, v1, v2, h1, h2, beta, tc, nb, by, bx, map_batch_stride,
-                              chroma);
 }
 
 // T5 over its grid: the rows layout (by, 8, 8, bx), maps (by, bx).
@@ -175,23 +164,119 @@ extern "C" void gvct_host_deblock_rows(const uint8_t* in, uint8_t* out, const ui
   }
 }
 
-// T1 over its grid: tiles (8, 8, by, bx) with bx even, one tile pair
-// (x, x + bx/2) per thread.  Returns 0, or -1 for an odd bx.
-extern "C" int gvct_host_swar_tiles(const uint8_t* in, uint8_t* out, const uint8_t* v1,
-                                    const uint8_t* v2, const uint8_t* h1, const uint8_t* h2,
-                                    int beta, int tc, int by, int bx, int chroma) {
-  if (bx % 2) return -1;
-  const gvct::Thresholds th = gvct::make_thresholds(beta, tc);
-  for (size_t y = 0; y < static_cast<size_t>(by); ++y) {
-    for (size_t x = 0; x < static_cast<size_t>(bx / 2); ++x) {
-      if (chroma) {
-        gvct::swar::deblock_pair<true>(in, out, v1, v2, h1, h2, by, bx, y, x, th);
-      } else {
-        gvct::swar::deblock_pair<false>(in, out, v1, v2, h1, h2, by, bx, y, x, th);
-      }
+namespace {
+
+// One block of swar_kernel.cu's quad kernel: pairs [c0, c0 + tb) of tile
+// row y, its 4 * tb threads one after another between the kernel's
+// exchange points, `wv`, `wl` and `wr` standing in for the shuffles as in
+// host_quad_block.
+template <bool CHROMA, int W>
+void host_swar_block(const uint8_t* in, uint8_t* out, const uint8_t* v1, const uint8_t* v2,
+                     const uint8_t* h1, const uint8_t* h2, const gvct::Thresholds& th, int tb,
+                     int by, int bx, int y, int c0) {
+  namespace s = gvct::swar;
+  const int nt = gvct::kQuadLanes * tb;
+  const int half = bx / 2;
+  const int n = half - c0 < tb ? half - c0 : tb;
+  const size_t plane = static_cast<size_t>(by) * bx;
+  const size_t lo = static_cast<size_t>(y) * bx + c0;
+  const s::Consts k = s::make_consts(th);
+  std::vector<uint8_t> stage(64 * s::kPairStride);
+  std::vector<s::PairLane> lanes(nt);
+  std::vector<uint32_t> wv(4 * nt), wl(2 * nt), wr(2 * nt);
+  for (int tid = 0; tid < nt; ++tid) {
+    lanes[tid] = gvct::quad_lane<s::hw2>(tid);
+    s::pair_load_gates<CHROMA>(lanes[tid], v1, v2, h1, h2, lo, half, n);
+    s::pair_stage_load<W>(in + lo, half, plane, n, tb, stage.data(), tid);
+  }
+  // __syncthreads()
+  for (int tid = 0; tid < nt; ++tid) {
+    gvct::quad_read_rows<CHROMA>(lanes[tid], stage.data());
+    if (!CHROMA) {
+      uint32_t w[4];
+      s::pair_vert_words(lanes[tid], k, w);
+      for (int i = 0; i < 4; ++i) wv[4 * tid + i] = w[i];
     }
   }
+  for (int tid = 0; tid < nt; ++tid) {  // after the shuffles
+    if (CHROMA) {
+      s::pair_vert_chroma(lanes[tid], k);
+    } else {
+      const uint32_t sum[4] = {quad_sum(wv, tid, 4, 0), quad_sum(wv, tid, 4, 1),
+                               quad_sum(wv, tid, 4, 2), quad_sum(wv, tid, 4, 3)};
+      s::pair_vert_luma(lanes[tid], sum, k);
+    }
+    gvct::quad_write_rows<CHROMA>(lanes[tid], stage.data());
+  }
+  // __syncwarp()
+  for (int tid = 0; tid < nt; ++tid) {
+    gvct::quad_read_cols<CHROMA>(lanes[tid], stage.data());
+    if (CHROMA) {
+      s::pair_hor_chroma(lanes[tid], k);
+    } else {
+      uint32_t w[2];
+      s::pair_left_words(lanes[tid], k, w);
+      wl[2 * tid] = w[0];
+      wl[2 * tid + 1] = w[1];
+    }
+  }
+  if (!CHROMA) {
+    for (int tid = 0; tid < nt; ++tid) {
+      s::pair_left_luma(lanes[tid], {quad_sum(wl, tid, 2, 0), quad_sum(wl, tid, 2, 1)}, k);
+      uint32_t w[2];
+      s::pair_right_words(lanes[tid], k, w);
+      wr[2 * tid] = w[0];
+      wr[2 * tid + 1] = w[1];
+    }
+    for (int tid = 0; tid < nt; ++tid) {
+      s::pair_right_luma(lanes[tid], {quad_sum(wr, tid, 2, 0), quad_sum(wr, tid, 2, 1)}, k);
+    }
+  }
+  for (int tid = 0; tid < nt; ++tid) gvct::quad_write_cols<CHROMA>(lanes[tid], stage.data());
+  // __syncthreads()
+  for (int tid = 0; tid < nt; ++tid) {
+    s::pair_stage_store<W>(stage.data(), out + lo, half, plane, n, tb, tid);
+  }
+}
+
+template <bool CHROMA, int W>
+void host_swar(const uint8_t* in, uint8_t* out, const uint8_t* v1, const uint8_t* v2,
+               const uint8_t* h1, const uint8_t* h2, const gvct::Thresholds& th, int tb, int by,
+               int bx) {
+  for (int y = 0; y < by; ++y) {
+    for (int c0 = 0; c0 < bx / 2; c0 += tb) {
+      host_swar_block<CHROMA, W>(in, out, v1, v2, h1, h2, th, tb, by, bx, y, c0);
+    }
+  }
+}
+
+}  // namespace
+
+// T1 (the quad kernel of swar_kernel.cu) over its grid: tiles (8, 8, by,
+// bx) with bx even, blocks of tb tile pairs (x, x + bx/2) (1..64) and
+// 4 * tb threads, staged in the words the kernel would use for these
+// pointers (gvct_host_swar_word_bytes).  Returns 0, or -1 for an odd bx or
+// a tb out of range.
+extern "C" int gvct_host_swar_tiles(int tb, const uint8_t* in, uint8_t* out, const uint8_t* v1,
+                                    const uint8_t* v2, const uint8_t* h1, const uint8_t* h2,
+                                    int beta, int tc, int by, int bx, int chroma) {
+  if (bx % 2 || tb < 1 || tb > gvct::kQuadMaxTiles) return -1;
+  const gvct::Thresholds th = gvct::make_thresholds(beta, tc);
+  const int w = gvct::swar::pair_word_bytes(bx / 2, tb, in, out);
+  const auto run = chroma ? (w == 8   ? host_swar<true, 8>
+                             : w == 4 ? host_swar<true, 4>
+                                      : host_swar<true, 1>)
+                          : (w == 8   ? host_swar<false, 8>
+                             : w == 4 ? host_swar<false, 4>
+                                      : host_swar<false, 1>);
+  run(in, out, v1, v2, h1, h2, th, tb, by, bx);
   return 0;
+}
+
+// The bytes per global access of T1's staging for a grid bx tiles wide, tb
+// pairs per block and these pointers.
+extern "C" int gvct_host_swar_word_bytes(int bx, int tb, const void* in, const void* out) {
+  return gvct::swar::pair_word_bytes(bx / 2, tb, in, out);
 }
 
 // One halfword primitive of swar_tile.cuh (its host fallback) applied to n

@@ -3,12 +3,13 @@
 Counterpart of gpu_video_codec_tpu/ops/pallas_kernel.py.  The kernels
 (csrc/deblock_kernel.cu over the per-row math of csrc/deblock_tile.cuh)
 deblock the tile-planes layout of utils/tiles.py, luma or chroma by
-template: K1 and K1c compute in int with four threads per shifted 8x8 tile
-and a block's tiles staged in shared memory (csrc/deblock_quad.cuh);
-K1-i16 (dtype=torch.int16, the JAX package's dtype=jnp.int16) computes in
-int16 with one thread per tile.  The same library holds T5
-(deblock_rows_cuda), the kernel of tools/rowslayout_exp.py: the
-thread-per-tile math on the (By, 8, 8, Bx) "rows" layout.
+template, as one quad kernel of four threads per shifted 8x8 tile with a
+block's tiles staged in shared memory (csrc/deblock_quad.cuh), its compute
+type a template parameter too: K1 and K1c compute in int, K1-i16 and
+K1-i16c (dtype=torch.int16, the JAX package's dtype=jnp.int16) in int16.
+The same library holds T5 (deblock_rows_cuda), the kernel of
+tools/rowslayout_exp.py: one thread per tile on the (By, 8, 8, Bx) "rows"
+layout.
 
 The library is built at first use with nvcc, from csrc/ only, into
 build/torch_kernels/ beside the package, under a name keyed on a hash of
@@ -36,16 +37,15 @@ import torch
 
 from .deblock import deblock_rows_plain, deblock_tiles_plain
 
-# Tiles per block of K1 and K1c: consecutive tiles of the flattened
-# (By, Bx) grid, QUAD threads each, at most MAX_QUAD_BLOCK_BX (the size of
-# the kernel's shared-memory stage).  Callers may pass their own
-# (StreamingDeblocker's luma_block/chroma_block).
+# Tiles per block of the quad kernel (K1, K1c, K1-i16, K1-i16c): consecutive
+# tiles of the flattened (By, Bx) grid, QUAD threads each, at most
+# MAX_QUAD_BLOCK_BX (the size of the kernel's shared-memory stage).  Callers
+# may pass their own (StreamingDeblocker's luma_block/chroma_block).
 QUAD = 4
 MAX_QUAD_BLOCK_BX = 64
 BLOCK_BX = 64
 CHROMA_BLOCK_BX = 64
-# Threads (one per tile) per block of the thread-per-tile kernels: K1-i16,
-# T5 and T1 (ops/swar_kernel.py, two tiles per thread).
+# Threads (one per tile) per block of T5.
 TILE_THREADS = 128
 
 # Kernel launches per variant since import (or since a caller reset them):
@@ -133,7 +133,7 @@ _LAUNCH_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # threads, device,
 def _setup_cuda(lib) -> None:
     lib.gvct_deblock_tiles.argtypes = _TILE_ARGS + [ctypes.c_int] + _LAUNCH_ARGS
     lib.gvct_deblock_tiles.restype = ctypes.c_int
-    lib.gvct_deblock_tiles_occupancy.argtypes = [ctypes.c_int] * 5 + [
+    lib.gvct_deblock_tiles_occupancy.argtypes = [ctypes.c_int] * 6 + [
         ctypes.POINTER(ctypes.c_int)]
     lib.gvct_deblock_tiles_occupancy.restype = ctypes.c_int
     lib.gvct_deblock_rows.argtypes = GRID_ARGS + _LAUNCH_ARGS
@@ -143,10 +143,9 @@ def _setup_cuda(lib) -> None:
 
 
 def _setup_host(lib) -> None:
-    lib.gvct_host_deblock_tiles_i16.argtypes = _TILE_ARGS
-    lib.gvct_host_deblock_tiles_i16.restype = None
-    lib.gvct_host_deblock_tiles_quad.argtypes = [ctypes.c_int] + _TILE_ARGS
-    lib.gvct_host_deblock_tiles_quad.restype = ctypes.c_int
+    for entry in (lib.gvct_host_deblock_tiles_quad, lib.gvct_host_deblock_tiles_i16):
+        entry.argtypes = [ctypes.c_int] + _TILE_ARGS
+        entry.restype = ctypes.c_int
     lib.gvct_host_quad_word_bytes.argtypes = [ctypes.c_longlong, ctypes.c_int] + [
         ctypes.c_void_p] * 2
     lib.gvct_host_quad_word_bytes.restype = ctypes.c_int
@@ -158,10 +157,11 @@ def load_host_library() -> ctypes.CDLL:
     """g++ build of csrc/host_shim.cpp: the kernels' per-tile math and
     indexing compiled for the CPU, so tests can hold the CUDA source's
     arithmetic against the plain version where nvcc is absent
-    (gvct_host_deblock_tiles_quad(tb, ...) for K1/K1c, a block's 4 * tb
-    threads run one after another between the kernel's exchange points;
-    gvct_host_deblock_tiles_i16 for K1-i16, gvct_host_deblock_rows for T5,
-    both one thread per tile; ops/relayout_kernel.py and
+    (gvct_host_deblock_tiles_quad(tb, ...) for K1/K1c and
+    gvct_host_deblock_tiles_i16(tb, ...) for K1-i16/K1-i16c, the quad
+    kernel at int and int16_t, a block's 4 * tb threads run one after
+    another between the kernel's exchange points; gvct_host_deblock_rows
+    for T5, one thread per tile; ops/relayout_kernel.py and
     ops/swar_kernel.py bind the rest)."""
     gxx = shutil.which("g++")
     if gxx is None:
@@ -239,9 +239,9 @@ def deblock_tiles_cuda(tiles, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,
     dtype: the compute type, torch.int32 (K1, K1c) or torch.int16
     (K1-i16; the same bytes).
     block_bx: tiles per block, as in the JAX package (consecutive along Bx;
-    K1 and K1c's blocks run on into the next tile row); K1 and K1c run QUAD
-    threads per tile (1..MAX_QUAD_BLOCK_BX; default BLOCK_BX /
-    CHROMA_BLOCK_BX), K1-i16 one (1..1024; default TILE_THREADS).
+    a block runs on into the next tile row), QUAD threads per tile
+    (1..MAX_QUAD_BLOCK_BX; default BLOCK_BX / CHROMA_BLOCK_BX), for either
+    dtype.
     Returns a new tensor of the input's shape.  The launch goes on the
     current stream and does not synchronize.  CPU tensors take the plain
     version instead.
@@ -252,7 +252,7 @@ def deblock_tiles_cuda(tiles, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,
         raise ValueError(f"dtype must be torch.int32 or torch.int16, got {dtype}")
     nb, map_stride = _check(tiles, maps, beta, tc)
     int16 = dtype == torch.int16
-    block_bx = _block_bx(chroma, int16, block_bx)
+    block_bx = _block_bx(chroma, block_bx)
     if tiles.device.type == "cpu":
         return deblock_tiles_plain(tiles, *maps, beta, tc, chroma=chroma, dtype=dtype)
     if tiles.device.type != "cuda":
@@ -272,35 +272,42 @@ def deblock_tiles_cuda(tiles, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,
     return out
 
 
-def _block_bx(chroma: bool, int16: bool, block_bx: int | None) -> int:
+def _block_bx(chroma: bool, block_bx: int | None) -> int:
     """deblock_tiles_cuda's tiles per block (its default when None); raises
     for a block the kernel cannot take."""
     if block_bx is None:
-        block_bx = TILE_THREADS if int16 else (CHROMA_BLOCK_BX if chroma else BLOCK_BX)
-    most = 1024 if int16 else MAX_QUAD_BLOCK_BX
-    if not 1 <= block_bx <= most:
-        raise ValueError(f"block_bx must satisfy 1 <= block_bx <= {most}, got {block_bx}")
+        block_bx = CHROMA_BLOCK_BX if chroma else BLOCK_BX
+    if not 1 <= block_bx <= MAX_QUAD_BLOCK_BX:
+        raise ValueError(f"block_bx must satisfy 1 <= block_bx <= {MAX_QUAD_BLOCK_BX}, "
+                         f"got {block_bx}")
     return block_bx
 
 
-def deblock_tiles_occupancy(shape, chroma: bool = False, block_bx: int | None = None,
-                            device=None) -> dict:
-    """K1/K1c's kernel for tiles of `shape` (.., By, Bx) on aligned
-    tensors of `device` (default: the current CUDA device): the blocks one
-    SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and
-    the bytes per global access of its staging.  Returns {"block_bx",
-    "threads", "word_bytes", "blocks_per_sm", "warps_per_sm"}."""
-    block_bx = _block_bx(chroma, False, block_bx)
+def occupancy(entry, lib, *args, device=None) -> dict:
+    """A kernel's occupancy entry (gvct_*_occupancy(*args, device, out)) on
+    `device` (default: the current CUDA device): the blocks one SM holds at
+    once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), threads per block
+    and the bytes per global access of its staging.  Returns {"threads",
+    "word_bytes", "blocks_per_sm", "warps_per_sm"}."""
     device = torch.device("cuda", torch.cuda.current_device()) if device is None \
         else torch.device(device)
-    lib = _load("cuda", build_library, _setup_cuda)
     out = (ctypes.c_int * 3)()
-    err = lib.gvct_deblock_tiles_occupancy(int(chroma), block_bx, shape[-2], shape[-1],
-                                           device.index, out)
-    raise_on_launch(err, lib, "deblock occupancy")
+    raise_on_launch(entry(*args, device.index, out), lib, "occupancy")
     blocks, threads, word = out
-    return {"block_bx": block_bx, "threads": threads, "word_bytes": word,
-            "blocks_per_sm": blocks, "warps_per_sm": blocks * ((threads + 31) // 32)}
+    return {"threads": threads, "word_bytes": word, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * ((threads + 31) // 32)}
+
+
+def deblock_tiles_occupancy(shape, chroma: bool = False, block_bx: int | None = None,
+                            device=None, dtype=torch.int32) -> dict:
+    """The quad kernel (K1/K1c, or K1-i16/K1-i16c for dtype=torch.int16)
+    for tiles of `shape` (.., By, Bx) on aligned tensors of `device`:
+    occupancy()'s dict with "block_bx"."""
+    block_bx = _block_bx(chroma, block_bx)
+    lib = _load("cuda", build_library, _setup_cuda)
+    return {"block_bx": block_bx, **occupancy(
+        lib.gvct_deblock_tiles_occupancy, lib, int(chroma), int(dtype == torch.int16), block_bx,
+        shape[-2], shape[-1], device=device)}
 
 
 def deblock_rows_cuda(tiles_rows, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,

@@ -2,9 +2,10 @@
 wrapper.
 
 Counterpart of tools/swar_exp.py (swar_deblock_tiles and the Pallas
-race.swar_call): K1's four-phase sweep with two tiles per thread, tile
-columns [0, Bx/2) and [Bx/2, Bx) as the two signed 16-bit lanes of 32-bit
-words (csrc/swar_kernel.cu over csrc/swar_tile.cuh).  It computes K1's
+race.swar_call): K1's four-phase sweep on tile pairs, tile columns
+[0, Bx/2) and [Bx/2, Bx) as the two signed 16-bit lanes of 32-bit words,
+four threads per pair over a shared-memory stage as K1's quad has four per
+tile (csrc/swar_kernel.cu over csrc/swar_tile.cuh).  It computes K1's
 function, so its plain version is ops/deblock.deblock_tiles_plain.
 
 The library is built at first use with nvcc into build/torch_kernels/, in
@@ -28,6 +29,10 @@ from .deblock import deblock_tiles_plain
 # Kernel launches since import (or since a caller reset them), luma and
 # chroma together.
 LAUNCHES = {"swar": 0}
+# Tile pairs per block of the kernel (4 threads each; its launcher takes
+# 1..64, the size of its shared-memory stage).  On an H100 blocks of 16 and
+# 64 pairs ran slower at the race grid (136, 256).
+BLOCK = 32
 
 _SOURCES = ("swar_kernel.cu",)
 # swar_tile.cuh primitives bound by gvct_host_swar_op, by op code
@@ -43,18 +48,24 @@ def build_library():
 def _setup_cuda(lib) -> None:
     lib.gvct_swar_tiles.argtypes = ck.GRID_ARGS + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.gvct_swar_tiles.restype = ctypes.c_int
+    lib.gvct_swar_tiles_occupancy.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.gvct_swar_tiles_occupancy.restype = ctypes.c_int
     lib.gvct_error_string.argtypes = [ctypes.c_int]
     lib.gvct_error_string.restype = ctypes.c_char_p
 
 
 def load_host_library() -> ctypes.CDLL:
     """The g++ build of csrc/host_shim.cpp (ops/cuda_kernel.load_host_library)
-    with T1's pieces bound: gvct_host_swar_tiles (the kernel's grid of tile
-    pairs) and gvct_host_swar_op (one halfword primitive, as its host
+    with T1's pieces bound: gvct_host_swar_tiles(tb, ...) (the kernel's
+    blocks of tb tile pairs, their 4 * tb threads one after another between
+    the kernel's exchange points), gvct_host_swar_word_bytes (its staging
+    word) and gvct_host_swar_op (one halfword primitive, as its host
     fallback, over arrays of words; op codes in HOST_OPS)."""
     lib = ck.load_host_library()
-    lib.gvct_host_swar_tiles.argtypes = ck.GRID_ARGS
+    lib.gvct_host_swar_tiles.argtypes = [ctypes.c_int] + ck.GRID_ARGS
     lib.gvct_host_swar_tiles.restype = ctypes.c_int
+    lib.gvct_host_swar_word_bytes.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    lib.gvct_host_swar_word_bytes.restype = ctypes.c_int
     lib.gvct_host_swar_op.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                                       + [ctypes.c_longlong, ctypes.c_int])
     lib.gvct_host_swar_op.restype = ctypes.c_int
@@ -66,10 +77,11 @@ def deblock_tiles_swar_cuda(tiles, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,
     """T1: deblock an (8, 8, By, Bx) uint8 tile-planes tensor, Bx even,
     with (By, Bx) BS maps, all contiguous on one device; beta, tc: ints;
     chroma: the chroma filter and BS == 2 gate (as
-    tools/swar_exp.py::swar_deblock_tiles); each thread owns two tiles.
-    Returns a new tensor, byte-equal to deblock_tiles_cuda's.  The launch
-    goes on the current stream and does not synchronize.  CPU tensors
-    take the plain version; an odd Bx raises ValueError."""
+    tools/swar_exp.py::swar_deblock_tiles); the kernel runs BLOCK tile
+    pairs (bx, bx + Bx/2) per block.  Returns a new tensor, byte-equal to
+    deblock_tiles_cuda's.  The launch goes on the current stream and does
+    not synchronize.  CPU tensors take the plain version; an odd Bx raises
+    ValueError."""
     maps = (bs_ver1, bs_ver2, bs_hor1, bs_hor2)
     beta, tc = int(beta), int(tc)
     ck.check_operands(tiles, beta, tc)
@@ -89,9 +101,16 @@ def deblock_tiles_swar_cuda(tiles, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,
         return out
     lib = ck._load("swar", build_library, _setup_cuda)
     err = lib.gvct_swar_tiles(tiles.data_ptr(), out.data_ptr(), *(m.data_ptr() for m in maps),
-                              beta, tc, by, bx, int(chroma),
-                              ck.TILE_THREADS, tiles.device.index,
+                              beta, tc, by, bx, int(chroma), BLOCK, tiles.device.index,
                               torch.cuda.current_stream(tiles.device).cuda_stream)
     ck.raise_on_launch(err, lib, "SWAR deblock")
     LAUNCHES["swar"] += 1
     return out
+
+
+def swar_occupancy(shape, chroma: bool = False, device=None) -> dict:
+    """T1's kernel for tiles of `shape` (8, 8, By, Bx) on aligned tensors of
+    `device`: ops/cuda_kernel.occupancy()'s dict."""
+    lib = ck._load("swar", build_library, _setup_cuda)
+    return ck.occupancy(lib.gvct_swar_tiles_occupancy, lib, int(chroma), BLOCK, shape[-2],
+                        shape[-1], device=device)

@@ -3,7 +3,7 @@ of the port (same module names):
 
   int16_probe     K1-i16 (int16 compute) against K1, byte for byte
   rowslayout_exp  canonical K1 against T5 (the rows layout), timed
-  swar_exp        T1 (two tiles per thread in 16-bit lanes): --check, --race
+  swar_exp        T1 (tile pairs in 16-bit lanes): --check, --race
 
 Each runs on `--device cuda` (the default) or `cpu`, prints one JSON line
 and exits non-zero if a comparison fails.  Times are CUDA-event device

@@ -1,0 +1,106 @@
+"""Device time per launch of the deblock kernels on one CUDA device, for
+comparing two trees of the port in one run on one card.
+
+    python gpu_video_codec_tpu_torch/tools/kernel_time.py [--tree DIR] \\
+        [--iters 200] [--repeats 3]
+
+--tree: the checkout whose gpu_video_codec_tpu_torch is imported (default:
+the one this file lies in), e.g. a `git archive` of another commit; run
+the two trees in turns (parent, change, change, parent) in one call.
+Times, at QP 35 on blocky tiles (flat 8x8 blocks with small steps, a
+quarter uniform noise; numpy seed 11) with BS maps uniform in 0..2:
+K1 and K1-i16 at the 1080p luma grid (8, 8, 136, 241), K1c and K1-i16c at
+the 1080p U+V grid (2, 8, 8, 68, 121) with one shared map, and K1 and T1 at
+the race grid (8, 8, 136, 256), T1 also on uniform noise and with every
+BS byte 0; each through the public wrappers with their default blocks.
+Prints one JSON line: per kernel the device us per launch of each repeat
+(utils.timing.device_ms: CUDA events around `iters` launches queued
+behind a spin kernel) and whether every repeat was queued ahead.  Exits
+non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+
+def blocky_tiles(rng, shape):
+    """uint8 tile-planes (.., 8, 8, By, Bx): flat blocks with small steps at
+    the edges the filter reads (strong and normal filters fire), a quarter
+    of the tiles uniform noise."""
+    import numpy as np
+
+    cell = shape[:-4] + (1, 1) + shape[-2:]
+    t = rng.integers(40, 216, cell) + rng.integers(-3, 4, shape)
+    t[..., 4:, :, :, :] += rng.integers(-20, 21, cell)
+    t = np.where(rng.random(cell) < 0.25, rng.integers(0, 256, shape), t)
+    return np.clip(t, 0, 255).astype(np.uint8)
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), help="checkout to import the port from")
+    p.add_argument("--iters", type=int, default=200)
+    p.add_argument("--repeats", type=int, default=3)
+    args = p.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.tree))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_time: needs a CUDA device", file=sys.stderr)
+        return 1
+    import gpu_video_codec_tpu_torch as pkg
+    from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
+    from gpu_video_codec_tpu_torch.ops import swar_kernel as sk
+    from gpu_video_codec_tpu_torch.ops.tables import get_beta, get_tc
+    from gpu_video_codec_tpu_torch.utils.timing import device_ms
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                          "-i", "0"], capture_output=True, text=True).stdout.strip()
+    rng = np.random.default_rng(11)
+    beta, tc = get_beta(35), get_tc(35)
+
+    def operands(shape, mshape, noise=False):
+        tiles = (rng.integers(0, 256, shape, dtype=np.uint8) if noise
+                 else blocky_tiles(rng, shape))
+        maps = [torch.from_numpy(rng.integers(0, 3, mshape, dtype=np.uint8)).to(dev)
+                for _ in range(4)]
+        return torch.from_numpy(tiles).to(dev), maps
+
+    luma = operands((8, 8, 136, 241), (136, 241))
+    chroma = operands((2, 8, 8, 68, 121), (1, 68, 121))
+    race = operands((8, 8, 136, 256), (136, 256))
+    noise = operands((8, 8, 136, 256), (136, 256), noise=True)
+    off = [torch.zeros_like(m) for m in race[1]]
+    fns = {
+        "K1 (8, 8, 136, 241)": lambda: ck.deblock_tiles_cuda(luma[0], *luma[1], beta, tc),
+        "K1-i16 (8, 8, 136, 241)": lambda: ck.deblock_tiles_cuda(
+            luma[0], *luma[1], beta, tc, dtype=torch.int16),
+        "K1c (2, 8, 8, 68, 121)": lambda: ck.deblock_tiles_cuda(
+            chroma[0], *chroma[1], beta, tc, chroma=True),
+        "K1-i16c (2, 8, 8, 68, 121)": lambda: ck.deblock_tiles_cuda(
+            chroma[0], *chroma[1], beta, tc, chroma=True, dtype=torch.int16),
+        "K1 race (8, 8, 136, 256)": lambda: ck.deblock_tiles_cuda(race[0], *race[1], beta, tc),
+        "T1 race (8, 8, 136, 256)": lambda: sk.deblock_tiles_swar_cuda(race[0], *race[1], beta,
+                                                                        tc),
+        "T1 race on noise": lambda: sk.deblock_tiles_swar_cuda(noise[0], *noise[1], beta, tc),
+        "T1 race BS 0": lambda: sk.deblock_tiles_swar_cuda(race[0], *off, beta, tc),
+    }
+    runs = {name: [device_ms(fn, args.iters) for _ in range(args.repeats)]
+            for name, fn in fns.items()}
+    print(json.dumps({
+        "tree": os.path.relpath(os.path.dirname(os.path.dirname(pkg.__file__))), "card": smi,
+        "us": {name: [ms * 1e3 for ms, _ in r] for name, r in runs.items()},
+        "queued_ahead": all(ok for r in runs.values() for _, ok in r)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

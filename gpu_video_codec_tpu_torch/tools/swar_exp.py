@@ -1,4 +1,4 @@
-"""Does a SWAR sweep, two tiles per thread in 16-bit lanes, beat the int32
+"""Does a SWAR sweep, tile pairs in the 16-bit lanes of 32-bit words, beat the int32
 deblock kernel?  The port's counterpart of tools/swar_exp.py.
 
     python -m gpu_video_codec_tpu_torch.tools.swar_exp --check [--device cuda|cpu]
@@ -32,15 +32,15 @@ import torch
 from . import device_name, times_us
 from ..ops.cuda_kernel import deblock_tiles_cuda
 from ..ops.deblock import deblock_tiles_plain
-from ..ops.swar_kernel import deblock_tiles_swar_cuda, load_host_library
+from ..ops.swar_kernel import BLOCK, deblock_tiles_swar_cuda, load_host_library
 from ..ops.tables import get_beta, get_tc
 
 
 def swar_deblock_tiles(tiles, bs_maps, beta: int, tc: int, chroma: bool = False):
     """T1 on an (8, 8, By, Bx) uint8 tensor, Bx even, with a list of four
     (By, Bx) maps (the signature of the JAX swar_deblock_tiles): the CUDA
-    kernel for a CUDA tensor, the host build of its per-tile math for a
-    CPU tensor.  Returns a new tensor."""
+    kernel for a CUDA tensor, the host build of its blocks for a CPU
+    tensor.  Returns a new tensor."""
     if tiles.device.type == "cuda":
         return deblock_tiles_swar_cuda(tiles, *bs_maps, beta, tc, chroma=chroma)
     if tiles.dim() != 4 or tiles.shape[-1] % 2:
@@ -51,9 +51,9 @@ def swar_deblock_tiles(tiles, bs_maps, beta: int, tc: int, chroma: bool = False)
     out = np.empty_like(src)
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
     by, bx = src.shape[-2:]
-    if lib.gvct_host_swar_tiles(ptr(src), ptr(out), *(ptr(m) for m in ms), int(beta), int(tc),
-                                by, bx, int(chroma)):
-        raise ValueError(f"the host SWAR loop refused the grid ({by}, {bx})")
+    if lib.gvct_host_swar_tiles(BLOCK, ptr(src), ptr(out), *(ptr(m) for m in ms), int(beta),
+                                int(tc), by, bx, int(chroma)):
+        raise ValueError(f"the host SWAR blocks refused the grid ({by}, {bx})")
     return torch.from_numpy(out)
 
 

@@ -5,8 +5,12 @@ int16_t (deblock_tiles_cuda(dtype=torch.int16)).
 Here on the CPU: the torch int16 filters and sweep against the JAX
 package's dtype=jnp.int16 path and against int32, the frame wrapper on CPU
 tensors against the JAX deblock_frame_pallas(dtype=jnp.int16) in interpret
-mode, the kernel's int16_t per-tile math (csrc/deblock_tile.cuh) compiled
-with g++ through csrc/host_shim.cpp, and the int16_probe entry point.
+mode, the kernel itself -- the quad kernel of csrc/deblock_quad.cuh at
+int16_t, its blocks of TB tiles run on the host by a g++ build of
+csrc/host_shim.cpp (gvct_host_deblock_tiles_i16) -- against the plain
+version, K1's host build and the JAX deblock_tiles_pallas(dtype=jnp.int16)
+in interpret mode at tail, batched and in-place grids, TB 1, 3, 8 and 64
+and every staging word, and the int16_probe entry point.
 Tests marked `cuda` launch the kernel and skip without a card; JAX is
 imported only inside the tests that compare with it, so the `cuda` tests
 also run where JAX is not installed
@@ -192,15 +196,17 @@ def _host(fn, tiles, maps, beta, tc, chroma):
                                   ((3, 8, 8, 4, 7), (3, 4, 7)), ((8, 8, 17, 33), (17, 33))],
                          ids=["2d-tail", "batched-shared", "batched-per-frame", "2d-wide"])
 def test_host_int16_tile_math_matches_plain(rng, host_lib, form, chroma):
-    """gvct_host_deblock_tiles_i16 (K1-i16's per-tile math and grid) ==
-    deblock_tiles_plain(dtype=torch.int16) == K1's int32 host build (the
-    quad kernel's blocks), over random QPs in 0..51."""
+    """gvct_host_deblock_tiles_i16 (the quad kernel's blocks at int16_t and
+    K1-i16's default block, BLOCK_BX tiles) ==
+    deblock_tiles_plain(dtype=torch.int16) == K1's int32 host build, over
+    random QPs in 0..51."""
     shape, mshape = form
     changed = 0
     for qp in (0, 51, *rng.integers(1, 51, 4)):
         tiles, maps = _tiles(rng, shape), _maps(rng, mshape)
         beta, tc = get_beta(int(qp)), get_tc(int(qp))
-        out = _host(host_lib.gvct_host_deblock_tiles_i16, tiles, maps, beta, tc, chroma)
+        i16 = functools.partial(host_lib.gvct_host_deblock_tiles_i16, ck.BLOCK_BX)
+        out = _host(i16, tiles, maps, beta, tc, chroma)
         ref = deblock_tiles_plain(torch.from_numpy(tiles), *map(torch.from_numpy, maps),
                                   beta, tc, chroma=chroma, dtype=torch.int16)
         assert np.array_equal(out, ref.numpy()), qp
@@ -208,6 +214,105 @@ def test_host_int16_tile_math_matches_plain(rng, host_lib, form, chroma):
         assert np.array_equal(out, _host(k1, tiles, maps, beta, tc, chroma)), qp
         changed += int((out != tiles).sum())
     assert changed > 0
+
+
+# (tiles shape, map shape) of the quad's int16 host tests: a 2-D tail grid
+# staged in 1-byte words, one whose plane (68 tiles) allows 4-byte words at
+# TB 8 and 64, a batch with one shared map and one with per-frame maps
+# (8-byte words at TB 8 and 64; at TB 64 a full block and a tail).
+I16_GRIDS = {"tail-2x33": ((8, 8, 2, 33), (2, 33)), "words4-2x34": ((8, 8, 2, 34), (2, 34)),
+             "batched-shared-3x40": ((2, 8, 8, 3, 40), (1, 3, 40)),
+             "batched-per-frame-2x36": ((3, 8, 8, 2, 36), (3, 2, 36))}
+I16_TBS = (1, 3, 8, 64)
+
+
+def _i16_inputs(name, qp, all2=False):
+    """The tiles and maps of one case, the same wherever they are made."""
+    shape, mshape = I16_GRIDS[name]
+    rng = np.random.default_rng([list(I16_GRIDS).index(name), qp, all2])
+    maps = ([np.full(mshape, 2, np.uint8) for _ in range(4)] if all2 else _maps(rng, mshape))
+    return _tiles(rng, shape), maps
+
+
+def _quad16(lib, tb, tiles, maps, beta, tc, chroma, out=None):
+    """The int16 quad's blocks of tb tiles on the host, into `out` (default:
+    a new array)."""
+    out = np.empty_like(tiles) if out is None else out
+    nb = tiles.shape[0] if tiles.ndim == 5 else 1
+    by, bx = tiles.shape[-2:]
+    stride = 0 if tiles.ndim == 5 and maps[0].shape[0] == 1 else by * bx
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
+    assert lib.gvct_host_deblock_tiles_i16(tb, ptr(tiles), ptr(out), *(ptr(m) for m in maps),
+                                           beta, tc, nb, by, bx, stride, int(chroma)) == 0
+    return out
+
+
+@pytest.mark.parametrize("tb", I16_TBS)
+@pytest.mark.parametrize("chroma", [False, True], ids=["luma", "chroma"])
+@pytest.mark.parametrize("grid", list(I16_GRIDS))
+def test_host_int16_quad_matches_plain(host_lib, grid, chroma, tb):
+    """The quad at int16_t == deblock_tiles_plain(dtype=torch.int16) == the
+    quad at int (K1's host build) at the same TB, QP {0,17,30,35,51}, random
+    and all-2 maps."""
+    changed = 0
+    for qp in (0, 17, 30, 35, 51):
+        for all2 in (False, True):
+            tiles, maps = _i16_inputs(grid, qp, all2)
+            beta, tc = get_beta(qp), get_tc(qp)
+            out = _quad16(host_lib, tb, tiles, maps, beta, tc, chroma)
+            ref = deblock_tiles_plain(torch.from_numpy(tiles), *map(torch.from_numpy, maps),
+                                      beta, tc, chroma=chroma, dtype=torch.int16)
+            assert np.array_equal(out, ref.numpy()), (qp, all2)
+            k1 = functools.partial(host_lib.gvct_host_deblock_tiles_quad, tb)
+            assert np.array_equal(out, _host(k1, tiles, maps, beta, tc, chroma)), (qp, all2)
+            changed += int((out != tiles).sum())
+    assert changed > 0
+
+
+@pytest.mark.parametrize("chroma", [False, True], ids=["luma", "chroma"])
+def test_host_int16_quad_matches_pallas(host_lib, chroma):
+    """The JAX package's kernel at dtype=jnp.int16 (interpret mode) on the
+    tail grid (8, 8, 2, 33) and the batch with per-frame maps, at every TB."""
+    import jax.numpy as jnp
+
+    from gpu_video_codec_tpu.ops.pallas_kernel import deblock_tiles_pallas
+
+    for grid in ("tail-2x33", "batched-per-frame-2x36"):
+        for qp in (30, 51):
+            tiles, maps = _i16_inputs(grid, qp)
+            beta, tc = get_beta(qp), get_tc(qp)
+            ref = np.asarray(deblock_tiles_pallas(jnp.asarray(tiles), *map(jnp.asarray, maps),
+                                                  beta, tc, chroma=chroma, interpret=True,
+                                                  dtype=jnp.int16))
+            for tb in I16_TBS:
+                out = _quad16(host_lib, tb, tiles, maps, beta, tc, chroma)
+                assert np.array_equal(out, ref), (grid, qp, tb)
+
+
+@pytest.mark.parametrize("tb", I16_TBS)
+@pytest.mark.parametrize("chroma", [False, True], ids=["luma", "chroma"])
+def test_host_int16_quad_in_place(host_lib, chroma, tb):
+    """in == out: a block stages all its bytes before it stores any."""
+    for grid in ("tail-2x33", "batched-shared-3x40"):
+        tiles, maps = _i16_inputs(grid, 35)
+        beta, tc = get_beta(35), get_tc(35)
+        buf = tiles.copy()
+        _quad16(host_lib, tb, buf, maps, beta, tc, chroma, out=buf)
+        ref = deblock_tiles_plain(torch.from_numpy(tiles), *map(torch.from_numpy, maps), beta,
+                                  tc, chroma=chroma, dtype=torch.int16)
+        assert np.array_equal(buf, ref.numpy()), grid
+
+
+def test_int16_grids_cover_every_word_size(host_lib):
+    """The staging word (1, 4 or 8 bytes) the kernel picks over I16_GRIDS
+    and I16_TBS: every size is tested."""
+    seen = set()
+    for shape, _ in I16_GRIDS.values():
+        a = np.zeros(shape, np.uint8)
+        ptr = a.ctypes.data_as(ctypes.c_void_p)
+        seen.update(host_lib.gvct_host_quad_word_bytes(shape[-2] * shape[-1], tb, ptr, ptr)
+                    for tb in I16_TBS)
+    assert seen == {1, 4, 8}
 
 
 # -- the entry point and the no-fallback rule -----------------------------------------
@@ -246,8 +351,11 @@ def test_cuda_tensor_without_library_raises(monkeypatch, tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("chroma", [False, True])
 @pytest.mark.parametrize("form", [((8, 8, 3, 5), (3, 5)), ((2, 8, 8, 6, 9), (1, 6, 9)),
-                                  ((8, 8, 136, 241), (136, 241))],
-                         ids=["2d-tail", "batched-shared", "1080p-luma-grid"])
+                                  ((8, 8, 136, 241), (136, 241)),
+                                  ((8, 8, 136, 256), (136, 256)),
+                                  ((3, 8, 8, 2, 65), (3, 2, 65))],
+                         ids=["2d-tail", "batched-shared", "1080p-luma-grid", "race-grid",
+                              "tail-batched-per-frame"])
 def test_int16_kernel_matches_plain_and_k1_on_card(rng, cuda_device, form, chroma):
     shape, mshape = form
     key = ("chroma" if chroma else "luma") + "_i16"

@@ -227,20 +227,22 @@ def test_inputs_reach_every_outcome():
 
 
 def test_block_bx_is_checked(host_lib):
+    """Both compute types run the quad kernel: 1..MAX_QUAD_BLOCK_BX tiles
+    per block, in the wrapper and in both host entries."""
     t = torch.zeros((8, 8, 3, 5), dtype=torch.uint8)
     m = torch.zeros((3, 5), dtype=torch.uint8)
-    for bad in (0, ck.MAX_QUAD_BLOCK_BX + 1):
-        with pytest.raises(ValueError, match="block_bx"):
-            ck.deblock_tiles_cuda(t, m, m, m, m, 38, 4, block_bx=bad)
-    with pytest.raises(ValueError, match="block_bx"):
-        ck.deblock_tiles_cuda(t, m, m, m, m, 38, 4, block_bx=1025, dtype=torch.int16)
-    ck.deblock_tiles_cuda(t, m, m, m, m, 38, 4, block_bx=1024, dtype=torch.int16)
-    ck.deblock_tiles_cuda(t, m, m, m, m, 38, 4, block_bx=ck.MAX_QUAD_BLOCK_BX)
+    for dtype in (torch.int32, torch.int16):
+        for bad in (0, ck.MAX_QUAD_BLOCK_BX + 1):
+            with pytest.raises(ValueError, match="block_bx"):
+                ck.deblock_tiles_cuda(t, m, m, m, m, 38, 4, block_bx=bad, dtype=dtype)
+        ck.deblock_tiles_cuda(t, m, m, m, m, 38, 4, block_bx=ck.MAX_QUAD_BLOCK_BX, dtype=dtype)
     a = np.zeros((8, 8, 3, 5), np.uint8)
     maps = [np.zeros((3, 5), np.uint8)] * 4
-    for bad in (0, ck.MAX_QUAD_BLOCK_BX + 1):
-        assert host_lib.gvct_host_deblock_tiles_quad(bad, _ptr(a), _ptr(a), *map(_ptr, maps),
-                                                     38, 4, 1, 3, 5, 15, 0) == -1
+    for entry in (host_lib.gvct_host_deblock_tiles_quad, host_lib.gvct_host_deblock_tiles_i16):
+        for bad in (0, ck.MAX_QUAD_BLOCK_BX + 1):
+            assert entry(bad, _ptr(a), _ptr(a), *map(_ptr, maps), 38, 4, 1, 3, 5, 15, 0) == -1
+        assert entry(ck.MAX_QUAD_BLOCK_BX, _ptr(a), _ptr(a), *map(_ptr, maps), 38, 4, 1, 3, 5,
+                     15, 0) == 0
 
 
 # -- on the card -------------------------------------------------------------

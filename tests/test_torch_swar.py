@@ -1,13 +1,16 @@
-"""T1, the SWAR deblock kernel of the PyTorch port (two tiles per thread as
-the two signed 16-bit lanes of 32-bit words; ops/swar_kernel.py,
-csrc/swar_tile.cuh).
+"""T1, the SWAR deblock kernel of the PyTorch port (tile pairs as the two
+signed 16-bit lanes of 32-bit words, four lanes per pair; ops/swar_kernel.py,
+csrc/swar_kernel.cu, csrc/swar_tile.cuh).
 
-Here on the CPU: the kernel's per-tile-pair math and grid, compiled with
-g++ through csrc/host_shim.cpp (with the host fallbacks of the halfword
-intrinsics), against the JAX tool's SWAR sweep
-(tools/swar_exp.swar_deblock_tiles) and against deblock_tiles_plain; each
-halfword fallback against numpy int16 arithmetic; the wrapper's checks;
-and the swar_exp entry point.  Tests marked `cuda` launch the kernel and
+Here on the CPU: the kernel's blocks (four lanes per tile pair, TB pairs
+staged interleaved in shared memory), compiled with g++ through
+csrc/host_shim.cpp (with the host fallbacks of the halfword intrinsics) and
+run one thread after another between the kernel's exchange points, against
+the JAX tool's SWAR sweep (tools/swar_exp.swar_deblock_tiles) and against
+deblock_tiles_plain, at TB 1, 3, 8 and 64 with Bx/2 not a multiple of TB,
+in place, with every BS byte 0 and in every staging word; each halfword
+fallback against numpy int16 arithmetic; the wrapper's checks; and the
+swar_exp entry point.  Tests marked `cuda` launch the kernel and
 skip without a card; JAX is imported only inside the test that compares
 with it, so the `cuda` tests also run where JAX is not installed
 (`python -m pytest tests/test_torch_swar.py -m cuda`).  Every comparison
@@ -55,10 +58,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _host_swar(lib, tiles, maps, beta, tc, chroma):
-    out = np.empty_like(tiles)
-    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
-    rc = lib.gvct_host_swar_tiles(ptr(tiles), ptr(out), *(ptr(m) for m in maps), beta, tc,
+def _ptr(a):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _host_swar(lib, tiles, maps, beta, tc, chroma, tb=sk.BLOCK, out=None):
+    """T1's blocks of tb pairs on the host over `tiles` into `out`
+    (default: a new array)."""
+    out = np.empty_like(tiles) if out is None else out
+    rc = lib.gvct_host_swar_tiles(tb, _ptr(tiles), _ptr(out), *(_ptr(m) for m in maps), beta, tc,
                                   tiles.shape[2], tiles.shape[3], int(chroma))
     assert rc == 0
     return out
@@ -99,6 +107,97 @@ def test_host_swar_matches_plain(rng, host_lib, grid, chroma):
         assert np.array_equal(out, ref.numpy()), qp
         changed += int((out != tiles).sum())
     assert changed > 0
+
+
+# (tile grid) of the block tests: Bx/2 = 17 (a multiple of no TB but 1),
+# 40 (8-byte words at TB 8; one partial block at TB 64) and 36 (4-byte
+# words at TB 8); one pair.
+SWAR_GRIDS = {"half17": (3, 34), "half40": (2, 80), "half36": (2, 72), "one-pair": (1, 2)}
+SWAR_TBS = (1, 3, 8, 64)
+
+
+@pytest.mark.parametrize("tb", SWAR_TBS)
+@pytest.mark.parametrize("chroma", [False, True], ids=["luma", "chroma"])
+@pytest.mark.parametrize("grid", list(SWAR_GRIDS))
+def test_host_swar_blocks_match_plain(rng, host_lib, grid, chroma, tb):
+    """T1's blocks of tb pairs == deblock_tiles_plain over QP
+    {0,17,30,35,51}, random maps."""
+    changed = 0
+    for qp in (0, 17, 30, 35, 51):
+        beta, tc = get_beta(qp), get_tc(qp)
+        tiles, maps = _tiles(rng, (8, 8, *SWAR_GRIDS[grid])), _maps(rng, SWAR_GRIDS[grid])
+        out = _host_swar(host_lib, tiles, maps, beta, tc, chroma, tb=tb)
+        ref = deblock_tiles_plain(torch.from_numpy(tiles), *map(torch.from_numpy, maps), beta, tc,
+                                  chroma=chroma)
+        assert np.array_equal(out, ref.numpy()), qp
+        changed += int((out != tiles).sum())
+    assert changed > 0
+
+
+@pytest.mark.parametrize("tb", SWAR_TBS)
+def test_host_swar_blocks_match_jax_swar(rng, host_lib, tb):
+    """T1's blocks == the JAX SWAR sweep at Bx/2 = 17, luma and chroma."""
+    import jax.numpy as jnp
+
+    from tools.swar_exp import swar_deblock_tiles
+
+    grid = SWAR_GRIDS["half17"]
+    for chroma, qp in ((False, 37), (True, 30)):
+        beta, tc = get_beta(qp), get_tc(qp)
+        tiles, maps = _tiles(rng, (8, 8, *grid)), _maps(rng, grid)
+        want = np.asarray(swar_deblock_tiles(jnp.asarray(tiles), [jnp.asarray(m) for m in maps],
+                                             beta, tc, chroma=chroma))
+        assert np.array_equal(_host_swar(host_lib, tiles, maps, beta, tc, chroma, tb=tb), want)
+
+
+@pytest.mark.parametrize("tb", SWAR_TBS)
+@pytest.mark.parametrize("chroma", [False, True], ids=["luma", "chroma"])
+def test_host_swar_in_place(rng, host_lib, chroma, tb):
+    """in == out: a block stages both its runs before it stores any byte."""
+    for grid in ("half17", "half40"):
+        tiles, maps = _tiles(rng, (8, 8, *SWAR_GRIDS[grid])), _maps(rng, SWAR_GRIDS[grid])
+        beta, tc = get_beta(35), get_tc(35)
+        buf = tiles.copy()
+        _host_swar(host_lib, buf, maps, beta, tc, chroma, tb=tb, out=buf)
+        ref = deblock_tiles_plain(torch.from_numpy(tiles), *map(torch.from_numpy, maps), beta, tc,
+                                  chroma=chroma)
+        assert np.array_equal(buf, ref.numpy()), grid
+
+
+@pytest.mark.parametrize("chroma", [False, True], ids=["luma", "chroma"])
+def test_host_swar_bs_zero(rng, host_lib, chroma):
+    """With every BS byte 0 no segment is filtered: the output is the input
+    (the branchless sweep computes every delta and selects none)."""
+    grid = SWAR_GRIDS["half40"]
+    tiles = _tiles(rng, (8, 8, *grid))
+    maps = [np.zeros(grid, np.uint8) for _ in range(4)]
+    for tb in SWAR_TBS:
+        assert np.array_equal(_host_swar(host_lib, tiles, maps, 38, 4, chroma, tb=tb), tiles)
+
+
+def test_swar_grids_cover_every_word_size(host_lib):
+    """The staging word (1, 4 or 8 bytes) T1 picks over SWAR_GRIDS and
+    SWAR_TBS: every size is tested; an odd address stages bytes."""
+    seen = set()
+    for by, bx in SWAR_GRIDS.values():
+        a = np.zeros((8, 8, by, bx), np.uint8)
+        seen.update(host_lib.gvct_host_swar_word_bytes(bx, tb, _ptr(a), _ptr(a))
+                    for tb in SWAR_TBS)
+    assert seen == {1, 4, 8}
+    b = np.zeros(257, np.uint8)
+    assert host_lib.gvct_host_swar_word_bytes(80, 8, b[1:].ctypes.data_as(ctypes.c_void_p),
+                                              _ptr(b)) == 1
+
+
+def test_host_swar_block_is_checked(host_lib):
+    """The host grid takes 1..64 pairs per block and an even Bx only."""
+    a, maps = np.zeros((8, 8, 3, 6), np.uint8), [np.zeros((3, 6), np.uint8)] * 4
+    most = ck.MAX_QUAD_BLOCK_BX
+    for tb, bx in ((0, 6), (most + 1, 6), (most, 5)):
+        assert host_lib.gvct_host_swar_tiles(tb, _ptr(a), _ptr(a), *map(_ptr, maps), 38, 4, 3,
+                                             bx, 0) == -1
+    assert host_lib.gvct_host_swar_tiles(most, _ptr(a), _ptr(a), *map(_ptr, maps), 38, 4, 3, 6,
+                                         0) == 0
 
 
 # -- the halfword fallbacks against numpy int16 --------------------------------------
@@ -203,6 +302,18 @@ def test_swar_exp_entry_points_cpu(capsys):
         swar_exp.main(["--device", "cpu"])  # --check or --race is required
 
 
+def test_kernel_time_needs_a_card(monkeypatch, capsys):
+    """tools/kernel_time.py measures on a CUDA device or not at all; its
+    blocky tiles are uint8 of the shape asked for."""
+    from gpu_video_codec_tpu_torch.tools import kernel_time
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert kernel_time.main(["--repeats", "1"]) == 1
+    assert "needs a CUDA device" in capsys.readouterr().err
+    t = kernel_time.blocky_tiles(np.random.default_rng(0), (2, 8, 8, 3, 5))
+    assert t.dtype == np.uint8 and t.shape == (2, 8, 8, 3, 5)
+
+
 def test_cuda_tensor_without_library_raises(monkeypatch, tmp_path):
     """A CUDA tensor whose kernel library cannot be built raises; it never
     takes the plain version (fake CUDA tensors stand in for a card)."""
@@ -241,6 +352,27 @@ def test_swar_kernel_matches_plain_on_card(rng, cuda_device, grid, chroma):
         ref = deblock_tiles_plain(tiles, *maps, beta, tc, chroma=chroma)
         torch.cuda.synchronize()
         assert torch.equal(out, ref), qp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(5, 70), (3, 72), (2, 80)],
+                         ids=["half35-bytes", "half36-words4", "half40-words8"])
+def test_swar_kernel_tails_on_card(rng, cuda_device, grid):
+    """Tail blocks (Bx/2 not a multiple of the block) staged in each word
+    size, luma and chroma, and with every BS byte 0."""
+    for chroma in (False, True):
+        for qp in (17, 35, 51):
+            beta, tc = get_beta(qp), get_tc(qp)
+            tiles = torch.from_numpy(_tiles(rng, (8, 8, *grid))).to(cuda_device)
+            maps = [torch.from_numpy(m).to(cuda_device) for m in _maps(rng, grid)]
+            out = sk.deblock_tiles_swar_cuda(tiles, *maps, beta, tc, chroma=chroma)
+            ref = deblock_tiles_plain(tiles, *maps, beta, tc, chroma=chroma)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref), (chroma, qp)
+        off = [torch.zeros_like(m) for m in maps]
+        out = sk.deblock_tiles_swar_cuda(tiles, *off, 38, 4, chroma=chroma)
+        torch.cuda.synchronize()
+        assert torch.equal(out, tiles)
 
 
 @pytest.mark.cuda
