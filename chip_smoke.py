@@ -8,14 +8,16 @@
    (gpu_video_codec_tpu_torch/runtime/src, g++), all started together;
    prints ptxas's registers, spills and shared memory and the static SASS
    count of every kernel entry; checks that no entry of the quad kernels
-   (K1, K1c, K1-i16, K1-i16c, T1) spills and that K1/K1c at T = int keep
-   the registers and SASS counts they had before the compute type became a
-   template parameter (QUAD_INT_COUNTS); prints the commonest static SASS
-   opcodes of the luma entries of K1, K1-i16 and T1; and prints, from the
-   CUDA runtime, blocks and warps per SM and the staging word for K1/K1c
-   at TB 32 and 64 tiles per block (with the 1080p grids' waves), for
-   K1-i16/K1-i16c at their default TB and for T1 at its default block of
-   pairs at the race grid.
+   (K1, K1c, K1-i16, K1-i16c, T1, T5 on both staging routes) spills and
+   that K1/K1c at T = int keep the registers and SASS counts they had
+   before the compute type became a template parameter (QUAD_INT_COUNTS);
+   prints the commonest static SASS opcodes of the luma entries of K1,
+   K1-i16, T1 and T5 (TMA and byte words); and prints, from the CUDA
+   runtime, blocks and warps per SM and the staging word for K1/K1c at TB
+   32 and 64 tiles per block (with the 1080p grids' waves), for
+   K1-i16/K1-i16c at their default TB, for T1 at its default block of
+   pairs at the race grid, and T5's route, blocks per SM and shared memory
+   at the race grid (TMA) and at Bx 241 (words).
 1. Holds each variant of the deblock kernel against its plain PyTorch
    version on the card, byte for byte, at the main path's grids (1080p luma
    and U+V chroma), a sheared chroma grid, tail grids (Bx 5, 1, 31, 33,
@@ -32,12 +34,16 @@
    in place, on the sheared 360x288 and 1928x1080 U+V pairs and the 1080p
    extended pair with pad 0.
 1c. Holds K1-i16 and K1-i16c (the quad kernel at int16_t) at TB 32 and 64,
-   T5 (the rows layout) and T1 (SWAR, a quad of four lanes per tile pair)
-   against their plain versions, and K1-i16 and T1 against K1, byte for
-   byte, over QP {0,17,30,35,51}: 1080p luma and U+V grids, the race grid
-   (136, 256), the sheared chroma stack, tail grids (a batched one with
-   per-frame maps; for T1 Bx/2 = 35 and 36, staged in byte and 4-byte
-   words); T1 with every BS byte 0 returns its input; T1 refuses an odd
+   T5 (the quad on the rows layout) and T1 (SWAR, a quad of four lanes per
+   tile pair) against their plain versions, and K1-i16 and T1 against K1,
+   byte for byte, over QP {0,17,30,35,51}: 1080p luma and U+V grids, the
+   race grid (136, 256), the sheared chroma stack, tail grids (a batched
+   one with per-frame maps; for T1 Bx/2 = 35 and 36, staged in byte and
+   4-byte words); T5 at (136, 8, 8, 256) and (136, 8, 8, 272) (TMA),
+   (136, 8, 8, 241), (3, 8, 8, 5) and a race-grid view 8 bytes past a
+   16-byte boundary (words), luma and chroma, on blocky tiles, on noise and
+   with every BS byte 0 (which returns the input), printing each case's
+   route; T1 with every BS byte 0 returns its input; T1 refuses an odd
    Bx.
 2. Runs the CLI on the three bundled frames, and StreamingDeblocker on a
    synthetic 1920x1080 frame and a sheared 360x288 frame, against the
@@ -115,13 +121,13 @@
    golden, tail included.  Every run's launches: T2 2, K1 1, K1c 1, T3 2
    per slot and batch; the profile of the batched packed step holds only
    the port's kernels.
-4d. Times the quad K1 against K1-i16 (the quad at int16_t), T5 (one
-   thread per tile) and T1 (a quad per tile pair) in turns at the race
-   grid (136, 256), on blocky tiles, on uniform noise (cond1 fails almost
-   everywhere) and, for K1, K1-i16 and T1, with every BS byte 0 (no
-   segment filtered: what a design pays per tile whatever the content),
-   and K1-i16 luma and chroma at the 1080p grids beside K1/K1c, each
-   beside its plain version and its byte bound.
+4d. Times the quad K1 against K1-i16 (the quad at int16_t), T5 (the quad
+   on the rows layout, TMA-staged) and T1 (a quad per tile pair) in turns
+   at the race grid (136, 256), on blocky tiles, on uniform noise (cond1
+   fails almost everywhere) and with every BS byte 0 (no segment filtered:
+   what a design pays per tile whatever the content), T5 also at Bx 241
+   (its words route), and K1-i16 luma and chroma at the 1080p grids beside
+   K1/K1c, each beside its plain version and its byte bound.
 4e. Times the batched packed step at 1080p for k = 1, 4 and 8 frames
    beside the single-frame _step (CUDA events, in turns), and the frames
    per second of MultiStreamDeblocker.run at 4 streams x 1080p against
@@ -281,15 +287,20 @@ def main() -> int:
                     entry[2][m.group(1)] += 1
     # the quad kernels' entries by (kernel, CHROMA, W, compute type), from
     # their mangled names: deblock_quad_kernel<CHROMA, W, T> (T int for K1,
-    # short for K1-i16) and swar_quad_kernel<CHROMA, W> (T1)
+    # short for K1-i16), swar_quad_kernel<CHROMA, W> (T1) and
+    # deblock_rows_quad_kernel<CHROMA, Staging> (T5; W 0 for RowsTma, the
+    # TMA route, else RowsWords<W>)
     quads = {}
     for mangled, e in entries.items():
         if m := re.search(r"deblock_quad_kernelILb([01])ELi(\d)E([is])E", mangled):
             quads["K1" if m.group(3) == "i" else "K1-i16", m.group(1) == "1", int(m.group(2))] = e
         elif m := re.search(r"swar_quad_kernelILb([01])ELi(\d)EE", mangled):
             quads["T1", m.group(1) == "1", int(m.group(2))] = e
-    check(len(quads) == 18, f"expected 18 quad entries (K1, K1-i16, T1 x chroma x W), "
-                            f"found {sorted(quads)}")
+        elif m := re.search(r"deblock_rows_quad_kernelILb([01])E\w*?(?:RowsTma|RowsWordsILi(\d)E)",
+                            mangled):
+            quads["T5", m.group(1) == "1", int(m.group(2) or 0)] = e
+    check(len(quads) == 26, f"expected 26 quad entries (K1, K1-i16, T1 x chroma x W; T5 x "
+                            f"chroma x staging), found {sorted(quads)}")
     for key, e in sorted(quads.items()):
         check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
               f"{key}: spills ({e.get('spill_stores')} B stored, {e.get('spill_loads')} B loaded)")
@@ -298,11 +309,14 @@ def main() -> int:
             got = (e.get("registers"), e["sass"] if e["sass"] is not None else want[1])
             check(got == want, f"K1 quad {key[1:]} at T = int: (registers, static SASS) {got}, "
                                f"was {want} before the compute type became a parameter")
-    for key in (("K1", False, 8), ("K1-i16", False, 8), ("T1", False, 8)):
+    for key in (("K1", False, 8), ("K1-i16", False, 8), ("T1", False, 8), ("T5", False, 0),
+                ("T5", False, 1)):
         if quads[key].get("opcodes"):
-            print(f"static SASS opcodes of {key[0]} luma, 8-byte words: " + ", ".join(
-                f"{op} {n}" for op, n in quads[key]["opcodes"].most_common(12)))
-    print("quad entries, (chroma, W): registers / spills / smem / static SASS: " + "; ".join(
+            print(f"static SASS opcodes of {key[0]} luma, "
+                  f"{f'{key[2]}-byte words' if key[2] else 'TMA'}: " + ", ".join(
+                      f"{op} {n}" for op, n in quads[key]["opcodes"].most_common(12)))
+    print("quad entries, (chroma, W; T5's W0 the TMA route): registers / spills / smem / "
+          "static SASS: " + "; ".join(
         f"{k} {c} W{w} {e.get('registers')} / {e.get('spill_stores')} / {e['smem']} / {e['sass']}"
         for (k, c, w), e in sorted(quads.items()))
           + "; K1 at T = int unchanged, no spills")
@@ -335,6 +349,21 @@ def main() -> int:
           f"grid {RACE_SHAPE} is {blocks} blocks, "
           f"{occupancy['T1', sk.BLOCK]['resident_warps_per_sm']:.1f} warps per SM; "
           f"{occ['word_bytes']}-byte staging accesses")
+    for kname, shape in (("T5", RACE_SHAPE), ("T5 1080p width", (8, 8, 136, 241))):
+        rows = torch.empty((shape[2], 8, 8, shape[3]), dtype=torch.uint8, device=dev)
+        occ = ck.deblock_rows_occupancy(rows)
+        blocks = -(-shape[3] // ck.ROWS_BLOCK_BX) * shape[2]
+        occupancy[kname] = {**occ, "grid_blocks": blocks,
+                            "resident_warps_per_sm": blocks * occ["threads"] // 32 / sms}
+        print(f"occupancy {kname} {tuple(rows.shape)}, TB {ck.ROWS_BLOCK_BX}: route "
+              f"{occ['route']}" + (f" ({occ['word_bytes']}-byte words)" if occ["word_bytes"]
+                                   else "") + f", {occ['blocks_per_sm']} blocks = "
+              f"{occ['warps_per_sm']} warps per SM at most, {occ['smem_bytes']} B shared memory "
+              f"per block, {occ['registers']} registers; {blocks} blocks, "
+              f"{occupancy[kname]['resident_warps_per_sm']:.1f} warps per SM")
+    check(occupancy["T5"]["route"] == "tma" and occupancy["T5 1080p width"]["route"] == "words",
+          f"T5's routes: {occupancy['T5']['route']} at {RACE_SHAPE}, "
+          f"{occupancy['T5 1080p width']['route']} at Bx 241")
     rng = np.random.default_rng(2026)
 
     def counts() -> dict:
@@ -523,18 +552,33 @@ def main() -> int:
                 same(kind, f"{name} qp {qp} TB {tb}", out, ref)
                 same(kind, f"{name} qp {qp} TB {tb} against K1", out, k1)
         print(f"{kind} == plain == K1: {name} {shape}, QP {list(QPS)}, TB {list(BLOCKS)}")
-    for name, chroma, (by, bx) in (("luma 1080p", False, (136, 241)),
-                                   ("luma race grid", False, (136, 256)),
-                                   ("chroma 1080p", True, (136, 241)),
-                                   ("chroma race grid", True, (136, 256)),
-                                   ("luma tail", False, (3, 5)), ("chroma tail", True, (3, 5))):
-        for qp in QPS:
-            tiles, maps = tiles_maps((8, 8, by, bx), (by, bx))
-            rows = tiles.permute(2, 0, 1, 3).contiguous()
-            beta, tc = get_beta(qp), get_tc(qp)
-            same("T5", f"{name} qp {qp}", ck.deblock_rows_cuda(rows, *maps, beta, tc, chroma=chroma),
-                 deblock_rows_plain(rows, *maps, beta, tc, chroma=chroma))
-        print(f"T5 == plain: {name} {(by, 8, 8, bx)}, QP {list(QPS)}")
+    # T5 on both routes: TMA where Bx and the rows' address are multiples of
+    # 16 (256, 272), words elsewhere (241, 5, and a view 8 bytes past a
+    # 16-byte boundary); blocky tiles, uniform noise, every BS byte 0
+    for (by, bx), off in (((136, 256), 0), ((136, 241), 0), ((136, 272), 0), ((3, 5), 0),
+                          ((136, 256), 8)):
+        for chroma in (False, True):
+            for content in ("blocky", "noise", "BS 0"):
+                for qp in QPS:
+                    tiles, maps = tiles_maps((8, 8, by, bx), (by, bx))
+                    if content == "noise":
+                        tiles = torch.randint(0, 256, tiles.shape, dtype=torch.uint8, device=dev)
+                    if content == "BS 0":
+                        maps = [torch.zeros_like(m) for m in maps]
+                    space = torch.empty(tiles.numel() + 16, dtype=torch.uint8, device=dev)
+                    rows = space[off:off + tiles.numel()].view(by, 8, 8, bx)
+                    rows.copy_(tiles.permute(2, 0, 1, 3))
+                    beta, tc = get_beta(qp), get_tc(qp)
+                    what = f"{(by, 8, 8, bx)} +{off} B chroma={chroma} {content} qp {qp}"
+                    out = ck.deblock_rows_cuda(rows, *maps, beta, tc, chroma=chroma)
+                    same("T5", what, out, deblock_rows_plain(rows, *maps, beta, tc, chroma=chroma))
+                    if content == "BS 0":
+                        same("T5", what + " returns its input", out, rows)
+            occ = ck.deblock_rows_occupancy(rows, chroma=chroma)
+            print(f"T5 == plain: {(by, 8, 8, bx)}{f' at {off} B past a 16-byte boundary' if off else ''}"
+                  f", {'chroma' if chroma else 'luma'}, blocky / noise / BS 0, QP {list(QPS)}; "
+                  f"route {occ['route']}"
+                  + (f" ({occ['word_bytes']}-byte words)" if occ["word_bytes"] else ""))
     # T1 stages in 8-byte words where Bx/2 is a multiple of 8, 4-byte words
     # where it is 4 mod 8 and bytes where it is odd
     for name, chroma, (by, bx) in (
@@ -1347,6 +1391,8 @@ def main() -> int:
     noise = torch.randint(0, 256, tiles.shape, dtype=torch.uint8, device=dev)
     noise_rows = noise.permute(2, 0, 1, 3).contiguous()
     off = [torch.zeros_like(m) for m in maps]  # BS 0: every segment gated off
+    tiles_241, maps_241 = tiles_maps((8, 8, 136, 241), (136, 241))
+    rows_241 = tiles_241.permute(2, 0, 1, 3).contiguous()  # T5's words route
     race = in_turns({
         "K1": lambda: ck.deblock_tiles_cuda(tiles, *maps, beta35, tc35),
         "K1-i16": lambda: ck.deblock_tiles_cuda(tiles, *maps, beta35, tc35, dtype=torch.int16),
@@ -1361,8 +1407,11 @@ def main() -> int:
         "K1-i16 BS 0": lambda: ck.deblock_tiles_cuda(tiles, *off, beta35, tc35,
                                                      dtype=torch.int16),
         "T1 BS 0": lambda: sk.deblock_tiles_swar_cuda(tiles, *off, beta35, tc35),
+        "T5 BS 0": lambda: ck.deblock_rows_cuda(rows, *off, beta35, tc35),
+        "T5 Bx 241": lambda: ck.deblock_rows_cuda(rows_241, *maps_241, beta35, tc35),
     }, dict.fromkeys(("K1", "K1-i16", "T5", "T1", "K1 on noise", "K1-i16 on noise",
-                      "T5 on noise", "T1 on noise", "K1 BS 0", "K1-i16 BS 0", "T1 BS 0"), 200))
+                      "T5 on noise", "T1 on noise", "K1 BS 0", "K1-i16 BS 0", "T1 BS 0",
+                      "T5 BS 0", "T5 Bx 241"), 200))
     race_plain = in_turns({
         "int32": lambda: deblock_tiles_plain(tiles, *maps, beta35, tc35),
         "int16": lambda: deblock_tiles_plain(tiles, *maps, beta35, tc35, dtype=torch.int16),
@@ -1370,8 +1419,9 @@ def main() -> int:
     }, {"int32": 5, "int16": 5, "rows": 5})
     race_bound = bytes_bound_ms(2 * tiles.numel() + 4 * maps[0].numel())
     print(f"race grid (8, 8, {by}, {bx}), blocky tiles, QP 35, against the quad K1 (4 lanes "
-          f"per tile, TB {ck.BLOCK_BX}; K1-i16 the same quad at int16_t; T5 one thread per "
-          f"tile; T1 4 lanes per tile pair, {sk.BLOCK} pairs a block): " + ", ".join(
+          f"per tile, TB {ck.BLOCK_BX}; K1-i16 the same quad at int16_t; T5 the quad on the "
+          f"rows layout, TB {ck.ROWS_BLOCK_BX}, staged by TMA, at Bx 241 in words; T1 4 lanes "
+          f"per tile pair, {sk.BLOCK} pairs a block): " + ", ".join(
               f"{k} {ms * 1e3:.2f} us" for k, (ms, _) in race.items())
         + f"; T1/K1 {race['T1'][0] / race['K1'][0]:.3f}, K1-i16/K1 "
         f"{race['K1-i16'][0] / race['K1'][0]:.3f}, T5/K1 {race['T5'][0] / race['K1'][0]:.3f}, "
@@ -1380,14 +1430,16 @@ def main() -> int:
         f"{race['T5 on noise'][0] / race['T5'][0]:.3f}, T1 "
         f"{race['T1 on noise'][0] / race['T1'][0]:.3f}; BS 0/blocky: K1 "
         f"{race['K1 BS 0'][0] / race['K1'][0]:.3f}, K1-i16 "
-        f"{race['K1-i16 BS 0'][0] / race['K1-i16'][0]:.3f}, T1 "
+        f"{race['K1-i16 BS 0'][0] / race['K1-i16'][0]:.3f}, T5 "
+        f"{race['T5 BS 0'][0] / race['T5'][0]:.3f}, T1 "
         f"{race['T1 BS 0'][0] / race['T1'][0]:.3f}; "
         f"plain " + ", ".join(f"{k} {ms * 1e3:.0f} us" for k, (ms, _) in race_plain.items())
         + f"; bound {race_bound * 1e3:.2f} us (kernels queued ahead: "
         f"{all(ok for _, ok in race.values())}; device time; {smi})")
     def entry_stats(kname: str, occ: dict) -> dict:
         """Phase 0's numbers for the quad entry a timed launch ran."""
-        e = quads["T1" if kname == "T1" else "K1-i16", kname.endswith("c"), occ["word_bytes"]]
+        e = quads[kname if kname in ("T1", "T5") else "K1-i16", kname.endswith("c"),
+                  occ["word_bytes"] or 0]
         return {"registers": e["registers"], "spill_bytes": e["spill_stores"],
                 "static_sass": e["sass"], "warps_per_sm": occ["warps_per_sm"]}
 
@@ -1431,7 +1483,10 @@ def main() -> int:
             "max_abs_err": max_err[kname], "ms": race[kname][0], "plain_ms": race_plain[plain][0],
             "bound_ms": race_bound, "bound_by": "bytes", "library_ms": None,
             "k1_ms_same_grid": race["K1"][0],
-            **(entry_stats("T1", occupancy["T1", sk.BLOCK]) if kname == "T1" else {}),
+            **(entry_stats("T1", occupancy["T1", sk.BLOCK]) if kname == "T1" else {
+                "staging": occupancy["T5"]["route"], "noise_ms": race["T5 on noise"][0],
+                "bs0_ms": race["T5 BS 0"][0], "bx241_ms": race["T5 Bx 241"][0],
+                **entry_stats("T5", occupancy["T5"])}),
         })
 
     # -- 4e. the mesh paths' times ------------------------------------------------------

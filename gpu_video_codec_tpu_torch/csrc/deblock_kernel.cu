@@ -1,7 +1,7 @@
 // HEVC deblock of a tile grid on Hopper (sm_90a): luma and chroma in int
 // (K1, K1c) and in int16 (K1-i16, K1-i16c) as one quad kernel of four lanes
-// per tile (deblock_quad_kernel<CHROMA, W, T>), and T5 with one thread per
-// tile.
+// per tile (deblock_quad_kernel<CHROMA, W, T>), and T5, the same quad on the
+// rows layout (deblock_rows_quad_kernel<CHROMA, Staging>).
 //
 // K1 and K1c replace the TPU kernel
 // gpu_video_codec_tpu/ops/pallas_kernel.py::_kernel (:71, launched by
@@ -82,20 +82,102 @@
 // (per-frame) or 0 (one map shared by the batch).
 //
 // T5 replaces tools/rowslayout_exp.py::_rows_kernel (deblock_rows_layout),
-// which read the (By, r, c, Bx) layout a TPU relayout dot produces for free,
-// planes[r][c] = block[:, r, c, :].  Here it is one thread per tile with
-// tile (by, bx) at by*64*Bx + (r*8+c)*Bx + bx instead of
-// (r*8+c)*By*Bx + by*Bx + bx: threads run along Bx, so every one of the 64
-// loads and stores coalesces across a warp, and a warp's 64 rows lie in one
-// 64*Bx-byte span instead of 64 planes By*Bx bytes apart.  Its bound is
-// K1's bytes.  The grid is exact with a bounds guard; the JAX divisibility
-// demand on block_by/block_bx is a Pallas matter.
+// which read the (By, 8, 8, Bx) "rows" layout R[by, r, c, bx], planes[r][c]
+// = block[:, r, c, :]: the layout the TPU's relayout dot leaves for free
+// (its (8*By, [c, t]) output reshapes to it row-major; a plane's own free
+// reshape is (By, 8, Bx, 8), element [by, r, bx, c]).  Its bound is K1's
+// bytes: at the race grid (136, 8, 8, 256) 4.60 MB, 1.37 us at 3.35 TB/s.
+//
+// Design (deblock_rows_quad_kernel).  The first design ran one thread per
+// tile (34,816 threads at the race grid, about 8 warps per SM, 96
+// registers, one dependent chain of 64 byte loads, four phases and 64 byte
+// stores, a warp running the union of 32 tiles' filter branches).  Here it
+// is K1's quad (deblock_quad.cuh): a block owns TB consecutive tiles of one
+// tile row by -- the planes of two tile rows are not contiguous in this
+// layout, so blocks never cross one -- and 4 * TB threads, on a grid
+// (ceil(Bx / TB), By); TB = 32 by default (ops/cuda_kernel.ROWS_BLOCK_BX;
+// 1-64 accepted), chosen over 64 and 16 by timings (PERF.md §6).
+// Plane (r, c)
+// of the block's tiles is TB bytes at
+// by*64*Bx + (8r + c)*Bx + bx0: the block's 64 planes are one box of 64
+// rows x TB bytes, row stride Bx.  Two stagings, chosen by
+// gvct::rows_staging from the shape and the pointers alone:
+//   A. TMA (TB a multiple of 32, Bx and both base addresses multiples of 16
+//      bytes, as a tensor map demands; the race grid).  One elected lane
+//      of warp 0 loads the block's TB / 32 boxes with
+//      cp.async.bulk.tensor.3d into shared memory, completing on an
+//      mbarrier, while every lane loads its BS bytes; the lanes wait on the
+//      barrier, run the quad, fence the stage to the async proxy, and after
+//      __syncthreads the elected lane stores the boxes back and waits for
+//      the stage to be read before the block exits.  The
+//      tensor map is the (8*By, 8, Bx) uint8 view (plane row, plane column,
+//      tile) with box (8, 9, 32): the plane-column extent runs one past
+//      the tensor, so every plane row gets a pad slot that the load zero-
+//      fills and the store skips, and tiles past the grid in a tail block
+//      are zero-filled on load and clipped on store by the hardware.  The
+//      box lands densely, so the stage is gvct::RowsTmaCell: 32-byte rows,
+//      plane (r, c) at row 9r + c, and the quad's row and column reads fall
+//      in four different banks.  Dense 64-byte rows (the 2-D box of 64
+//      planes) put a quad's four row reads (planes 8 apart, 512 bytes) in
+//      one bank and its column reads two to a bank; the tensor map's 64-byte
+//      swizzle permutes 16-byte chunks by address bits 7-8, equal for
+//      planes 8 apart, so it spreads the column reads but not the row reads.
+//      A pad slot needs no address arithmetic in the lanes: the stage stays
+//      linear in r and c, so the quad's code is K1's with other strides.
+//      Chosen over dense 64- and 32-byte rows and over 16-byte boxes by
+//      timings at the race grid during development (PERF.md §6).
+//      The maps are encoded on the host with cuTensorMapEncodeTiled, reached
+//      through cudaGetDriverEntryPoint (no -lcuda), cached by (pointer, By,
+//      Bx), and passed as __grid_constant__ parameters.
+//   B. words (every other case; the 1080p grid, Bx = 241): K1's cooperative
+//      load and store in 8-, 4- or 1-byte words (quad_word_bytes with plane
+//      stride Bx) into K1's padded stage, src the block's first tile in
+//      plane 0 and planes Bx bytes apart.
+// Neither route falls back to the other: a refused encode or launch is an
+// error.  The BS cell of tile (by, bx) is by*Bx + bx, as in K1's flattened
+// grid, so quad_load_bs serves unchanged.  Lanes of tiles past the grid run
+// every exchange with BS 0 and store nothing.
 
+#include <cuda.h>  // CUtensorMap and the encode's types; nothing of libcuda is linked
 #include <cuda_runtime.h>
+
+#include <mutex>
 
 #include "deblock_quad.cuh"
 
 namespace {
+
+// The quad's four phases over a staged block (every thread of the block,
+// between the stage's fill and its drain): K1's and T5's lanes alike, on a
+// stage of layout C.
+template <bool CHROMA, typename T, typename C>
+__device__ __forceinline__ void quad_phases(gvct::QuadLane<>& lane, uint8_t* stage,
+                                            const gvct::Thresholds& th, int tid) {
+  const unsigned quad = 0xFu << (tid & 28);  // the quad's lanes in its warp
+  auto quad_sum = [quad](uint32_t w) {
+    w += __shfl_xor_sync(quad, w, 1, gvct::kQuadLanes);
+    return w + __shfl_xor_sync(quad, w, 2, gvct::kQuadLanes);
+  };
+  gvct::quad_read_rows<CHROMA, int, C>(lane, stage);
+  if constexpr (CHROMA) {
+    gvct::quad_vert_chroma<T>(lane, th);
+  } else {
+    uint32_t w[2];
+    gvct::quad_vert_words<T>(lane, th, w);
+    const uint32_t sum[2] = {quad_sum(w[0]), quad_sum(w[1])};
+    gvct::quad_vert_luma<T>(lane, sum, th);
+  }
+  gvct::quad_write_rows<CHROMA, int, C>(lane, stage);
+  __syncwarp(quad);
+  gvct::quad_read_cols<CHROMA, int, C>(lane, stage);
+  if constexpr (CHROMA) {
+    gvct::quad_hor_chroma<T>(lane, th);
+  } else {
+    gvct::quad_left_luma<T>(lane, quad_sum(gvct::quad_left_word<T>(lane, th)), th);
+    gvct::quad_right_luma<T>(lane, quad_sum(gvct::quad_right_word<T>(lane, th)), th);
+  }
+  gvct::quad_write_cols<CHROMA, int, C>(lane, stage);
+}
 
 // At most 64 registers: 4 blocks of the largest size fill the register file.
 template <bool CHROMA, int W, typename T>
@@ -115,45 +197,158 @@ __global__ void __launch_bounds__(gvct::kQuadLanes * gvct::kQuadMaxTiles, 4)
   gvct::quad_load_bs(lane, v1, v2, h1, h2, b * map_batch_stride + cell, n);
   gvct::quad_stage_load<W>(in + tiles, plane, n, tb, stage, tid);
   __syncthreads();
-
-  const unsigned quad = 0xFu << (tid & 28);  // the quad's lanes in its warp
-  auto quad_sum = [quad](uint32_t w) {
-    w += __shfl_xor_sync(quad, w, 1, gvct::kQuadLanes);
-    return w + __shfl_xor_sync(quad, w, 2, gvct::kQuadLanes);
-  };
-  gvct::quad_read_rows<CHROMA>(lane, stage);
-  if constexpr (CHROMA) {
-    gvct::quad_vert_chroma<T>(lane, th);
-  } else {
-    uint32_t w[2];
-    gvct::quad_vert_words<T>(lane, th, w);
-    const uint32_t sum[2] = {quad_sum(w[0]), quad_sum(w[1])};
-    gvct::quad_vert_luma<T>(lane, sum, th);
-  }
-  gvct::quad_write_rows<CHROMA>(lane, stage);
-  __syncwarp(quad);
-  gvct::quad_read_cols<CHROMA>(lane, stage);
-  if constexpr (CHROMA) {
-    gvct::quad_hor_chroma<T>(lane, th);
-  } else {
-    gvct::quad_left_luma<T>(lane, quad_sum(gvct::quad_left_word<T>(lane, th)), th);
-    gvct::quad_right_luma<T>(lane, quad_sum(gvct::quad_right_word<T>(lane, th)), th);
-  }
-  gvct::quad_write_cols<CHROMA>(lane, stage);
+  quad_phases<CHROMA, T, gvct::StageCell<int>>(lane, stage, th, tid);
   __syncthreads();
   gvct::quad_stage_store<W>(stage, out + tiles, plane, n, tb, tid);
 }
 
-template <bool CHROMA>
-__global__ void deblock_rows_kernel(const uint8_t* in, uint8_t* out,
-                                    const uint8_t* __restrict__ v1,
-                                    const uint8_t* __restrict__ v2,
-                                    const uint8_t* __restrict__ h1,
-                                    const uint8_t* __restrict__ h2,
-                                    gvct::Thresholds th, int bx_n) {
-  const int bx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (bx >= bx_n) return;
-  gvct::deblock_rows_tile<CHROMA>(in, out, v1, v2, h1, h2, bx_n, blockIdx.y, bx, th);
+// -- T5's TMA staging: PTX of the tensor copies and the mbarrier ------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One thread: the barrier expects one arrival (the expect_tx below).
+__device__ __forceinline__ void barrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void barrier_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Until the barrier's phase 0 completes: the arrival and every byte.
+__device__ __forceinline__ void barrier_wait(uint64_t* bar) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(0u)
+        : "memory");
+  } while (!done);
+}
+
+// True in one lane of warp 0 (elect.sync), false elsewhere: the thread that
+// issues a block's tensor copies.  Electing in a whole warp lets the
+// compiler treat the copies' operands as warp-uniform; behind tid == 0 it
+// wraps each copy in a loop over the distinct operand values.
+__device__ __forceinline__ bool copy_thread(int tid) {
+  if (tid >= 32) return false;
+  uint32_t elected;
+  asm volatile(
+      "{\n.reg .b32 r;\n.reg .pred p;\n"
+      "elect.sync r|p, 0xffffffff;\n"
+      "selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(elected));
+  return elected != 0;
+}
+
+__device__ __forceinline__ void tma_load(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const uint8_t* src, int x,
+                                          int y, int z) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::
+                   "l"(reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(x), "r"(y), "r"(z)
+               : "memory");
+}
+
+// Staging policies of deblock_rows_quad_kernel: route A (TMA) and route B
+// (W-byte words).
+struct RowsTma {
+  using Cell = gvct::RowsTmaCell;
+  static constexpr int kStageBytes = gvct::kQuadMaxTiles / Cell::kBoxTiles * Cell::kBoxBytes;
+};
+
+template <int W>
+struct RowsWords {
+  using Cell = gvct::StageCell<int>;
+  static constexpr int kStageBytes = 64 * gvct::kQuadStride;
+  __device__ static void load(const uint8_t* src, int plane, int n, int tb, uint8_t* stage,
+                              int tid) {
+    gvct::quad_stage_load<W>(src, plane, n, tb, stage, tid);
+  }
+  __device__ static void store(const uint8_t* stage, uint8_t* dst, int plane, int n, int tb,
+                               int tid) {
+    gvct::quad_stage_store<W>(stage, dst, plane, n, tb, tid);
+  }
+};
+
+template <typename Staging>
+constexpr bool kTmaStaging = false;
+template <>
+constexpr bool kTmaStaging<RowsTma> = true;
+
+// T5: tiles [bx0, bx0 + TB) of tile row blockIdx.y of the rows layout,
+// bx0 = blockIdx.x * TB, TB = blockDim.x / 4.  Route A reads and writes
+// through in_map and out_map (in and out unused); route B through in and
+// out (the maps unused).
+template <bool CHROMA, typename Staging>
+__global__ void __launch_bounds__(gvct::kQuadLanes * gvct::kQuadMaxTiles, 4)
+    deblock_rows_quad_kernel(__grid_constant__ const CUtensorMap in_map,
+                             __grid_constant__ const CUtensorMap out_map, const uint8_t* in,
+                             uint8_t* out, const uint8_t* __restrict__ v1,
+                             const uint8_t* __restrict__ v2, const uint8_t* __restrict__ h1,
+                             const uint8_t* __restrict__ h2, gvct::Thresholds th, int bx_n) {
+  using C = typename Staging::Cell;
+  __shared__ __align__(128) uint8_t stage[Staging::kStageBytes];
+  const int tid = threadIdx.x;
+  const int tb = blockDim.x / gvct::kQuadLanes;
+  const int bx0 = blockIdx.x * tb;
+  const gvct::RowsBlock blk = gvct::rows_block(blockIdx.y, bx0, bx_n, tb);
+  gvct::QuadLane<> lane = gvct::quad_lane(tid);
+  if constexpr (kTmaStaging<Staging>) {
+    __shared__ uint64_t bar;
+    const int boxes = (blk.n + C::kBoxTiles - 1) / C::kBoxTiles;  // past the grid: none
+    const int z = 8 * static_cast<int>(blockIdx.y);
+    constexpr int kMaxBoxes = gvct::kQuadMaxTiles / C::kBoxTiles;
+    if (tid == 0) barrier_init(&bar);
+    __syncthreads();
+    if (copy_thread(tid)) {
+      barrier_expect(&bar, boxes * C::kBoxBytes);
+#pragma unroll
+      for (int h = 0; h < kMaxBoxes; ++h) {
+        if (h < boxes) {
+          tma_load(stage + h * C::kBoxBytes, &in_map, &bar, bx0 + h * C::kBoxTiles, 0, z);
+        }
+      }
+    }
+    gvct::quad_load_bs(lane, v1, v2, h1, h2, blk.map, blk.n);
+    barrier_wait(&bar);
+    quad_phases<CHROMA, int, C>(lane, stage, th, tid);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the stage, to the TMA
+    __syncthreads();
+    if (copy_thread(tid)) {
+#pragma unroll
+      for (int h = 0; h < kMaxBoxes; ++h) {
+        if (h < boxes) {
+          tma_store(&out_map, stage + h * C::kBoxBytes, bx0 + h * C::kBoxTiles, 0, z);
+        }
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");  // the stage is read
+    }
+  } else {
+    gvct::quad_load_bs(lane, v1, v2, h1, h2, blk.map, blk.n);
+    Staging::load(in + blk.tiles, bx_n, blk.n, tb, stage, tid);
+    __syncthreads();
+    quad_phases<CHROMA, int, C>(lane, stage, th, tid);
+    __syncthreads();
+    Staging::store(stage, out + blk.tiles, bx_n, blk.n, tb, tid);
+  }
 }
 
 using TilesKernel = void (*)(const uint8_t*, uint8_t*, const uint8_t*, const uint8_t*,
@@ -189,6 +384,116 @@ TilesLaunch tiles_launch(int chroma, int int16, int block_bx, int nb, int by, in
                              : quad_kernel<false, int>(l.word_bytes));
   l.grid = dim3(static_cast<unsigned>((plane + block_bx - 1) / block_bx), nb);
   return l;
+}
+
+using RowsKernel = void (*)(CUtensorMap, CUtensorMap, const uint8_t*, uint8_t*, const uint8_t*,
+                            const uint8_t*, const uint8_t*, const uint8_t*, gvct::Thresholds,
+                            int);
+
+template <bool CHROMA>
+RowsKernel rows_kernel(int staging) {
+  return staging == gvct::kRowsTma ? deblock_rows_quad_kernel<CHROMA, RowsTma>
+         : staging == 8            ? deblock_rows_quad_kernel<CHROMA, RowsWords<8>>
+         : staging == 4            ? deblock_rows_quad_kernel<CHROMA, RowsWords<4>>
+                                   : deblock_rows_quad_kernel<CHROMA, RowsWords<1>>;
+}
+
+// A launch of gvct_deblock_rows, or threads == 0 for a block_bx out of
+// range.  staging: gvct::kRowsTma (route A) or route B's word bytes.
+struct RowsLaunch {
+  dim3 grid;
+  int threads = 0, staging = 1;
+  RowsKernel kernel = nullptr;
+};
+
+RowsLaunch rows_launch(int chroma, int block_bx, int by, int bx, const void* in,
+                       const void* out) {
+  RowsLaunch l;
+  if (block_bx < 1 || block_bx > gvct::kQuadMaxTiles) return l;
+  l.threads = gvct::kQuadLanes * block_bx;
+  l.staging = gvct::rows_staging(bx, block_bx, in, out);
+  l.kernel = chroma ? rows_kernel<true>(l.staging) : rows_kernel<false>(l.staging);
+  l.grid = dim3((bx + block_bx - 1) / block_bx, by);
+  return l;
+}
+
+// Error codes of the tensor-map encode, past every cudaError_t.
+constexpr int kNoEncodeEntry = 100001;
+constexpr int kEncodeRefused = 100002;
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled through the runtime, or an error code.
+int encode_entry(EncodeTiled* fn) {
+  static EncodeTiled entry = nullptr;
+  static int status = -1;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) {
+      status = static_cast<int>(err);
+    } else if (found != cudaDriverEntryPointSuccess || p == nullptr) {
+      status = kNoEncodeEntry;
+    } else {
+      entry = reinterpret_cast<EncodeTiled>(p);
+      status = 0;
+    }
+  });
+  *fn = entry;
+  return status;
+}
+
+// Route A's tensor map of the rows layout at `ptr`, (by, 8, 8, bx) uint8:
+// dims (bx, 8, 8 * by) innermost first -- tile, plane column, plane row --
+// strides bx and 8 * bx bytes, box (kBoxTiles, kBoxC, 8), no swizzle, zero
+// fill.  Encoded maps are cached by (ptr, by, bx), a map's only inputs, so
+// a cached map is the map the encode would give; 16 entries, replaced in
+// turn.
+int rows_tensor_map(const void* ptr, int by, int bx, CUtensorMap* map) {
+  struct Entry {
+    const void* ptr = nullptr;
+    int by = 0, bx = 0;
+    CUtensorMap map;
+  };
+  static Entry cache[16];
+  static int next = 0;
+  static std::mutex lock;
+  {
+    std::lock_guard<std::mutex> g(lock);
+    for (const Entry& e : cache) {
+      if (e.ptr == ptr && e.by == by && e.bx == bx) {
+        *map = e.map;
+        return 0;
+      }
+    }
+  }
+  EncodeTiled encode = nullptr;
+  if (const int err = encode_entry(&encode)) return err;
+  using C = gvct::RowsTmaCell;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(bx), 8, 8ull * by};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(bx), 8ull * bx};  // bytes, dims 1-2
+  const cuuint32_t box[3] = {C::kBoxTiles, C::kBoxC, 8};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    return kEncodeRefused;
+  }
+  std::lock_guard<std::mutex> g(lock);
+  cache[next] = Entry{ptr, by, bx, *map};
+  next = (next + 1) % 16;
+  return 0;
 }
 
 }  // namespace
@@ -237,31 +542,57 @@ extern "C" int gvct_deblock_tiles_occupancy(int chroma, int int16, int block_bx,
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], l.kernel, l.threads, 0));
 }
 
-// T5: the rows layout (by, 8, 8, bx) uint8, contiguous; maps (by, bx).
-// Launch on `stream` without synchronizing; returns cudaGetLastError().
+// T5, the rows quad: the rows layout (by, 8, 8, bx) uint8, contiguous; maps
+// (by, bx); block_bx tiles of one tile row and 4 * block_bx threads per
+// block (1..64), staged by route A or B as gvct::rows_staging says for
+// these pointers.  Launch on `stream` without synchronizing; returns
+// cudaGetLastError() after the launch, or the error of a tensor-map encode
+// that failed (0 = ok).
 extern "C" int gvct_deblock_rows(const void* in, void* out, const void* v1, const void* v2,
                                  const void* h1, const void* h2, int beta, int tc, int by,
-                                 int bx, int chroma, int threads, int device, void* stream) {
+                                 int bx, int chroma, int block_bx, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const gvct::Thresholds th = gvct::make_thresholds(beta, tc);
-  const dim3 grid((bx + threads - 1) / threads, by);
-  const dim3 block(threads);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto i = static_cast<const uint8_t*>(in);
-  auto o = static_cast<uint8_t*>(out);
-  auto m1 = static_cast<const uint8_t*>(v1);
-  auto m2 = static_cast<const uint8_t*>(v2);
-  auto m3 = static_cast<const uint8_t*>(h1);
-  auto m4 = static_cast<const uint8_t*>(h2);
-  if (chroma) {
-    deblock_rows_kernel<true><<<grid, block, 0, s>>>(i, o, m1, m2, m3, m4, th, bx);
-  } else {
-    deblock_rows_kernel<false><<<grid, block, 0, s>>>(i, o, m1, m2, m3, m4, th, bx);
+  const RowsLaunch l = rows_launch(chroma, block_bx, by, bx, in, out);
+  if (l.threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[2] = {};
+  if (l.staging == gvct::kRowsTma) {
+    if (const int e = rows_tensor_map(in, by, bx, &maps[0])) return e;
+    if (const int e = rows_tensor_map(out, by, bx, &maps[1])) return e;
   }
+  l.kernel<<<l.grid, l.threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
+      static_cast<const uint8_t*>(v1), static_cast<const uint8_t*>(v2),
+      static_cast<const uint8_t*>(h1), static_cast<const uint8_t*>(h2),
+      gvct::make_thresholds(beta, tc), bx);
   return static_cast<int>(cudaGetLastError());
 }
 
+// For T5 at (by, bx) with block_bx tiles per block and these pointers:
+// out[0] the blocks one SM holds at once, out[1] threads per block, out[2]
+// the staging (0: route A, TMA; else route B's bytes per access), out[3]
+// the kernel's static shared memory in bytes, out[4] its registers per
+// thread.  Returns a CUDA error code (0 = ok).
+extern "C" int gvct_deblock_rows_occupancy(int chroma, int block_bx, int by, int bx,
+                                           const void* in, const void* out, int device,
+                                           int* info) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const RowsLaunch l = rows_launch(chroma, block_bx, by, bx, in, out);
+  if (l.threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, l.kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[1] = l.threads;
+  info[2] = l.staging;
+  info[3] = static_cast<int>(attr.sharedSizeBytes);
+  info[4] = attr.numRegs;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], l.kernel, l.threads, 0));
+}
+
 extern "C" const char* gvct_error_string(int code) {
+  if (code == kNoEncodeEntry) return "cuTensorMapEncodeTiled: no driver entry point";
+  if (code == kEncodeRefused) return "cuTensorMapEncodeTiled refused T5's tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

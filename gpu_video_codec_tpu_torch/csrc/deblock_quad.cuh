@@ -9,7 +9,10 @@
 // int16_t for K1-i16/K1-i16c) is a template parameter of the lane functions,
 // passed on to deblock_tile.cuh's row math; a lane's rows hold pixel values
 // 0-255 as int whatever T.  T1 (swar_tile.cuh) reuses the lane geometry and
-// the staging words with a tile PAIR per quad (QuadLane<swar::hw2>).
+// the staging words with a tile PAIR per quad (QuadLane<swar::hw2>).  T5
+// (deblock_rows_quad_kernel) runs K1's lanes on the rows layout: a block
+// owns TB tiles of one tile row, staged by TMA into RowsTmaCell's layout or
+// in K1's words (rows_block, rows_staging).
 //
 // Thread tid is lane r = tid & 3 of tile t = tid >> 2, so a quad is four
 // adjacent lanes of one warp.  Lane r is segment row r in every phase:
@@ -58,6 +61,35 @@ GVCT_HD int quad_word_bytes(long long plane, int tb, const void* in, const void*
     if (w != 2 && plane % w == 0 && tb % w == 0 && addr % w == 0) return w;
   }
   return 1;
+}
+
+// T5's block (deblock_kernel.cu, deblock_rows_quad_kernel): tiles
+// [bx0, bx0 + tb) of tile row by in the rows layout R[by, r, c, bx] of a
+// grid bx_n tiles wide.  Plane (r, c) of its first tile lies at
+// tiles + (8r + c) * bx_n, its BS bytes at `map` in each (By, Bx) map; n of
+// its tiles lie inside the grid.
+struct RowsBlock {
+  size_t tiles, map;
+  int n;
+};
+
+GVCT_HD RowsBlock rows_block(size_t by, int bx0, int bx_n, int tb) {
+  return {by * 64 * bx_n + bx0, by * bx_n + bx0, bx_n - bx0 < tb ? bx_n - bx0 : tb};
+}
+
+// T5's staging: route A, kRowsTma (the tensor memory accelerator), for
+// blocks of whole TMA boxes (tb a multiple of kRowsBoxTiles) on a grid
+// whose plane stride bx_n and both base addresses are multiples of 16 bytes
+// (what a tensor map demands); otherwise route B's word bytes, 8, 4 or 1
+// (quad_word_bytes with plane stride bx_n).
+constexpr int kRowsTma = 0;
+constexpr int kRowsBoxTiles = 32;  // RowsTmaCell's box width in tiles (bytes)
+
+GVCT_HD int rows_staging(int bx_n, int tb, const void* in, const void* out) {
+  const unsigned long long addr = static_cast<unsigned long long>(
+      reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out));
+  if (tb % kRowsBoxTiles == 0 && bx_n % 16 == 0 && addr % 16 == 0) return kRowsTma;
+  return quad_word_bytes(bx_n, tb, in, out);
 }
 
 // W bytes held in 32-bit words (byte e is byte e & 3 of word e >> 2).
@@ -150,16 +182,40 @@ GVCT_HD Word<W> stage_get(const uint8_t* s) {
 }
 
 // A lane's pixel E as the stage holds it: one byte per tile at column t
-// (E = int, K1); swar_tile.cuh specializes it for T1's tile pairs.
+// (E = int, K1); swar_tile.cuh specializes it for T1's tile pairs.  A
+// stage layout C gives plane (r, c) of tile t at stage_cell<C>(stage, r, c,
+// t): r * C::kRow + c * C::kStride + C::offset(t) bytes in.
 template <typename E>
 struct StageCell;
 
 template <>
 struct StageCell<int> {
-  static constexpr int kStride = kQuadStride;  // bytes per stage row
+  static constexpr int kStride = kQuadStride;  // bytes per stage row (plane column c)
+  static constexpr int kRow = 8 * kStride;     // bytes per plane row r
   static constexpr int kBytes = 1;             // bytes per tile (pair) in a row
+  GVCT_HD static int offset(int t) { return t * kBytes; }
   GVCT_HD static int get(const uint8_t* s) { return *s; }
   GVCT_HD static void put(uint8_t* s, int v) { *s = static_cast<uint8_t>(v); }
+};
+
+// T5's stage when the tensor memory accelerator (TMA) fills and drains it
+// (deblock_kernel.cu, route A): the block's tiles in boxes of kBoxTiles,
+// box h at h * kBoxBytes; a box holds plane (r, c) of its tiles at
+// r * kRow + c * kStride, with a slot c = 8 per plane row that the load
+// zero-fills and the store skips (the box runs past the tensor's 8 plane
+// columns).  The stage rows are kBoxTiles = 32 bytes (8 banks) and plane
+// (r, c) is row 9r + c, so row mod 4 is (r + c) mod 4: the quad's four
+// lanes reading one tile row each (r, r + 1, r + 2, r + 3 at one c) or one
+// column each (c .. c + 3 at one r) hit four different banks, as in K1's
+// padded stage.  Dense 64-byte rows without the slot put the four row
+// reads in one bank (rows 8 apart are 512 bytes apart).
+struct RowsTmaCell : StageCell<int> {
+  static constexpr int kBoxTiles = kRowsBoxTiles;  // the box's inner extent, bytes
+  static constexpr int kBoxC = 9;               // plane columns per plane row, pad included
+  static constexpr int kStride = kBoxTiles;
+  static constexpr int kRow = kBoxC * kBoxTiles;
+  static constexpr int kBoxBytes = 8 * kRow;    // 2,304 bytes, a multiple of 128
+  GVCT_HD static int offset(int t) { return t / kBoxTiles * kBoxBytes + t % kBoxTiles; }
 };
 
 template <typename E = int>
@@ -244,22 +300,21 @@ GVCT_HD void quad_stage_store(const uint8_t* stage, uint8_t* dst, size_t plane, 
   }
 }
 
-// The lane's cell in stage row k (plane k).
-template <typename E>
-GVCT_HD const uint8_t* stage_cell(const uint8_t* stage, int k, int t) {
-  return stage + k * StageCell<E>::kStride + t * StageCell<E>::kBytes;
+// The cell of plane (r, c) of tile t in a stage of layout C.
+template <typename C>
+GVCT_HD const uint8_t* stage_cell(const uint8_t* stage, int r, int c, int t) {
+  return stage + r * C::kRow + c * C::kStride + C::offset(t);
 }
-template <typename E>
-GVCT_HD uint8_t* stage_cell(uint8_t* stage, int k, int t) {
-  return stage + k * StageCell<E>::kStride + t * StageCell<E>::kBytes;
+template <typename C>
+GVCT_HD uint8_t* stage_cell(uint8_t* stage, int r, int c, int t) {
+  return stage + r * C::kRow + c * C::kStride + C::offset(t);
 }
 
 // Tile rows r and 4 + r: all 8 columns (luma), columns 2-5 (chroma).
-template <bool CHROMA, typename E>
+template <bool CHROMA, typename E, typename C = StageCell<E>>
 GVCT_HD void quad_read_rows(QuadLane<E>& lane, const uint8_t* stage) {
-  using C = StageCell<E>;
-  const uint8_t* a = stage_cell<E>(stage, lane.r * 8, lane.t);
-  const uint8_t* b = a + 32 * C::kStride;
+  const uint8_t* a = stage_cell<C>(stage, lane.r, 0, lane.t);
+  const uint8_t* b = a + 4 * C::kRow;
 #pragma unroll
   for (int c = CHROMA ? 2 : 0; c < (CHROMA ? 6 : 8); ++c) {
     lane.a[c] = C::get(a + c * C::kStride);
@@ -268,11 +323,10 @@ GVCT_HD void quad_read_rows(QuadLane<E>& lane, const uint8_t* stage) {
 }
 
 // The columns the vertical phases may change: 1-6 (luma), 3-4 (chroma).
-template <bool CHROMA, typename E>
+template <bool CHROMA, typename E, typename C = StageCell<E>>
 GVCT_HD void quad_write_rows(const QuadLane<E>& lane, uint8_t* stage) {
-  using C = StageCell<E>;
-  uint8_t* a = stage_cell<E>(stage, lane.r * 8, lane.t);
-  uint8_t* b = a + 32 * C::kStride;
+  uint8_t* a = stage_cell<C>(stage, lane.r, 0, lane.t);
+  uint8_t* b = a + 4 * C::kRow;
 #pragma unroll
   for (int c = CHROMA ? 3 : 1; c < (CHROMA ? 5 : 7); ++c) {
     C::put(a + c * C::kStride, lane.a[c]);
@@ -282,28 +336,26 @@ GVCT_HD void quad_write_rows(const QuadLane<E>& lane, uint8_t* stage) {
 
 // Column r (rows 0-7 luma, 2-5 chroma) and column 4 + r (rows 0-3 luma,
 // 2-3 chroma), after the whole quad wrote its rows.
-template <bool CHROMA, typename E>
+template <bool CHROMA, typename E, typename C = StageCell<E>>
 GVCT_HD void quad_read_cols(QuadLane<E>& lane, const uint8_t* stage) {
-  using C = StageCell<E>;
-  const uint8_t* l = stage_cell<E>(stage, lane.r, lane.t);
+  const uint8_t* l = stage_cell<C>(stage, 0, lane.r, lane.t);
   const uint8_t* r = l + 4 * C::kStride;
 #pragma unroll
-  for (int i = CHROMA ? 2 : 0; i < (CHROMA ? 6 : 8); ++i) lane.cl[i] = C::get(l + i * 8 * C::kStride);
+  for (int i = CHROMA ? 2 : 0; i < (CHROMA ? 6 : 8); ++i) lane.cl[i] = C::get(l + i * C::kRow);
 #pragma unroll
-  for (int i = CHROMA ? 2 : 0; i < 4; ++i) lane.cr[i] = C::get(r + i * 8 * C::kStride);
+  for (int i = CHROMA ? 2 : 0; i < 4; ++i) lane.cr[i] = C::get(r + i * C::kRow);
 }
 
 // The pixels the horizontal phases may change: column r rows 1-6 and
 // column 4 + r rows 1-3 (luma); rows 3-4 and row 3 (chroma).
-template <bool CHROMA, typename E>
+template <bool CHROMA, typename E, typename C = StageCell<E>>
 GVCT_HD void quad_write_cols(const QuadLane<E>& lane, uint8_t* stage) {
-  using C = StageCell<E>;
-  uint8_t* l = stage_cell<E>(stage, lane.r, lane.t);
+  uint8_t* l = stage_cell<C>(stage, 0, lane.r, lane.t);
   uint8_t* r = l + 4 * C::kStride;
 #pragma unroll
-  for (int i = CHROMA ? 3 : 1; i < (CHROMA ? 5 : 7); ++i) C::put(l + i * 8 * C::kStride, lane.cl[i]);
+  for (int i = CHROMA ? 3 : 1; i < (CHROMA ? 5 : 7); ++i) C::put(l + i * C::kRow, lane.cl[i]);
 #pragma unroll
-  for (int i = CHROMA ? 3 : 1; i < 4; ++i) C::put(r + i * 8 * C::kStride, lane.cr[i]);
+  for (int i = CHROMA ? 3 : 1; i < 4; ++i) C::put(r + i * C::kRow, lane.cr[i]);
 }
 
 // -- luma ----------------------------------------------------------------------

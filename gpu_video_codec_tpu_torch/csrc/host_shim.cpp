@@ -21,29 +21,29 @@ uint32_t quad_sum(const std::vector<uint32_t>& w, int tid, int stride, int i) {
          w[stride * (q + 3) + i];
 }
 
-// One block of deblock_kernel.cu's quad kernel at compute type T: cells
-// [cell, cell + tb) of frame b's flattened grid, its 4 * tb threads one
-// after another between the kernel's exchange points; `wv`, `wl` and `wr`
-// stand in for the shuffles: every thread publishes its words there, and
-// each lane of a quad takes the sum of its quad's four.
-template <bool CHROMA, int W, typename T>
-void host_quad_block(const uint8_t* in, uint8_t* out, const uint8_t* v1, const uint8_t* v2,
+// One block of deblock_kernel.cu's quad kernel at compute type T over a
+// stage of layout C: `stage_in(stage)` fills the stage as the kernel's
+// staging does and `stage_out(stage)` drains it; its 4 * tb threads run
+// one after another between the kernel's exchange points; `wv`, `wl` and
+// `wr` stand in for the shuffles: every thread publishes its words there,
+// and each lane of a quad takes the sum of its quad's four.  `map` is the
+// block's first tile in each BS map, n its tiles inside the grid.
+template <bool CHROMA, typename T, typename C, typename In, typename Out>
+void host_quad_block(In stage_in, Out stage_out, const uint8_t* v1, const uint8_t* v2,
                      const uint8_t* h1, const uint8_t* h2, const gvct::Thresholds& th, int tb,
-                     long long plane, long long map_batch_stride, size_t b, long long cell) {
+                     size_t map, int n) {
   const int nt = gvct::kQuadLanes * tb;
-  const int n = plane - cell < tb ? static_cast<int>(plane - cell) : tb;
-  const size_t tiles = b * 64 * plane + cell;
-  std::vector<uint8_t> stage(64 * gvct::kQuadStride);
+  std::vector<uint8_t> stage(2 * gvct::RowsTmaCell::kBoxBytes);  // either layout's size
   std::vector<gvct::QuadLane<>> lanes(nt);
   std::vector<uint32_t> wv(2 * nt), wl(nt), wr(nt);
   for (int tid = 0; tid < nt; ++tid) {
     lanes[tid] = gvct::quad_lane(tid);
-    gvct::quad_load_bs(lanes[tid], v1, v2, h1, h2, b * map_batch_stride + cell, n);
-    gvct::quad_stage_load<W>(in + tiles, plane, n, tb, stage.data(), tid);
+    gvct::quad_load_bs(lanes[tid], v1, v2, h1, h2, map, n);
   }
-  // __syncthreads()
+  stage_in(stage.data());
+  // __syncthreads() (route A: the wait on the load's barrier)
   for (int tid = 0; tid < nt; ++tid) {
-    gvct::quad_read_rows<CHROMA>(lanes[tid], stage.data());
+    gvct::quad_read_rows<CHROMA, int, C>(lanes[tid], stage.data());
     if (!CHROMA) {
       uint32_t w[2];
       gvct::quad_vert_words<T>(lanes[tid], th, w);
@@ -58,11 +58,11 @@ void host_quad_block(const uint8_t* in, uint8_t* out, const uint8_t* v1, const u
       const uint32_t sum[2] = {quad_sum(wv, tid, 2, 0), quad_sum(wv, tid, 2, 1)};
       gvct::quad_vert_luma<T>(lanes[tid], sum, th);
     }
-    gvct::quad_write_rows<CHROMA>(lanes[tid], stage.data());
+    gvct::quad_write_rows<CHROMA, int, C>(lanes[tid], stage.data());
   }
   // __syncwarp()
   for (int tid = 0; tid < nt; ++tid) {
-    gvct::quad_read_cols<CHROMA>(lanes[tid], stage.data());
+    gvct::quad_read_cols<CHROMA, int, C>(lanes[tid], stage.data());
     if (CHROMA) {
       gvct::quad_hor_chroma<T>(lanes[tid], th);
     } else {
@@ -78,11 +78,29 @@ void host_quad_block(const uint8_t* in, uint8_t* out, const uint8_t* v1, const u
       gvct::quad_right_luma<T>(lanes[tid], quad_sum(wr, tid, 1, 0), th);
     }
   }
-  for (int tid = 0; tid < nt; ++tid) gvct::quad_write_cols<CHROMA>(lanes[tid], stage.data());
-  // __syncthreads()
   for (int tid = 0; tid < nt; ++tid) {
-    gvct::quad_stage_store<W>(stage.data(), out + tiles, plane, n, tb, tid);
+    gvct::quad_write_cols<CHROMA, int, C>(lanes[tid], stage.data());
   }
+  // __syncthreads()
+  stage_out(stage.data());
+}
+
+// The quad kernel's route-B staging of a block: its threads' cooperative
+// loads and stores in W-byte words, from and to `in` and `out` (the
+// block's first tile in plane 0, planes `plane` bytes apart).
+template <bool CHROMA, int W, typename T>
+void host_quad_words(const uint8_t* in, uint8_t* out, const uint8_t* v1, const uint8_t* v2,
+                     const uint8_t* h1, const uint8_t* h2, const gvct::Thresholds& th, int tb,
+                     size_t plane, size_t map, int n) {
+  const int nt = gvct::kQuadLanes * tb;
+  host_quad_block<CHROMA, T, gvct::StageCell<int>>(
+      [&](uint8_t* stage) {
+        for (int tid = 0; tid < nt; ++tid) gvct::quad_stage_load<W>(in, plane, n, tb, stage, tid);
+      },
+      [&](const uint8_t* stage) {
+        for (int tid = 0; tid < nt; ++tid) gvct::quad_stage_store<W>(stage, out, plane, n, tb, tid);
+      },
+      v1, v2, h1, h2, th, tb, map, n);
 }
 
 template <bool CHROMA, int W, typename T>
@@ -91,8 +109,10 @@ void host_quad(const uint8_t* in, uint8_t* out, const uint8_t* v1, const uint8_t
                int nb, long long plane, long long map_batch_stride) {
   for (size_t b = 0; b < static_cast<size_t>(nb); ++b) {
     for (long long cell = 0; cell < plane; cell += tb) {
-      host_quad_block<CHROMA, W, T>(in, out, v1, v2, h1, h2, th, tb, plane, map_batch_stride, b,
-                                    cell);
+      const size_t tiles = b * 64 * plane + cell;
+      const int n = plane - cell < tb ? static_cast<int>(plane - cell) : tb;
+      host_quad_words<CHROMA, W, T>(in + tiles, out + tiles, v1, v2, h1, h2, th, tb, plane,
+                                    b * map_batch_stride + cell, n);
     }
   }
 }
@@ -148,20 +168,93 @@ extern "C" int gvct_host_quad_word_bytes(long long plane, int tb, const void* in
   return gvct::quad_word_bytes(plane, tb, in, out);
 }
 
-// T5 over its grid: the rows layout (by, 8, 8, bx), maps (by, bx).
-extern "C" void gvct_host_deblock_rows(const uint8_t* in, uint8_t* out, const uint8_t* v1,
-                                       const uint8_t* v2, const uint8_t* h1, const uint8_t* h2,
-                                       int beta, int tc, int by, int bx, int chroma) {
-  const gvct::Thresholds th = gvct::make_thresholds(beta, tc);
-  for (size_t y = 0; y < static_cast<size_t>(by); ++y) {
-    for (size_t x = 0; x < static_cast<size_t>(bx); ++x) {
-      if (chroma) {
-        gvct::deblock_rows_tile<true>(in, out, v1, v2, h1, h2, bx, y, x, th);
-      } else {
-        gvct::deblock_rows_tile<false>(in, out, v1, v2, h1, h2, bx, y, x, th);
+namespace {
+
+// T5's route-A stage of a block as its TMA boxes fill it (deblock_kernel.cu,
+// RowsTma): box h holds tiles [32h, 32h + 32) of the block, element
+// (x, c, r) of the box at h * kBoxBytes + r * kRow + c * kStride + x;
+// elements past the grid (tile 32h + x >= n) and the pad column c = 8 are
+// 0.  `src` is the block's first tile in plane 0, planes bx_n bytes apart.
+void host_tma_load(const uint8_t* src, size_t bx_n, int n, uint8_t* stage) {
+  using C = gvct::RowsTmaCell;
+  for (int h = 0; h * C::kBoxTiles < n; ++h) {
+    for (int r = 0; r < 8; ++r) {
+      for (int c = 0; c < C::kBoxC; ++c) {
+        for (int x = 0; x < C::kBoxTiles; ++x) {
+          const int t = h * C::kBoxTiles + x;
+          stage[h * C::kBoxBytes + r * C::kRow + c * C::kStride + x] =
+              c < 8 && t < n ? src[(8 * r + c) * bx_n + t] : 0;
+        }
       }
     }
   }
+}
+
+// The TMA boxes' store: every element inside the grid, none of the pad.
+void host_tma_store(const uint8_t* stage, uint8_t* dst, size_t bx_n, int n) {
+  using C = gvct::RowsTmaCell;
+  for (int h = 0; h * C::kBoxTiles < n; ++h) {
+    for (int r = 0; r < 8; ++r) {
+      for (int c = 0; c < 8; ++c) {
+        for (int x = 0; x < C::kBoxTiles && h * C::kBoxTiles + x < n; ++x) {
+          dst[(8 * r + c) * bx_n + h * C::kBoxTiles + x] =
+              stage[h * C::kBoxBytes + r * C::kRow + c * C::kStride + x];
+        }
+      }
+    }
+  }
+}
+
+template <bool CHROMA>
+void host_rows(int tb, int staging, const uint8_t* in, uint8_t* out, const uint8_t* v1,
+               const uint8_t* v2, const uint8_t* h1, const uint8_t* h2,
+               const gvct::Thresholds& th, int by, int bx) {
+  for (int y = 0; y < by; ++y) {
+    for (int x0 = 0; x0 < bx; x0 += tb) {
+      const gvct::RowsBlock blk = gvct::rows_block(y, x0, bx, tb);
+      const uint8_t* src = in + blk.tiles;
+      uint8_t* dst = out + blk.tiles;
+      if (staging == gvct::kRowsTma) {
+        host_quad_block<CHROMA, int, gvct::RowsTmaCell>(
+            [&](uint8_t* stage) { host_tma_load(src, bx, blk.n, stage); },
+            [&](const uint8_t* stage) { host_tma_store(stage, dst, bx, blk.n); }, v1, v2, h1,
+            h2, th, tb, blk.map, blk.n);
+      } else if (staging == 8) {
+        host_quad_words<CHROMA, 8, int>(src, dst, v1, v2, h1, h2, th, tb, bx, blk.map, blk.n);
+      } else if (staging == 4) {
+        host_quad_words<CHROMA, 4, int>(src, dst, v1, v2, h1, h2, th, tb, bx, blk.map, blk.n);
+      } else {
+        host_quad_words<CHROMA, 1, int>(src, dst, v1, v2, h1, h2, th, tb, bx, blk.map, blk.n);
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// T5 (deblock_kernel.cu's rows quad) over its grid: the rows layout
+// (by, 8, 8, bx), maps (by, bx), blocks of tb tiles of one tile row (1..64)
+// and 4 * tb threads.  tma = 0 stages in the words route B would use for
+// these pointers; tma != 0 stages as route A's TMA boxes would (the
+// tensor map's zero fill and clipping done by hand), for a tb that route
+// A takes.  Returns 0, or -1 for a tb out of range or a tma request route A
+// cannot take.
+extern "C" int gvct_host_deblock_rows(int tb, int tma, const uint8_t* in, uint8_t* out,
+                                      const uint8_t* v1, const uint8_t* v2, const uint8_t* h1,
+                                      const uint8_t* h2, int beta, int tc, int by, int bx,
+                                      int chroma) {
+  if (tb < 1 || tb > gvct::kQuadMaxTiles || (tma && tb % gvct::kRowsBoxTiles)) return -1;
+  const gvct::Thresholds th = gvct::make_thresholds(beta, tc);
+  const int staging = tma ? gvct::kRowsTma : gvct::quad_word_bytes(bx, tb, in, out);
+  (chroma ? host_rows<true> : host_rows<false>)(tb, staging, in, out, v1, v2, h1, h2, th, by,
+                                                bx);
+  return 0;
+}
+
+// T5's route for a grid bx tiles wide, tb tiles per block and these
+// pointers: 0 for route A (TMA), else route B's bytes per access.
+extern "C" int gvct_host_rows_staging(int bx, int tb, const void* in, const void* out) {
+  return gvct::rows_staging(bx, tb, in, out);
 }
 
 namespace {

@@ -307,7 +307,9 @@ using PairLane = QuadLane<hw2>;
 template <>
 struct StageCell<swar::hw2> {
   static constexpr int kStride = swar::kPairStride;
+  static constexpr int kRow = 8 * kStride;
   static constexpr int kBytes = 2;
+  GVCT_HD static int offset(int t) { return t * kBytes; }
   // the pair's two bytes (low tile, high tile) widened to the two lanes
   GVCT_HD static swar::hw2 get(const uint8_t* s) {
 #ifdef __CUDA_ARCH__

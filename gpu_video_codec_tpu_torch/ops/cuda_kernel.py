@@ -8,8 +8,10 @@ block's tiles staged in shared memory (csrc/deblock_quad.cuh), its compute
 type a template parameter too: K1 and K1c compute in int, K1-i16 and
 K1-i16c (dtype=torch.int16, the JAX package's dtype=jnp.int16) in int16.
 The same library holds T5 (deblock_rows_cuda), the kernel of
-tools/rowslayout_exp.py: one thread per tile on the (By, 8, 8, Bx) "rows"
-layout.
+tools/rowslayout_exp.py: the same quad on the (By, 8, 8, Bx) "rows" layout,
+a block's tiles of one tile row staged by the tensor memory accelerator
+(TMA) where the rows are 16-byte aligned, in words otherwise
+(deblock_rows_occupancy reports which).
 
 The library is built at first use with nvcc, from csrc/ only, into
 build/torch_kernels/ beside the package, under a name keyed on a hash of
@@ -45,8 +47,10 @@ QUAD = 4
 MAX_QUAD_BLOCK_BX = 64
 BLOCK_BX = 64
 CHROMA_BLOCK_BX = 64
-# Threads (one per tile) per block of T5.
-TILE_THREADS = 128
+# Tiles per block of T5 (consecutive tiles of one tile row, QUAD threads
+# each): one TMA box, so that aligned grids take the TMA route; chosen over
+# 64 and 16 by timings at the race grid (PERF.md §6).
+ROWS_BLOCK_BX = 32
 
 # Kernel launches per variant since import (or since a caller reset them):
 # K1, K1c, K1-i16 luma and chroma, T5 (luma and chroma).
@@ -138,6 +142,9 @@ def _setup_cuda(lib) -> None:
     lib.gvct_deblock_tiles_occupancy.restype = ctypes.c_int
     lib.gvct_deblock_rows.argtypes = GRID_ARGS + _LAUNCH_ARGS
     lib.gvct_deblock_rows.restype = ctypes.c_int
+    lib.gvct_deblock_rows_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2 + [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.gvct_deblock_rows_occupancy.restype = ctypes.c_int
     lib.gvct_error_string.argtypes = [ctypes.c_int]
     lib.gvct_error_string.restype = ctypes.c_char_p
 
@@ -149,8 +156,10 @@ def _setup_host(lib) -> None:
     lib.gvct_host_quad_word_bytes.argtypes = [ctypes.c_longlong, ctypes.c_int] + [
         ctypes.c_void_p] * 2
     lib.gvct_host_quad_word_bytes.restype = ctypes.c_int
-    lib.gvct_host_deblock_rows.argtypes = GRID_ARGS
-    lib.gvct_host_deblock_rows.restype = None
+    lib.gvct_host_deblock_rows.argtypes = [ctypes.c_int] * 2 + GRID_ARGS
+    lib.gvct_host_deblock_rows.restype = ctypes.c_int
+    lib.gvct_host_rows_staging.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    lib.gvct_host_rows_staging.restype = ctypes.c_int
 
 
 def load_host_library() -> ctypes.CDLL:
@@ -160,8 +169,10 @@ def load_host_library() -> ctypes.CDLL:
     (gvct_host_deblock_tiles_quad(tb, ...) for K1/K1c and
     gvct_host_deblock_tiles_i16(tb, ...) for K1-i16/K1-i16c, the quad
     kernel at int and int16_t, a block's 4 * tb threads run one after
-    another between the kernel's exchange points; gvct_host_deblock_rows
-    for T5, one thread per tile; ops/relayout_kernel.py and
+    another between the kernel's exchange points; gvct_host_deblock_rows(tb,
+    tma, ...) for T5, the same quad on the rows layout, staged in route B's
+    words or as route A's TMA boxes would stage it, and
+    gvct_host_rows_staging, the route rule; ops/relayout_kernel.py and
     ops/swar_kernel.py bind the rest)."""
     gxx = shutil.which("g++")
     if gxx is None:
@@ -315,9 +326,11 @@ def deblock_rows_cuda(tiles_rows, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,
     """T5: deblock a tile grid held in the rows layout (By, 8, 8, Bx),
     element [by, r, c, bx] = pixel (r, c) of tile (by, bx), with (By, Bx)
     BS maps; all contiguous uint8 on one device.  beta, tc: ints.
-    Returns a new (By, 8, 8, Bx) tensor.  The launch goes on the current
-    stream and does not synchronize.  CPU tensors take the plain version
-    (ops/deblock.deblock_rows_plain)."""
+    Returns a new (By, 8, 8, Bx) tensor.  The launch (blocks of
+    ROWS_BLOCK_BX tiles) goes on the current stream and does not
+    synchronize; it stages by TMA where Bx and the tensors' addresses are
+    multiples of 16 bytes, in words otherwise, and raises if either fails.
+    CPU tensors take the plain version (ops/deblock.deblock_rows_plain)."""
     maps = (bs_ver1, bs_ver2, bs_hor1, bs_hor2)
     beta, tc = int(beta), int(tc)
     check_operands(tiles_rows, beta, tc)
@@ -335,11 +348,30 @@ def deblock_rows_cuda(tiles_rows, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta, tc,
     lib = _load("cuda", build_library, _setup_cuda)
     err = lib.gvct_deblock_rows(
         tiles_rows.data_ptr(), out.data_ptr(), *(m.data_ptr() for m in maps),
-        beta, tc, by, bx, int(chroma), TILE_THREADS, tiles_rows.device.index,
+        beta, tc, by, bx, int(chroma), ROWS_BLOCK_BX, tiles_rows.device.index,
         torch.cuda.current_stream(tiles_rows.device).cuda_stream)
     raise_on_launch(err, lib, "deblock_rows")
     LAUNCHES["rows"] += 1
     return out
+
+
+def deblock_rows_occupancy(tiles_rows, chroma: bool = False) -> dict:
+    """T5's launch for this CUDA tensor (deblock_rows_cuda's output is
+    allocated 16-byte aligned, so the input's shape and address decide):
+    {"route": "tma" or "words", "word_bytes" (route B's bytes per access,
+    None for TMA), "threads", "blocks_per_sm", "warps_per_sm",
+    "smem_bytes" (static shared memory per block), "registers"}."""
+    lib = _load("cuda", build_library, _setup_cuda)
+    by, bx = tiles_rows.shape[0], tiles_rows.shape[3]
+    info = (ctypes.c_int * 5)()
+    raise_on_launch(lib.gvct_deblock_rows_occupancy(
+        int(chroma), ROWS_BLOCK_BX, by, bx, tiles_rows.data_ptr(), tiles_rows.data_ptr(),
+        tiles_rows.device.index, info), lib, "occupancy")
+    blocks, threads, staging, smem, regs = info
+    return {"route": "words" if staging else "tma", "word_bytes": staging or None,
+            "threads": threads, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * ((threads + 31) // 32), "smem_bytes": smem,
+            "registers": regs}
 
 
 def deblock_frame_cuda(y_ext, u_ext, v_ext, luma_maps, chroma_maps, beta, tc,

@@ -12,7 +12,11 @@ quarter uniform noise; numpy seed 11) with BS maps uniform in 0..2:
 K1 and K1-i16 at the 1080p luma grid (8, 8, 136, 241), K1c and K1-i16c at
 the 1080p U+V grid (2, 8, 8, 68, 121) with one shared map, and K1 and T1 at
 the race grid (8, 8, 136, 256), T1 also on uniform noise and with every
-BS byte 0; each through the public wrappers with their default blocks.
+BS byte 0, and T5 on the race grid's rows layout (136, 8, 8, 256) on
+blocky tiles, on noise and with BS 0 (TMA-staged), the same blocky and BS
+0 on a copy 8 bytes past a 16-byte boundary (staged in 8-byte words), and
+at the 1080p luma width (136, 8, 8, 241); each through the public
+wrappers with their default blocks.
 Prints one JSON line: per kernel the device us per launch of each repeat
 (utils.timing.device_ms: CUDA events around `iters` launches queued
 behind a spin kernel) and whether every repeat was queued ahead.  Exits
@@ -79,6 +83,12 @@ def main(argv: list[str] | None = None) -> int:
     race = operands((8, 8, 136, 256), (136, 256))
     noise = operands((8, 8, 136, 256), (136, 256), noise=True)
     off = [torch.zeros_like(m) for m in race[1]]
+    rows = race[0].permute(2, 0, 1, 3).contiguous()
+    noise_rows = noise[0].permute(2, 0, 1, 3).contiguous()
+    rows_241 = luma[0].permute(2, 0, 1, 3).contiguous()
+    space = torch.empty(rows.numel() + 16, dtype=torch.uint8, device=dev)
+    rows_off8 = space[8:8 + rows.numel()].view(rows.shape)  # T5's words route
+    rows_off8.copy_(rows)
     fns = {
         "K1 (8, 8, 136, 241)": lambda: ck.deblock_tiles_cuda(luma[0], *luma[1], beta, tc),
         "K1-i16 (8, 8, 136, 241)": lambda: ck.deblock_tiles_cuda(
@@ -92,6 +102,12 @@ def main(argv: list[str] | None = None) -> int:
                                                                         tc),
         "T1 race on noise": lambda: sk.deblock_tiles_swar_cuda(noise[0], *noise[1], beta, tc),
         "T1 race BS 0": lambda: sk.deblock_tiles_swar_cuda(race[0], *off, beta, tc),
+        "T5 race (136, 8, 8, 256)": lambda: ck.deblock_rows_cuda(rows, *race[1], beta, tc),
+        "T5 race on noise": lambda: ck.deblock_rows_cuda(noise_rows, *noise[1], beta, tc),
+        "T5 race BS 0": lambda: ck.deblock_rows_cuda(rows, *off, beta, tc),
+        "T5 race, 8-byte words": lambda: ck.deblock_rows_cuda(rows_off8, *race[1], beta, tc),
+        "T5 race BS 0, 8-byte words": lambda: ck.deblock_rows_cuda(rows_off8, *off, beta, tc),
+        "T5 (136, 8, 8, 241)": lambda: ck.deblock_rows_cuda(rows_241, *luma[1], beta, tc),
     }
     runs = {name: [device_ms(fn, args.iters) for _ in range(args.repeats)]
             for name, fn in fns.items()}

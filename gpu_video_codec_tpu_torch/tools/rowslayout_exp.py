@@ -4,15 +4,19 @@ counterpart of tools/rowslayout_exp.py.
     python -m gpu_video_codec_tpu_torch.tools.rowslayout_exp [--device cuda|cpu]
 
 The rows layout (By, 8, 8, Bx), element [by, r, c, bx] = pixel (r, c) of
-tile (by, bx), is a free reshape of an (8*By, 8*Bx) row-major plane's
-(By, r, 8*Bx) view; the canonical tile-planes layout (8, 8, By, Bx) costs a
-transpose each way.  At the 1080p luma grid (136, 256), with the JAX
+tile (by, bx), is what the TPU's relayout dot leaves for free: its
+(8*By, [c, t])-ordered output reshapes to it row-major (tools/
+rowslayout_exp.py of the JAX package).  A row-major (8*By, 8*Bx) plane's
+own free reshape is (By, 8, Bx, 8), element [by, r, bx, c]; from a plane,
+the rows layout and the canonical tile-planes layout (8, 8, By, Bx) each
+cost a transpose.  At the 1080p luma grid (136, 256), with the JAX
 experiment's inputs (uniform random tiles and BS maps from seed 0, beta 54,
 tc 8), this runs canonical K1 (deblock_tiles_cuda) and T5
 (deblock_rows_cuda), checks that they agree byte for byte and times both
 with CUDA events, 200 launches each, in turns.  Prints one JSON line
-{"grid", "bit_exact", "canonical_us", "rows_layout_us", "device"}; on
---device cpu the wrappers run their plain versions and the times are null.
+{"grid", "bit_exact", "canonical_us", "rows_layout_us", "rows_route",
+"device"} (rows_route: T5's staging, "tma" or "words"); on --device cpu the
+wrappers run their plain versions and the times and route are null.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 
 from . import device_name, times_us
-from ..ops.cuda_kernel import deblock_rows_cuda, deblock_tiles_cuda
+from ..ops.cuda_kernel import deblock_rows_cuda, deblock_rows_occupancy, deblock_tiles_cuda
 
 
 def run(device, by: int = 136, bx: int = 256, iters: int = 200) -> dict:
@@ -43,8 +47,10 @@ def run(device, by: int = 136, bx: int = 256, iters: int = 200) -> dict:
     us = times_us({"canonical": lambda: deblock_tiles_cuda(tiles, *maps, beta, tc),
                    "rows_layout": lambda: deblock_rows_cuda(rows, *maps, beta, tc)},
                   device, iters)
+    route = deblock_rows_occupancy(rows)["route"] if device.type == "cuda" else None
     return {"grid": f"{by}x{bx}", "bit_exact": exact, "canonical_us": us["canonical"],
-            "rows_layout_us": us["rows_layout"], "device": device_name(device)}
+            "rows_layout_us": us["rows_layout"], "rows_route": route,
+            "device": device_name(device)}
 
 
 def main(argv=None) -> dict:
