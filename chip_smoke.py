@@ -7,7 +7,9 @@
    library (deblock, relayout, SWAR), and the native CPU runtime
    (gpu_video_codec_tpu_torch/runtime/src, g++), all started together;
    prints ptxas's registers, spills and shared memory and the static SASS
-   count of every kernel entry; checks that no entry of the quad kernels
+   count of every kernel entry (parsed by gpu_video_codec_tpu_torch/tools/
+   sass.py); checks that swar_exp --ops reads the same counts for K1's and
+   T1's W8 entries, luma and chroma; checks that no entry of the quad kernels
    (K1, K1c, K1-i16, K1-i16c, T1, T5 on both staging routes) spills and
    that K1/K1c at T = int keep the registers and SASS counts they had
    before the compute type became a template parameter (QUAD_INT_COUNTS);
@@ -55,6 +57,10 @@
 2c. The three experiments' entry points (gpu_video_codec_tpu_torch/tools:
    int16_probe, rowslayout_exp, swar_exp --check and --race) on the card,
    each reporting bit-exact.
+2d. Inside phase 2: tools.psnr on the CLI's output (its default backend,
+   cuda) of the bundled mother-daughter frame at QP 35 against golden's
+   (identical, null PSNR) and on the unfiltered input against it (finite
+   PSNRs).
 3. Streams 16 distinct 1080p frames through StreamingDeblocker.run (the
    main path: a ring of device slots whose steps are CUDA graph replays,
    with the read-back overlapped), checks each against the plain backend
@@ -106,7 +112,9 @@
    graph and run eagerly; the replay runs T2, the quad K1 and K1c and T3
    and no other kernel (no layout copy, fill or write-back), and
    utils.tracing.profiled_device_us's total agrees with the profiler's
-   key_averages() within 2%.
+   key_averages() within 2%.  Both take each kernel's mean launch times its
+   launches per call (utils.tracing.per_iter_us): the profiler can miss the
+   first launches of its window.
 3h. The mesh paths (gpu_video_codec_tpu_torch/parallel) on slots of
    cuda:0: MultiStreamDeblocker at 1920x1080, 4 streams x 8 steps, depth
    2, on a (1, 1) mesh == the plain backend (the first and last batch ==
@@ -133,6 +141,11 @@
    per second of MultiStreamDeblocker.run at 4 streams x 1080p against
    StreamingDeblocker.run on the same frames, with and without read-back
    (host wall clock, in turns).
+5c. The fuzz cases of tools/validate_vs_reference.py (fuzz_cases, seed 0:
+   48 frames up to 128x96 and 8 up to 1024x576; sheared widths, QPs 0-60,
+   random data, the LCG's luma BS in about half) through
+   DeblockPipeline(backend="cuda"), each extended plane byte-equal to
+   golden, with T2 3, K1 1, K1c 1 and T3 3 launches a frame.
 
 Exits non-zero at the first failure.  Prints the card's name and power
 limit, a JSON line of per-kernel results, and last a JSON line with
@@ -141,16 +154,16 @@ limit, a JSON line of per-kernel results, and last a JSON line with
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
 import tempfile
 import time
-from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import redirect_stdout
 
 import numpy as np
 import torch
@@ -222,14 +235,15 @@ def main() -> int:
     from gpu_video_codec_tpu_torch.ops.deblock import deblock_rows_plain, deblock_tiles_plain
     from gpu_video_codec_tpu_torch.ops.tables import get_beta, get_tc
     from gpu_video_codec_tpu_torch.runtime import native
-    from gpu_video_codec_tpu_torch.tools import int16_probe, rowslayout_exp, swar_exp
+    from gpu_video_codec_tpu_torch.tools import int16_probe, psnr, rowslayout_exp, sass, swar_exp
     from gpu_video_codec_tpu_torch.tools.kernel_time import blocky_tiles
+    from gpu_video_codec_tpu_torch.tools.validate_vs_reference import case_bs, fuzz_cases
     from gpu_video_codec_tpu_torch.utils.bs import (
         BoundaryStrength, chroma_segment_maps, luma_segment_maps,
     )
     from gpu_video_codec_tpu_torch.utils.tiles import split_covered_data
     from gpu_video_codec_tpu_torch.utils.timing import device_ms, in_turns
-    from gpu_video_codec_tpu_torch.utils.tracing import profiled_device_us
+    from gpu_video_codec_tpu_torch.utils.tracing import per_iter_us, profiled_device_us
     from gpu_video_codec_tpu_torch.utils.yuv import (
         FramePlanes, planes_from_yv12_bytes, yv12_bytes_from_planes,
     )
@@ -248,43 +262,24 @@ def main() -> int:
         native_lib = native_build.result()
     print(f"kernel build (three CUDA libraries and the native runtime): "
           f"{time.perf_counter() - t0:.1f} s; native -> {os.path.relpath(native_lib, REPO)}")
-    cuobjdump = os.path.join(os.path.dirname(ck._nvcc()), "cuobjdump")
-    cxxfilt = shutil.which("c++filt")
+    nvcc = ck._nvcc()
     entries = {}  # mangled name -> {"registers", "spill_stores", "spill_loads", "smem", "sass"}
     for path, log in builds:
         print(f"  -> {os.path.relpath(path, REPO)}")
-        entry = None
         for line in log.splitlines():
             if any(k in line for k in ("entry function", "registers", "spill", "smem")):
                 print(f"  ptxas: {line.strip()}")
-            if m := re.search(r"entry function '([^']+)'", line):
-                entry = entries.setdefault(m.group(1), {"sass": None, "smem": 0})
-            elif entry is not None and (m := re.search(
-                    r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-                entry["spill_stores"], entry["spill_loads"] = int(m.group(1)), int(m.group(2))
-            elif entry is not None and (m := re.search(r"Used (\d+) registers", line)):
-                entry["registers"] = int(m.group(1))
-                if m := re.search(r"(\d+) bytes smem", line):
-                    entry["smem"] = int(m.group(1))
-        if not os.path.isfile(cuobjdump):
+        for mangled, e in sass.ptxas_entries(log).items():
+            entries.setdefault(mangled, {"sass": None}).update(e)
+        try:
+            listing = sass.static_sass(path, nvcc)
+        except FileNotFoundError:
             print("  sass: cuobjdump not found (instruction counts not measured)")
             continue
-        sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
-                              check=True).stdout
-        entry = None
-        for line in sass.splitlines() + ["Function : <end>"]:
-            if "Function : " in line:
-                if entry:
-                    name = subprocess.run([cxxfilt, entry[0]], capture_output=True,
-                                          text=True).stdout.strip() if cxxfilt else entry[0]
-                    print(f"  sass: {name}: {entry[1]} instructions (static)")
-                    e = entries.setdefault(entry[0], {"smem": 0})
-                    e["sass"], e["opcodes"] = entry[1], entry[2]
-                entry = [line.split("Function : ")[1].strip(), 0, Counter()]
-            elif entry and line.lstrip().startswith("/*") and ";" in line:
-                entry[1] += 1
-                if m := re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line):
-                    entry[2][m.group(1)] += 1
+        for mangled, (n, opcodes) in listing.items():
+            print(f"  sass: {sass.demangle(mangled)}: {n} instructions (static)")
+            e = entries.setdefault(mangled, {"smem": 0})
+            e["sass"], e["opcodes"] = n, opcodes
     # the quad kernels' entries by (kernel, CHROMA, W, compute type), from
     # their mangled names: deblock_quad_kernel<CHROMA, W, T> (T int for K1,
     # short for K1-i16), swar_quad_kernel<CHROMA, W> (T1) and
@@ -320,6 +315,16 @@ def main() -> int:
         f"{k} {c} W{w} {e.get('registers')} / {e.get('spill_stores')} / {e['smem']} / {e['sass']}"
         for (k, c, w), e in sorted(quads.items()))
           + "; K1 at T = int unchanged, no spills")
+    ops = swar_exp.main(["--ops"])
+    for key, quad in (("int32", ("K1", False, 8)), ("int32_chroma", ("K1", True, 8)),
+                      ("swar", ("T1", False, 8)), ("swar_chroma", ("T1", True, 8))):
+        check(ops[f"{key}_sass_static"] == quads[quad]["sass"],
+              f"swar_exp --ops {key}: {ops[f'{key}_sass_static']} static SASS, phase 0 "
+              f"{quads[quad]['sass']} for {quad}")
+    print(f"swar_exp --ops == phase 0's counts: K1 luma W8 {ops['int32_sass_static']}, T1 "
+          f"{ops['swar_sass_static']} (lane-equivalent {ops['swar_lane_equivalent']}, predicted "
+          f"ratio {ops['predicted_ratio_vs_int32']}); chroma {ops['int32_chroma_sass_static']}, "
+          f"{ops['swar_chroma_sass_static']} ({ops['predicted_chroma_ratio_vs_int32']})")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     grids_1080p = {"K1": (False, (8, 8, 136, 241)), "K1c": (True, (2, 8, 8, 68, 121))}
     occupancy = {}
@@ -612,6 +617,31 @@ def main() -> int:
     except ValueError as e:
         print(f"T1 refuses an odd Bx: {e}")
 
+    # -- 2d. tools.psnr on the CLI's output (called from phase 2's loop) -------------
+    def psnr_check(tmp: str, src: str, out: str, gold, w: int, h: int) -> None:
+        """tools.psnr on the CLI's output (its default backend, cuda) against
+        golden's file: identical, null PSNR; on the unfiltered input against
+        the output: finite PSNRs."""
+        gold_path = os.path.join(tmp, "golden.yuv")
+        with open(gold_path, "wb") as f:
+            f.write(yv12_bytes_from_planes(gold))
+        for pair, identical in (((out, gold_path), True), ((src, out), False)):
+            buf = io.StringIO()
+            with redirect_stdout(buf):
+                rc = psnr.main([*pair, str(w), str(h)])
+            check(rc == 0, f"tools.psnr {pair}: rc {rc}")
+            (frame,) = json.loads(buf.getvalue())
+            if identical:
+                check(frame["identical"] is True and frame["psnr_y"] is None
+                      and frame["psnr_uv"] is None and frame["max_abs_diff"] == 0,
+                      f"tools.psnr CLI output vs golden: {frame}")
+            else:
+                check(frame["identical"] is False and all(
+                    isinstance(frame[k], float) and np.isfinite(frame[k])
+                    for k in ("psnr_y", "psnr_uv")), f"tools.psnr input vs CLI output: {frame}")
+            print(f"tools.psnr {'CLI (cuda) vs golden' if identical else 'input vs CLI'}"
+                  f" ({os.path.basename(src)}, QP 35): {buf.getvalue().strip()}")
+
     # -- 2. golden -----------------------------------------------------------
     golds = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -629,17 +659,19 @@ def main() -> int:
                 raw = f.read()
             gold = deblock_frame_golden(planes_from_yv12_bytes(raw, w, h),
                                         BoundaryStrength.intra_default(w, h), 35)
-            golds[name] = gold  # the bundled frames' oracle, again in phase 5b
+            golds[name] = gold  # the bundled frames' oracle, again in phases 3e, 3f, 3h
             with open(dst, "rb") as f:
                 check(f.read() == yv12_bytes_from_planes(gold), f"CLI output of {name} != golden")
             print(f"CLI == golden: {name} ({json.loads(res.stdout)['device']})")
+            if name.startswith("mother-daughter"):
+                psnr_check(tmp, src, dst, gold, w, h)
     for w, h in ((1920, 1080), (360, 288)):
         raw = blocky_frame(rng, w, h)
         (out,) = list(StreamingDeblocker(w, h, 35, device=dev).run([raw]))
         t0 = time.perf_counter()
         gold = deblock_frame_golden(planes_from_yv12_bytes(raw, w, h),
                                     BoundaryStrength.intra_default(w, h), 35)
-        golds[w, h] = (raw, gold)  # again in phase 5
+        golds[w, h] = (raw, gold)  # again in phase 3d
         check(out.tobytes() == yv12_bytes_from_planes(gold), f"StreamingDeblocker {w}x{h} != golden")
         check(not np.array_equal(out, raw), f"{w}x{h}: the filter changed nothing")
         print(f"StreamingDeblocker == golden: {w}x{h} "
@@ -843,7 +875,9 @@ def main() -> int:
 
     def trace(what: str, fn, reps: int = 20) -> list:
         """Print and return (us per call, launches per call, name) of every
-        device kernel of `fn`; [] when the profiler shows no device time."""
+        device kernel of `fn`; [] when the profiler shows no device time.
+        The launches are those the profiler recorded (it can miss the first
+        of its window); the time is per_iter_us of them."""
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -852,7 +886,8 @@ def main() -> int:
                 fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6 / reps
-        rows = sorted(((getattr(e, "self_device_time_total", 0) / reps, e.count / reps, e.key)
+        rows = sorted(((per_iter_us(getattr(e, "self_device_time_total", 0), e.count, reps),
+                        e.count / reps, e.key)
                        for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                       reverse=True)
         busy = sum(us for us, _, _ in rows)
@@ -1538,6 +1573,34 @@ def main() -> int:
               for name, v in rates.items())
           + f" -- StreamingDeblocker.run vs MultiStreamDeblocker.run at {n_ms} streams, with "
           f"and without read-back ({smi}; host {cpu_model}, nproc {nproc})")
+
+    # -- 5c. validate_vs_reference's fuzz cases through the cuda backend ---------------
+    reset()
+    n_fuzz = sheared = above_51 = lcg = 0
+    t0 = time.perf_counter()
+    for n_cases, max_w, max_h in ((48, 128, 96), (8, 1024, 576)):
+        for w, h, qp, bs_seed, raw in fuzz_cases(n_cases, 0, max_w, max_h):
+            bs = case_bs(w, h, bs_seed)
+            frame = planes_from_yv12_bytes(raw, w, h)
+            got = DeblockPipeline(w, h, qp, backend="cuda", bs=bs, device=dev)(frame)
+            gold = deblock_frame_golden(frame, bs, qp)
+            for k in "yuv":
+                check(np.array_equal(getattr(got, k), getattr(gold, k)),
+                      f"fuzz {w}x{h} qp={qp} bs_seed={bs_seed}: plane {k} != golden")
+            n_fuzz += 1
+            sheared += w % 16 == 8
+            above_51 += qp > 51
+            lcg += bs_seed is not None
+    fuzz_launches = counts()
+    check(fuzz_launches == only(T2=3 * n_fuzz, K1=n_fuzz, K1c=n_fuzz, T3=3 * n_fuzz),
+          f"fuzz: launches {fuzz_launches} for {n_fuzz} frames")
+    check(sheared > 0 and above_51 > 0 and lcg > 0,
+          f"fuzz: {sheared} sheared widths, {above_51} QPs above 51, {lcg} LCG BS")
+    print(f"fuzz (validate_vs_reference.fuzz_cases, seed 0; 48 up to 128x96, 8 up to 1024x576): "
+          f"{n_fuzz} cases through DeblockPipeline(backend='cuda') == golden, every extended "
+          f"plane byte for byte; {sheared} sheared widths (w % 16 == 8), {above_51} QPs above 51, "
+          f"{lcg} with the LCG's luma BS; launches {fuzz_launches}; "
+          f"{time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -10,7 +10,8 @@ is checked against byte for byte.  Same layout and names:
             kernels)
   csrc/     the kernels' CUDA C++ sources
   tools/    the kernel-variant experiments (int16_probe, rowslayout_exp,
-            swar_exp) as entry points
+            swar_exp) and the host tools (psnr, validate_vs_reference) as
+            entry points
   models/   the golden NumPy oracle, the frame pipeline and its backends
             (cuda, torch, golden, native), the streaming packed-YV12
             pipeline and the device-resident tile-planes path

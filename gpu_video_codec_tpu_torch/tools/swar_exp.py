@@ -15,8 +15,16 @@ deblock kernel?  The port's counterpart of tools/swar_exp.py.
   swar_over_int32.  On the CPU, K1's side is its plain version, T1's the
   host build, and the times are null.
 
-Prints one JSON line.  Not ported: --ops (a count of jaxpr equations); its
-counterpart on the card, a count of SASS instructions, is later work.
+--ops: the static SASS instruction counts (tools/sass.py, cuobjdump of
+  the libraries nvcc builds) of K1's and T1's W8 entries, luma
+  (deblock_quad_kernel<false, 8, int>, swar_quad_kernel<false, 8>) and
+  chroma, their 12 commonest opcodes, swar_lane_equivalent = T1's count / 2
+  (a T1 quad filters a tile pair, a K1 quad one tile) and
+  predicted_ratio_vs_int32 = that over K1's count: the counterpart of the
+  JAX tool's count of jaxpr equations.  A static count is not what a launch
+  executes.  With --device cpu the counts are null, with the reason.
+
+Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -29,7 +37,9 @@ import sys
 import numpy as np
 import torch
 
-from . import device_name, times_us
+from . import device_name, sass, times_us
+from ..ops import cuda_kernel as ck
+from ..ops import swar_kernel as sk
 from ..ops.cuda_kernel import deblock_tiles_cuda
 from ..ops.deblock import deblock_tiles_plain
 from ..ops.swar_kernel import BLOCK, deblock_tiles_swar_cuda, load_host_library
@@ -96,18 +106,56 @@ def race(device, by: int = 136, bx: int = 256, iters: int = 200) -> dict:
     return out
 
 
+# the W8 entries --ops counts, by their mangled names:
+# deblock_quad_kernel<CHROMA, 8, int> (K1) and swar_quad_kernel<CHROMA, 8> (T1)
+OPS_ENTRIES = {"int32": "deblock_quad_kernelILb0ELi8EiE", "swar": "swar_quad_kernelILb0ELi8EE",
+               "int32_chroma": "deblock_quad_kernelILb1ELi8EiE",
+               "swar_chroma": "swar_quad_kernelILb1ELi8EE"}
+
+
+def ops(device) -> dict:
+    """Static SASS counts of K1 and T1 (W8, luma and chroma) and T1's
+    lane-equivalent ratio; null counts with the reason on the CPU."""
+    device = torch.device(device)
+    keys = [f"{k}_sass_static" for k in OPS_ENTRIES] + [
+        "swar_lane_equivalent", "swar_chroma_lane_equivalent", "predicted_ratio_vs_int32",
+        "predicted_chroma_ratio_vs_int32", "opcodes"]
+    if device.type != "cuda":
+        return {**dict.fromkeys(keys), "reason": "static SASS needs nvcc and cuobjdump",
+                "device": device_name(device)}
+    listing = {}
+    for build in (ck.build_library, sk.build_library):
+        path, _ = build()
+        listing.update(sass.static_sass(path, ck._nvcc()))
+    found = {}
+    for key, mangled in OPS_ENTRIES.items():
+        hits = [name for name in listing if mangled in name]
+        if len(hits) != 1:
+            raise RuntimeError(f"expected one SASS entry {mangled}, found {hits}")
+        found[key] = listing[hits[0]]
+    out = {f"{k}_sass_static": n for k, (n, _) in found.items()}
+    for part in ("", "_chroma"):
+        lanes = out[f"swar{part}_sass_static"] / 2
+        out[f"swar{part}_lane_equivalent"] = lanes
+        out[f"predicted{part}_ratio_vs_int32"] = round(lanes / out[f"int32{part}_sass_static"], 2)
+    out["opcodes"] = {k: dict(c.most_common(12)) for k, (_, c) in found.items()}
+    out["device"] = device_name(device)
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     what = ap.add_mutually_exclusive_group(required=True)
     what.add_argument("--check", action="store_true", help="bit-exactness, four cases")
     what.add_argument("--race", action="store_true", help="K1 against T1 at (136, 256)")
+    what.add_argument("--ops", action="store_true", help="static SASS counts of K1 and T1")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    result = check(args.device) if args.check else race(args.device)
+    result = (check if args.check else race if args.race else ops)(args.device)
     print(json.dumps(result))
     return result
 
 
 if __name__ == "__main__":
     res = main()
-    sys.exit(0 if res.get("ok", res.get("bit_exact")) else 1)
+    sys.exit(0 if res.get("ok", res.get("bit_exact", True)) else 1)

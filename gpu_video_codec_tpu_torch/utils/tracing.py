@@ -12,6 +12,9 @@ API:
                            every Chrome trace under d (*.json, *.json.gz:
                            torch.profiler's export_chrome_trace and
                            jax.profiler's *.trace.json.gz alike)
+  device_op_stats(d)    -> {op_name: (total_us, launches)} of the same events
+  per_iter_us(total_us, launches, iters) -> one op's device time per
+                           iteration, robust to launches the profiler missed
   categorize_ops(totals)-> {deblock_kernels, layout_and_copies, other, total}
   profiled_device_us(thunk, iters) -> (per_iter_us, cats, top_ops) or None
                            when the trace has no device lane (a CPU run)
@@ -64,7 +67,13 @@ def _is_device_lane(name: str) -> bool:
 
 
 def device_op_totals(trace_dir: str) -> dict[str, float]:
-    """Sum device-lane LEAF complete-event durations (us) by op name.
+    """Sum device-lane LEAF complete-event durations (us) by op name."""
+    return {name: us for name, (us, _) in device_op_stats(trace_dir).items()}
+
+
+def device_op_stats(trace_dir: str) -> dict[str, tuple[float, int]]:
+    """(summed duration in us, event count) of device-lane LEAF complete
+    events by op name.
 
     Device lanes are identified by process metadata: the TPU runtime
     names them '/device:TPU:0' (process_name); torch.profiler gives every
@@ -86,6 +95,7 @@ def device_op_totals(trace_dir: str) -> dict[str, float]:
                 and not str(e.get("name", "")).startswith(_SCOPES)):
             by_track[(e.get("pid"), e.get("tid", 0))].append(e)
     totals: dict[str, float] = defaultdict(float)
+    launches: dict[str, int] = defaultdict(int)
     for track in by_track.values():
         track.sort(key=lambda e: (float(e["ts"]), -float(e.get("dur", 0.0))))
         stack: list[tuple[float, dict]] = []  # (end_ts, event) of open spans
@@ -94,6 +104,7 @@ def device_op_totals(trace_dir: str) -> dict[str, float]:
         def _close(parent):
             if not has_child.pop(id(parent), False):
                 totals[parent.get("name", "?")] += float(parent.get("dur", 0.0))
+                launches[parent.get("name", "?")] += 1
 
         for e in track:
             ts = float(e["ts"])
@@ -105,7 +116,20 @@ def device_op_totals(trace_dir: str) -> dict[str, float]:
             has_child[id(e)] = False
         while stack:
             _close(stack.pop()[1])
-    return dict(totals)
+    return {name: (us, launches[name]) for name, us in totals.items()}
+
+
+def per_iter_us(total_us: float, launches: int, iters: int) -> float:
+    """One op's device time per iteration of a profiled window of `iters`
+    iterations in which it was recorded `launches` times, `total_us` in all.
+
+    torch.profiler can miss launches at the start of its window (on an
+    H100, the first kernels of the window's first CUDA graph replay), so
+    total_us / iters reads low.  The op's mean launch is taken times the
+    launches per iteration that the recorded count rounds to; an op
+    recorded in fewer than half the iterations is averaged over all."""
+    k = int(launches / iters + 0.5)
+    return total_us / launches * k if k else total_us / iters
 
 
 def categorize_ops(totals: dict[str, float]) -> dict[str, float]:
@@ -132,7 +156,9 @@ def profiled_device_us(thunk, iters: int = 20, trace_dir: str | None = None):
     """Run `thunk()` `iters` times under torch.profiler (CPU and, where
     there is a card, CUDA activities); return (device_us_per_iter,
     categories, top_ops) from the device lanes' leaf events, or None when
-    the trace has no device lane (a CPU run).
+    the trace has no device lane (a CPU run).  Each op counts per_iter_us
+    of its recorded launches, so launches the profiler missed do not lower
+    the reading.
 
     The card is synchronized before the trace closes, so every launch of
     the window has finished inside it.  The trace is exported as a Chrome
@@ -148,19 +174,19 @@ def profiled_device_us(thunk, iters: int = 20, trace_dir: str | None = None):
         if cuda:
             torch.cuda.synchronize()
 
-    def read(d: str) -> dict[str, float]:
+    def read(d: str) -> dict[str, tuple[float, int]]:
         prof.export_chrome_trace(os.path.join(d, "trace.json"))
-        return device_op_totals(d)
+        return device_op_stats(d)
 
     if trace_dir is not None:
         os.makedirs(trace_dir, exist_ok=True)
-        totals = read(trace_dir)
+        stats = read(trace_dir)
     else:
         with tempfile.TemporaryDirectory(prefix="gvct_trace_") as d:
-            totals = read(d)
-    if not totals:
+            stats = read(d)
+    if not stats:
         return None
-    cats = {k: v / iters for k, v in categorize_ops(totals).items()}
-    top = {k: round(v / iters, 2)
-           for k, v in sorted(totals.items(), key=lambda kv: -kv[1])[:12]}
+    per_iter = {k: per_iter_us(us, n, iters) for k, (us, n) in stats.items()}
+    cats = categorize_ops(per_iter)
+    top = {k: round(v, 2) for k, v in sorted(per_iter.items(), key=lambda kv: -kv[1])[:12]}
     return cats["total"], cats, top

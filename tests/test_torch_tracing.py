@@ -201,6 +201,57 @@ def test_torch_profiler_format(tmp_path, name):
     assert "other" not in cats
 
 
+def test_device_op_stats_counts_launches(tmp_path):
+    """device_op_stats holds device_op_totals' sums and each op's launches."""
+    d = _write_trace(tmp_path, TORCH_TRACE["traceEvents"], "t.json")
+    stats = tracing.device_op_stats(d)
+    assert stats == pytest.approx({_T2: (3.745 + 2.945, 2), _T3: (3.17 + 2.753, 2),
+                                   _K1: (4.386, 1), _K1C: (2.722, 1)})
+    assert tracing.device_op_totals(d) == {k: us for k, (us, _) in stats.items()}
+
+
+def _replays(n: int, skip: int = 0) -> list[dict]:
+    """n back-to-back replays of TORCH_TRACE's step on the GPU lane, less
+    the first `skip` kernels of the first replay (what torch.profiler
+    missed at a window's start on an H100: T2, K1, T3, T2)."""
+    kernels = [e for e in TORCH_TRACE["traceEvents"] if e.get("cat") == "kernel"]
+    t0 = kernels[0]["ts"]
+    events = TORCH_TRACE["traceEvents"][:7]
+    for i in range(n):
+        events += [dict(e, ts=e["ts"] - t0 + 100.0 * i) for e in kernels[skip if i == 0 else 0:]]
+    return events
+
+
+@pytest.mark.parametrize("skip", [0, 1, 4, 5])
+def test_per_iter_us_restores_missed_launches(tmp_path, skip):
+    """A window of 20 replays whose first replay lost its first kernels
+    reads one replay's device time per iteration, op by op: exactly where
+    an op's launches are alike, within 1% where one name covers the luma
+    and the chroma launch (T2, T3) and one of them was missed."""
+    stats = tracing.device_op_stats(_write_trace(tmp_path, _replays(20, skip), "t.json"))
+    per_iter = {k: tracing.per_iter_us(us, n, 20) for k, (us, n) in stats.items()}
+    assert per_iter == pytest.approx({_T2: 3.745 + 2.945, _T3: 3.17 + 2.753, _K1: 4.386,
+                                      _K1C: 2.722}, rel=0.01 if skip else 1e-9)
+    assert per_iter[_K1] == pytest.approx(4.386) and per_iter[_K1C] == pytest.approx(2.722)
+    one = 3.745 + 2.945 + 3.17 + 2.753 + 4.386 + 2.722
+    assert tracing.categorize_ops(per_iter)["total"] == pytest.approx(
+        one, rel=0.01 if skip else 1e-9)
+    if skip:  # what dividing by the window's iterations would read
+        assert sum(us for us, _ in stats.values()) / 20 < one - 1.0 / 20
+
+
+@pytest.mark.parametrize("total,launches,iters,want", [
+    (40.0, 20, 20, 2.0),    # every launch recorded
+    (38.0, 19, 20, 2.0),    # one missed
+    (76.0, 38, 20, 4.0),    # two launches per iteration, two missed
+    (16.0, 8, 5, 4.0),      # two per iteration, two missed of ten
+    (3.0, 1, 2, 3.0),       # one per iteration, one of two recorded
+    (9.0, 1, 20, 0.45),     # a one-off op: averaged over the window
+])
+def test_per_iter_us(total, launches, iters, want):
+    assert tracing.per_iter_us(total, launches, iters) == pytest.approx(want)
+
+
 def test_annotation_spans_are_not_device_work(tmp_path):
     """A record_function range mirrored onto the GPU lane encloses kernels
     (or none): it is filtered by category, not counted as a leaf."""
