@@ -1,0 +1,224 @@
+"""Plain PyTorch reference of the reference deblocker's semantics.
+
+HEVC in-loop deblocking of 8-bit 4:2:0 frames as the reference CPU
+implementation (RomanKazantsev/gpu_video_codec,
+hevc_deblocking_filter_cpu.h) defines it, written from that file's
+description alone, vectorised over every tile of a batch of frames.  It
+imports nothing of the program under test and takes nothing it made.
+
+What it computes, per frame and per plane:
+  * the plane is zero-extended by 4 samples on every side (padding is 0)
+    and cut into 8x8 tiles whose centres sit on the corners of the 8x8
+    block grid, so each tile holds one vertical and one horizontal edge
+    crossing at its middle;
+  * four segment phases run in this order within every tile: upper
+    vertical (rows 0-3 across cols 3|4), lower vertical (rows 4-7), left
+    horizontal (cols 0-3 across rows 3|4), right horizontal (cols 4-7 for
+    P but cols 0-3 for Q: the reference's column mismatch);
+  * each segment is gated by its boundary strength (BS), read from the
+    flat BS arrays by the reference's index arithmetic, a read outside an
+    array reading 0; luma filters where BS > 0, chroma where BS == 2, and
+    chroma gates segment existence with the LUMA tile counts;
+  * luma: decision (1) on rows 0 and 3, then the strong filter (three
+    samples a side) or the normal filter (a per-row |delta0| < 10 tc gate,
+    side samples under their own gates); chroma: the one-sample filter;
+  * chroma is swept over the flat buffer of the extended plane viewed as
+    (8 ncby, 8 ncbx) rows, sheared where its width is not a multiple of 8;
+  * all arithmetic is 32-bit with right shifts that round toward minus
+    infinity.
+
+`shift="trunc"` replaces every right shift by a division that rounds
+toward zero: the control, which breaks the stated arithmetic guarantee.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+B = 8
+HALF = 4
+MAX_PIXEL = 255
+
+# QP 0..51 (cpu.h beta_table and tc_table); QP above 51 reads QP 51
+BETA = (0,) * 16 + (6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 20, 22, 24,
+                    26, 28, 30, 32, 34, 36, 38, 40, 42, 44, 46, 48, 50, 52, 54, 56,
+                    58, 60, 62, 64)
+TC = (0,) * 18 + (1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2, 3,
+                  3, 3, 3, 4, 4, 4, 5, 5, 6, 6, 7, 8, 9, 10, 11, 13,
+                  14, 16, 18, 20)
+
+# (P, Q) sample of filter row r at edge distance j, as (tile row, tile col)
+_PHASES = (
+    (lambda r, j: (r, 3 - j), lambda r, j: (r, 4 + j)),            # upper vertical
+    (lambda r, j: (4 + r, 3 - j), lambda r, j: (4 + r, 4 + j)),    # lower vertical
+    (lambda r, j: (3 - j, r), lambda r, j: (4 + j, r)),            # left horizontal
+    (lambda r, j: (3 - j, 4 + r), lambda r, j: (4 + j, r)),        # right horizontal
+)
+
+
+def beta_tc(qp: int) -> tuple[int, int]:
+    q = min(int(qp), 51)
+    return BETA[q], TC[q]
+
+
+def _shifter(shift: str):
+    if shift == "floor":
+        return lambda x, k: x >> k
+    if shift == "trunc":
+        return lambda x, k: torch.div(x, 1 << k, rounding_mode="trunc")
+    raise ValueError(f"shift must be 'floor' or 'trunc', got {shift!r}")
+
+
+def _flat_index(at, nj: int, device) -> torch.Tensor:
+    return torch.tensor([[at(r, j)[0] * B + at(r, j)[1] for j in range(nj)] for r in range(4)],
+                        dtype=torch.long, device=device)
+
+
+def gates(flat_vert, flat_hor, lookup_w: int, ny: int, nx: int, gate_ny: int, gate_nx: int,
+          chroma: bool, device) -> torch.Tensor:
+    """(4, ny, nx) bool: whether each tile's four segments filter, in phase
+    order, from the flat BS arrays by the reference's index arithmetic."""
+    sv, sh = lookup_w // B + 1, lookup_w // B
+    by = torch.arange(ny, device=device)[:, None]
+    bx = torch.arange(nx, device=device)[None, :]
+    fv = torch.as_tensor(flat_vert, device=device).to(torch.int32).reshape(-1)
+    fh = torch.as_tensor(flat_hor, device=device).to(torch.int32).reshape(-1)
+
+    def read(flat, idx, valid):
+        if flat.numel() == 0:
+            return torch.zeros(idx.shape, dtype=torch.int32, device=device)
+        ok = valid & (idx >= 0) & (idx < flat.numel())
+        return torch.where(ok, flat[idx.clamp(0, flat.numel() - 1)], 0)
+
+    bs = torch.stack([
+        read(fv, (by - 1) * sv + bx, by > 0),
+        read(fv, by * sv + bx, by < gate_ny - 1),
+        read(fh, by * sh + (bx - 1), bx > 0),
+        read(fh, by * sh + bx, bx < gate_nx - 1),
+    ])
+    return bs == 2 if chroma else bs > 0
+
+
+def _clip2(x):
+    return x.clamp(0, MAX_PIXEL)
+
+
+def _luma(p, q, beta: int, tc: int, shr):
+    """p, q: (..., 4 rows, 4 distances) int32 -> new (..., 4, 3) each."""
+    def second(x, r):
+        return (x[..., r, 2] - 2 * x[..., r, 1] + x[..., r, 0]).abs()
+
+    dp0, dp3, dq0, dq3 = second(p, 0), second(p, 3), second(q, 0), second(q, 3)
+    on = (dp0 + dp3 + dq0 + dq3) < beta
+    b8, c = beta // 8, 2 * tc
+    strong = ((dp0 + dq0) < b8) & ((dp3 + dq3) < b8)
+    for r in (0, 3):
+        strong &= ((p[..., r, 3] - p[..., r, 0]).abs() + (q[..., r, 0] - q[..., r, 3]).abs()) < b8
+        strong &= (p[..., r, 0] - q[..., r, 0]).abs() < (5 * tc) // 2
+
+    def strong_side(x, y):
+        x0, x1, x2, x3 = x[..., 0], x[..., 1], x[..., 2], x[..., 3]
+        y0, y1 = y[..., 0], y[..., 1]
+        d0 = shr(x2 + 2 * x1 - 6 * x0 + 2 * y0 + y1 + 4, 3).clamp(-c, c)
+        d1 = shr(x2 - 3 * x1 + x0 + y0 + 2, 2).clamp(-c, c)
+        d2 = shr(2 * x3 - 5 * x2 + x1 + x0 + y0 + 4, 3).clamp(-c, c)
+        return torch.stack([_clip2(x0 + d0), _clip2(x1 + d1), _clip2(x2 + d2)], dim=-1)
+
+    sp, sq = strong_side(p, q), strong_side(q, p)
+
+    c2, t3 = tc // 2, (3 * beta) // 16
+    side_p = ((dp0 + dp3) < t3)[..., None]
+    side_q = ((dq0 + dq3) < t3)[..., None]
+    p0, p1, p2 = p[..., 0], p[..., 1], p[..., 2]
+    q0, q1, q2 = q[..., 0], q[..., 1], q[..., 2]
+    delta0 = shr(9 * (q0 - p0) - 3 * (q1 - p1) + 8, 4)
+    row = delta0.abs() < 10 * tc
+    d = delta0.clamp(-c, c)
+    dp1 = shr(shr(p2 + p0 + 1, 1) - p1 + d, 1).clamp(-c2, c2)
+    dq1 = shr(shr(q2 + q0 + 1, 1) - q1 - d, 1).clamp(-c2, c2)
+    np_ = torch.stack([torch.where(row, _clip2(p0 + d), p0),
+                       torch.where(row & side_p, _clip2(p1 + dp1), p1), p2], dim=-1)
+    nq_ = torch.stack([torch.where(row, _clip2(q0 - d), q0),
+                       torch.where(row & side_q, _clip2(q1 + dq1), q1), q2], dim=-1)
+
+    keep = (~on)[..., None, None]
+    strong = strong[..., None, None]
+    return (torch.where(keep, p[..., :3], torch.where(strong, sp, np_)),
+            torch.where(keep, q[..., :3], torch.where(strong, sq, nq_)))
+
+
+def _chroma(p, q, tc: int, shr):
+    """p, q: (..., 4 rows, 2 distances) int32 -> new (..., 4, 1) each."""
+    p0, p1, q0, q1 = p[..., 0], p[..., 1], q[..., 0], q[..., 1]
+    dp = shr((p0 - q0) * 4 + p1 - q1 + 4, 3).clamp(-tc, tc)
+    dq = shr((q0 - p0) * 4 + q1 - p1 + 4, 3).clamp(-tc, tc)
+    return _clip2(p0 + dp)[..., None], _clip2(q0 - dq)[..., None]
+
+
+def deblock_tiles(tiles, gate, beta: int, tc: int, chroma: bool, shift: str = "floor"):
+    """Filter tiles (N, ny, nx, 64) int32 in place; gate (4, ny, nx) bool."""
+    shr = _shifter(shift)
+    nj, touched = (2, 1) if chroma else (4, 3)
+    for k, (p_at, q_at) in enumerate(_PHASES):
+        pi, qi = _flat_index(p_at, nj, tiles.device), _flat_index(q_at, nj, tiles.device)
+        p, q = tiles[..., pi], tiles[..., qi]
+        if chroma:
+            np_, nq_ = _chroma(p, q, tc, shr)
+        else:
+            np_, nq_ = _luma(p, q, beta, tc, shr)
+        g = gate[k][None, :, :, None, None]
+        tiles[..., pi[:, :touched]] = torch.where(g, np_, p[..., :touched])
+        tiles[..., qi[:, :touched]] = torch.where(g, nq_, q[..., :touched])
+    return tiles
+
+
+def _to_tiles(core):
+    n, hh, ww = core.shape
+    t = core.reshape(n, hh // B, B, ww // B, B).permute(0, 1, 3, 2, 4)
+    return t.reshape(n, hh // B, ww // B, B * B).to(torch.int32)
+
+
+def _from_tiles(tiles):
+    n, ny, nx, _ = tiles.shape
+    return tiles.reshape(n, ny, nx, B, B).permute(0, 1, 3, 2, 4).reshape(n, ny * B, nx * B)
+
+
+def _luma_plane(y, bs, beta, tc, shift):
+    n, h, w = y.shape
+    ext = F.pad(y.to(torch.int32), (HALF, HALF, HALF, HALF))
+    ny, nx = h // B + 1, w // B + 1
+    g = gates(bs["vert"], bs["hor"], w, ny, nx, ny, nx, False, y.device)
+    out = _from_tiles(deblock_tiles(_to_tiles(ext), g, beta, tc, False, shift))
+    return out[:, HALF : HALF + h, HALF : HALF + w].to(torch.uint8)
+
+
+def _chroma_plane(c, bs, luma_n, beta, tc, shift):
+    n, ch, cw = c.shape
+    ext = F.pad(c.to(torch.int32), (HALF, HALF, HALF, HALF))
+    he, we = ext.shape[1:]
+    ncby, ncbx = he // B, we // B
+    flat = ext.reshape(n, -1)
+    core = flat[:, : ncby * B * ncbx * B].reshape(n, ncby * B, ncbx * B)
+    g = gates(bs["chroma_vert"], bs["chroma_hor"], cw, ncby, ncbx, *luma_n, True, c.device)
+    swept = _from_tiles(deblock_tiles(_to_tiles(core), g, 0, tc, True, shift))
+    flat = torch.cat([swept.reshape(n, -1), flat[:, ncby * B * ncbx * B :]], dim=1)
+    return flat.reshape(n, he, we)[:, HALF : HALF + ch, HALF : HALF + cw].to(torch.uint8)
+
+
+def deblock_packed(frames, width: int, height: int, qp: int, bs: dict, shift: str = "floor"):
+    """Packed 8-bit YV12 frames (N, 3h/2, w) uint8 -> filtered frames, new.
+
+    Rows [0, h) are luma; rows [h, 3h/2) hold the two chroma planes one
+    after the other, each (h/2, w/2).  bs: the flat arrays "vert", "hor",
+    "chroma_vert", "chroma_hor" that every frame of the batch shares."""
+    w, h = width, height
+    beta, tc = beta_tc(qp)
+    n = frames.shape[0]
+    out = torch.empty_like(frames)
+    out[:, :h] = _luma_plane(frames[:, :h], bs, beta, tc, shift)
+    chroma = frames[:, h:].reshape(n, 2, h // 2, w // 2)
+    luma_n = (h // B + 1, w // B + 1)
+    filtered = [_chroma_plane(chroma[:, i], bs, luma_n, beta, tc, shift) for i in range(2)]
+    out[:, h:] = torch.stack(filtered, dim=1).reshape(n, h // 2, w)
+    return out

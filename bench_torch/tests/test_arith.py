@@ -1,0 +1,186 @@
+"""The benchmark's own arithmetic, on the CPU: roofline bytes, the seeded
+generators, the trace reader and the metric readers.
+
+    python -m pytest bench_torch/tests -q
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from bench_torch.lib import frames as fr
+from bench_torch.lib import roofline, spec
+from bench_torch.lib import trace as tr
+from bench_torch.lib.feeds import Record
+
+H100 = "NVIDIA H100 80GB HBM3"
+
+
+@pytest.mark.parametrize("w, h, frame, moved", [
+    (1920, 1080, 3_110_400, 6_220_800),
+    (3840, 2160, 12_441_600, 24_883_200),
+    (64, 48, 4_608, 9_216),
+])
+def test_roofline_bytes_per_geometry(w, h, frame, moved):
+    assert roofline.frame_bytes(w, h) == frame
+    assert roofline.deblock_bytes(w, h) == moved
+    assert roofline.deblock_bytes(w, h, frames=8) == 8 * moved
+
+
+def test_roofline_share_against_the_peak():
+    # 8 1080p frames moved at exactly the peak take 14.855 us
+    t = roofline.deblock_bytes(1920, 1080, 8) / 3.35e12
+    assert roofline.roofline_pct(roofline.deblock_bytes(1920, 1080, 8), t, H100) == pytest.approx(100)
+    assert roofline.roofline_pct(1e6, 1e-3, H100) == pytest.approx(100 * 1e6 / 3.35e12 / 1e-3)
+    assert roofline.roofline_pct(1e6, 1e-3, "some other card") is None
+    assert roofline.roofline_pct(1e6, 0.0, H100) is None
+
+
+@pytest.mark.parametrize("w, h", [(1920, 1080), (3840, 2160), (64, 48)])
+def test_bs_sizes_are_the_reference_flat_sizes(w, h):
+    sizes = fr.bs_sizes(w, h)
+    assert sizes["vert"] == ((w // 8 + 1) * h // 8, w // 8 + 1)
+    assert sizes["hor"] == ((h // 8 + 1) * w // 8, h // 8 + 1)
+    cw, ch = w // 2, h // 2
+    assert sizes["chroma_vert"] == (((cw // 8 + 1) * ch) // 8, cw // 8 + 1)
+    assert sizes["chroma_hor"] == (((ch // 8 + 1) * cw) // 8, ch // 8 + 1)
+
+
+def test_ai_bs_is_the_reference_default():
+    bs = fr.bs_arrays(64, 48, {"bs": "ai"}, 5, "cpu")
+    for name, (size, stripe) in fr.bs_sizes(64, 48).items():
+        a = bs[name]
+        assert a.size == size and a.dtype == np.uint8
+        assert (a[::stripe] == 0).all()
+        keep = np.ones(size, bool)
+        keep[::stripe] = False
+        assert (a[keep] == 2).all()
+
+
+def test_ra_bs_shares_on_a_seed():
+    mix = {"bs": "ra", "bs_shares": [0.70, 0.25, 0.05]}
+    bs = fr.bs_arrays(1920, 1080, mix, 2**31 + 17, "cpu")
+    drawn = []
+    for name, (size, stripe) in fr.bs_sizes(1920, 1080).items():
+        keep = np.ones(size, bool)
+        keep[::stripe] = False
+        assert (bs[name][::stripe] == 0).all()
+        drawn.append(bs[name][keep])
+    drawn = np.concatenate(drawn)
+    shares = [float((drawn == v).mean()) for v in (0, 1, 2)]
+    assert shares == pytest.approx([0.70, 0.25, 0.05], abs=0.01)
+    again = fr.bs_arrays(1920, 1080, mix, 2**31 + 17, "cpu")
+    other = fr.bs_arrays(1920, 1080, mix, 2**31 + 18, "cpu")
+    assert all((again[k] == bs[k]).all() for k in bs)
+    assert any((other[k] != bs[k]).any() for k in bs)
+
+
+def test_frame_pool_is_the_seed_s():
+    content = {"luma_dc": 24, "chroma_dc": 12}
+    a = fr.frame_pool(3, 64, 48, 2**33 + 1, content, "cpu")
+    b = fr.frame_pool(3, 64, 48, 2**33 + 1, content, "cpu")
+    c = fr.frame_pool(3, 64, 48, 2**33 + 2, content, "cpu")
+    assert a.shape == (3, 72, 64) and a.dtype == torch.uint8
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert not torch.equal(a[0], a[1])
+
+
+# -- a canned Chrome trace: two kernels of one replay overlapping by 0.5 us,
+# a harness memcpy, runtime calls with correlations, and the marks' queries
+
+def _canned_trace(path):
+    ev = [
+        {"ph": "M", "name": "process_labels", "pid": 0, "args": {"labels": "GPU 0"}},
+        {"ph": "M", "name": "process_labels", "pid": 5, "args": {"labels": "GPU 5"}},
+        {"ph": "M", "name": "process_labels", "pid": 99, "args": {"labels": "CPU"}},
+        # refresh copy at 1000 (10 us), then the step's two kernels 1015-1035, 1034.5-1050
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoD (Device -> Device)", "pid": 0,
+         "tid": 7, "ts": 1000.0, "dur": 10.0, "args": {"correlation": 1}},
+        {"ph": "X", "cat": "kernel", "name": "k_a", "pid": 0, "tid": 13, "ts": 1015.0,
+         "dur": 20.0, "args": {"correlation": 2}},
+        {"ph": "X", "cat": "kernel", "name": "k_b", "pid": 0, "tid": 13, "ts": 1034.5,
+         "dur": 15.5, "args": {"correlation": 2}},
+        {"ph": "X", "cat": "gpu_user_annotation", "name": "scope", "pid": 0, "tid": 13,
+         "ts": 1000.0, "dur": 60.0},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync", "pid": 99, "tid": 1,
+         "ts": 995.0, "dur": 3.0, "args": {"correlation": 1}},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "pid": 99, "tid": 1,
+         "ts": 1005.0, "dur": 4.0, "args": {"correlation": 2}},
+    ]
+    for ts in (900.0, 901.0, 902.0, 1100.0, 1101.0, 1102.0):
+        ev.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaEventQuery", "pid": 99,
+                   "tid": 1, "ts": ts, "dur": 0.2})
+    with open(path, "w") as f:
+        json.dump({"traceEvents": ev}, f)
+
+
+def test_trace_reader_keeps_overlapping_kernels_and_finds_the_idle(tmp_path):
+    p = tmp_path / "t.json"
+    _canned_trace(p)
+    events = tr.load_events(str(p))
+    assert tr.device_pids(events) == {0: 0, 5: 5}
+    leaves = tr.device_leaves(events)[0]
+    assert [e[2] for e in leaves] == ["Memcpy DtoD (Device -> Device)", "k_a", "k_b"]
+    stats_ = tr.device_op_stats(leaves)
+    assert stats_["k_a"] == (20.0, 1) and stats_["k_b"] == (15.5, 1)
+    assert tr.busy_us(leaves) == pytest.approx(10.0 + 35.0)
+    spans = [(990.0, 1000.0, "refresh"), (1002.0, 1014.0, "step_call")]
+    gaps = tr.idle_gaps(leaves, 990.0, 1060.0, spans)
+    assert gaps == [("refresh", 10.0), ("other", 10.0), ("step_call", 5.0)]
+    assert tr.launch_spans(events, spans) == {1: "refresh", 2: "step_call"}
+    assert tr.clip(leaves, 1040.0, 1045.0) == [(1040.0, 5.0, "k_b", 2)]
+
+
+def _traced_record(tmp_path):
+    p = tmp_path / "t.json"
+    _canned_trace(p)
+    events = tr.load_events(str(p))
+    spans = [(990.0, 1000.0, "refresh"), (1002.0, 1012.0, "step_call")]
+    rec = Record("device", 1920, 1080, 8, H100)
+    rec.trace = {"lo": 990.0, "hi": 1060.0, "spans": spans,
+                 "cards": {0: tr.clip(tr.device_leaves(events)[0], 990.0, 1060.0)},
+                 "launch_span": tr.launch_spans(events, spans), "batches": 1}
+    return rec
+
+
+def test_step_roofline_leaves_out_the_harness_copy(tmp_path):
+    rec = _traced_record(tmp_path)
+    got = spec.reader("step_roofline_pct.devfed")(rec)
+    # the step's device time is 20 + 15.5 us: the refresh memcpy is the harness's
+    assert got == pytest.approx(roofline.roofline_pct(6_220_800 * 8, 35.5e-6, H100))
+    assert spec.reader("step_roofline_pct.devfed")(Record("device", 1, 1, 1, H100)) is None
+
+
+def test_idle_share_is_the_traced_stretch_s_own(tmp_path):
+    rec = _traced_record(tmp_path)
+    # busy 10 + 35 us of the stretch's 70: whatever the untraced window did
+    rec.frames, rec.window_s = 8 * 1000, 0.09
+    assert spec.reader("idle_pct.devfed")(rec) == pytest.approx(100 * (1 - 45 / 70))
+    rec.trace["cards"][1] = []  # a second card that ran nothing: the mean of 35.7% and 100%
+    assert spec.reader("idle_pct.devfed")(rec) == pytest.approx((100 * 25 / 70 + 100) / 2)
+    assert spec.reader("idle_pct.devfed")(Record("device", 1, 1, 1, H100)) is None
+
+
+def test_rates_count_every_frame_of_the_window():
+    rec = Record("device", 1920, 1080, 8, H100)
+    rec.frames, rec.window_s, rec.setup_s = 80_000, 1.25, 7.5
+    assert spec.reader("device_fps")(rec) == 64_000
+    assert spec.reader("setup_s")(rec) == 7.5
+
+
+def test_tracer_clock_maps_host_stamps_by_the_tightest_marks(tmp_path):
+    from bench_torch.lib.feeds import Tracer
+
+    p = tmp_path / "t.json"
+    _canned_trace(p)
+    t = Tracer(True)
+    t.marks = [(400e-6, 401e-6), (401e-6, 410e-6), (402e-6, 420e-6),
+               (600e-6, 601e-6), (601e-6, 640e-6), (602e-6, 650e-6)]
+    clock = t._clock(tr.load_events(str(p)))
+    assert clock(400.5e-6) == pytest.approx(900.1)
+    assert clock(500e-6) == pytest.approx(999.6)
+    assert Tracer(True)._clock([]) is None

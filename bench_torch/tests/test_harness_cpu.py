@@ -1,0 +1,143 @@
+"""The harness end to end on the CPU at a small size, its look for a chip
+skipped: sound runs come out correct, and the control and each fault the
+cells can have come out not correct.  Also the shape of BENCHMARK.json
+(keys, names, units, bounds, files), and the exit without a card.
+
+    python -m pytest bench_torch/tests -q
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import time
+
+import pytest
+import torch
+
+from bench_torch.lib import harness, spec
+
+SPEC = spec.load_spec()
+CELLS = [w["name"] for w in SPEC["workloads"]]
+# every traffic mix of bench_torch/traffic, a cell of BENCHMARK.json or not
+MIXES = sorted(p.stem for p in (spec.BENCH / "traffic").glob("*.json"))
+
+
+def _mix(traffic):
+    return spec.load_json(spec.BENCH / "traffic" / f"{traffic}.json")
+
+
+DEVICE_MIXES = [t for t in MIXES if _mix(t)["feed"] == "device"]
+
+
+def small_run(traffic, control=False, seconds=0.3):
+    """One run of a mix on the CPU at 64x48, under the cell of BENCHMARK.json
+    that uses it (or a cell of its own on the first configuration)."""
+    cell = next((w for w in SPEC["workloads"] if w["traffic"] == traffic),
+                {"name": f"cpu_{traffic}", "config": SPEC["configs"][0]["name"],
+                 "traffic": traffic, "chips": 1})
+    cfg = dict(spec.config(SPEC, cell), width=64, height=48)
+    mix = dict(_mix(traffic), warmup_batches=2)
+    return harness.run_cell(SPEC, cell, cfg, mix, 2**31 + 99, seconds, False, control,
+                            time.perf_counter(), device="cpu")
+
+
+@pytest.mark.parametrize("traffic", MIXES)
+def test_sound_run_is_correct(traffic):
+    result, compared = small_run(traffic)
+    assert result["correct"] is True
+    assert compared["wrong_bytes"] == 0 and compared["frames_compared"] > 0
+    assert result["failed"] == 0 and result["attempted"] > 0
+    assert list(result)[-1] == "checks"
+    for w in SPEC["workloads"]:
+        if w["traffic"] == traffic:
+            assert set(result["metrics"]) == {m["name"] for m in spec.metrics(SPEC, w["name"], False)}
+
+
+@pytest.mark.parametrize("traffic", MIXES)
+def test_control_is_not_correct(traffic):
+    result, compared = small_run(traffic, control=True)
+    assert result["correct"] is False
+    assert compared["wrong_bytes"] > 0
+
+
+def _faulty_packed(mp, fault):
+    from gpu_video_codec_tpu_torch.parallel import mesh as pm
+
+    real = pm.deblock_packed_batch_sharded_jit
+
+    def step(mesh, buf, *args, **kw):
+        if fault == "unchanged":
+            return buf
+        if fault == "half_batch":
+            return real(mesh, buf[: buf.shape[0] // 2], *args, **kw)
+        real(mesh, buf, *args, **kw)
+        buf[-1, 5, 7] ^= 1  # one byte altered where it is produced
+        return buf
+    mp.setattr(pm, "deblock_packed_batch_sharded_jit", step)
+
+
+@pytest.mark.parametrize("traffic", DEVICE_MIXES)
+@pytest.mark.parametrize("fault", ["unchanged", "half_batch", "altered"])
+def test_device_fed_faults_are_caught(traffic, fault, monkeypatch):
+    _faulty_packed(monkeypatch, fault)
+    result, compared = small_run(traffic)
+    assert result["correct"] is False and compared["wrong_bytes"] > 0
+
+
+def test_no_card_exits_nonzero_without_a_result():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = subprocess.run([sys.executable, "bench_torch/run.py", "--workload", CELLS[0],
+                          "--seed", "1", "--seconds", "1", "--trace", "0"],
+                         cwd=spec.ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 2
+    assert res.stdout == ""
+    assert "no result" in res.stderr
+
+
+# -- the shape of BENCHMARK.json ---------------------------------------------------
+
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+
+
+def test_benchmark_json_keys_and_names():
+    assert set(SPEC) == {"command", "paths", "run_seconds", "configs", "workloads",
+                         "end_to_end", "per_layer"}
+    assert SPEC["command"] == ["python3", "bench_torch/run.py"]
+    assert SPEC["paths"] == ["bench_torch"]
+    assert 1 <= SPEC["run_seconds"] <= 51
+    for c in SPEC["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"} and NAME.match(c["name"])
+        assert c["file"].startswith("bench_torch/") and (spec.ROOT / c["file"]).is_file()
+    four = [w for w in SPEC["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(SPEC["workloads"]) // 4)
+    for w in SPEC["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert NAME.match(w["name"]) and len(w["why"]) <= 200
+        assert (spec.BENCH / "traffic" / f"{w['traffic']}.json").is_file()
+        assert (spec.BENCH / "feeds" / f"{_mix(w['traffic'])['feed']}.py").is_file()
+    names = [m["name"] for m in SPEC["end_to_end"] + SPEC["per_layer"]]
+    assert len(names) == len(set(names))
+    assert any(m["name"] == "setup_s" and m["bound"] <= 0.25 for m in SPEC["end_to_end"])
+    for m in SPEC["end_to_end"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "bound", "source"}
+        assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
+    for m in SPEC["per_layer"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "source", "layer", "moves"}
+    for m in SPEC["end_to_end"] + SPEC["per_layer"]:
+        assert set(m.get("workloads", CELLS)) <= set(CELLS)
+        assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
+        assert (spec.BENCH / "metrics" / f"{m['name']}.py").is_file()
+    assert len(json.dumps(SPEC)) < 64 * 1024
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_every_cell_reports_setup_another_end_to_end_and_a_layer(name):
+    e2e = {m["name"] for m in spec.metrics(SPEC, name, False)}
+    layers = spec.metrics(SPEC, name, True)
+    assert "setup_s" in e2e and len(e2e) >= 2 and layers
+    assert all(m["moves"] in e2e for m in layers)
