@@ -97,11 +97,10 @@
    graph-replayed _step and of a resident ingest + step + readback: the
    port's T2, K1, K1c, T3 (and T4) and no other.
 4. Times K1 and K1c at TB 32 and 64 in turns with their plain versions,
-   the packed step (a graph replay), the copy and the pipelined rate with
-   CUDA events; prints time_breakdown(measure_d2h=True) (dispatch per
-   replayed step beside an eager step's, the profiler's device split, the
-   synchronous end-to-end frame) and the pipelined rate with and without
-   read-back.
+   the packed step (a graph replay) and the copy with CUDA events; prints
+   time_breakdown(measure_d2h=True) (dispatch per replayed step beside an
+   eager step's, the profiler's device split, the synchronous end-to-end
+   frame).
 4b. Times T2, T3 and T4 at the 1080p shapes beside their plain versions
    and a one-call PyTorch yardstick (printing kernel / yardstick and the
    fraction of the byte bound), and the resident step, ingest and readback
@@ -113,8 +112,7 @@
    and no other kernel (no layout copy, fill or write-back), and
    utils.tracing.profiled_device_us's total agrees with the profiler's
    key_averages() within 2%.  Both take each kernel's mean launch times its
-   launches per call (utils.tracing.per_iter_us): the profiler can miss the
-   first launches of its window.
+   launches per call (utils.tracing.per_iter_us).
 3h. The mesh paths (gpu_video_codec_tpu_torch/parallel) on slots of
    cuda:0: MultiStreamDeblocker at 1920x1080, 4 streams x 8 steps, depth
    2, on a (1, 1) mesh == the plain backend (the first and last batch ==
@@ -1305,10 +1303,6 @@ def main() -> int:
           f" us, dispatch {tb['dispatch_s'] * 1e6:.1f} us per _step (one graph replay; an eager "
           f"step {eager * 1e6:.1f} us), e2e_sync {tb['e2e_sync_s'] * 1e6:.1f} us, device_split_us "
           f"{tb.get('device_split_us', 'not measured')} ({smi})")
-    for rb in (False, True):
-        tp = s.throughput(raw, n_frames=100, readback=rb, repeats=3)
-        print(f"throughput 1080p readback={rb}: {tp['fps']:.1f} fps, "
-              f"{tp['per_frame_s'] * 1e6:.1f} us/frame ({smi})")
 
     # -- 4b. relayout, pack and resident times -----------------------------------
     p = 4

@@ -469,50 +469,6 @@ class StreamingDeblocker:
             raise RuntimeError(f"{what} times the CUDA device; this deblocker runs on "
                                f"{self.device}")
 
-    def throughput(self, frame, n_frames: int = 100, readback: bool = False,
-                   repeats: int = 3) -> dict:
-        """Steady-state pipelined rate over n_frames copies of `frame`, from
-        CUDA events on the compute stream (best of `repeats` batches).
-
-        Both go through run()'s device ring (H2D, one graph replay per frame);
-        readback=False: outputs stay on the device;
-        readback=True: every output is read back to the host (run())."""
-        self._require_cuda("throughput")
-        arr = self._host_frame(frame)
-        rows = arr.reshape(self._rows, self.width)
-
-        def pipeline() -> None:
-            if readback:
-                for _ in self.run(arr for _ in range(n_frames)):
-                    pass
-                return
-            ring, compute = self._device_ring()
-            for _ in range(n_frames):
-                ring.submit(rows, compute, False)
-
-        pipeline()  # warm-up: builds the kernels and the ring, captures its graphs
-        torch.cuda.synchronize(self.device)
-        stream = torch.cuda.current_stream(self.device)
-
-        def one_batch() -> float:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record(stream)
-            pipeline()
-            end.record(stream)
-            end.synchronize()
-            return start.elapsed_time(end) / 1e3
-
-        dt = min(one_batch() for _ in range(repeats)) / n_frames
-        return {
-            "frames": n_frames,
-            "per_frame_s": dt,
-            "fps": 1.0 / dt,
-            "mpix_per_s": self.width * self.height / dt / 1e6,
-            "readback": readback,
-            "device": torch.cuda.get_device_name(self.device),
-        }
-
     def _stream_s(self, fn, n: int, stream: str) -> float:
         """Best of 3: seconds per call of fn over n calls, from CUDA events
         on the "copy" or "compute" (current) stream."""

@@ -37,6 +37,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils.tracing import RECORDER
 from .deblock import deblock_rows_plain, deblock_tiles_plain
 
 # Tiles per block of the quad kernel (K1, K1c, K1-i16, K1-i16c): consecutive
@@ -88,7 +89,8 @@ def _nvcc(sources=_KERNEL_SOURCES) -> str:
 def _build(compiler: list[str], sources, stem: str) -> tuple[Path, str]:
     """Compile `sources` (names under csrc/) into a shared library keyed on
     the hash of every csrc input and the command.  Returns (path, compiler
-    output); the output is '' when the library was already built."""
+    output); the output is '' when the library was already built.  A
+    compiler run is the span kernels.build (utils/tracing.py)."""
     h = hashlib.sha256(" ".join(compiler[1:]).encode())
     for name in (*sources, *_HEADERS):
         h.update(name.encode())
@@ -101,7 +103,8 @@ def _build(compiler: list[str], sources, stem: str) -> tuple[Path, str]:
     # sees a half-written library
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [*compiler, "-o", str(tmp), *(str(CSRC / s) for s in sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    with RECORDER.span("kernels.build"):
+        res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"kernel build failed ({res.returncode}): {' '.join(cmd)}\n"
@@ -117,13 +120,15 @@ def build_library() -> tuple[Path, str]:
 
 
 def _load(key: str, build, setup) -> ctypes.CDLL:
-    """Build (once) and load a library, calling setup(lib) on first load."""
+    """Build (once) and load a library, calling setup(lib) on first load
+    (the span kernels.load, utils/tracing.py)."""
     with _lock:
         lib = _libs.get(key)
         if lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            setup(lib)
+            with RECORDER.span("kernels.load"):
+                path, _ = build()
+                lib = ctypes.CDLL(str(path))
+                setup(lib)
             _libs[key] = lib
         return lib
 

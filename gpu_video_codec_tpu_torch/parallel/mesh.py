@@ -41,6 +41,7 @@ from ..ops.relayout_kernel import (
 from ..ops.tables import SAMPLE_BLOCK_SIZE as _B
 from ..utils.graphs import CapturedStep, GraphCache, graphed, tensor_key
 from ..utils.tiles import split_covered_data
+from ..utils.tracing import RECORDER, stamp
 
 # the _jit wrappers' graphs, one per (slot, operands, options); a slot's
 # graph has a pool of its own, never shared with another slot's
@@ -169,12 +170,17 @@ def on_device(device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
-def _run(mesh: Mesh, index: int, fn, operands: tuple, static: tuple, graph: bool) -> None:
+def _run(mesh: Mesh, index: int, fn, operands: tuple, static: tuple, graph: bool,
+         stamps: list | None = None) -> None:
     """fn(*operands), in place, on slot `index`: eagerly, or (graph=True)
     as ONE replay of the slot's CUDA graph of it, captured at the first
     call on these operands, on the slot's stream (forked from the caller's
     current stream and joined back, so the call is ordered like any other
-    work of the caller's stream)."""
+    work of the caller's stream).  A replay appends to `stamps`, where it
+    is given, the five stamps of its spans mesh.fork, graphs.launch and
+    mesh.join (utils/tracing.Recorder.end_call)."""
+    if stamps is not None:
+        fork = stamp()
     dev = mesh.device(index)
     with on_device(dev):
         if not graph:
@@ -184,9 +190,17 @@ def _run(mesh: Mesh, index: int, fn, operands: tuple, static: tuple, graph: bool
         stream = mesh.stream(index)
         stream.wait_stream(caller)
         with torch.cuda.stream(stream):
+            if stamps is not None:
+                forked = stamp()
             key = (index, tensor_key(*operands), *static)
-            _GRAPHS.get(key, lambda: CapturedStep(fn, operands)).replay()
+            step = _GRAPHS.get(key, lambda: CapturedStep(fn, operands))
+            if stamps is None:
+                step.replay()
+            else:
+                launch, launched = step.timed_replay()
         caller.wait_stream(stream)
+    if stamps is not None:
+        stamps += (fork, forked, launch, launched, stamp())
 
 
 # -- extended planes: frames over "data", tile-row slabs over "spatial" ---------
@@ -300,6 +314,7 @@ def deblock_batch_sharded_jit(mesh: Mesh, *args, luma_only: bool = False,
 
 def _packed_sharded(mesh, buf, luma_maps, chroma_maps, beta, tc, w, h, luma_only, backend,
                     luma_block, chroma_block, graphs: bool):
+    stamps = RECORDER.start_call()  # the call's stamps where it is recorded, else None
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if buf.dim() != 3 or tuple(buf.shape[1:]) != (3 * h // 2, w) or buf.dtype != torch.uint8:
@@ -317,8 +332,10 @@ def _packed_sharded(mesh, buf, luma_maps, chroma_maps, beta, tc, w, h, luma_only
         on_card = (graphs and graphed(backend, dev) and local is view
                    and all(p is m for p, m in zip((*lm, *cm), (*luma_maps, *chroma_maps))))
         _run(mesh, index, _packed_steps(1, *static), (local, *lm, *cm), ("packed", *static),
-             on_card)
+             on_card, stamps)
         _home(view, local)
+    if stamps is not None:
+        RECORDER.end_call(stamps)
     return buf
 
 

@@ -11,10 +11,8 @@ tree, e.g. a `git archive` of another commit.  Prints one JSON line: per
 geometry the device µs per step of each repeat (utils.timing.device_ms:
 CUDA events around `iters` replays queued behind a spin kernel), whether
 the host queued ahead each time, and the launches of one step by kernel;
-with --rates also the pipelined frames per second without and with
-read-back (StreamingDeblocker.throughput, CUDA events over 100 frames, best
-of 3 batches) and the host dispatch per step (time_breakdown's dispatch_s)
-of each repeat.  Exits non-zero without a CUDA device.
+with --dispatch also the host dispatch per step (time_breakdown's
+dispatch_s) of each repeat.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -33,9 +31,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--geometry", action="append", help="WxH (default 360x288 and 1920x1080)")
     p.add_argument("--iters", type=int, default=200)
     p.add_argument("--repeats", type=int, default=5)
-    p.add_argument("--rates", action="store_true",
-                   help="also the pipelined rate with and without read-back "
-                        "(StreamingDeblocker.throughput) and the host dispatch per step")
+    p.add_argument("--dispatch", action="store_true", help="also the host dispatch per step")
     args = p.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import numpy as np
@@ -69,11 +65,8 @@ def main(argv: list[str] | None = None) -> int:
         runs = [device_ms(lambda: s._step(buf), args.iters) for _ in range(args.repeats)]
         steps[geom] = {"us": [ms * 1e3 for ms, _ in runs],
                        "queued_ahead": [ok for _, ok in runs], "launches": launches}
-        if args.rates:
+        if args.dispatch:
             frame = buf.cpu().numpy().reshape(-1)
-            steps[geom]["fps"] = {
-                f"readback={rb}": [s.throughput(frame, n_frames=100, readback=rb)["fps"]
-                                   for _ in range(args.repeats)] for rb in (False, True)}
             steps[geom]["dispatch_us"] = [s.time_breakdown(frame, n=50)["dispatch_s"] * 1e6
                                           for _ in range(args.repeats)]
     print(json.dumps({"tree": os.path.relpath(os.path.dirname(os.path.dirname(pkg.__file__))),

@@ -19,6 +19,7 @@ import torch
 from ..ops import cuda_kernel as ck
 from ..ops import relayout_kernel as rk
 from ..ops import swar_kernel as sk
+from .tracing import RECORDER, stamp
 
 # the kernels' launch counters, kept true across replays
 COUNTERS = (ck.LAUNCHES, rk.LAUNCHES, sk.LAUNCHES)
@@ -59,12 +60,15 @@ class CapturedStep:
     The warm-up and the capture run on the device of args, on a side stream
     of that device (torch.cuda.graph's default capture stream belongs to
     the device that was current when it was first made); replay() runs on
-    the current stream, which must be one of that device."""
+    the current stream, which must be one of that device.
+
+    The warm-up and the capture are the span graphs.capture
+    (utils/tracing.py)."""
 
     def __init__(self, fn, args, pool=None):
         device = args[0].device
         before = [dict(c) for c in COUNTERS]
-        with torch.cuda.device(device):
+        with RECORDER.span("graphs.capture"), torch.cuda.device(device):
             fn(*(a.clone() for a in args))
             warm = [dict(c) for c in COUNTERS]
             self.graph = torch.cuda.CUDAGraph()
@@ -88,6 +92,16 @@ class CapturedStep:
             for k, v in d.items():
                 c[k] += v
         return self.out
+
+    def timed_replay(self) -> tuple[int, int]:
+        """replay(), returning instead the stamps around the graph's launch
+        alone (the span graphs.launch, utils/tracing.py)."""
+        for c, d in zip(COUNTERS, self.launches):
+            for k, v in d.items():
+                c[k] += v
+        t0 = stamp()
+        self.graph.replay()
+        return t0, stamp()
 
 
 class GraphCache:

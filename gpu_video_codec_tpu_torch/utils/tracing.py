@@ -1,33 +1,70 @@
-"""Device-trace timing: what the card executed, not host wall time.
+"""The port's one tracing module: device time from torch.profiler's trace,
+and the program's own spans and counters.
 
-Counterpart of gpu_video_codec_tpu/utils/tracing.py over torch.profiler.
-The profiler records every kernel, memcpy and memset the card ran (CUPTI
-activity records, kernels inside CUDA graph replays included) on device
-lanes of its Chrome trace, apart from the host lanes that hold the Python,
-operator and CUDA-runtime spans.  Summing the device lanes' leaf events by
-name gives device time per op, immune to host dispatch and queue depth.
+Device time.  Counterpart of gpu_video_codec_tpu/utils/tracing.py over
+torch.profiler.  The profiler records every kernel, memcpy and memset the
+card ran (CUPTI activity records, kernels inside CUDA graph replays
+included) on device lanes of its Chrome trace, apart from the host lanes
+that hold the Python, operator and CUDA-runtime spans.  Summing the device
+lanes' leaf events by name gives device time per op, immune to host
+dispatch and queue depth.
 
-API:
   device_op_totals(d)   -> {op_name: total_us} for device-lane LEAF events of
                            every Chrome trace under d (*.json, *.json.gz:
                            torch.profiler's export_chrome_trace and
                            jax.profiler's *.trace.json.gz alike)
   device_op_stats(d)    -> {op_name: (total_us, launches)} of the same events
   per_iter_us(total_us, launches, iters) -> one op's device time per
-                           iteration, robust to launches the profiler missed
+                           iteration, robust to launches outside the window
   categorize_ops(totals)-> {deblock_kernels, layout_and_copies, other, total}
   profiled_device_us(thunk, iters) -> (per_iter_us, cats, top_ops) or None
                            when the trace has no device lane (a CPU run)
+
+Program spans and counters.  RECORDER (a Recorder) holds, in memory, the
+spans the program stamps at its layer boundaries with time.perf_counter_ns
+and its counter:
+
+  mesh.packed   parallel/mesh._packed_sharded, the whole packed batch call
+                (the root: every span of one call carries its call id, the
+                mesh.calls count of the call)
+  mesh.fork     parallel/mesh._run: the slot's device made current, its
+                stream ordered after the caller's and made current
+  graphs.launch parallel/mesh._run: CapturedStep.timed_replay's launch of
+                the graph alone
+  mesh.join     parallel/mesh._run: the caller's stream ordered after the
+                slot's, the caller's stream and device restored
+  graphs.capture  utils/graphs.CapturedStep's warm-up on clones and capture
+  kernels.load  ops/cuda_kernel._load: a library's first load
+  kernels.build ops/cuda_kernel._build: the compiler run, where it runs
+
+  counter mesh.calls: every packed batch call; the kernels' launches stay
+  in utils/graphs.COUNTERS.
+
+The profiled stretch's timeline also splits the rest of a call: mesh.place
+(the checks and the first slot's operands, up to its fork) and
+graphs.lookup (the graph's key, the cache, the launch counters).
+
+Spans closed outside any torch.profiler session add to totals per name
+(count, nanoseconds, self nanoseconds); spans closed inside a session go to
+a bounded timeline instead (name, start, end, id, parent id, call id), so
+the totals describe unprofiled work and the timeline the profiled stretch.
+Outside a session one packed call in EVERY is stamped, so that the rest
+pay only the count; inside one, every call.
 """
 
 from __future__ import annotations
 
 import glob
 import gzip
+import itertools
 import json
 import os
 import tempfile
+import time
 from collections import defaultdict
+from typing import NamedTuple
+
+from torch.autograd import profiler as _autograd_profiler
 
 # control/module scopes are not hardware ops; they can live on tracks of
 # their own where per-track nesting cannot catch them (the JAX package's
@@ -79,8 +116,10 @@ def device_op_stats(trace_dir: str) -> dict[str, tuple[float, int]]:
     names them '/device:TPU:0' (process_name); torch.profiler gives every
     lane the program's process_name and labels them 'GPU 0' or 'CPU'
     (process_labels).  Host processes are excluded.  Containers (the
-    scopes above, and any event that encloses another on its track) would
-    double-count, so only leaves are summed."""
+    scopes above, and any event that wholly encloses another on its track)
+    would double-count, so only leaves are summed.  Events that only
+    partly overlap both count: the kernels of one CUDA graph replay
+    overlap their successor by up to 0.8 us in an H100's trace."""
     events = _load_trace_events(trace_dir)
     device_pids = set()
     for e in events:
@@ -108,11 +147,17 @@ def device_op_stats(trace_dir: str) -> dict[str, tuple[float, int]]:
 
         for e in track:
             ts = float(e["ts"])
+            end = ts + float(e.get("dur", 0.0))
             while stack and stack[-1][0] <= ts:
                 _close(stack.pop()[1])
-            if stack:
-                has_child[id(stack[-1][1])] = True
-            stack.append((ts + float(e.get("dur", 0.0)), e))
+            # the innermost open event that ends no earlier encloses e; one
+            # that ends inside e only overlaps it (and one that ended before
+            # e may still sit under such an event)
+            for open_end, parent in reversed(stack):
+                if open_end >= end and open_end > ts:
+                    has_child[id(parent)] = True
+                    break
+            stack.append((end, e))
             has_child[id(e)] = False
         while stack:
             _close(stack.pop()[1])
@@ -123,11 +168,11 @@ def per_iter_us(total_us: float, launches: int, iters: int) -> float:
     """One op's device time per iteration of a profiled window of `iters`
     iterations in which it was recorded `launches` times, `total_us` in all.
 
-    torch.profiler can miss launches at the start of its window (on an
-    H100, the first kernels of the window's first CUDA graph replay), so
-    total_us / iters reads low.  The op's mean launch is taken times the
-    launches per iteration that the recorded count rounds to; an op
-    recorded in fewer than half the iterations is averaged over all."""
+    A window can hold fewer launches than its iterations made (work queued
+    before it started, or cut at its edge), so total_us / iters would read
+    low.  The op's mean launch is taken times the launches per iteration
+    that the recorded count rounds to; an op recorded in fewer than half
+    the iterations is averaged over all."""
     k = int(launches / iters + 0.5)
     return total_us / launches * k if k else total_us / iters
 
@@ -190,3 +235,214 @@ def profiled_device_us(thunk, iters: int = 20, trace_dir: str | None = None):
     cats = categorize_ops(per_iter)
     top = {k: round(v, 2) for k, v in sorted(per_iter.items(), key=lambda kv: -kv[1])[:12]}
     return cats["total"], cats, top
+
+
+# -- the program's spans and counters --------------------------------------------
+
+stamp = time.perf_counter_ns  # the clock of every span
+TIMELINE_BOUND = 1 << 17  # spans kept per process; a packed call keeps 6
+EVERY = 31  # one unprofiled packed call in EVERY is recorded; odd, so that it
+            # does not keep step with a caller's queue depth or frame cycle
+
+
+def profiling() -> bool:
+    """Whether a torch.profiler session is active."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class Span(NamedTuple):
+    """A span of the timeline: perf_counter_ns stamps, its own id, the id
+    of the span it ran in (None for a root), and the packed batch call it
+    belongs to (None outside one)."""
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int | None
+    call: int | None
+
+
+class Total(NamedTuple):
+    """Spans of one name closed outside any profiler session: how many,
+    their nanoseconds, and those less the time of the spans inside them."""
+    count: int
+    ns: int
+    self_ns: int
+
+
+class Recorder:
+    """Spans and counters of one process (module docstring).  One thread
+    records at a time: the parents of spans from concurrent threads would
+    mix.
+
+    A packed batch call is recorded from its stamps in one commit, after
+    its end: start_call() counts it and, where it is to be recorded, hands
+    out the list that the call's layers append their stamps to; end_call()
+    turns them into spans.  The other calls pay the count alone."""
+
+    __slots__ = ("bound", "every", "calls", "dropped", "_hot", "_cold", "_timeline",
+                 "_open", "_ids", "_setup")
+
+    def __init__(self, bound: int = TIMELINE_BOUND, every: int = EVERY):
+        self.bound = bound
+        self.every = every  # the unprofiled packed calls recorded: one in `every`
+        self.reset()
+
+    def reset(self) -> None:
+        """Drop every total, counter and kept span."""
+        self.calls = 0  # the counter mesh.calls
+        self.dropped = 0  # spans closed in a session after the timeline was full
+        # recorded unprofiled calls, their replays, and the ns of mesh.packed,
+        # mesh.fork, graphs.launch and mesh.join
+        self._hot = [0, 0, 0, 0, 0, 0]
+        self._cold: dict[str, list[int]] = defaultdict(lambda: [0, 0, 0])  # count, ns, self ns
+        self._timeline: list[tuple] = []  # Span fields, as plain tuples (cheaper to make)
+        self._open: list[list] = []  # open span() blocks, innermost last: [id or None, child ns]
+        self._ids = itertools.count(1)
+        self._setup = False  # a span() block closed since the last recorded call
+
+    # -- read-out
+
+    def totals(self) -> dict[str, Total]:
+        """{span name: Total} of the spans closed outside any profiler
+        session.  mesh.packed's self time is the call less its replays'
+        mesh.fork, graphs.launch and mesh.join."""
+        calls, runs, packed, fork, launch, join = self._hot
+        out = {}
+        if calls:
+            out["mesh.packed"] = Total(calls, packed, packed - fork - launch - join)
+        if runs:
+            out.update((name, Total(runs, ns, ns)) for name, ns in (
+                ("mesh.fork", fork), ("graphs.launch", launch), ("mesh.join", join)))
+        out.update((name, Total(*t)) for name, t in self._cold.items())
+        return out
+
+    def counters(self) -> dict[str, int]:
+        return {"mesh.calls": self.calls} if self.calls else {}
+
+    def timeline(self) -> list[Span]:
+        """The spans closed inside profiler sessions, in closing order."""
+        return [Span(*t) for t in self._timeline]
+
+    # -- recording
+
+    def _keep(self, span: tuple) -> None:
+        if len(self._timeline) < self.bound:
+            self._timeline.append(span)
+        else:
+            self.dropped += 1
+
+    def span(self, name: str) -> "_OpenSpan":
+        """A span around a with-block, the parent of the spans closed
+        inside it (for work done once, such as a build or a capture)."""
+        return _OpenSpan(self, name)
+
+    def start_call(self) -> list[int] | None:
+        """Count a packed batch call (mesh.calls).  Where it is recorded
+        (every call inside a profiler session, one in `every` outside),
+        returns the list for its stamps, its start stamp first; else None."""
+        self.calls += 1
+        if self.calls % self.every and not _autograd_profiler._is_profiler_enabled:
+            return None
+        return [stamp()]
+
+    def end_call(self, stamps: list[int]) -> None:
+        """Close a packed batch call from start_call's list: its start, then
+        five stamps for each slot's graph replay (mesh.fork's start and end,
+        graphs.launch's start and end, mesh.join's end); its end is stamped
+        here.  Outside a session a call in which a span() block closed (a
+        capture, a load) did set-up work, and is left out of the totals."""
+        t1 = stamp()
+        if _autograd_profiler._is_profiler_enabled:
+            self._keep_call(stamps, t1)
+            return
+        if self._setup:
+            self._setup = False
+            return
+        hot = self._hot
+        hot[0] += 1
+        hot[2] += t1 - stamps[0]
+        for i in range(1, len(stamps), 5):
+            fork, forked, launch, launched, joined = stamps[i:i + 5]
+            hot[1] += 1
+            hot[3] += forked - fork
+            hot[4] += launched - launch
+            hot[5] += joined - launched
+
+    def _keep_call(self, stamps: list[int], t1: int) -> None:
+        """Keep a profiled call's spans: mesh.packed (the root; its id the
+        call's), mesh.place up to the first replay, and each replay's
+        mesh.fork, graphs.lookup (the key, the cache and the launch
+        counters, with any capture), graphs.launch and mesh.join.  The spans
+        closed since the call began ran in it: they get the call's id, and
+        those without a parent the root as theirs."""
+        t0, call, root, ids, tl = stamps[0], self.calls, next(self._ids), self._ids, self._timeline
+        i = len(tl)
+        while i and tl[i - 1][1] >= t0:
+            i -= 1
+            name, a, b, span_id, parent, _ = tl[i]
+            tl[i] = (name, a, b, span_id, root if parent is None else parent, call)
+        self._keep(("mesh.place", t0, stamps[1] if len(stamps) > 1 else t1, next(ids), root,
+                    call))
+        for i in range(1, len(stamps), 5):
+            fork, forked, launch, launched, joined = stamps[i:i + 5]
+            self._keep(("mesh.fork", fork, forked, next(ids), root, call))
+            self._keep(("graphs.lookup", forked, launch, next(ids), root, call))
+            self._keep(("graphs.launch", launch, launched, next(ids), root, call))
+            self._keep(("mesh.join", launched, joined, next(ids), root, call))
+        outer = self._open[-1][0] if self._open else None
+        self._keep(("mesh.packed", t0, t1, root, outer, call))
+
+
+class _OpenSpan:
+    __slots__ = ("rec", "name", "t0", "frame")
+
+    def __init__(self, rec: Recorder, name: str):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        self.frame = [next(self.rec._ids) if profiling() else None, 0]
+        self.rec._open.append(self.frame)
+        self.t0 = stamp()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        t1, rec = stamp(), self.rec
+        span_id, child_ns = self.frame
+        if rec._open and rec._open[-1] is self.frame:
+            rec._open.pop()
+        ns = t1 - self.t0
+        if rec._open:
+            rec._open[-1][1] += ns
+        rec._setup = True
+        if not profiling():
+            tot = rec._cold[self.name]
+            tot[0] += 1
+            tot[1] += ns
+            tot[2] += ns - child_ns
+            return
+        parent = rec._open[-1][0] if rec._open else None
+        rec._keep((self.name, self.t0, t1, next(rec._ids) if span_id is None else span_id,
+                   parent, None))
+
+
+def self_ns(spans: list[Span]) -> dict[int, int]:
+    """{span id: self time in ns}: each span's duration less the part of
+    its interval that its children cover."""
+    children: dict[int, list[tuple[int, int]]] = defaultdict(list)
+    for s in spans:
+        if s.parent is not None:
+            children[s.parent].append((s.start_ns, s.end_ns))
+    out = {}
+    for s in spans:
+        covered, at = 0, s.start_ns
+        for a, b in sorted(children.get(s.id, ())):
+            a, b = max(a, at), min(b, s.end_ns)
+            if b > a:
+                covered += b - a
+                at = b
+        out[s.id] = s.end_ns - s.start_ns - covered
+    return out
+
+
+RECORDER = Recorder()

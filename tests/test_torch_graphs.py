@@ -9,6 +9,9 @@ steps of the plain backend, byte for byte, with the launch counts that the
 replays add.  This file imports nothing of JAX, so it also runs where JAX
 is not installed (`python -m pytest tests/test_torch_graphs.py -m cuda`)."""
 
+import contextlib
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -19,8 +22,11 @@ from gpu_video_codec_tpu_torch.models.resident import ResidentDeblocker
 from gpu_video_codec_tpu_torch.models.streaming import StreamingDeblocker, _deblock_yv12_packed_n
 from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
 from gpu_video_codec_tpu_torch.ops import relayout_kernel as rk
+from gpu_video_codec_tpu_torch.ops.tables import get_beta, get_tc
+from gpu_video_codec_tpu_torch.parallel import mesh as pm
 from gpu_video_codec_tpu_torch.utils.bs import BoundaryStrength
 from gpu_video_codec_tpu_torch.utils.graphs import GraphCache
+from gpu_video_codec_tpu_torch.utils.tracing import RECORDER
 from gpu_video_codec_tpu_torch.utils.yuv import planes_from_yv12_bytes, yv12_bytes_from_planes
 
 GEOMS = [(64, 48), (40, 24)]  # regular, Q9-sheared (w % 16 == 8)
@@ -182,6 +188,173 @@ def test_graph_cache_is_bounded_lru():
     cache.get("a", build("a"))
     cache.get("b", build("b"))
     assert built == ["a", "b", "c", "b"]
+
+
+# -- the program's spans and counters on these paths (utils/tracing.RECORDER) ---------
+
+def _packed_call(rng, mesh, w=64, h=48, n=2, backend="cuda"):
+    sd = StreamingDeblocker(w, h, 35, device="cpu")  # the segment maps as tensors
+    buf = torch.from_numpy(np.stack([_raw(rng, w, h) for _ in range(n)]).reshape(n, -1, w))
+    return lambda: pm.deblock_packed_batch_sharded_jit(mesh, buf, sd._lm, sd._cm, get_beta(35),
+                                                       get_tc(35), w=w, h=h, backend=backend)
+
+
+def _profiled():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+@pytest.fixture
+def every_call(monkeypatch):
+    """Every unprofiled packed call recorded, not one in RECORDER.every."""
+    monkeypatch.setattr(RECORDER, "every", 1)
+
+
+@pytest.mark.parametrize("slots", [1, 2])
+def test_packed_call_on_cpu_slots_records_packed_and_place(rng, slots, every_call):
+    """One deblock_packed_batch_sharded_jit call on CPU slots runs eagerly:
+    the span mesh.packed, all its own time, and one mesh.calls; under the
+    profiler mesh.place inside it, the two of the call's id."""
+    call = _packed_call(rng, pm.make_mesh(1, slots, devices=["cpu"] * slots))
+    RECORDER.reset()
+    call()
+    tot = RECORDER.totals()
+    assert set(tot) == {"mesh.packed"}
+    assert tot["mesh.packed"].count == 1 and tot["mesh.packed"].self_ns == tot["mesh.packed"].ns > 0
+    assert RECORDER.counters() == {"mesh.calls": 1}
+    with _profiled():
+        call()
+    spans = RECORDER.timeline()
+    root, place = sorted(spans, key=lambda s: s.name)
+    assert (root.name, root.parent, place.name, place.parent) == (
+        "mesh.packed", None, "mesh.place", root.id)
+    assert root.call == place.call == 2 and RECORDER.counters() == {"mesh.calls": 2}
+    assert root.start_ns == place.start_ns < place.end_ns == root.end_ns
+    assert RECORDER.totals() == tot
+
+
+class _FakeStream:
+    def wait_stream(self, other):
+        pass
+
+
+class _FakeGraph:
+    def replay(self):
+        pass
+
+    def pool(self):
+        return None
+
+
+@pytest.fixture
+def graph_path(monkeypatch):
+    """The mesh's graph path on CPU slots: CUDA's device, stream and graph
+    calls stubbed, so that _run forks, looks up, captures (CapturedStep's
+    warm-up and capture run fn eagerly) and replays as on a card."""
+    null = lambda *a, **k: contextlib.nullcontext()  # noqa: E731
+    for name, value in (("current_stream", lambda *a: _FakeStream()),
+                        ("Stream", lambda *a, **k: _FakeStream()), ("stream", null),
+                        ("device", null), ("graph", null), ("CUDAGraph", _FakeGraph)):
+        monkeypatch.setattr(torch.cuda, name, value)
+    monkeypatch.setattr(pm, "graphed", lambda backend, device: True)
+    monkeypatch.setattr(pm, "_GRAPHS", GraphCache(maxsize=16))
+
+
+def test_graph_path_span_order(rng, graph_path):
+    """A packed call on the graph path: place, fork, lookup, launch and
+    join, one after another inside mesh.packed, all of the call's id; the
+    first call's capture inside its lookup; one capture in two calls."""
+    call = _packed_call(rng, pm.make_mesh(1, 1, devices=["cpu"]))
+    RECORDER.reset()
+    with _profiled():
+        call()
+        call()
+    spans = sorted(RECORDER.timeline(), key=lambda s: (s.start_ns, -s.end_ns))
+    roots = [s for s in spans if s.parent is None]
+    assert [r.name for r in roots] == ["mesh.packed"] * 2
+    phases = ["mesh.place", "mesh.fork", "graphs.lookup", "graphs.launch", "mesh.join"]
+    for root in roots:
+        inner = [s for s in spans if s.parent == root.id]
+        assert {s.call for s in inner} == {root.call}
+        assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns for s in inner)
+        hot = [s for s in inner if s.name in phases]
+        assert [s.name for s in hot] == phases
+        assert all(a.end_ns == b.start_ns for a, b in zip(hot, hot[1:]))
+    captures = [s for s in spans if s.name == "graphs.capture"]
+    assert len(captures) == 1 and captures[0].parent == roots[0].id
+    lookup = next(s for s in spans if s.name == "graphs.lookup" and s.call == 1)
+    assert lookup.start_ns <= captures[0].start_ns <= captures[0].end_ns <= lookup.end_ns
+    assert [r.call for r in roots] == [1, 2]
+    assert RECORDER.counters() == {"mesh.calls": 2}
+    assert RECORDER.totals() == {}
+
+
+def test_graph_path_totals(rng, graph_path, every_call):
+    """Unprofiled, the same calls add to the totals: one of each span a
+    call but the first, whose capture is set-up and counted apart, and the
+    phases inside mesh.packed, the rest its self time."""
+    call = _packed_call(rng, pm.make_mesh(1, 1, devices=["cpu"]))
+    RECORDER.reset()
+    for _ in range(3):
+        call()
+    tot = RECORDER.totals()
+    for name in ("mesh.packed", "mesh.fork", "graphs.launch", "mesh.join"):
+        assert tot[name].count == 2, name
+    assert tot["graphs.capture"].count == 1
+    parts = sum(tot[k].ns for k in ("mesh.fork", "graphs.launch", "mesh.join"))
+    assert 0 < tot["mesh.packed"].self_ns == tot["mesh.packed"].ns - parts
+    assert RECORDER.counters() == {"mesh.calls": 3}
+    assert RECORDER.timeline() == []
+
+
+def test_mesh_calls_counts_every_call(rng):
+    call = _packed_call(rng, pm.make_mesh(1, 2, devices=["cpu"] * 2), n=3)
+    RECORDER.reset()
+    for i in range(1, 4):
+        call()
+        assert RECORDER.counters()["mesh.calls"] == i
+
+
+def test_kernel_builds_counted_when_the_compiler_runs(tmp_path, monkeypatch):
+    """kernels.build counts and times compiler runs; a library already
+    built runs no compiler."""
+    monkeypatch.setattr(ck, "BUILD_DIR", tmp_path)
+    touch = [sys.executable, "-c",
+             "import sys; open(sys.argv[sys.argv.index('-o') + 1], 'w').close()"]
+    RECORDER.reset()
+    path, _ = ck._build(touch, ck._HOST_SOURCES, "libgvct_test")
+    assert path.is_file()
+    assert RECORDER.totals()["kernels.build"].count == 1
+    assert ck._build(touch, ck._HOST_SOURCES, "libgvct_test")[0] == path
+    assert RECORDER.totals()["kernels.build"].count == 1
+    assert RECORDER.counters() == {}
+
+
+def test_kernel_load_span_on_first_load_only(monkeypatch):
+    """kernels.load spans a library's first load, its build inside, which its
+    self time leaves out."""
+    import ctypes.util
+
+    libc = ctypes.util.find_library("c")
+    monkeypatch.setattr(ck, "_libs", {})
+    RECORDER.reset()
+
+    def build():
+        with RECORDER.span("kernels.build"):
+            return libc, ""
+
+    with _profiled():
+        lib = ck._load("test", build, lambda lib: None)
+        assert ck._load("test", build, lambda lib: None) is lib
+    load, built = sorted(RECORDER.timeline(), key=lambda s: s.start_ns)
+    assert (load.name, built.name, built.parent, load.parent) == (
+        "kernels.load", "kernels.build", load.id, None)
+    monkeypatch.setattr(ck, "_libs", {})
+    ck._load("test", build, lambda lib: None)  # unprofiled: the load's self time
+    tot = RECORDER.totals()
+    assert tot["kernels.load"].count == tot["kernels.build"].count == 1
+    assert tot["kernels.load"].self_ns == tot["kernels.load"].ns - tot["kernels.build"].ns
 
 
 # -- the card: graph replays against eager plain steps ------------------------------

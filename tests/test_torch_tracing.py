@@ -280,3 +280,194 @@ def test_profiled_device_us_keeps_trace(tmp_path):
     with open(tmp_path / "t" / "trace.json") as f:
         assert "traceEvents" in json.load(f)
     assert (res is None) == (not torch.cuda.is_available())
+
+
+def test_partly_overlapping_kernels_all_count(tmp_path):
+    """1,000 replays of the six kernels of the packed step, each kernel
+    starting 0.8 us before its predecessor ends (as an H100's trace shows
+    them): none encloses another, so all 6,000 count."""
+    names = [_T2, _K1, _T3, _T2, _K1C, _T3]
+    events, ts = list(TORCH_TRACE["traceEvents"][:7]), 0.0
+    for _ in range(1000):
+        for name in names:
+            events.append({"ph": "X", "cat": "kernel", "name": name, "pid": 0, "tid": 7,
+                           "ts": ts, "dur": 4.0})
+            ts += 4.0 - 0.8
+        ts += 50.0
+    stats = tracing.device_op_stats(_write_trace(tmp_path, events, "t.json"))
+    assert sum(n for _, n in stats.values()) == 6000
+    assert stats == pytest.approx({_T2: (8000.0, 2000), _T3: (8000.0, 2000),
+                                   _K1: (4000.0, 1000), _K1C: (4000.0, 1000)})
+
+
+def test_enclosed_event_is_a_leaf_beside_a_partial_overlap(tmp_path):
+    """A container holding one event wholly and overlapping another only
+    in part: the container drops out, both others count."""
+    events = [_meta(1, "/device:GPU:0"),
+              _ev(1, 0, "outer", 0.0, 100.0),
+              _ev(1, 0, "inner", 10.0, 20.0),
+              _ev(1, 0, "straddler", 90.0, 30.0),
+              _ev(1, 0, "after", 125.0, 5.0)]
+    assert tracing.device_op_totals(_write_trace(tmp_path, events, "t.json")) == {
+        "inner": 20.0, "straddler": 30.0, "after": 5.0}
+
+
+# -- the program's spans and counters ------------------------------------------------
+
+def _profiled():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def _call(rec, cold=(), replays=1):
+    """One packed batch call's stamps as parallel/mesh stamps them: a
+    replay 2 us of fork, 3 of lookup, 4 of launch and 5 of join after
+    the call's start (the span() blocks `cold` inside its lookup)."""
+    stamps = rec.start_call()
+    if stamps is None:
+        return False
+    for _ in range(replays):
+        t = stamps[0]
+        for name in cold:
+            with rec.span(name):
+                pass
+        stamps += (t + 1_000, t + 3_000, t + 6_000, t + 10_000, t + 15_000)
+    while tracing.stamp() < stamps[0] + 20_000:
+        pass
+    rec.end_call(stamps)
+    return True
+
+
+def test_recorder_nesting_parents_call_ids_and_self_time():
+    rec = tracing.Recorder()
+    with _profiled():
+        with rec.span("graphs.capture"):
+            with rec.span("kernels.load"):
+                pass
+        start = rec.start_call()
+        t = start[0]
+        with rec.span("graphs.capture"):
+            with rec.span("kernels.load"):
+                pass
+        start += (t + 1, t + 2, t + 3, t + 4, t + 5)
+        rec.end_call(start)
+    spans = rec.timeline()
+    by = {}
+    for s in spans:
+        by.setdefault(s.name, []).append(s)
+    root = by["mesh.packed"][0]
+    assert root.parent is None and root.call == 1
+    (before, capture), (before_load, inner_load) = by["graphs.capture"], by["kernels.load"]
+    assert before.parent is None and before.call is None and before_load.parent == before.id
+    assert capture.parent == root.id and inner_load.parent == capture.id
+    phases = [by[n][0] for n in ("mesh.place", "mesh.fork", "graphs.lookup", "graphs.launch",
+                                 "mesh.join")]
+    assert {s.call for s in (capture, inner_load, *phases)} == {1}
+    assert {s.parent for s in phases} == {root.id}
+    assert [(s.start_ns - t, s.end_ns - t) for s in phases] == [
+        (0, 1), (1, 2), (2, 3), (3, 4), (4, 5)]
+    assert len({s.id for s in spans}) == len(spans)
+    own = tracing.self_ns(spans)
+    children = sum(s.end_ns - s.start_ns for s in spans if s.parent == root.id)
+    assert own[root.id] == root.end_ns - root.start_ns - children
+    assert own[capture.id] == (capture.end_ns - capture.start_ns
+                               - (inner_load.end_ns - inner_load.start_ns))
+    assert rec.totals() == {} and rec.counters() == {"mesh.calls": 1}
+
+
+def test_recorder_cold_totals_keep_self_time():
+    """Unprofiled, a span's self time leaves out the spans inside it, at
+    any depth; each name is counted."""
+    rec = tracing.Recorder()
+    with rec.span("graphs.capture"):
+        with rec.span("kernels.load"):
+            with rec.span("kernels.build"):
+                pass
+    tot = rec.totals()
+    assert {k: v.count for k, v in tot.items()} == {
+        "graphs.capture": 1, "kernels.load": 1, "kernels.build": 1}
+    assert tot["kernels.build"].self_ns == tot["kernels.build"].ns
+    assert tot["kernels.load"].self_ns == tot["kernels.load"].ns - tot["kernels.build"].ns
+    assert tot["graphs.capture"].self_ns == tot["graphs.capture"].ns - tot["kernels.load"].ns
+
+
+def test_recorder_records_one_call_in_every():
+    """Unprofiled, one call in `every` is stamped and the rest only
+    counted; under the profiler every call is; a call that did set-up
+    work stays out of the totals."""
+    rec = tracing.Recorder(every=4)
+    assert [_call(rec) for _ in range(8)] == [False, False, False, True] * 2
+    assert rec.totals()["mesh.packed"].count == 2 and rec.counters() == {"mesh.calls": 8}
+    with _profiled():
+        assert all(_call(rec) for _ in range(3))
+    assert len([s for s in rec.timeline() if s.name == "mesh.packed"]) == 3
+    for _ in range(4):
+        _call(rec)
+    assert _call(rec, cold=("graphs.capture",))  # call 16
+    assert rec.totals()["mesh.packed"].count == 3 and rec.totals()["graphs.capture"].count == 1
+    for _ in range(4):
+        _call(rec)
+    assert rec.totals()["mesh.packed"].count == 4 and rec.counters() == {"mesh.calls": 20}
+
+
+def test_self_ns_counts_overlapping_children_once():
+    s = tracing.Span
+    spans = [s("root", 0, 100, 1, None, 1), s("a", 10, 40, 2, 1, 1), s("b", 30, 50, 3, 1, 1),
+             s("c", 90, 120, 4, 1, 1)]
+    assert tracing.self_ns(spans) == {1: 100 - 40 - 10, 2: 30, 3: 20, 4: 30}
+
+
+def test_recorder_totals_leave_out_profiled_spans():
+    rec = tracing.Recorder(every=1)
+    _call(rec, replays=2)
+    with rec.span("graphs.capture"):
+        pass
+    with _profiled():
+        _call(rec)
+        with rec.span("graphs.capture"):
+            pass
+    tot = rec.totals()
+    assert tot["mesh.fork"] == (2, 4_000, 4_000)
+    assert tot["graphs.launch"] == (2, 8_000, 8_000)
+    assert tot["mesh.join"] == (2, 10_000, 10_000)
+    packed = tot["mesh.packed"]
+    assert packed.count == 1 and packed.ns >= 20_000
+    assert packed.self_ns == packed.ns - 22_000
+    assert tot["graphs.capture"].count == 1
+    assert set(tot) == {"mesh.packed", "mesh.fork", "graphs.launch", "mesh.join",
+                        "graphs.capture"}
+    assert rec.counters() == {"mesh.calls": 2}
+    assert sorted(s.name for s in rec.timeline()) == sorted(
+        ["graphs.launch", "mesh.fork", "graphs.lookup", "mesh.join", "mesh.place",
+         "mesh.packed", "graphs.capture"])
+
+
+def test_recorder_timeline_only_under_the_profiler_and_bounded():
+    rec = tracing.Recorder(bound=9, every=1)
+    for _ in range(3):
+        _call(rec)
+    assert rec.timeline() == [] and rec.dropped == 0
+    with _profiled():
+        for _ in range(2):
+            _call(rec)
+    assert [s.name for s in rec.timeline()] == [
+        "mesh.place", "mesh.fork", "graphs.lookup", "graphs.launch", "mesh.join", "mesh.packed",
+        "mesh.place", "mesh.fork", "graphs.lookup"]
+    assert rec.dropped == 3
+    assert rec.totals()["mesh.packed"].count == 3
+
+
+def test_recorder_reset():
+    rec = tracing.Recorder(bound=1, every=1)
+    _call(rec)
+    with rec.span("kernels.load"):
+        pass
+    with _profiled():
+        _call(rec)
+    rec.reset()
+    assert (rec.totals(), rec.counters(), rec.timeline(), rec.dropped) == ({}, {}, [], 0)
+    with _profiled():
+        _call(rec)
+    assert [(s.name, s.parent, s.call) for s in rec.timeline()] == [("mesh.place", 1, 1)]
+    assert rec.dropped == 5
