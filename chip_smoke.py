@@ -19,7 +19,9 @@
    32 and 64 tiles per block (with the 1080p grids' waves), for
    K1-i16/K1-i16c at their default TB, for T1 at its default block of
    pairs at the race grid, and T5's route, blocks per SM and shared memory
-   at the race grid (TMA) and at Bx 241 (words).
+   at the race grid (TMA) and at Bx 241 (words); and that K2 (the packed
+   step's kernel) does not spill and keeps to 64 registers, with its blocks
+   and warps per SM and shared memory.
 1. Holds each variant of the deblock kernel against its plain PyTorch
    version on the card, byte for byte, at the main path's grids (1080p luma
    and U+V chroma), a sheared chroma grid, tail grids (Bx 5, 1, 31, 33,
@@ -64,10 +66,10 @@
 3. Streams 16 distinct 1080p frames through StreamingDeblocker.run (the
    main path: a ring of device slots whose steps are CUDA graph replays,
    with the read-back overlapped), checks each against the plain backend
-   on the card and that each frame launched T2 twice, K1 and K1c once and
-   T3 twice (T2, K1 and T3 once with luma_only), counting replays; then
-   again with luma_only, across a mid-stream update_boundary_strength
-   (after the ring's graphs were captured), and a sheared 360x288 stream.
+   on the card and that each frame launched K2 once, counting replays;
+   then again with luma_only, across a mid-stream update_boundary_strength
+   (after the ring's graphs were captured), and a sheared 360x288 stream,
+   which K2's guard leaves to T2 twice, K1 and K1c once and T3 twice.
 3b. The device-resident path (ResidentDeblocker): == golden at 1920x1080
    and 360x288; a batch of four distinct 1080p frames through ingest, three
    steps and readback == the plain backend, with exactly 2 T2, 3 K1, 3 K1c,
@@ -75,8 +77,8 @@
    update between steps.
 3c. CUDA graphs against eager steps of the plain backend on a copy, byte
    for byte, on blocky frames at QP 35: StreamingDeblocker._chain(buf, n)
-   at 1920x1080 for n in {1, 3, 50} and at the sheared 360x288 for n = 3,
-   each with n x (T2 2, K1 1, K1c 1, T3 2) launches at the capturing call
+   at 1920x1080 for n in {1, 3, 50} (n K2 launches) and at the sheared
+   360x288 for n = 3 (n x (T2 2, K1 1, K1c 1, T3 2)), at the capturing call
    and at a replay alone; ResidentDeblocker.run_steps(tf, 3) on one 1080p
    frame and a batch of four (K1 3, K1c 3 per call): two successive results
    both right, in memory of their own, and the input state unchanged.
@@ -88,7 +90,7 @@
    the host's CPU model and nproc.
 3e. compat: ReadYuvFrame (cuda and native) on the three bundled frames ==
    golden; ExecuteCpu's thread sweep and ExecuteGpu's kernel_s, h2d_s and
-   total_s at 1080p, printed, each output == golden.
+   total_s at 1080p (through K2), printed, each output == golden.
 3f. The CLI with --backend native --num-threads 2 --bench == golden; the
    three examples (gpu_video_codec_tpu_torch/examples) on the card.
 3g. Sheared chroma (Q9) at 360x288: a 4-frame stream, a resident batch of
@@ -97,7 +99,10 @@
    graph-replayed _step and of a resident ingest + step + readback: the
    port's T2, K1, K1c, T3 (and T4) and no other.
 4. Times K1 and K1c at TB 32 and 64 in turns with their plain versions,
-   the packed step (a graph replay) and the copy with CUDA events; prints
+   K2 at the benchmark cells' shapes, (16, 1620, 1920) and (4, 3240, 3840),
+   in turns with the chain it replaces and its plain version beside its
+   byte bound, the packed step (a graph replay) and the copy with CUDA
+   events; prints
    time_breakdown(measure_d2h=True) (dispatch per replayed step beside an
    eager step's, the profiler's device split, the synchronous end-to-end
    frame).
@@ -108,8 +113,8 @@
    step of run_steps and the device time of run_steps' copy-out.
 4c. Lists the device kernels by name and time (torch.profiler) for the
    resident path and the streaming packed step at 1080p, replayed from its
-   graph and run eagerly; the replay runs T2, the quad K1 and K1c and T3
-   and no other kernel (no layout copy, fill or write-back), and
+   graph and run eagerly; the replay runs K2 and no other kernel (no
+   relayout, layout copy, fill or write-back), and
    utils.tracing.profiled_device_us's total agrees with the profiler's
    key_averages() within 2%.  Both take each kernel's mean launch times its
    launches per call (utils.tracing.per_iter_us).
@@ -124,9 +129,9 @@
    slots (uneven slabs), eager and as graph replays, == one slot;
    MeshResidentDeblocker, a batch of 4 x 3 steps on (2, 1) slots ==
    ResidentDeblocker; the CLI --streams 4 --mesh 1,1 on 10 frames ==
-   golden, tail included.  Every run's launches: T2 2, K1 1, K1c 1, T3 2
-   per slot and batch; the profile of the batched packed step holds only
-   the port's kernels.
+   golden, tail included.  Every run's launches: K2 1 per slot and batch
+   (T2 2, K1 1, K1c 1, T3 2 at the sheared width); the profile of the
+   batched packed step holds K2 alone.
 4d. Times the quad K1 against K1-i16 (the quad at int16_t), T5 (the quad
    on the rows layout, TMA-staged) and T1 (a quad per tile pair) in turns
    at the race grid (136, 256), on blocky tiles, on uniform noise (cond1
@@ -143,7 +148,10 @@
    48 frames up to 128x96 and 8 up to 1024x576; sheared widths, QPs 0-60,
    random data, the LCG's luma BS in about half) through
    DeblockPipeline(backend="cuda"), each extended plane byte-equal to
-   golden, with T2 3, K1 1, K1c 1 and T3 3 launches a frame.
+   golden, with T2 3, K1 1, K1c 1 and T3 3 launches a frame; then through
+   the packed streaming step (the tool's --backend packed), each frame ==
+   golden, K2 once a frame where its guard takes the width (w % 32 == 0),
+   T2 2, K1, K1c, T3 2 elsewhere.
 
 Exits non-zero at the first failure.  Prints the card's name and power
 limit, a JSON line of per-kernel results, and last a JSON line with
@@ -226,16 +234,20 @@ def main() -> int:
     from gpu_video_codec_tpu_torch.models.golden import deblock_frame_golden
     from gpu_video_codec_tpu_torch.models.pipeline import DeblockPipeline
     from gpu_video_codec_tpu_torch.models.resident import ResidentDeblocker, _readback
-    from gpu_video_codec_tpu_torch.models.streaming import StreamingDeblocker
+    from gpu_video_codec_tpu_torch.models.streaming import StreamingDeblocker, _tile_chain
     from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
     from gpu_video_codec_tpu_torch.ops import relayout_kernel as rk
     from gpu_video_codec_tpu_torch.ops import swar_kernel as sk
-    from gpu_video_codec_tpu_torch.ops.deblock import deblock_rows_plain, deblock_tiles_plain
+    from gpu_video_codec_tpu_torch.ops.deblock import (
+        deblock_packed_plain, deblock_rows_plain, deblock_tiles_plain,
+    )
     from gpu_video_codec_tpu_torch.ops.tables import get_beta, get_tc
     from gpu_video_codec_tpu_torch.runtime import native
     from gpu_video_codec_tpu_torch.tools import int16_probe, psnr, rowslayout_exp, sass, swar_exp
     from gpu_video_codec_tpu_torch.tools.kernel_time import blocky_tiles
-    from gpu_video_codec_tpu_torch.tools.validate_vs_reference import case_bs, fuzz_cases
+    from gpu_video_codec_tpu_torch.tools.validate_vs_reference import (
+        case_bs, deblocked, fuzz_cases,
+    )
     from gpu_video_codec_tpu_torch.utils.bs import (
         BoundaryStrength, chroma_segment_maps, luma_segment_maps,
     )
@@ -302,6 +314,17 @@ def main() -> int:
             got = (e.get("registers"), e["sass"] if e["sass"] is not None else want[1])
             check(got == want, f"K1 quad {key[1:]} at T = int: (registers, static SASS) {got}, "
                                f"was {want} before the compute type became a parameter")
+    k2_entries = [e for mangled, e in entries.items() if "deblock_packed_kernel" in mangled]
+    check(len(k2_entries) == 1 and k2_entries[0].get("spill_stores") == 0
+          and k2_entries[0].get("spill_loads") == 0
+          and (k2_entries[0].get("registers") or 99) <= 64,
+          f"K2 (deblock_packed_kernel): one entry, no spills, at most 64 registers: {k2_entries}")
+    k2_entry = k2_entries[0]
+    k2_info = ck.deblock_packed_info(dev)
+    print(f"K2 deblock_packed_kernel: {k2_entry.get('registers')} registers, no spills, "
+          f"{k2_info['smem_bytes']} B shared memory, {k2_info['threads']} threads "
+          f"({k2_info['tiles_per_block']} tiles) per block, {k2_info['blocks_per_sm']} blocks = "
+          f"{k2_info['warps_per_sm']} warps per SM, static SASS {k2_entry.get('sass')}")
     for key in (("K1", False, 8), ("K1-i16", False, 8), ("T1", False, 8), ("T5", False, 0),
                 ("T5", False, 1)):
         if quads[key].get("opcodes"):
@@ -375,7 +398,7 @@ def main() -> int:
                 "K1c": ck.LAUNCHES["chroma"], "T3": rk.LAUNCHES["inv"],
                 "T4": rk.LAUNCHES["pack"], "K1-i16": ck.LAUNCHES["luma_i16"],
                 "K1-i16c": ck.LAUNCHES["chroma_i16"], "T5": ck.LAUNCHES["rows"],
-                "T1": sk.LAUNCHES["swar"]}
+                "T1": sk.LAUNCHES["swar"], "K2": ck.LAUNCHES["packed"]}
 
     def reset() -> None:
         for d in (ck.LAUNCHES, rk.LAUNCHES, sk.LAUNCHES):
@@ -384,6 +407,15 @@ def main() -> int:
     def only(**launches) -> dict:
         """counts() as it should read when only `launches` ran."""
         return {**dict.fromkeys(counts(), 0), **launches}
+
+    def packed_steps(ww: int, n: int, luma_only: bool = False) -> dict:
+        """The launches of n packed steps of a ww-wide frame on fresh (so
+        aligned) buffers: K2 once each where its guard takes the width,
+        else T2 2, K1, K1c, T3 2 (T2, K1, T3 under luma_only)."""
+        if ck.packed_fits(ww):
+            return {"K2": n}
+        c = 0 if luma_only else n
+        return {"T2": n + c, "K1": n, "K1c": c, "T3": n + c}
 
     max_err = dict.fromkeys(counts(), 0)  # max |kernel - plain| by kernel, phases 1-1c
 
@@ -722,7 +754,7 @@ def main() -> int:
     reset()
     outs = list(s.run(frames))
     launches = counts()
-    want = only(T2=2 * n, K1=n, K1c=n, T3=2 * n)
+    want = only(**packed_steps(w, n))
     check(launches == want, f"stream launches {launches}, want {want}")
     plain = StreamingDeblocker(w, h, 35, backend="torch", depth=2, device=dev)
     refs = list(plain.run(frames))
@@ -734,7 +766,8 @@ def main() -> int:
     s_luma = StreamingDeblocker(w, h, 35, luma_only=True, device=dev)
     reset()
     outs_l = list(s_luma.run(frames))
-    check(counts() == only(T2=n, K1=n, T3=n), f"luma_only launches {counts()}")
+    check(counts() == only(**packed_steps(w, n, luma_only=True)),
+          f"luma_only launches {counts()}")
     refs_l = StreamingDeblocker(w, h, 35, backend="torch", luma_only=True, device=dev).run(frames)
     check(all(np.array_equal(o, r) for o, r in zip(outs_l, refs_l)), "luma_only != plain")
     check(all(np.array_equal(o[w * h:], f[w * h:]) for o, f in zip(outs_l, frames)),
@@ -756,7 +789,7 @@ def main() -> int:
     s_swap = StreamingDeblocker(w, h, 35, device=dev)
     reset()
     outs_b = swapped(s_swap)
-    check(counts() == only(T2=2 * n, K1=n, K1c=n, T3=2 * n) and s_swap._run_ring is not None,
+    check(counts() == only(**packed_steps(w, n)) and s_swap._run_ring is not None,
           f"BS swap stream launches {counts()}: not through the graph ring")
     refs_b = swapped(StreamingDeblocker(w, h, 35, backend="torch", device=dev))
     check(all(np.array_equal(o, r) for o, r in zip(outs_b, refs_b)), "BS swap != plain")
@@ -770,7 +803,7 @@ def main() -> int:
     cif_frames = [blocky_frame(rng, cw_, ch_) for _ in range(ns)]
     reset()
     outs_c = list(StreamingDeblocker(cw_, ch_, 35, device=dev).run(cif_frames))
-    check(counts() == only(T2=2 * ns, K1=ns, K1c=ns, T3=2 * ns),
+    check(counts() == only(**packed_steps(cw_, ns)) and counts()["K2"] == 0,
           f"sheared stream launches {counts()}")
     refs_c = StreamingDeblocker(cw_, ch_, 35, backend="torch", device=dev).run(cif_frames)
     check(all(np.array_equal(o, r) for o, r in zip(outs_c, refs_c)),
@@ -827,7 +860,7 @@ def main() -> int:
         for _ in range(n_steps):
             sp._step(ref)
         buf = src.clone()
-        want_l = only(T2=2 * n_steps, K1=n_steps, K1c=n_steps, T3=2 * n_steps)
+        want_l = only(**packed_steps(ww, n_steps))
         for call in ("capturing call", "replay"):
             buf.copy_(src)
             reset()
@@ -988,8 +1021,9 @@ def main() -> int:
             with open(os.path.join(tmp, f"{what}.yuv"), "rb") as f:
                 check(f.read() == yv12_bytes_from_planes(gold), f"Execute{what.title()} != golden")
     compat_launches = counts()
-    check(all(compat_launches[k] > 0 for k in ("T2", "K1", "K1c", "T3")),
-          f"compat did not launch T2, K1, K1c and T3: {compat_launches}")
+    check(all(compat_launches[k] > 0 for k in ("T2", "K1", "K1c", "T3", "K2")),
+          f"compat did not launch T2, K1, K1c, T3 (ReadYuvFrame) and K2 (ExecuteGpu at 1080p): "
+          f"{compat_launches}")
     print(f"compat: ReadYuvFrame (cuda, native) == golden on the three bundled frames; "
           f"launches {compat_launches}")
     print("ExecuteCpu 1080p seconds by threads: " + ", ".join(
@@ -1041,7 +1075,7 @@ def main() -> int:
           f"time (queued ahead: {ahead}; {smi})")
     sheared_dev = torch.from_numpy(sheared4[:1]).to(dev)
     port_kernels = ("plane_to_tiles_kernel", "tiles_to_plane_kernel", "deblock_quad_kernel",
-                    "pack_yv12_kernel")
+                    "pack_yv12_kernel", "deblock_packed_kernel")
     # eager launches first: a graph replay shows its kernels to a profiler
     # that has traced before in the process (phase 4c's order)
     for what, fn in (("sheared 360x288 streaming step, eager (_packed)",
@@ -1113,12 +1147,8 @@ def main() -> int:
                 len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
                 for a, b in zip(got, ref)), f"{what} != plain backend")
 
-        per_batch = {"T2": 2, "K1": 1, "K1c": 1, "T3": 2}
-
-        def batch_launches(batches_: int, active_slots: int, luma_only=False) -> dict:
-            k = batches_ * active_slots
-            return ({"T2": k, "K1": k, "T3": k} if luma_only else
-                    {name: v * k for name, v in per_batch.items()})
+        def batch_launches(batches_: int, active_slots: int, luma_only=False, ww=w) -> dict:
+            return packed_steps(ww, batches_ * active_slots, luma_only)
 
         mesh11 = slots(1)
         outs_m = mesh_run("MultiStreamDeblocker 4 x 1080p, (1, 1)",
@@ -1144,12 +1174,12 @@ def main() -> int:
               "MultiStreamDeblocker 1080p first and last batch != golden")
         print(f"mesh: MultiStreamDeblocker {n_ms} streams x {steps_ms} steps x 1080p on a (1, 1) "
               f"mesh of cuda:0 == plain backend (first and last batch == golden), with a BS "
-              f"swap before batch 3 and luma_only; per batch T2 2, K1 1, K1c 1, T3 2")
+              f"swap before batch 3 and luma_only; per batch K2 1")
 
         cif_streams = [[cif_frames[(4 * t + i) % ns] for t in range(3)] for i in range(4)]
         outs_cm = mesh_run("MultiStreamDeblocker 4 x 360x288",
                            lambda: multistream(mesh11, cw_, ch_, cif_streams),
-                           batch_launches(3, 1))
+                           batch_launches(3, 1, ww=cw_))
         same_batches("MultiStreamDeblocker sheared 360x288", outs_cm,
                      multistream(mesh11, cw_, ch_, cif_streams, backend="torch"))
         check(all(o.tobytes() == golden_packed((cif_streams[i][t].tobytes(), cw_, ch_))
@@ -1157,7 +1187,8 @@ def main() -> int:
               "MultiStreamDeblocker 360x288 != golden")
         uhd = [[blocky_frame(rng, 3840, 2160) for _ in range(2)] for _ in range(2)]
         outs_4k = mesh_run("MultiStreamDeblocker 2 x 3840x2160",
-                           lambda: multistream(mesh11, 3840, 2160, uhd), batch_launches(2, 1))
+                           lambda: multistream(mesh11, 3840, 2160, uhd),
+                           batch_launches(2, 1, ww=3840))
         same_batches("MultiStreamDeblocker 3840x2160", outs_4k,
                      multistream(mesh11, 3840, 2160, uhd, backend="torch"))
         mesh12 = slots(2)
@@ -1168,7 +1199,8 @@ def main() -> int:
                      [b[:3] for b in outs_m])
         print("mesh: MultiStreamDeblocker sheared 360x288 (4 streams, == golden), 3840x2160 "
               "(2 streams x 2 steps) == plain backend; 3 streams on [cuda:0] * 2 as (1, 2) "
-              "(chunks 2 + 1) == the (1, 1) run; T2 2, K1 1, K1c 1, T3 2 per slot and batch")
+              "(chunks 2 + 1) == the (1, 1) run; per slot and batch K2 1 (T2 2, K1 1, K1c 1, "
+              "T3 2 at the sheared width)")
 
         # deblock_batch_sharded: extended 1080p planes, uneven tile-row slabs
         ext = [torch.nn.functional.pad(p, (4, 4, 4, 4)) for p in (
@@ -1236,17 +1268,13 @@ def main() -> int:
 
     step_rows_m = trace("mesh: batched packed step 1080p, k = 4 frames, one graph replay",
                         packed_step(4))
-    stray = [key for _, _, key in step_rows_m if not any(k in key for k in port_kernels)]
-    check(bool(step_rows_m) and not stray,
-          f"the batched packed step ran kernels besides the port's: {stray}")
     # the launch counters give the counts (mesh_run); the profiler may drop
     # events at its window's edges, so its listing is held to the names only
-    missing = [k for k in ("plane_to_tiles_kernel", "tiles_to_plane_kernel",
-                           "deblock_quad_kernel<false", "deblock_quad_kernel<true")
-               if not any(k in key for _, _, key in step_rows_m)]
-    check(not missing, f"the batched packed step did not run {missing}")
-    print("mesh: the batched packed step's profile holds T2, the quad K1 and K1c, T3 and no "
-          "other kernel (no copy, fill, cat or stack)")
+    stray = [key for _, _, key in step_rows_m if "deblock_packed_kernel" not in key]
+    check(not stray and bool(step_rows_m),
+          f"the batched packed step ran kernels besides K2: {stray}")
+    print("mesh: the batched packed step's profile holds K2 and no other kernel (no relayout, "
+          "copy, fill, cat or stack)")
 
     new_paths = {"pipeline": pipe_launches, "compat": compat_launches,
                  "sheared": sheared_launches, "mesh": mesh_launches}
@@ -1284,6 +1312,61 @@ def main() -> int:
         print(f"{name} {shape}: " + ", ".join(f"{k} {ms * 1e3:.2f} us" for k, (ms, _) in r.items())
               + f" (the path's TB {block_bx}; queued ahead: {all(ok for _, ok in r.values())}; "
               f"device time; {smi})")
+
+    # K2 at the benchmark cells' shapes: first out of place against the chain
+    # it replaces and its plain version, byte for byte with random BS; then
+    # in turns with both, in place on the same batch of blocky frames
+    k2_rows = []
+    for kk, ww, hh in ((16, w, h), (4, 3840, 2160)):
+        sk2 = StreamingDeblocker(ww, hh, 37, device=dev)
+        bs_k = BoundaryStrength.intra_default(ww, hh)
+        bs_k.set_luma(rng.integers(0, 3, bs_k.vert.size, dtype=np.uint8),
+                      rng.integers(0, 3, bs_k.hor.size, dtype=np.uint8))
+        bs_k.set_chroma(rng.integers(0, 3, bs_k.chroma_vert.size, dtype=np.uint8),
+                        rng.integers(0, 3, bs_k.chroma_hor.size, dtype=np.uint8))
+        sk2.update_boundary_strength(bs_k)
+        bufk = torch.from_numpy(np.stack([blocky_frame(rng, ww, hh) for _ in range(kk)])
+                                .reshape(kk, 3 * hh // 2, ww)).to(dev)
+        planes_k = (bufk[:, :hh], bufk[:, hh:].view(kk, 2, hh // 2, ww // 2))
+        args_k = (sk2._lm, sk2._cm, sk2._beta, sk2._tc)
+        got_k = ck.deblock_packed_cuda(*planes_k, *args_k)
+        chain_k = _tile_chain(*planes_k, *args_k, ww, hh, False, ck.BLOCK_BX,
+                              ck.CHROMA_BLOCK_BX, None)
+        plain_k = deblock_packed_plain(*planes_k, *args_k)
+        for plane, g, c, p in zip(("luma", "U+V"), got_k, chain_k, plain_k):
+            check(torch.equal(g, c) and torch.equal(g, p),
+                  f"K2 ({kk}, {3 * hh // 2}, {ww}) {plane} != the chain / its plain version: "
+                  f"{int((g != c).sum())} / {int((g != p).sum())} bytes differ")
+        changed = int((got_k[0] != planes_k[0]).sum() + (got_k[1] != planes_k[1]).sum())
+        check(changed > 0, f"K2 ({kk}, {3 * hh // 2}, {ww}) changed no byte")
+        print(f"K2 ({kk}, {3 * hh // 2}, {ww}), random BS: == the chain == its plain version, "
+              f"byte for byte ({changed} bytes filtered)")
+        del got_k, chain_k, plain_k
+        r = in_turns({
+            "K2": lambda pk=planes_k, ak=args_k: ck.deblock_packed_cuda(*pk, *ak, out=pk),
+            "chain": lambda pk=planes_k, ak=args_k, ww=ww, hh=hh: _tile_chain(
+                *pk, *ak, ww, hh, False, ck.BLOCK_BX, ck.CHROMA_BLOCK_BX, pk),
+            "plain": lambda pk=planes_k, ak=args_k: deblock_packed_plain(*pk, *ak)},
+            {"K2": 200, "chain": 200, "plain": 3})
+        k2_rows.append({"shape": f"({kk}, {3 * hh // 2}, {ww})", "ms": r["K2"][0],
+                        "chain_ms": r["chain"][0], "plain_ms": r["plain"][0],
+                        "bound_ms": bytes_bound_ms(2 * bufk.numel())})
+        bound_k = k2_rows[-1]["bound_ms"]
+        print(f"K2 ({kk}, {3 * hh // 2}, {ww}): " + ", ".join(
+            f"{k} {ms * 1e3:.2f} us" for k, (ms, _) in r.items())
+            + f"; bound {bound_k * 1e3:.2f} us, {bound_k / r['K2'][0]:.3f} of K2's time; "
+            f"chain / K2 {r['chain'][0] / r['K2'][0]:.3f} (queued ahead: "
+            f"{all(ok for _, ok in r.values())}; device time; {smi})")
+    by_path = {"stream": launches["K2"], "resident": res_launches["K2"],
+               **{path: n["K2"] for path, n in new_paths.items()}}
+    kernels.append({
+        "name": f"K2 packed step {k2_rows[0]['shape']}", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": None, "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "ms": k2_rows[0]["ms"], "chain_ms": k2_rows[0]["chain_ms"],
+        "plain_ms": k2_rows[0]["plain_ms"], "bound_ms": k2_rows[0]["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "registers": k2_entry.get("registers"),
+        "warps_per_sm": k2_info["warps_per_sm"], "smem_bytes": k2_info["smem_bytes"],
+        "other_shapes": k2_rows[1:]})
 
     raw = frames[1]
     buf = s._put(raw)
@@ -1397,15 +1480,14 @@ def main() -> int:
           lambda: _readback(rd1.step(rd1.ingest(frames4)), w, h), reps=5)
     trace("streaming packed step 1080p, eager (_packed)", lambda: s._packed(buf, True))
     step_rows = trace("streaming packed _step 1080p, one graph replay", lambda: s._step(buf))
-    ours = ("plane_to_tiles_kernel", "tiles_to_plane_kernel", "deblock_quad_kernel")
-    stray = [key for _, _, key in step_rows if not any(k in key for k in ours)]
-    check(not stray, f"the streaming step ran kernels besides T2, K1, K1c and T3: {stray}")
+    stray = [key for _, _, key in step_rows if "deblock_packed_kernel" not in key]
+    check(not stray, f"the streaming step ran kernels besides K2: {stray}")
     if step_rows:
-        missing = [k for k in ours if not any(k in key for _, _, key in step_rows)]
-        check(not missing, f"the streaming step did not run {missing}")
-        print("streaming step kernels in a graph replay: T2, the quad K1 and K1c, T3, and no other")
+        print("streaming step kernels in a graph replay: K2, and no other")
         busy = sum(us for us, _, _ in step_rows)
-        prof = profiled_device_us(lambda: s._step(buf), iters=20)
+        # 200 replays: a replay is one launch (K2), and the profiler can miss
+        # a window's first launches, all of a window of 20
+        prof = profiled_device_us(lambda: s._step(buf), iters=200)
         check(prof is not None, "profiled_device_us found no device lane in the trace")
         print(f"profiled_device_us (Chrome trace, device-lane leaves): {prof[0]:.2f} us per replay "
               f"against key_averages() {busy:.2f} us, ratio {prof[0] / busy:.4f}; buckets "
@@ -1595,6 +1677,27 @@ def main() -> int:
           f"plane byte for byte; {sheared} sheared widths (w % 16 == 8), {above_51} QPs above 51, "
           f"{lcg} with the LCG's luma BS; launches {fuzz_launches}; "
           f"{time.perf_counter() - t0:.1f} s")
+
+    # the same cases through the packed streaming step (the tool's --backend
+    # packed): K2 where its guard takes the width, the chain elsewhere
+    reset()
+    n_k2 = 0
+    t0 = time.perf_counter()
+    for n_cases, max_w, max_h in ((48, 128, 96), (8, 1024, 576)):
+        for w_, h_, qp, bs_seed, raw_ in fuzz_cases(n_cases, 0, max_w, max_h):
+            bs_ = case_bs(w_, h_, bs_seed)
+            frame = planes_from_yv12_bytes(raw_, w_, h_)
+            got = deblocked(frame, bs_, qp, "packed", dev)
+            check(got.tobytes() == yv12_bytes_from_planes(deblock_frame_golden(frame, bs_, qp)),
+                  f"fuzz {w_}x{h_} qp={qp} bs_seed={bs_seed}: the packed step != golden")
+            n_k2 += ck.packed_fits(w_)
+    fuzz_k2 = counts()
+    m = n_fuzz - n_k2
+    want = only(K2=n_k2, T2=2 * m, K1=m, K1c=m, T3=2 * m)
+    check(fuzz_k2 == want and n_k2 > 0, f"fuzz, packed step: launches {fuzz_k2}, want {want}")
+    print(f"fuzz through the packed streaming step (validate_vs_reference --backend packed): "
+          f"{n_fuzz} cases == golden, {n_k2} through K2 and {n_fuzz - n_k2} through the chain; "
+          f"launches {fuzz_k2}; {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -121,7 +121,7 @@ def ExecuteGpu(input_file: str, output_file: str, width: int, height: int,
 
     luma_block / chroma_block: tiles per block of K1 and K1c
     (StreamingDeblocker's; default ops.cuda_kernel.BLOCK_BX and
-    CHROMA_BLOCK_BX).  Returns, in seconds per frame (CUDA device only):
+    CHROMA_BLOCK_BX), where the step takes the chain; K2's are its own.  Returns, in seconds per frame (CUDA device only):
       kernel_s -- the packed step alone, input already resident
                   (gpu.cu:1266-1291)
       h2d_s    -- the host-to-device copy alone (gpu.cu:1248-1256)

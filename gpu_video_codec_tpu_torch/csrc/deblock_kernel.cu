@@ -1,7 +1,8 @@
 // HEVC deblock of a tile grid on Hopper (sm_90a): luma and chroma in int
 // (K1, K1c) and in int16 (K1-i16, K1-i16c) as one quad kernel of four lanes
-// per tile (deblock_quad_kernel<CHROMA, W, T>), and T5, the same quad on the
-// rows layout (deblock_rows_quad_kernel<CHROMA, Staging>).
+// per tile (deblock_quad_kernel<CHROMA, W, T>), T5, the same quad on the
+// rows layout (deblock_rows_quad_kernel<CHROMA, Staging>), and K2, the same
+// quad on the frames' planes (deblock_packed_kernel).
 //
 // K1 and K1c replace the TPU kernel
 // gpu_video_codec_tpu/ops/pallas_kernel.py::_kernel (:71, launched by
@@ -127,8 +128,8 @@
 //      Chosen over dense 64- and 32-byte rows and over 16-byte boxes by
 //      timings at the race grid during development (PERF.md §6).
 //      The maps are encoded on the host with cuTensorMapEncodeTiled, reached
-//      through cudaGetDriverEntryPoint (no -lcuda), cached by (pointer, By,
-//      Bx), and passed as __grid_constant__ parameters.
+//      through cudaGetDriverEntryPoint (no -lcuda), cached by their inputs
+//      (tensor_map), and passed as __grid_constant__ parameters.
 //   B. words (every other case; the 1080p grid, Bx = 241): K1's cooperative
 //      load and store in 8-, 4- or 1-byte words (quad_word_bytes with plane
 //      stride Bx) into K1's padded stage, src the block's first tile in
@@ -137,6 +138,57 @@
 // error.  The BS cell of tile (by, bx) is by*Bx + bx, as in K1's flattened
 // grid, so quad_load_bs serves unchanged.  Lanes of tiles past the grid run
 // every exchange with BS 0 and store nothing.
+//
+// K2 (deblock_packed_kernel) replaces no TPU kernel.  It is the cuda
+// backend's whole packed YV12 step -- T2 -> K1 -> T3 for luma and T2 -> K1c
+// -> T3 for U and V (models/streaming._deblock_planes_impl) -- as one
+// kernel on the frames' planes, for k frames at once.  The tile-planes
+// layout that T2 and T3 make exists because the TPU kernel wanted the
+// shifted 8x8 tiles along its vector lanes; a Hopper block can stage them
+// straight from the picture.  So K2 takes T2 x2 and T3 x2 off the step:
+// together they read and wrote every frame byte twice more, 60% of the
+// device's step at 1080p (PERF.md §5).
+//
+// What bounds it: bytes.  Each frame byte is read once and written once,
+// 2 x 3wh/2 bytes a frame: 16 1080p or 4 4K frames move 99.5 MB, 29.7 us
+// at 3.35 TB/s.  The quad's fixed work per tile (K1's 85%, PERF.md §6)
+// stays; what goes is the layout's traffic and its launches.
+//
+// Design.  The grid is (blocks of a tile row, tile rows, k): one block per
+// kPackedTiles = 16 consecutive tiles of each luma tile row, and of each U
+// and each V tile row, two chroma rows to a grid row (gvct::packed_block,
+// which finds a block's place without a division); blocks past their
+// row's end return at once.  The tile grids are the chain's, so the BS
+// maps and their Q2 chroma gate are the chain's.  The plane is
+// uniform in a block, so choosing the luma or the chroma quad does not
+// diverge.  One elected lane of warp 0 loads the block's tiles -- 8
+// picture rows from row 8 by - 4 -- as one box with
+// cp.async.bulk.tensor.4d through a tensor map of the luma planes (x, y,
+// 1, frame) or of the U and V planes (x, y, plane, frame), completing on
+// an mbarrier, while every quad loads its tile's BS bytes.  The tensor
+// map's zero fill outside the plane is Q6's zero padding.  A tensor copy's
+// first column must lie on a 16-byte boundary (the card refuses others as
+// an illegal instruction), and the tiles start at 8 bx0 - 4, so the box
+// starts 12 bytes early, at 8 bx0 - 16, and is 144 bytes wide
+// (gvct::PackedCell).  The lanes run K1's quad (quad_phases) over the box as
+// it lands: rows 144 bytes apart, so a quad's four row reads fall in four
+// banks.  Lanes of tiles past the grid run the quad with BS 0 on zeros
+// (outside the plane) and store nothing: skipping whole warps of them
+// timed no faster.  After __syncthreads the block stores its
+// own tiles, exactly, in 4-byte words, four a thread, coalesced: the same
+// 16-byte rule keeps a tensor copy from storing them, and the 12 bytes
+// before them and the 4 after belong to the neighbouring blocks.  Words
+// outside the plane (the picture's border of padding, tiles past the grid)
+// are not stored.  in == out is safe: shifted tiles are disjoint, a block
+// stores only its own and loads them before it stores any; the
+// neighbours' bytes its box also holds, filtered or not, are never read by
+// its lanes nor stored.
+// The tensor maps need 16-byte aligned bases and row, plane and frame
+// strides: the caller's guard (ops/cuda_kernel.packed_fits: w % 32 == 0,
+// which also leaves out the sheared Q9 widths, and 16-byte aligned
+// addresses and strides) keeps every other input on the chain.  The maps
+// are encoded on the host (tensor_map, cached as T5's are) when the launch
+// is made or captured into a graph, never at a graph's replay.
 
 #include <cuda.h>  // CUtensorMap and the encode's types; nothing of libcuda is linked
 #include <cuda_runtime.h>
@@ -351,6 +403,79 @@ __global__ void __launch_bounds__(gvct::kQuadLanes * gvct::kQuadMaxTiles, 4)
   }
 }
 
+// -- K2: the packed step on the frames' planes ------------------------------------
+
+__device__ __forceinline__ void tma_load_4d(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int x, int y, int z, int f) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x), "r"(y), "r"(z), "r"(f)
+      : "memory");
+}
+
+// The four luma and the four chroma BS maps, (By, Bx) and (cBy, cBx).
+struct PackedMaps {
+  const uint8_t* luma[4];
+  const uint8_t* chroma[4];
+};
+
+// Where K2 writes: the luma planes at y, frames y_frame and rows y_row bytes
+// apart; the U and V planes at uv, frames uv_frame, planes uv_plane and
+// rows uv_row bytes apart.
+struct PackedOut {
+  uint8_t* y;
+  long long y_frame, y_row;
+  uint8_t* uv;
+  long long uv_frame, uv_plane, uv_row;
+};
+
+constexpr int kPackedThreads = gvct::kQuadLanes * gvct::kPackedTiles;
+
+// At most 64 registers, as K1: 16 blocks of two warps to an SM.
+__global__ void __launch_bounds__(kPackedThreads, 16)
+    deblock_packed_kernel(__grid_constant__ const CUtensorMap y_in,
+                          __grid_constant__ const CUtensorMap uv_in, PackedOut out,
+                          PackedMaps maps, gvct::Thresholds th, gvct::PackedGrid g) {
+  using C = gvct::PackedCell;
+  __shared__ __align__(128) uint8_t stage[C::kBytes];
+  __shared__ uint64_t bar;
+  const int tid = threadIdx.x;
+  const gvct::PackedBlock blk = gvct::packed_block(g, blockIdx.x, blockIdx.y);
+  if (blk.n <= 0) return;  // past its row's end: the whole block, before any barrier
+  const bool chroma = blk.plane != 0;
+  const int x0 = 8 * blk.bx0 - 4, y0 = 8 * blk.by - 4;
+  const int z = chroma ? blk.plane - 1 : 0, f = blockIdx.z;
+  const auto map = [&](int i) { return chroma ? maps.chroma[i] : maps.luma[i]; };
+  gvct::QuadLane<> lane = gvct::quad_lane(tid);
+  if (tid == 0) barrier_init(&bar);
+  __syncthreads();
+  if (copy_thread(tid)) {
+    barrier_expect(&bar, C::kBytes);
+    // each copy names its tensor map as a kernel parameter
+    if (chroma) {
+      tma_load_4d(stage, &uv_in, &bar, x0 - C::kLead, y0, z, f);
+    } else {
+      tma_load_4d(stage, &y_in, &bar, x0 - C::kLead, y0, z, f);
+    }
+  }
+  gvct::quad_load_bs(lane, map(0), map(1), map(2), map(3), blk.map, blk.n);
+  barrier_wait(&bar);
+  if (chroma) {
+    quad_phases<true, int, C>(lane, stage, th, tid);
+  } else {
+    quad_phases<false, int, C>(lane, stage, th, tid);
+  }
+  __syncthreads();
+  uint8_t* plane = chroma ? out.uv + f * out.uv_frame + z * out.uv_plane : out.y + f * out.y_frame;
+  const long long row = chroma ? out.uv_row : out.y_row;
+  const int ph = chroma ? g.h / 2 : g.h, pw = chroma ? g.w / 2 : g.w;
+#pragma unroll
+  for (int q = tid; q < 16 * gvct::kPackedTiles; q += kPackedThreads) {
+    gvct::packed_store_word(stage, plane, row, ph, pw, x0, y0, q);
+  }
+}
+
 using TilesKernel = void (*)(const uint8_t*, uint8_t*, const uint8_t*, const uint8_t*,
                              const uint8_t*, const uint8_t*, gvct::Thresholds, long long,
                              long long);
@@ -454,25 +579,37 @@ int encode_entry(EncodeTiled* fn) {
   return status;
 }
 
-// Route A's tensor map of the rows layout at `ptr`, (by, 8, 8, bx) uint8:
-// dims (bx, 8, 8 * by) innermost first -- tile, plane column, plane row --
-// strides bx and 8 * bx bytes, box (kBoxTiles, kBoxC, 8), no swizzle, zero
-// fill.  Encoded maps are cached by (ptr, by, bx), a map's only inputs, so
-// a cached map is the map the encode would give; 16 entries, replaced in
-// turn.
-int rows_tensor_map(const void* ptr, int by, int bx, CUtensorMap* map) {
+// A tensor map of the uint8 tensor at `ptr`: `rank` dims innermost first,
+// the byte strides of dims 1.., box `box`, no swizzle, zero fill outside
+// the tensor.  Encoded maps are cached by all of these, a map's only
+// inputs, so a cached map is the map the encode would give; 32 entries,
+// replaced in turn.
+constexpr int kMaxRank = 4;
+
+int tensor_map(const void* ptr, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+               const cuuint32_t* box, CUtensorMap* map) {
   struct Entry {
     const void* ptr = nullptr;
-    int by = 0, bx = 0;
+    int rank = 0;
+    cuuint64_t dims[kMaxRank] = {}, strides[kMaxRank - 1] = {};
+    cuuint32_t box[kMaxRank] = {};
     CUtensorMap map;
+    bool same(const void* p, int n, const cuuint64_t* d, const cuuint64_t* s,
+              const cuuint32_t* b) const {
+      if (p != ptr || n != rank) return false;
+      for (int i = 0; i < n; ++i) {
+        if (d[i] != dims[i] || b[i] != box[i] || (i + 1 < n && s[i] != strides[i])) return false;
+      }
+      return true;
+    }
   };
-  static Entry cache[16];
+  static Entry cache[32];
   static int next = 0;
   static std::mutex lock;
   {
     std::lock_guard<std::mutex> g(lock);
     for (const Entry& e : cache) {
-      if (e.ptr == ptr && e.by == by && e.bx == bx) {
+      if (e.same(ptr, rank, dims, strides, box)) {
         *map = e.map;
         return 0;
       }
@@ -480,20 +617,49 @@ int rows_tensor_map(const void* ptr, int by, int bx, CUtensorMap* map) {
   }
   EncodeTiled encode = nullptr;
   if (const int err = encode_entry(&encode)) return err;
-  using C = gvct::RowsTmaCell;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(bx), 8, 8ull * by};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(bx), 8ull * bx};  // bytes, dims 1-2
-  const cuuint32_t box[3] = {C::kBoxTiles, C::kBoxC, 8};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims, strides, box,
+  const cuuint32_t unit[kMaxRank] = {1, 1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(ptr), dims, strides, box,
              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
     return kEncodeRefused;
   }
+  Entry e;
+  e.ptr = ptr;
+  e.rank = rank;
+  for (int i = 0; i < rank; ++i) {
+    e.dims[i] = dims[i];
+    e.box[i] = box[i];
+    if (i + 1 < rank) e.strides[i] = strides[i];
+  }
+  e.map = *map;
   std::lock_guard<std::mutex> g(lock);
-  cache[next] = Entry{ptr, by, bx, *map};
-  next = (next + 1) % 16;
+  cache[next] = e;
+  next = (next + 1) % 32;
   return 0;
+}
+
+// Route A's tensor map of the rows layout at `ptr`, (by, 8, 8, bx) uint8:
+// dims (bx, 8, 8 * by) innermost first -- tile, plane column, plane row --
+// strides bx and 8 * bx bytes, box (kBoxTiles, kBoxC, 8).
+int rows_tensor_map(const void* ptr, int by, int bx, CUtensorMap* map) {
+  using C = gvct::RowsTmaCell;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(bx), 8, 8ull * by};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(bx), 8ull * bx};  // bytes, dims 1-2
+  const cuuint32_t box[3] = {C::kBoxTiles, C::kBoxC, 8};
+  return tensor_map(ptr, 3, dims, strides, box, map);
+}
+
+// K2's tensor map of k frames' planes at `ptr`: dims (w, h, planes, k)
+// innermost first, strides row, plane and frame (bytes), box (the stage's
+// row, 8, 1, 1).
+int packed_tensor_map(const void* ptr, int w, int h, int planes, int k, long long row,
+                      long long plane, long long frame, CUtensorMap* map) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(w), static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(planes), static_cast<cuuint64_t>(k)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(row), static_cast<cuuint64_t>(plane),
+                                 static_cast<cuuint64_t>(frame)};
+  const cuuint32_t box[4] = {gvct::PackedCell::kRow, 8, 1, 1};
+  return tensor_map(ptr, 4, dims, strides, box, map);
 }
 
 }  // namespace
@@ -591,8 +757,64 @@ extern "C" int gvct_deblock_rows_occupancy(int chroma, int block_bx, int by, int
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], l.kernel, l.threads, 0));
 }
 
+// K2, the packed step of k frames: luma planes (k, h, w) and U and V
+// planes (k, 2, h/2, w/2), uint8, read at y_in and uv_in and written at
+// y_out and uv_out (which may be the inputs: in place).  strides, in bytes:
+// [0..1] the luma input's frame and row strides, [2..3] the luma output's,
+// [4..6] the chroma input's frame, plane and row strides, [7..9] the chroma
+// output's; the input's strides and addresses multiples of 16 (a tensor
+// map's demand), the output's of 4 (ops/cuda_kernel.packed_fits asks 16 of
+// both).  maps: the four (By, Bx) luma and the four (cBy, cBx) chroma BS
+// maps, shared by the frames.  luma_only != 0: no chroma blocks (the
+// chroma pointers unused).  Launch on `stream`
+// without synchronizing; returns cudaGetLastError() after the launch, or
+// the error of a tensor-map encode that failed (0 = ok).
+extern "C" int gvct_deblock_packed(const void* y_in, void* y_out, const void* uv_in, void* uv_out,
+                                   const long long* strides, const void* const* maps, int beta,
+                                   int tc, int w, int h, int k, int luma_only, int device,
+                                   void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const gvct::PackedGrid g = gvct::packed_grid(w, h, luma_only);
+  CUtensorMap tm[2] = {};
+  const long long* s = strides;
+  if (const int e = packed_tensor_map(y_in, w, h, 1, k, s[1], h * s[1], s[0], &tm[0])) return e;
+  if (!luma_only) {
+    if (const int e = packed_tensor_map(uv_in, w / 2, h / 2, 2, k, s[6], s[5], s[4], &tm[1])) {
+      return e;
+    }
+  }
+  const PackedOut out{static_cast<uint8_t*>(y_out), s[2], s[3], static_cast<uint8_t*>(uv_out),
+                      s[7], s[8], s[9]};
+  PackedMaps m;
+  for (int i = 0; i < 4; ++i) {
+    m.luma[i] = static_cast<const uint8_t*>(maps[i]);
+    m.chroma[i] = static_cast<const uint8_t*>(maps[4 + i]);
+  }
+  deblock_packed_kernel<<<dim3(g.gx, g.rows, k), kPackedThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      tm[0], tm[1], out, m, gvct::make_thresholds(beta, tc), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2's launch: info[0] the blocks one SM holds at once, info[1] threads per
+// block, info[2] the kernel's static shared memory in bytes, info[3] its
+// registers per thread.  Returns a CUDA error code (0 = ok).
+extern "C" int gvct_deblock_packed_info(int device, int* info) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, deblock_packed_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[1] = kPackedThreads;
+  info[2] = static_cast<int>(attr.sharedSizeBytes);
+  info[3] = attr.numRegs;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[0], deblock_packed_kernel, kPackedThreads, 0));
+}
+
 extern "C" const char* gvct_error_string(int code) {
   if (code == kNoEncodeEntry) return "cuTensorMapEncodeTiled: no driver entry point";
-  if (code == kEncodeRefused) return "cuTensorMapEncodeTiled refused T5's tensor map";
+  if (code == kEncodeRefused) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -12,7 +12,10 @@
 // the staging words with a tile PAIR per quad (QuadLane<swar::hw2>).  T5
 // (deblock_rows_quad_kernel) runs K1's lanes on the rows layout: a block
 // owns TB tiles of one tile row, staged by TMA into RowsTmaCell's layout or
-// in K1's words (rows_block, rows_staging).
+// in K1's words (rows_block, rows_staging).  K2 (deblock_packed_kernel)
+// runs them on the frame's planes themselves: a block owns kPackedTiles
+// tiles of one tile row of one plane, staged by TMA as the picture's rows
+// (packed_block, PackedCell).
 //
 // Thread tid is lane r = tid & 3 of tile t = tid >> 2, so a quad is four
 // adjacent lanes of one warp.  Lane r is segment row r in every phase:
@@ -217,6 +220,113 @@ struct RowsTmaCell : StageCell<int> {
   static constexpr int kBoxBytes = 8 * kRow;    // 2,304 bytes, a multiple of 128
   GVCT_HD static int offset(int t) { return t / kBoxTiles * kBoxBytes + t % kBoxTiles; }
 };
+
+// K2's grid (deblock_kernel.cu, deblock_packed_kernel): (gx, rows, k).  A
+// block owns kPackedTiles consecutive tiles of one tile row of one plane of
+// one frame: grid row y < by is luma tile row y, blocks x < lx; grid row
+// by + y is chroma tile row y of U (blocks x < cx) and of V (blocks cx <=
+// x < 2 cx); blocks past their row's end own nothing (and chroma rows are
+// none under luma_only).  The tile grids are the chain's, (h + 8) / 8 x
+// (w + 8) / 8 and (h/2 + 8) / 8 x (w/2 + 8) / 8
+// (utils/tiles.interior_to_tiles): tile (by, bx) covers the plane's rows
+// 8 by - 4 .. 8 by + 3 and columns 8 bx - 4 .. 8 bx + 3, zero outside it
+// (Q6).
+constexpr int kPackedTiles = 16;  // 64 threads: two whole warps
+
+struct PackedGrid {
+  int w, h;              // the luma plane; the chroma planes are w/2 x h/2
+  int by, bx, cby, cbx;  // the luma and the chroma tile grids
+  int lx, cx;            // blocks per luma and per chroma tile row
+  int gx, rows;          // the grid's x and y extents
+};
+
+GVCT_HD PackedGrid packed_grid(int w, int h, int luma_only) {
+  PackedGrid g;
+  g.w = w;
+  g.h = h;
+  g.by = (h + 8) / 8;
+  g.bx = (w + 8) / 8;
+  g.cby = (h / 2 + 8) / 8;
+  g.cbx = (w / 2 + 8) / 8;
+  g.lx = (g.bx + kPackedTiles - 1) / kPackedTiles;
+  g.cx = (g.cbx + kPackedTiles - 1) / kPackedTiles;
+  g.gx = luma_only || g.lx >= 2 * g.cx ? g.lx : 2 * g.cx;
+  g.rows = g.by + (luma_only ? 0 : g.cby);
+  return g;
+}
+
+// Block (x, y) of a frame: its plane (0 luma, 1 U, 2 V), tile row by,
+// first tile bx0, the n of its tiles inside the grid (n <= 0: a block past
+// its row's end, which owns nothing), and its first tile in each of the
+// plane's BS maps (one set for luma, one for U and V, shared by the
+// frames).  No division: a block's threads all compute it.
+struct PackedBlock {
+  int plane, by, bx0, n;
+  size_t map;
+};
+
+GVCT_HD PackedBlock packed_block(const PackedGrid& g, int x, int y) {
+  PackedBlock k;
+  int bx_n;
+  if (y < g.by) {
+    k.plane = 0;
+    k.by = y;
+    bx_n = g.bx;
+  } else {
+    const int v = x >= g.cx;
+    k.plane = 1 + v;
+    k.by = y - g.by;
+    x -= v * g.cx;
+    bx_n = g.cbx;
+  }
+  k.bx0 = x * kPackedTiles;
+  k.n = bx_n - k.bx0 < kPackedTiles ? bx_n - k.bx0 : kPackedTiles;
+  k.map = static_cast<size_t>(k.by) * bx_n + k.bx0;
+  return k;
+}
+
+// K2's stage: the block's TMA box as it lands, 8 picture rows of kRow bytes
+// from column 8 bx0 - 16 -- a tensor copy starts on a 16-byte boundary, and
+// the block's first tile starts at 8 bx0 - 4, kLead bytes in -- so pixel
+// (r, c) of tile t is at r * kRow + kLead + 8t + c.  The box lands densely
+// at a 128-byte aligned address, so only its width spreads the rows over
+// the banks: rows 144 bytes (36 words) apart put a quad's four row reads
+// (rows r .. r + 3 at one c) in four banks, 4 words apart mod 32, and its
+// column reads (bytes r of one word) in one word.  A warp's row reads still
+// fall two to a bank: its 8 tiles' bytes at one c lie in 8 words of a row,
+// 4 rows of them, all of one parity.
+struct PackedCell : StageCell<int> {
+  static constexpr int kLead = 12;
+  static constexpr int kStride = 1;
+  static constexpr int kRow = kLead + 8 * kPackedTiles + 4;  // 144: a multiple of 16
+  static constexpr int kBytes = 8 * kRow;
+  GVCT_HD static int offset(int t) { return kLead + 8 * t; }
+};
+static_assert((PackedCell::kLead + 4) % 16 == 0 && 8 * kPackedTiles % 16 == 0,
+              "a block's box starts on a 16-byte boundary, 8 bx0 - 16");
+static_assert(PackedCell::kRow % 16 == 0 && PackedCell::kRow <= 256,
+              "a TMA box row is a multiple of 16 bytes and at most 256 elements");
+
+// Word q of K2's store (0 <= q < 16 * kPackedTiles): the block's 8 rows of
+// 2 * kPackedTiles 4-byte words from column x0 = 8 bx0 - 4 -- its own tiles
+// exactly, which begin 4 bytes past a 16-byte boundary, so no tensor copy
+// can store them -- written into the plane (ph rows of pw bytes, rows `row`
+// bytes apart) where it lies inside it; y0 = 8 by - 4.  pw is a multiple of
+// 4, so a word lies wholly inside the plane or wholly outside.
+GVCT_HD void packed_store_word(const uint8_t* stage, uint8_t* plane, long long row, int ph,
+                               int pw, int x0, int y0, int q) {
+  using C = PackedCell;
+  const int r = q / (2 * kPackedTiles), j = q - r * (2 * kPackedTiles);
+  const int y = y0 + r, x = x0 + 4 * j;
+  if (y < 0 || y >= ph || x < 0 || x >= pw) return;
+  const uint8_t* s = stage + r * C::kRow + C::kLead + 4 * j;
+  uint8_t* d = plane + y * row + x;
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<uint32_t*>(d) = *reinterpret_cast<const uint32_t*>(s);
+#else
+  std::memcpy(d, s, 4);
+#endif
+}
 
 template <typename E = int>
 struct QuadLane {

@@ -259,6 +259,76 @@ extern "C" int gvct_host_rows_staging(int bx, int tb, const void* in, const void
 
 namespace {
 
+// One plane of one frame as K2's tensor maps see it: ph rows of pw bytes,
+// read at `in` with rows in_row bytes apart, written at `out` with rows
+// out_row apart.
+struct HostPlane {
+  const uint8_t* in;
+  long long in_row;
+  uint8_t* out;
+  long long out_row;
+  int ph, pw;
+};
+
+// K2's box of a block as the TMA loads it (deblock_kernel.cu,
+// deblock_packed_kernel): the plane's rows y0 .. y0 + 7 and columns
+// x0 - kLead onwards, kRow of them, densely; 0 outside the plane.
+void host_packed_load(const HostPlane& p, int x0, int y0, uint8_t* stage) {
+  using C = gvct::PackedCell;
+  for (int r = 0; r < 8; ++r) {
+    for (int e = 0; e < C::kRow; ++e) {
+      const int y = y0 + r, x = x0 - C::kLead + e;
+      stage[r * C::kRow + e] = y >= 0 && y < p.ph && x >= 0 && x < p.pw ? p.in[y * p.in_row + x] : 0;
+    }
+  }
+}
+
+template <bool CHROMA>
+void host_packed_block(const HostPlane& p, const gvct::PackedBlock& blk,
+                       const uint8_t* const* maps, const gvct::Thresholds& th) {
+  const int x0 = 8 * blk.bx0 - 4, y0 = 8 * blk.by - 4;
+  host_quad_block<CHROMA, int, gvct::PackedCell>(
+      [&](uint8_t* stage) { host_packed_load(p, x0, y0, stage); },
+      [&](const uint8_t* stage) {
+        for (int q = 0; q < 16 * gvct::kPackedTiles; ++q) {
+          gvct::packed_store_word(stage, p.out, p.out_row, p.ph, p.pw, x0, y0, q);
+        }
+      },
+      maps[0], maps[1], maps[2], maps[3], th, gvct::kPackedTiles, blk.map, blk.n);
+}
+
+}  // namespace
+
+// K2 (deblock_kernel.cu's packed quad) over its grid, with
+// gvct_deblock_packed's arguments (strides in bytes), its blocks one after
+// another, each staged as its TMA box would stage it (the tensor map's zero
+// fill done by hand) and stored in the kernel's words.  Returns 0.
+extern "C" int gvct_host_deblock_packed(const uint8_t* y_in, uint8_t* y_out, const uint8_t* uv_in,
+                                        uint8_t* uv_out, const long long* s,
+                                        const uint8_t* const* maps, int beta, int tc, int w,
+                                        int h, int k, int luma_only) {
+  const gvct::Thresholds th = gvct::make_thresholds(beta, tc);
+  const gvct::PackedGrid g = gvct::packed_grid(w, h, luma_only);
+  for (int f = 0; f < k; ++f) {
+    for (int b = 0; b < g.rows * g.gx; ++b) {
+      const gvct::PackedBlock blk = gvct::packed_block(g, b % g.gx, b / g.gx);
+      if (blk.n <= 0) continue;
+      if (blk.plane == 0) {
+        const HostPlane p{y_in + f * s[0], s[1], y_out + f * s[2], s[3], h, w};
+        host_packed_block<false>(p, blk, maps, th);
+      } else {
+        const long long z = blk.plane - 1;
+        const HostPlane p{uv_in + f * s[4] + z * s[5], s[6], uv_out + f * s[7] + z * s[8], s[9],
+                          h / 2, w / 2};
+        host_packed_block<true>(p, blk, maps + 4, th);
+      }
+    }
+  }
+  return 0;
+}
+
+namespace {
+
 // One block of swar_kernel.cu's quad kernel: pairs [c0, c0 + tb) of tile
 // row y, its 4 * tb threads one after another between the kernel's
 // exchange points, `wv`, `wl` and `wr` standing in for the shuffles as in

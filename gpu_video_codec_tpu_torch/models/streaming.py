@@ -6,12 +6,16 @@ Counterpart of the main path of gpu_video_codec_tpu/models/streaming.py:
   as (3h/2, w) rows, from a ring of pinned host buffers on a copy stream;
   the compute stream waits on the copy's event, so the copy of frame i+1
   runs under the filter of frame i;
-* per frame, luma goes interior -> tile-planes (T2) -> deblock kernel
-  (K1) -> interior (T3), and U and V go the same way as one batch, one
-  launch each of T2, K1c and T3 (ops/relayout_kernel.py,
-  ops/cuda_kernel.py);
-* T3 writes the filtered planes straight into the frame's device buffer,
-  in place (the counterpart of buffer donation on the TPU);
+* per step (a frame, or a batch of frames), one launch of K2
+  (ops/cuda_kernel.deblock_packed_cuda): each block's shifted 8x8 tiles
+  are staged by TMA straight from the frame's planes, filtered and stored
+  back into the frame's device buffer, in place (the counterpart of buffer
+  donation on the TPU), wherever K2's guard (packed_fits: w % 32 == 0 and
+  16-byte aligned buffers) holds.  Elsewhere -- the sheared widths (Q9),
+  w % 32 == 16, misaligned buffers -- luma goes interior -> tile-planes
+  (T2) -> deblock kernel (K1) -> interior (T3), and U and V go the same way
+  as one batch, one launch each of T2, K1c and T3 (ops/relayout_kernel.py,
+  ops/cuda_kernel.py), T3 writing straight into the frame's buffer;
 * on a CUDA device with the cuda backend a step is ONE replay of a CUDA
   graph of those launches (utils/graphs.py), the counterpart of one jit
   dispatch: _step and _chain replay a graph per buffer from a bounded
@@ -36,7 +40,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.cuda_kernel import BLOCK_BX, CHROMA_BLOCK_BX, deblock_tiles_cuda
+from ..ops.cuda_kernel import (
+    BLOCK_BX, CHROMA_BLOCK_BX, deblock_packed_cuda, deblock_tiles_cuda, packed_fits,
+)
 from ..ops.deblock import deblock_frame
 from ..ops.relayout_kernel import (
     flat_view, plane_to_tiles_cuda, tail_holds_interior, tiles_to_plane_cuda,
@@ -71,38 +77,22 @@ def _deblock_planes_impl(y, uv, lm, cm, beta, tc, w, h, luma_only, backend,
     y, filtered uv), same shapes, new tensors (uv itself under luma_only).
     At most one leading frame axis: a batch of frames shares one BS map.
 
-    backend "cuda": luma goes interior -> tile-planes (T2) -> K1 ->
-    interior (T3); T2 does the Q6 zero padding.  U and V go the same way as
-    a batch of two (of 2k for k frames), one launch each, with one shared
-    map.  Sheared geometries (Q9, w % 16 == 8) take T2's and T3's flat view
-    of the padded pair (flat=True) straight from and to the interior
-    planes; where the flat tail past the view holds interior pixels, T2
-    copies it out and T3 writes it back (rem), so it leaves the step as it
-    came in.
-    out: optional (y, uv) destinations the cuda backend's T3 writes into
-    (any strides, last axis contiguous), returned in place of new tensors.
-    backend "torch": the plain version on zero-extended planes."""
+    backend "cuda": K2, one launch for luma, U and V (deblock_packed_cuda),
+    where its guard (packed_fits) holds for the planes and destinations;
+    elsewhere the chain (_tile_chain).
+    out: optional (y, uv) destinations the cuda backend writes into (any
+    strides, last axis contiguous), returned in place of new tensors.
+    backend "torch": the plain version on zero-extended planes.
+    luma_block/chroma_block: K1's and K1c's tiles per block, so the chain's
+    only; K2's are a constant of its design (ops/cuda_kernel.PACKED_TILES)."""
     p = HALF_BLOCK
     cw, ch = w // 2, h // 2
     pads = (p, p, p, p)
-    lead = tuple(y.shape[:-2])
     if backend == "cuda":
-        y_dst, uv_dst = out or (None, None)
-        lmaps = [m[None] for m in lm] if lead else lm  # shared across the frame batch
-        yt = deblock_tiles_cuda(plane_to_tiles_cuda(y, p), *lmaps, beta, tc, chroma=False,
-                                block_bx=luma_block)
-        y_int = tiles_to_plane_cuda(yt, p, h, w, out=y_dst)
-        if luma_only:
-            return y_int, uv
-        cmaps = [m[None] for m in cm]  # one shared map across the U/V batch
-        flat = (cw + 2 * p) % SAMPLE_BLOCK_SIZE != 0
-        rem = (torch.empty((*lead, 2, flat_view(ch, cw, p)[2]), dtype=torch.uint8,
-                           device=uv.device)
-               if flat and tail_holds_interior(ch, cw, p) else None)
-        uvt = plane_to_tiles_cuda(uv, p, flat=flat, rem_out=rem)  # (.., 2, 8, 8, cBy, cBx)
-        uvt = deblock_tiles_cuda(uvt.reshape(-1, *uvt.shape[-4:]), *cmaps, beta, tc,
-                                 chroma=True, block_bx=chroma_block).reshape(uvt.shape)
-        return y_int, tiles_to_plane_cuda(uvt, p, ch, cw, out=uv_dst, flat=flat, rem=rem)
+        if packed_fits(w, y, uv, *(out or ())):
+            return deblock_packed_cuda(y, uv, lm, cm, beta, tc, luma_only=luma_only, out=out)
+        return _tile_chain(y, uv, lm, cm, beta, tc, w, h, luma_only, luma_block, chroma_block,
+                           out)
     ye, ue, ve = deblock_frame(F.pad(y, pads), F.pad(uv[..., 0, :, :], pads),
                                F.pad(uv[..., 1, :, :], pads), lm, cm, beta, tc,
                                luma_only=luma_only)
@@ -111,6 +101,37 @@ def _deblock_planes_impl(y, uv, lm, cm, beta, tc, w, h, luma_only, backend,
         return y_int, uv
     return y_int, torch.stack([ue[..., p : p + ch, p : p + cw], ve[..., p : p + ch, p : p + cw]],
                               dim=-3)
+
+
+def _tile_chain(y, uv, lm, cm, beta, tc, w, h, luma_only, luma_block, chroma_block, out):
+    """The cuda backend's packed step where K2's guard fails, as
+    _deblock_planes_impl takes it: luma goes interior -> tile-planes (T2) ->
+    K1 -> interior (T3); T2 does the Q6 zero padding.  U and V go the same
+    way as a batch of two (of 2k for k frames), one launch each, with one
+    shared map.  Sheared geometries (Q9, w % 16 == 8) take T2's and T3's
+    flat view of the padded pair (flat=True) straight from and to the
+    interior planes; where the flat tail past the view holds interior
+    pixels, T2 copies it out and T3 writes it back (rem), so it leaves the
+    step as it came in.  out: T3's destinations, or None."""
+    p = HALF_BLOCK
+    cw, ch = w // 2, h // 2
+    lead = tuple(y.shape[:-2])
+    y_dst, uv_dst = out or (None, None)
+    lmaps = [m[None] for m in lm] if lead else lm  # shared across the frame batch
+    yt = deblock_tiles_cuda(plane_to_tiles_cuda(y, p), *lmaps, beta, tc, chroma=False,
+                            block_bx=luma_block)
+    y_int = tiles_to_plane_cuda(yt, p, h, w, out=y_dst)
+    if luma_only:
+        return y_int, uv
+    cmaps = [m[None] for m in cm]  # one shared map across the U/V batch
+    flat = (cw + 2 * p) % SAMPLE_BLOCK_SIZE != 0
+    rem = (torch.empty((*lead, 2, flat_view(ch, cw, p)[2]), dtype=torch.uint8,
+                       device=uv.device)
+           if flat and tail_holds_interior(ch, cw, p) else None)
+    uvt = plane_to_tiles_cuda(uv, p, flat=flat, rem_out=rem)  # (.., 2, 8, 8, cBy, cBx)
+    uvt = deblock_tiles_cuda(uvt.reshape(-1, *uvt.shape[-4:]), *cmaps, beta, tc,
+                             chroma=True, block_bx=chroma_block).reshape(uvt.shape)
+    return y_int, tiles_to_plane_cuda(uvt, p, ch, cw, out=uv_dst, flat=flat, rem=rem)
 
 
 def _deblock_yv12_packed_impl(buf, lm, cm, beta, tc, w, h, luma_only, backend,
@@ -256,15 +277,17 @@ class StreamingDeblocker:
     overlap.  Frames are 1-D uint8 arrays of size 3*w*h/2 (or bytes).
 
     depth: frames in flight (2 = classic double buffering).
-    backend: "cuda" (the hand-written kernels T2, K1/K1c and T3) or "torch"
-    (the plain version).
+    backend: "cuda" (the hand-written kernels: K2, or T2, K1/K1c and T3
+    where K2's guard does not take the geometry) or "torch" (the plain
+    version).
     device: the torch device that holds frames and runs the filter; a CUDA
     device must exist (nothing falls back to the CPU).  On a CPU device the
     "cuda" backend's wrapper runs the plain version, and _step, _chain and
     run are loops of eager steps; on a CUDA device the cuda backend's steps
     are CUDA graph replays.
     luma_block/chroma_block: tiles per block of K1 and K1c (the kernel runs
-    four threads per tile).
+    four threads per tile), so of the chain alone; K2's are a constant of
+    its design (ops/cuda_kernel.PACKED_TILES).
     """
 
     def __init__(self, width: int, height: int, qp: int, *,

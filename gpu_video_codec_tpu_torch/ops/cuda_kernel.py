@@ -11,18 +11,23 @@ The same library holds T5 (deblock_rows_cuda), the kernel of
 tools/rowslayout_exp.py: the same quad on the (By, 8, 8, Bx) "rows" layout,
 a block's tiles of one tile row staged by the tensor memory accelerator
 (TMA) where the rows are 16-byte aligned, in words otherwise
-(deblock_rows_occupancy reports which).
+(deblock_rows_occupancy reports which).  And K2 (deblock_packed_cuda), the
+packed step's one kernel: the same quad on the frames' planes themselves,
+each block's shifted tiles staged by TMA straight from the picture, in
+place of T2 -> K1 -> T3 and T2 -> K1c -> T3 wherever its guard
+(packed_fits) takes the geometry and the buffers.
 
 The library is built at first use with nvcc, from csrc/ only, into
 build/torch_kernels/ beside the package, under a name keyed on a hash of
 the sources and flags, so an edit rebuilds.  It has a plain C interface
 and is loaded with ctypes (no PyTorch headers, so the build takes seconds).
 
-deblock_tiles_cuda and deblock_rows_cuda launch their kernel for a CUDA
-tensor and raise on any failure; for a CPU tensor they run the plain
-version (ops/deblock.deblock_tiles_plain, deblock_rows_plain).  The frame
-wrappers (deblock_frame_cuda, deblock_chroma_ext_cuda) relayout with T2 and
-T3 (ops/relayout_kernel.py).  LAUNCHES counts kernel launches.
+deblock_tiles_cuda, deblock_rows_cuda and deblock_packed_cuda launch their
+kernel for a CUDA tensor and raise on any failure; for a CPU tensor they
+run the plain version (ops/deblock.deblock_tiles_plain, deblock_rows_plain,
+deblock_packed_plain).  The frame wrappers (deblock_frame_cuda,
+deblock_chroma_ext_cuda) relayout with T2 and T3 (ops/relayout_kernel.py).
+LAUNCHES counts kernel launches.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from pathlib import Path
 import torch
 
 from ..utils.tracing import RECORDER
-from .deblock import deblock_rows_plain, deblock_tiles_plain
+from .deblock import deblock_packed_plain, deblock_rows_plain, deblock_tiles_plain
 
 # Tiles per block of the quad kernel (K1, K1c, K1-i16, K1-i16c): consecutive
 # tiles of the flattened (By, Bx) grid, QUAD threads each, at most
@@ -53,9 +58,20 @@ CHROMA_BLOCK_BX = 64
 # 64 and 16 by timings at the race grid (PERF.md §6).
 ROWS_BLOCK_BX = 32
 
+# Tiles per block of K2: consecutive tiles of one tile row, QUAD threads
+# each, staged as one TMA box (csrc/deblock_quad.cuh kPackedTiles): a
+# constant of its design, not a parameter; chosen over 8, 24 and 48 by
+# timings at the benchmark cells' shapes (PERF.md §6).
+PACKED_TILES = 16
+# K2's guard: row, plane and frame strides and base addresses in multiples
+# of this many bytes (what a tensor map demands), and w % PACKED_WIDTH == 0,
+# so that the chroma rows, w/2 bytes, are 16-byte multiples too.
+_TMA_ALIGN = 16
+PACKED_WIDTH = 2 * _TMA_ALIGN
+
 # Kernel launches per variant since import (or since a caller reset them):
-# K1, K1c, K1-i16 luma and chroma, T5 (luma and chroma).
-LAUNCHES = {"luma": 0, "chroma": 0, "luma_i16": 0, "chroma_i16": 0, "rows": 0}
+# K1, K1c, K1-i16 luma and chroma, T5 (luma and chroma), K2.
+LAUNCHES = {"luma": 0, "chroma": 0, "luma_i16": 0, "chroma_i16": 0, "rows": 0, "packed": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
@@ -137,6 +153,9 @@ _TILE_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong, ct
 # in, out, four maps, beta, tc, By, Bx, chroma: T5's and T1's arguments
 GRID_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
 _LAUNCH_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # threads, device, stream
+# y_in, y_out, uv_in, uv_out, 10 strides, 8 maps, beta, tc, w, h, k, luma_only
+_PACKED_ARGS = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong),
+                                        ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 6
 
 
 def _setup_cuda(lib) -> None:
@@ -150,6 +169,10 @@ def _setup_cuda(lib) -> None:
     lib.gvct_deblock_rows_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2 + [
         ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.gvct_deblock_rows_occupancy.restype = ctypes.c_int
+    lib.gvct_deblock_packed.argtypes = _PACKED_ARGS + [ctypes.c_int, ctypes.c_void_p]
+    lib.gvct_deblock_packed.restype = ctypes.c_int
+    lib.gvct_deblock_packed_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.gvct_deblock_packed_info.restype = ctypes.c_int
     lib.gvct_error_string.argtypes = [ctypes.c_int]
     lib.gvct_error_string.restype = ctypes.c_char_p
 
@@ -165,6 +188,8 @@ def _setup_host(lib) -> None:
     lib.gvct_host_deblock_rows.restype = ctypes.c_int
     lib.gvct_host_rows_staging.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
     lib.gvct_host_rows_staging.restype = ctypes.c_int
+    lib.gvct_host_deblock_packed.argtypes = _PACKED_ARGS
+    lib.gvct_host_deblock_packed.restype = ctypes.c_int
 
 
 def load_host_library() -> ctypes.CDLL:
@@ -177,7 +202,9 @@ def load_host_library() -> ctypes.CDLL:
     another between the kernel's exchange points; gvct_host_deblock_rows(tb,
     tma, ...) for T5, the same quad on the rows layout, staged in route B's
     words or as route A's TMA boxes would stage it, and
-    gvct_host_rows_staging, the route rule; ops/relayout_kernel.py and
+    gvct_host_rows_staging, the route rule; gvct_host_deblock_packed for K2,
+    its blocks staged as its TMA box would stage them, with
+    packed_launch_args' arguments; ops/relayout_kernel.py and
     ops/swar_kernel.py bind the rest)."""
     gxx = shutil.which("g++")
     if gxx is None:
@@ -375,6 +402,149 @@ def deblock_rows_occupancy(tiles_rows, chroma: bool = False) -> dict:
     blocks, threads, staging, smem, regs = info
     return {"route": "words" if staging else "tma", "word_bytes": staging or None,
             "threads": threads, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * ((threads + 31) // 32), "smem_bytes": smem,
+            "registers": regs}
+
+
+# -- K2: the packed step on the frames' planes ---------------------------------------
+
+def packed_fits(w: int, *tensors) -> bool:
+    """K2's guard, from the frame width and the tensors alone (None skipped):
+    w % 32 == 0, so that the luma rows (w bytes) and the chroma rows (w/2)
+    are 16-byte multiples -- which also leaves out every sheared width (Q9,
+    w % 16 == 8) -- and every tensor has a contiguous last axis, a 16-byte
+    aligned base address and its other strides in 16-byte multiples, as a
+    tensor map demands.  Where it fails, the packed step keeps the chain
+    T2 -> K1 -> T3."""
+    return w % PACKED_WIDTH == 0 and all(
+        t.stride(-1) == 1 and t.data_ptr() % _TMA_ALIGN == 0
+        and all(s % _TMA_ALIGN == 0 for s in t.stride()[:-1])
+        for t in tensors if t is not None)
+
+
+def packed_grids(w: int, h: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """The luma and the chroma tile grids of a w x h frame's packed step,
+    (By, Bx) and (cBy, cBx): the chain's (utils/tiles.interior_to_tiles
+    with pad 4), and its BS maps' shapes."""
+    return ((h + 8) // 8, (w + 8) // 8), ((h // 2 + 8) // 8, (w // 2 + 8) // 8)
+
+
+def _check_packed(y, uv, luma_maps, chroma_maps, beta, tc, out) -> None:
+    """deblock_packed_cuda's operand checks; raises ValueError."""
+    for name, t in (("y", y), ("uv", uv)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.uint8:
+            raise ValueError(f"{name} must be a uint8 tensor, got "
+                             f"{getattr(t, 'dtype', type(t).__name__)}")
+    if y.dim() not in (2, 3) or uv.dim() != y.dim() + 1:
+        raise ValueError(f"y must be (h, w) or (k, h, w) and uv (.., 2, h/2, w/2) with the same "
+                         f"leading axis, got {tuple(y.shape)} and {tuple(uv.shape)}")
+    h, w = y.shape[-2:]
+    if h <= 0 or w <= 0 or h % 8 or w % 8:
+        raise ValueError(f"frame dims must be positive multiples of 8, got {w}x{h}")
+    if tuple(uv.shape) != (*y.shape[:-2], 2, h // 2, w // 2) or uv.device != y.device:
+        raise ValueError(f"uv must be {(*y.shape[:-2], 2, h // 2, w // 2)} on {y.device}, got "
+                         f"{tuple(uv.shape)} on {uv.device}")
+    if beta < 0 or tc < 0:
+        raise ValueError(f"beta and tc must be non-negative, got {beta}, {tc}")
+    grid, cgrid = packed_grids(w, h)
+    check_grid_maps(y, luma_maps, *grid)
+    check_grid_maps(y, chroma_maps, *cgrid)
+    if out is not None:
+        if len(out) != 2:
+            raise ValueError("out must be a (y, uv) pair")
+        for name, t, like in (("out y", out[0], y), ("out uv", out[1], uv)):
+            if (not isinstance(t, torch.Tensor) or t.dtype != torch.uint8
+                    or t.shape != like.shape or t.device != y.device):
+                raise ValueError(f"{name} must be a uint8 {tuple(like.shape)} tensor on "
+                                 f"{y.device}")
+    if not packed_fits(w, y, uv, *(out or ())):
+        raise ValueError(f"K2 takes w % {PACKED_WIDTH} == 0 (got {w}) and planes with a "
+                         f"contiguous last axis, addresses and strides in {_TMA_ALIGN}-byte "
+                         f"multiples (packed_fits)")
+    if y.dim() == 3 and y.shape[0] > _MAX_GRID_YZ:
+        raise ValueError(f"batch of {y.shape[0]} frames is too large for one launch")
+
+
+def packed_launch_args(y, uv, y_out, uv_out, luma_maps, chroma_maps, beta, tc,
+                       luma_only) -> tuple:
+    """gvct_deblock_packed's arguments up to its device and stream (and
+    gvct_host_deblock_packed's, all of them): the planes' addresses, their
+    frame, plane and row strides, the eight maps, the thresholds and the
+    geometry (csrc/deblock_kernel.cu)."""
+    h, w = y.shape[-2:]
+
+    def frame(t, n):  # the frame stride of a group of n axes, batched or not
+        return t.stride(0) if t.dim() == n + 1 else t.shape[0] * t.stride(0)
+
+    strides = [frame(y, 2), y.stride(-2), frame(y_out, 2), y_out.stride(-2)]
+    strides += [0] * 6 if luma_only else [
+        frame(uv, 3), uv.stride(-3), uv.stride(-2),
+        frame(uv_out, 3), uv_out.stride(-3), uv_out.stride(-2)]
+    maps = (ctypes.c_void_p * 8)(*(m.data_ptr() for m in (*luma_maps, *chroma_maps)))
+    chroma = (None, None) if luma_only else (uv.data_ptr(), uv_out.data_ptr())
+    return (y.data_ptr(), y_out.data_ptr(), chroma[0], chroma[1],
+            (ctypes.c_longlong * 10)(*strides), maps, int(beta), int(tc), w, h,
+            y.shape[0] if y.dim() == 3 else 1, int(luma_only))
+
+
+def deblock_packed_cuda(y, uv, luma_maps, chroma_maps, beta, tc, *, luma_only: bool = False,
+                        out=None):
+    """K2: the packed YV12 step of k frames in one launch, on their planes
+    (csrc/deblock_kernel.cu, deblock_packed_kernel): each block's shifted
+    8x8 tiles staged by TMA straight from a plane, K1's or K1c's quad run on
+    them, stored in 4-byte words -- what T2 -> K1 -> T3 and T2 -> K1c -> T3
+    compute.
+
+    y: (h, w) or (k, h, w) luma and uv: (.., 2, h/2, w/2) U and V planes,
+    uint8 (e.g. the views of a packed (k, 3h/2, w) buffer); luma_maps: four
+    (By, Bx) and chroma_maps four (cBy, cBx) contiguous uint8 BS maps
+    (packed_grids), shared by the frames, and by U and V.  beta, tc: ints.
+    out: optional (y, uv) destinations of the planes' shapes -- the planes
+    themselves for in place.  Returns out, or new contiguous (y, uv); under
+    luma_only the chroma is not filtered and uv itself comes back.
+    packed_fits must hold for the planes and the destinations (raises
+    otherwise; the caller keeps the chain for those).  K2's tiles per
+    block are PACKED_TILES, not a parameter.  The launch goes on the current
+    stream and does not synchronize.  CPU tensors take the plain version
+    (ops/deblock.deblock_packed_plain)."""
+    beta, tc = int(beta), int(tc)
+    _check_packed(y, uv, luma_maps, chroma_maps, beta, tc, out)
+    if y.device.type == "cpu":
+        y_new, uv_new = deblock_packed_plain(y, uv, luma_maps, chroma_maps, beta, tc,
+                                             luma_only)
+        if out is None:
+            return y_new, uv_new
+        out[0].copy_(y_new)
+        if not luma_only:
+            out[1].copy_(uv_new)
+        return out[0], uv if luma_only else out[1]
+    if y.device.type != "cuda":
+        raise ValueError(f"deblock_packed_cuda takes CUDA or CPU tensors, got {y.device}")
+    if out is None:
+        out = (torch.empty(y.shape, dtype=torch.uint8, device=y.device),
+               uv if luma_only else torch.empty(uv.shape, dtype=torch.uint8, device=y.device))
+    if y.numel() == 0:
+        return out[0], uv if luma_only else out[1]
+    lib = _load("cuda", build_library, _setup_cuda)
+    err = lib.gvct_deblock_packed(
+        *packed_launch_args(y, uv, *out, luma_maps, chroma_maps, beta, tc, luma_only),
+        y.device.index, torch.cuda.current_stream(y.device).cuda_stream)
+    raise_on_launch(err, lib, "deblock_packed")
+    LAUNCHES["packed"] += 1
+    return out[0], uv if luma_only else out[1]
+
+
+def deblock_packed_info(device=None) -> dict:
+    """K2's launch on `device` (default: the current CUDA device):
+    {"tiles_per_block", "threads", "blocks_per_sm", "warps_per_sm",
+    "smem_bytes" (static shared memory per block), "registers"}."""
+    device = torch.device("cuda", torch.cuda.current_device()) if device is None \
+        else torch.device(device)
+    lib = _load("cuda", build_library, _setup_cuda)
+    info = (ctypes.c_int * 4)()
+    raise_on_launch(lib.gvct_deblock_packed_info(device.index, info), lib, "occupancy")
+    blocks, threads, smem, regs = info
+    return {"tiles_per_block": PACKED_TILES, "threads": threads, "blocks_per_sm": blocks,
             "warps_per_sm": blocks * ((threads + 31) // 32), "smem_bytes": smem,
             "registers": regs}
 

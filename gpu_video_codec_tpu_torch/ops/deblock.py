@@ -31,7 +31,10 @@ from __future__ import annotations
 import torch
 
 from .filters import chroma_edge_filter_planes, luma_edge_filter_planes
-from ..utils.tiles import plane_to_tiles, split_covered, tiles_to_plane
+from .tables import HALF_BLOCK
+from ..utils.tiles import (
+    interior_to_tiles, plane_to_tiles, split_covered, tiles_to_interior, tiles_to_plane,
+)
 
 # (p_coords, q_coords) per phase; entries are (tile_row, tile_col) as a
 # function of filter row r and edge distance j.
@@ -126,6 +129,26 @@ def deblock_rows_plain(tiles_rows, bs_ver1, bs_ver2, bs_hor1, bs_hor2, beta: int
     out = deblock_tiles(tiles_rows.permute(1, 2, 0, 3), bs_ver1, bs_ver2, bs_hor1, bs_hor2,
                         beta, tc, chroma=chroma)
     return out.permute(2, 0, 1, 3).contiguous()
+
+
+def deblock_packed_plain(y, uv, luma_maps, chroma_maps, beta: int, tc: int,
+                         luma_only: bool = False):
+    """K2's plain version (ops/cuda_kernel.deblock_packed_cuda): the packed
+    step's chain of plain versions on the frames' planes -- interior ->
+    tile-planes of the zero-extended plane (T2's), the deblock (K1's,
+    K1c's), tile-planes -> interior (T3's) -- for luma, and for U and V with
+    one shared map.  y: (.., h, w), uv: (.., 2, h/2, w/2) uint8 interior
+    planes; (By, Bx) and (cBy, cBx) maps, shared by the leading axes.
+    Returns new (y, uv), uv itself under luma_only."""
+    p = HALF_BLOCK
+
+    def step(x, maps, chroma):
+        t = interior_to_tiles(x, p).movedim((-4, -3), (0, 1))  # (8, 8, .., By, Bx)
+        out = deblock_tiles(t, *maps, beta, tc, chroma=chroma).movedim((0, 1), (-4, -3))
+        return tiles_to_interior(out, p, *x.shape[-2:]).contiguous()
+
+    y_out = step(y, luma_maps, False)
+    return y_out, uv if luma_only else step(uv, chroma_maps, True)
 
 
 def deblock_plane(ext_plane, bs_maps, beta: int, tc: int, chroma: bool = False,

@@ -9,10 +9,11 @@ distribution is pure data parallelism with no exchange between devices:
                     tile-aligned and exact; no halo is ever needed)
 
 A mesh is an (n_data, n_spatial) grid of torch devices, its SLOTS.  A
-device may appear more than once: each slot has its own CUDA stream and
-its own CUDA graphs, so a mesh that lists cuda:0 k times runs k slots on
-one card, and a mesh of repeated "cpu" slots runs the same code on the
-CPU, where the kernels' wrappers take their plain versions.
+device may appear more than once: each slot has its own CUDA graphs (and,
+in MultiStreamDeblocker, its own CUDA stream), so a mesh that lists
+cuda:0 k times runs k slots on one card, and a mesh of repeated "cpu"
+slots runs the same code on the CPU, where the kernels' wrappers take
+their plain versions.
 
 Where the JAX package shards with shard_map, a slot here works on views of
 the caller's tensors, in place, when it lives on their device; a slot on
@@ -174,11 +175,13 @@ def _run(mesh: Mesh, index: int, fn, operands: tuple, static: tuple, graph: bool
          stamps: list | None = None) -> None:
     """fn(*operands), in place, on slot `index`: eagerly, or (graph=True)
     as ONE replay of the slot's CUDA graph of it, captured at the first
-    call on these operands, on the slot's stream (forked from the caller's
-    current stream and joined back, so the call is ordered like any other
-    work of the caller's stream).  A replay appends to `stamps`, where it
-    is given, the five stamps of its spans mesh.fork, graphs.launch and
-    mesh.join (utils/tracing.Recorder.end_call)."""
+    call on these operands, on the caller's current stream of the slot's
+    device, so the call is ordered like any other work of that stream.
+    Slots on different cards run at once; slots on one card run in turn.
+    A replay appends to `stamps`, where it is given, the five stamps of its
+    spans mesh.fork (the slot's device made current), graphs.launch and
+    mesh.join (the caller's device restored;
+    utils/tracing.Recorder.end_call)."""
     if stamps is not None:
         fork = stamp()
     dev = mesh.device(index)
@@ -186,19 +189,14 @@ def _run(mesh: Mesh, index: int, fn, operands: tuple, static: tuple, graph: bool
         if not graph:
             fn(*operands)
             return
-        caller = torch.cuda.current_stream(dev)
-        stream = mesh.stream(index)
-        stream.wait_stream(caller)
-        with torch.cuda.stream(stream):
-            if stamps is not None:
-                forked = stamp()
-            key = (index, tensor_key(*operands), *static)
-            step = _GRAPHS.get(key, lambda: CapturedStep(fn, operands))
-            if stamps is None:
-                step.replay()
-            else:
-                launch, launched = step.timed_replay()
-        caller.wait_stream(stream)
+        if stamps is not None:
+            forked = stamp()
+        key = (index, tensor_key(*operands), *static)
+        step = _GRAPHS.get(key, lambda: CapturedStep(fn, operands))
+        if stamps is None:
+            step.replay()
+        else:
+            launch, launched = step.timed_replay()
     if stamps is not None:
         stamps += (fork, forked, launch, launched, stamp())
 
@@ -346,15 +344,17 @@ def deblock_packed_batch_sharded(mesh: Mesh, buf, luma_maps, chroma_maps, beta, 
 
     Frames go over all slots in contiguous chunks (packed_batch_sharding).
     A slot with k frames runs ONE batched packed step on its chunk (models/
-    streaming._deblock_yv12_packed_impl with a leading frame axis): T2 on
-    the luma rows of the k frames (batch stride 3h/2*w), K1 on (k, 8, 8,
-    By, Bx) with one shared map, T3 back into the rows; T2 on the U+V rows
+    streaming._deblock_yv12_packed_impl with a leading frame axis): one K2
+    launch on the k frames' planes in place, where K2's guard takes the
+    width and the buffer (ops/cuda_kernel.packed_fits); elsewhere T2 on the
+    luma rows of the k frames (batch stride 3h/2*w), K1 on (k, 8, 8, By,
+    Bx) with one shared map, T3 back into the rows; T2 on the U+V rows
     viewed as (k, 2, h/2, w/2), K1c on (2k, 8, 8, cBy, cBx), T3 back (on
     sheared geometries, Q9, T2/T3's flat view with the flat tails in a
     buffer of their own).  No layout copy outside the kernels.
     luma_maps/chroma_maps: the four (By, Bx) and four (cBy, cBx) segment
     gate maps (utils/bs; chroma gated with the luma tile counts, Q2).
-    luma_block/chroma_block: K1/K1c's tiles per block."""
+    luma_block/chroma_block: K1/K1c's tiles per block, so the chain's only."""
     return _packed_sharded(mesh, buf, luma_maps, chroma_maps, beta, tc, w, h, luma_only,
                            backend, luma_block, chroma_block, graphs=False)
 

@@ -4,8 +4,9 @@ Counterpart of gpu_video_codec_tpu/parallel/multistream.py.  N concurrent
 YV12 streams (N cameras, N transcode jobs) are zipped into per-step
 batches of N packed frames; the frames go over the mesh's slots in
 contiguous chunks (parallel/mesh.packed_batch_sharding), and a slot with k
-frames filters them with ONE batched packed step (T2 2, K1 1, K1c 1, T3 2
-for the k frames; mesh.deblock_packed_batch_sharded), in place.
+frames filters them with ONE batched packed step (one K2 launch for the k
+frames, or T2 2, K1 1, K1c 1, T3 2 where K2's guard fails;
+mesh.deblock_packed_batch_sharded), in place.
 
 Per CUDA slot, the fixed device ring of the single-stream path
 (models/streaming._Ring): depth + 1 entries, each a pinned (k, 3h/2, w)

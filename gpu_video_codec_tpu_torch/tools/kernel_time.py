@@ -16,11 +16,18 @@ BS byte 0, and T5 on the race grid's rows layout (136, 8, 8, 256) on
 blocky tiles, on noise and with BS 0 (TMA-staged), the same blocky and BS
 0 on a copy 8 bytes past a 16-byte boundary (staged in 8-byte words), and
 at the 1080p luma width (136, 8, 8, 241); each through the public
-wrappers with their default blocks.
+wrappers with their default blocks.  And the packed step at the benchmark
+cells' shapes, 16 1080p and 4 4K blocky frames in place (QP 37, BS maps
+uniform in 0..2): the chain T2 -> K1 -> T3, T2 -> K1c -> T3 (the public
+wrappers, as the tree's streaming step composes them) and, where the tree
+has it, K2 (deblock_packed_cuda) and its plain version (3 launches a
+repeat), beside the byte bound of the step and K2's registers, occupancy
+and shared memory.
 Prints one JSON line: per kernel the device us per launch of each repeat
 (utils.timing.device_ms: CUDA events around `iters` launches queued
-behind a spin kernel) and whether every repeat was queued ahead.  Exits
-non-zero without a CUDA device.
+behind a spin kernel) and whether every repeat was queued ahead; the
+packed step's bounds in us ("bound_us") and K2's launch ("k2", null in a
+tree without it).  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     import gpu_video_codec_tpu_torch as pkg
     from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
+    from gpu_video_codec_tpu_torch.ops import relayout_kernel as rk
     from gpu_video_codec_tpu_torch.ops import swar_kernel as sk
     from gpu_video_codec_tpu_torch.ops.tables import get_beta, get_tc
     from gpu_video_codec_tpu_torch.utils.timing import device_ms
@@ -109,12 +117,48 @@ def main(argv: list[str] | None = None) -> int:
         "T5 race BS 0, 8-byte words": lambda: ck.deblock_rows_cuda(rows_off8, *off, beta, tc),
         "T5 (136, 8, 8, 241)": lambda: ck.deblock_rows_cuda(rows_241, *luma[1], beta, tc),
     }
+    k2 = hasattr(ck, "deblock_packed_cuda")
+    plain_fns, bounds = {}, {}
+    b37, t37 = get_beta(37), get_tc(37)
+    for k, w, h in ((16, 1920, 1080), (4, 3840, 2160)):
+        shape = f"({k}, {3 * h // 2}, {w})"
+        nby = (3 * h // 2 + 7) // 8  # blocky 8x8 blocks over the packed rows
+        blocks = blocky_tiles(rng, (k, 8, 8, nby, w // 8)).transpose(0, 3, 1, 4, 2)
+        buf = torch.from_numpy(np.ascontiguousarray(
+            blocks.reshape(k, 8 * nby, w)[:, : 3 * h // 2])).to(dev)
+        y, uv = buf[:, :h], buf[:, h:].view(k, 2, h // 2, w // 2)
+        lm = [torch.from_numpy(rng.integers(0, 3, ((h + 8) // 8, (w + 8) // 8),
+                                            dtype=np.uint8)).to(dev) for _ in range(4)]
+        cm = [torch.from_numpy(rng.integers(0, 3, ((h // 2 + 8) // 8, (w // 2 + 8) // 8),
+                                            dtype=np.uint8)).to(dev) for _ in range(4)]
+
+        def chain(y=y, uv=uv, lm=lm, cm=cm, h=h, w=w):
+            t = ck.deblock_tiles_cuda(rk.plane_to_tiles_cuda(y, 4), *(m[None] for m in lm),
+                                      b37, t37)
+            rk.tiles_to_plane_cuda(t, 4, h, w, out=y)
+            t = rk.plane_to_tiles_cuda(uv, 4)
+            t = ck.deblock_tiles_cuda(t.reshape(-1, *t.shape[-4:]), *(m[None] for m in cm),
+                                      b37, t37, chroma=True).reshape(t.shape)
+            rk.tiles_to_plane_cuda(t, 4, h // 2, w // 2, out=uv)
+
+        fns[f"chain {shape}"] = chain
+        if k2:
+            from gpu_video_codec_tpu_torch.ops.deblock import deblock_packed_plain
+
+            fns[f"K2 {shape}"] = lambda y=y, uv=uv, lm=lm, cm=cm: ck.deblock_packed_cuda(
+                y, uv, lm, cm, b37, t37, out=(y, uv))
+            plain_fns[f"K2 plain {shape}"] = lambda y=y, uv=uv, lm=lm, cm=cm: (
+                deblock_packed_plain(y, uv, lm, cm, b37, t37))
+        bounds[shape] = 2 * buf.numel() / 3.35e12 * 1e6  # read once, written once
     runs = {name: [device_ms(fn, args.iters) for _ in range(args.repeats)]
             for name, fn in fns.items()}
+    runs.update({name: [device_ms(fn, 3) for _ in range(args.repeats)]
+                 for name, fn in plain_fns.items()})
     print(json.dumps({
         "tree": os.path.relpath(os.path.dirname(os.path.dirname(pkg.__file__))), "card": smi,
         "us": {name: [ms * 1e3 for ms, _ in r] for name, r in runs.items()},
-        "queued_ahead": all(ok for r in runs.values() for _, ok in r)}))
+        "queued_ahead": all(ok for r in runs.values() for _, ok in r),
+        "bound_us": bounds, "k2": ck.deblock_packed_info(dev) if k2 else None}))
     return 0
 
 

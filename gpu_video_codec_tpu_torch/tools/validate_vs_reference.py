@@ -20,7 +20,9 @@ build time, g++ -O2 -fopenmp), runs it and byte-compares with the backend:
                regions
 
 --backend cuda (the default: the hand-written kernels through
-DeblockPipeline on --device, cuda by default), torch (the plain PyTorch
+DeblockPipeline on --device, cuda by default), packed (the cuda backend's
+packed streaming step, StreamingDeblocker on --device: K2 where its guard
+takes the frame, T2 -> K1 -> T3 elsewhere), torch (the plain PyTorch
 version on --device), golden (the NumPy oracle) or native (the C++ OpenMP
 runtime).  Prints IDENTICAL, "ALL inside reference-UB regions (OK)" or
 REAL DIVERGENCE per case; exits 2 when the reference header is missing and
@@ -32,7 +34,7 @@ fullscale names the backend where the JAX tool says golden.
 Usage: python -m gpu_video_codec_tpu_torch.tools.validate_vs_reference [REF_DIR]
        python -m gpu_video_codec_tpu_torch.tools.validate_vs_reference --fuzz [N] [SEED] [MAX_W] [MAX_H] [REF_DIR]
        python -m gpu_video_codec_tpu_torch.tools.validate_vs_reference --fullscale [REF_DIR]
-       (each also takes --backend cuda|torch|golden|native and --device DEVICE)
+       (each also takes --backend cuda|torch|golden|native|packed and --device DEVICE)
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ import tempfile
 import numpy as np
 
 from ..models.pipeline import DeblockPipeline
+from ..models.streaming import StreamingDeblocker
 from ..runtime import native
 from ..utils.bs import BoundaryStrength
 from ..utils.config import BACKENDS
@@ -54,6 +57,7 @@ from ..utils.yuv import planes_from_yv12_bytes, read_yv12, yv12_bytes_from_plane
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 REF_ENV = "GVCT_REFERENCE_DIR"  # REF_DIR when none is passed
 HEADER = "hevc_deblocking_filter_cpu.h"
+TOOL_BACKENDS = (*BACKENDS, "packed")  # packed: the cuda backend's packed streaming step
 
 DRIVER = r"""
 // Validation driver: runs the REFERENCE CPU implementation (included from
@@ -215,8 +219,11 @@ def _ub_masked_diffs(o, r, ww, hh, chroma_ub=False, band=4):
 
 
 
-def _deblocked(frame, bs: BoundaryStrength, qp: int, backend: str, device: str) -> np.ndarray:
+def deblocked(frame, bs: BoundaryStrength, qp: int, backend: str, device: str) -> np.ndarray:
     """The backend's packed YV12 output for one frame."""
+    if backend == "packed":
+        sd = StreamingDeblocker(frame.width, frame.height, qp, bs=bs, device=device)
+        return next(sd.run([yv12_bytes_from_planes(frame)]))
     out = DeblockPipeline(frame.width, frame.height, qp, backend=backend, bs=bs,
                           device=device)(frame)
     return np.frombuffer(yv12_bytes_from_planes(out), np.uint8)
@@ -247,7 +254,7 @@ def cases(ref_dir: str, backend: str = "cuda", device: str = "cuda") -> int:
                 label += f" bs_seed={seed}"
             subprocess.run(cmd, check=True)
             ref = np.fromfile(out, np.uint8)
-            ours = _deblocked(read_yv12(inp, w, h), case_bs(w, h, seed), qp, backend, device)
+            ours = deblocked(read_yv12(inp, w, h), case_bs(w, h, seed), qp, backend, device)
             diffs = int(np.sum(ours != ref))
             status = "IDENTICAL" if diffs == 0 else f"{diffs} byte diffs"
             print(f"{label}: {status}")
@@ -281,7 +288,7 @@ def fuzz(ref_dir: str, n_cases: int, seed: int = 0, max_w: int = 128, max_h: int
             if bs_seed is not None:
                 cmd.append(str(bs_seed))
             subprocess.run(cmd, check=True)
-            ours = _deblocked(planes_from_yv12_bytes(raw, w, h), case_bs(w, h, bs_seed), qp,
+            ours = deblocked(planes_from_yv12_bytes(raw, w, h), case_bs(w, h, bs_seed), qp,
                               backend, device)
             ref = np.fromfile(out, np.uint8)
 
@@ -337,7 +344,7 @@ def fullscale(ref_dir: str, w: int = 1920, h: int = 1080, qp: int = 35,
               f"{'IDENTICAL' if det == 0 else f'{det} byte diffs (RACE?)'}")
         failures += det != 0
 
-        ours = _deblocked(planes_from_yv12_bytes(raw, w, h), BoundaryStrength.intra_default(w, h),
+        ours = deblocked(planes_from_yv12_bytes(raw, w, h), BoundaryStrength.intra_default(w, h),
                           qp, backend, device)
         strict = int(np.sum(ours != outs[1]))
         changed = int(np.sum(outs[1] != raw))
@@ -364,7 +371,7 @@ def main(argv=None) -> int:
                       help="random campaign: [N] [SEED] [MAX_W] [MAX_H] [REF_DIR]")
     mode.add_argument("--fullscale", action="store_true", help="1080p, 1 and 4 threads")
     ap.add_argument("args", nargs="*", help="[REF_DIR], or --fuzz's five")
-    ap.add_argument("--backend", choices=BACKENDS, default="cuda")
+    ap.add_argument("--backend", choices=TOOL_BACKENDS, default="cuda")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the cuda and torch backends (default cuda)")
     a = ap.parse_intermixed_args(argv)

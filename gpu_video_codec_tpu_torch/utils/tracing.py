@@ -27,12 +27,11 @@ and its counter:
   mesh.packed   parallel/mesh._packed_sharded, the whole packed batch call
                 (the root: every span of one call carries its call id, the
                 mesh.calls count of the call)
-  mesh.fork     parallel/mesh._run: the slot's device made current, its
-                stream ordered after the caller's and made current
+  mesh.fork     parallel/mesh._run: the slot's device made current (the
+                replay goes on the caller's current stream of that device)
   graphs.launch parallel/mesh._run: CapturedStep.timed_replay's launch of
                 the graph alone
-  mesh.join     parallel/mesh._run: the caller's stream ordered after the
-                slot's, the caller's stream and device restored
+  mesh.join     parallel/mesh._run: the caller's device restored
   graphs.capture  utils/graphs.CapturedStep's warm-up on clones and capture
   kernels.load  ops/cuda_kernel._load: a library's first load
   kernels.build ops/cuda_kernel._build: the compiler run, where it runs

@@ -46,7 +46,7 @@ def _same(a, b, what=""):
 
 def _counts() -> dict:
     return {"T2": rk.LAUNCHES["fwd"], "T3": rk.LAUNCHES["inv"], "T4": rk.LAUNCHES["pack"],
-            "K1": ck.LAUNCHES["luma"], "K1c": ck.LAUNCHES["chroma"]}
+            "K1": ck.LAUNCHES["luma"], "K1c": ck.LAUNCHES["chroma"], "K2": ck.LAUNCHES["packed"]}
 
 
 def _delta(before: dict) -> dict:
@@ -132,10 +132,10 @@ def test_pipeline_on_card_launches_and_bytes(rng, cuda_device, w, h):
     pipe = DeblockPipeline(w, h, 35, device=cuda_device)
     before = _counts()
     single = [pipe(f) for f in frames]
-    assert _delta(before) == {"T2": 12, "T3": 12, "T4": 0, "K1": 4, "K1c": 4}
+    assert _delta(before) == {"T2": 12, "T3": 12, "T4": 0, "K1": 4, "K1c": 4, "K2": 0}
     before = _counts()
     batch = pipe.batch(frames)
-    assert _delta(before) == {"T2": 2, "T3": 2, "T4": 0, "K1": 1, "K1c": 1}
+    assert _delta(before) == {"T2": 2, "T3": 2, "T4": 0, "K1": 1, "K1c": 1, "K2": 0}
     plain = DeblockPipeline(w, h, 35, backend="torch", device=cuda_device)
     for f, s, b in zip(frames, single, batch):
         _same(s, b, "batch")

@@ -54,7 +54,15 @@ def _golden(raw, w, h, qp=35, bs=None):
 
 def _launches():
     return {"T2": rk.LAUNCHES["fwd"], "K1": ck.LAUNCHES["luma"], "K1c": ck.LAUNCHES["chroma"],
-            "T3": rk.LAUNCHES["inv"], "T4": rk.LAUNCHES["pack"]}
+            "T3": rk.LAUNCHES["inv"], "T4": rk.LAUNCHES["pack"], "K2": ck.LAUNCHES["packed"]}
+
+
+def _step_launches(w, n):
+    """The launches of n packed steps: K2 once each where its guard takes
+    the width (the buffers are fresh, so aligned), else T2 2, K1, K1c, T3 2."""
+    if ck.packed_fits(w):
+        return {"T2": 0, "K1": 0, "K1c": 0, "T3": 0, "T4": 0, "K2": n}
+    return {"T2": 2 * n, "K1": n, "K1c": n, "T3": 2 * n, "T4": 0, "K2": 0}
 
 
 def _reset():
@@ -250,7 +258,7 @@ class _FakeGraph:
 @pytest.fixture
 def graph_path(monkeypatch):
     """The mesh's graph path on CPU slots: CUDA's device, stream and graph
-    calls stubbed, so that _run forks, looks up, captures (CapturedStep's
+    calls stubbed, so that _run enters the slot's device, looks up, captures (CapturedStep's
     warm-up and capture run fn eagerly) and replays as on a card."""
     null = lambda *a, **k: contextlib.nullcontext()  # noqa: E731
     for name, value in (("current_stream", lambda *a: _FakeStream()),
@@ -288,6 +296,25 @@ def test_graph_path_span_order(rng, graph_path):
     assert [r.call for r in roots] == [1, 2]
     assert RECORDER.counters() == {"mesh.calls": 2}
     assert RECORDER.totals() == {}
+
+
+@pytest.mark.parametrize("slots", [1, 2], ids=["one-slot", "two-slots"])
+def test_graph_path_replays_on_the_callers_stream(rng, graph_path, monkeypatch, slots):
+    """Every slot's replay goes on the caller's current stream: no slot
+    stream is made and no stream waits on another; == the plain step."""
+    waited = []
+    monkeypatch.setattr(_FakeStream, "wait_stream", lambda self, other: waited.append(other))
+    w, h, n = 64, 48, 2
+    sd = StreamingDeblocker(w, h, 35, device="cpu")
+    raw = torch.from_numpy(np.stack([_raw(rng, w, h) for _ in range(n)]).reshape(n, -1, w))
+    buf, ref = raw.clone(), raw.clone()
+    mesh = pm.make_mesh(1, slots, devices=["cpu"] * slots)
+    pm.deblock_packed_batch_sharded_jit(mesh, buf, sd._lm, sd._cm, get_beta(35), get_tc(35),
+                                        w=w, h=h)
+    for frame in ref:
+        sd._step(frame)
+    assert torch.equal(buf, ref)
+    assert waited == [] and mesh._streams == {}
 
 
 def test_graph_path_totals(rng, graph_path, every_call):
@@ -381,7 +408,7 @@ def test_cuda_chain_replays_match_eager(rng, cuda_device, w, h, n):
         buf.copy_(raw)
         _reset()
         assert s._chain(buf, n) is buf
-        assert _launches() == {"T2": 2 * n, "K1": n, "K1c": n, "T3": 2 * n, "T4": 0}
+        assert _launches() == _step_launches(w, n)
         assert torch.equal(buf, ref)
 
 
@@ -398,7 +425,7 @@ def test_cuda_run_steps_replays_match_eager(rng, cuda_device, w, h):
     ref = plain.run_steps(plain.ingest(raws), 3)
     _reset()
     a = rd.run_steps(tf, 3)
-    assert _launches() == {"T2": 0, "K1": 3, "K1c": 3, "T3": 0, "T4": 0}
+    assert _launches() == {"T2": 0, "K1": 3, "K1c": 3, "T3": 0, "T4": 0, "K2": 0}
     b = rd.run_steps(tf, 3)
     for x, y, r in zip(a, b, ref):
         assert torch.equal(x, r) and torch.equal(y, r)
@@ -411,7 +438,8 @@ def test_cuda_run_steps_replays_match_eager(rng, cuda_device, w, h):
 @pytest.mark.parametrize("w,h", GEOMS)
 def test_cuda_ring_run_with_bs_swap(rng, cuda_device, w, h):
     """run() through the graph ring == the plain backend, across a BS swap
-    after the ring's graphs were captured; one T2/K1/K1c/T3 round per frame."""
+    after the ring's graphs were captured; one packed step per frame (K2, or
+    a T2/K1/K1c/T3 round on the sheared width)."""
     raws = [_raw(rng, w, h) for _ in range(5)]
     bs = _random_bs(rng, w, h)
 
@@ -424,7 +452,7 @@ def test_cuda_ring_run_with_bs_swap(rng, cuda_device, w, h):
 
     outs, launches = swapped("cuda")
     refs, _ = swapped("torch")
-    assert launches == {"T2": 10, "K1": 5, "K1c": 5, "T3": 10, "T4": 0}
+    assert launches == _step_launches(w, 5)
     assert all(np.array_equal(o, r) for o, r in zip(outs, refs))
     assert np.array_equal(outs[4], _golden(raws[4], w, h, bs=bs))
 

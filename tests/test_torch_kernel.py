@@ -309,15 +309,18 @@ def test_frame_cuda_matches_plain_on_card(rng, cuda_device):
 @pytest.mark.parametrize("w,h", [(64, 72), (88, 72), (1920, 1080)])
 @pytest.mark.parametrize("luma_only", [False, True])
 def test_streaming_on_card_matches_plain(rng, cuda_device, w, h, luma_only):
-    """The packed stream through the kernel equals the plain backend on the
-    card, with one luma launch and (unless luma_only) one chroma launch per
-    frame."""
+    """The packed stream through the kernels equals the plain backend on the
+    card, with one K2 launch per frame where its guard takes the width, and
+    elsewhere (88x72) one luma launch and (unless luma_only) one chroma
+    launch per frame."""
     raws = [rng.integers(0, 256, 3 * w * h // 2, dtype=np.uint8) for _ in range(3)]
     s = StreamingDeblocker(w, h, 35, luma_only=luma_only, device=cuda_device)
     before = dict(ck.LAUNCHES)
     outs = list(s.run(raws))
-    assert ck.LAUNCHES["luma"] - before["luma"] == len(raws)
-    assert ck.LAUNCHES["chroma"] - before["chroma"] == (0 if luma_only else len(raws))
+    k2 = ck.packed_fits(w)
+    assert ck.LAUNCHES["packed"] - before["packed"] == (len(raws) if k2 else 0)
+    assert ck.LAUNCHES["luma"] - before["luma"] == (0 if k2 else len(raws))
+    assert ck.LAUNCHES["chroma"] - before["chroma"] == (0 if luma_only or k2 else len(raws))
     ref = StreamingDeblocker(w, h, 35, backend="torch", luma_only=luma_only,
                              device=cuda_device)
     for o, r in zip(outs, ref.run(raws)):

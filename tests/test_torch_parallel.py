@@ -218,11 +218,12 @@ def test_packed_batch_rejects_bad_buffers():
 
 @pytest.mark.parametrize("w,h", GEOMS, ids=GEOM_IDS)
 def test_slot_step_goes_through_the_kernels_only(rng, monkeypatch, w, h):
-    """A slot's batched packed step runs T2 2, K1 1, K1c 1 and T3 2 for its
-    whole chunk and no F.pad, torch.stack, torch.cat, .contiguous() or
-    copy_ outside the kernels' wrappers; 3 frames on (1, 2) slots are
-    chunks of 2 and 1: T2 4, deblock 4, T3 4 in all; == golden.  The same
-    through MultiStreamDeblocker.step."""
+    """A slot's batched packed step runs K2 once (64x48), or T2 2, K1 1, K1c
+    1 and T3 2 (the sheared 56x72), for its whole chunk and no F.pad,
+    torch.stack, torch.cat, .contiguous() or copy_ outside the kernels'
+    wrappers; 3 frames on (1, 2) slots are chunks of 2 and 1: K2 2, or T2
+    4, deblock 4, T3 4, in all; == golden.  The same through
+    MultiStreamDeblocker.step."""
     from test_torch_sheared import _Spy
 
     raws = np.stack([_raw(rng, w, h) for _ in range(3)])
@@ -233,9 +234,15 @@ def test_slot_step_goes_through_the_kernels_only(rng, monkeypatch, w, h):
     spy = _Spy(monkeypatch)
     pmesh.deblock_packed_batch_sharded(mesh, buf, sd._lm, sd._cm, get_beta(QP), get_tc(QP),
                                        w=w, h=h)
-    assert spy.calls == {"T2": 4, "T3": 4, "T4": 0, "deblock": 4}
+
+    def steps(n):  # n slot steps
+        if ck.packed_fits(w):
+            return {"T2": 0, "T3": 0, "T4": 0, "deblock": 0, "K2": n}
+        return {"T2": 2 * n, "T3": 2 * n, "T4": 0, "deblock": 2 * n, "K2": 0}
+
+    assert spy.calls == steps(2)
     outs = ms.step(list(raws))
-    assert spy.calls == {"T2": 8, "T3": 8, "T4": 0, "deblock": 8}
+    assert spy.calls == steps(4)
     monkeypatch.undo()
     for i, raw in enumerate(raws):
         assert np.array_equal(buf[i].numpy().ravel(), _gold(raw, w, h)), i
@@ -410,7 +417,16 @@ def cuda_device():
 
 def _counts() -> dict:
     return {"T2": rk.LAUNCHES["fwd"], "T3": rk.LAUNCHES["inv"], "T4": rk.LAUNCHES["pack"],
-            "K1": ck.LAUNCHES["luma"], "K1c": ck.LAUNCHES["chroma"]}
+            "K1": ck.LAUNCHES["luma"], "K1c": ck.LAUNCHES["chroma"], "K2": ck.LAUNCHES["packed"]}
+
+
+def _batch_steps(w, n) -> dict:
+    """The launches of n batched packed steps: K2 once each where its guard
+    takes the width (the slots' buffers are fresh, so aligned), else T2 2,
+    K1, K1c, T3 2."""
+    if ck.packed_fits(w):
+        return {"T2": 0, "T3": 0, "T4": 0, "K1": 0, "K1c": 0, "K2": n}
+    return {"T2": 2 * n, "T3": 2 * n, "T4": 0, "K1": n, "K1c": n, "K2": 0}
 
 
 def _delta(before: dict) -> dict:
@@ -421,8 +437,9 @@ def _delta(before: dict) -> dict:
 @pytest.mark.parametrize("w,h", [(64, 48), (360, 288)], ids=["64x48", "360x288-sheared"])
 def test_multistream_two_slots_on_one_card(rng, cuda_device, w, h):
     """3 streams on [cuda:0] * 2 as (1, 2): chunks of 2 and 1, each slot its
-    own ring and stream; per batch T2 4, K1 2, K1c 2, T3 4 (one replay a
-    slot); == the plain backend == golden, across a BS swap."""
+    own ring and stream; per batch one packed step a slot (K2, or T2 2, K1,
+    K1c, T3 2 on the sheared width; one replay a slot); == the plain
+    backend == golden, across a BS swap."""
     mesh = make_mesh(1, 2, [cuda_device] * 2)
     streams = [[_smooth(rng, w, h) for _ in range(4)] for _ in range(3)]
     ms = MultiStreamDeblocker(mesh, 3, w, h, QP)
@@ -433,7 +450,7 @@ def test_multistream_two_slots_on_one_card(rng, cuda_device, w, h):
     outs = list(ms.run([s[:2] for s in streams]))
     ms.update_boundary_strength(custom)
     outs += list(ms.run([s[2:] for s in streams]))
-    assert _delta(before) == {"T2": 16, "T3": 16, "T4": 0, "K1": 8, "K1c": 8}
+    assert _delta(before) == _batch_steps(w, 8)
     assert ms._slots[0].ring is not ms._slots[1].ring
     refs = list(plain.run([s[:2] for s in streams]))
     plain.update_boundary_strength(custom)
@@ -448,7 +465,7 @@ def test_multistream_two_slots_on_one_card(rng, cuda_device, w, h):
 def test_packed_jit_graphs_keyed_by_slot(rng, cuda_device):
     """deblock_packed_batch_sharded_jit on [cuda:0] * 2: one graph per slot
     (the slot index in the key), captured at the first call and replayed
-    after; launches per call T2 4, K1 2, K1c 2, T3 4; == the plain step."""
+    after; launches per call K2 2 (one a slot); == the plain step."""
     w, h = 64, 48
     mesh = make_mesh(1, 2, [cuda_device] * 2)
     sd = StreamingDeblocker(w, h, QP, device=cuda_device)
@@ -463,7 +480,7 @@ def test_packed_jit_graphs_keyed_by_slot(rng, cuda_device):
         before = _counts()
         pmesh.deblock_packed_batch_sharded_jit(mesh, buf, sd._lm, sd._cm, get_beta(QP),
                                                get_tc(QP), w=w, h=h)
-        assert _delta(before) == {"T2": 4, "T3": 4, "T4": 0, "K1": 2, "K1c": 2}
+        assert _delta(before) == _batch_steps(w, 2)
         torch.cuda.synchronize()
         assert torch.equal(buf, ref)
     new = set(pmesh._GRAPHS._graphs) - keys_before
@@ -503,7 +520,7 @@ def test_mesh_resident_two_slots_on_one_card(rng, cuda_device):
     state = mrd.ingest(raws)
     before = _counts()
     state = mrd.step(state, 3)
-    assert _delta(before) == {"T2": 0, "T3": 0, "T4": 0, "K1": 6, "K1c": 6}
+    assert _delta(before) == {"T2": 0, "T3": 0, "T4": 0, "K1": 6, "K1c": 6, "K2": 0}
     out = mrd.readback(state)
     rd = ResidentDeblocker(w, h, QP, device=cuda_device)
     assert np.array_equal(out, rd.readback(rd.run_steps(rd.ingest(raws), 3)))

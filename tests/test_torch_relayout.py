@@ -516,9 +516,10 @@ def test_tiles_to_plane_out_on_card(rng, cuda_device):
 @pytest.mark.parametrize("w,h", [(64, 48), (40, 24), (360, 288)],
                          ids=["64x48", "sheared-40x24", "sheared-360x288"])
 def test_streaming_on_card_goes_through_t2_t3(rng, cuda_device, w, h, luma_only):
-    """The streaming packed step on the card launches T2, K1 and T3 once
-    each for luma and T2, K1c and T3 once each for U+V, in place or not,
-    and equals the plain backend."""
+    """The streaming packed step on the card launches K2 once where its
+    guard takes the width (64x48), and elsewhere (the sheared widths) T2,
+    K1 and T3 once each for luma and T2, K1c and T3 once each for U+V, in
+    place or not, and equals the plain backend."""
     from gpu_video_codec_tpu_torch.models.streaming import StreamingDeblocker
     from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
 
@@ -534,8 +535,9 @@ def test_streaming_on_card_goes_through_t2_t3(rng, cuda_device, w, h, luma_only)
         out = s._packed(buf, inplace)
         after = {**rk.LAUNCHES, **ck.LAUNCHES}
         n = 1 if luma_only else 2
-        assert {k: after[k] - before[k] for k in before} == {
-            **dict.fromkeys(before, 0), "fwd": n, "inv": n, "luma": 1, "chroma": n - 1}
+        ran = ({"packed": 1} if ck.packed_fits(w)
+               else {"fwd": n, "inv": n, "luma": 1, "chroma": n - 1})
+        assert {k: after[k] - before[k] for k in before} == {**dict.fromkeys(before, 0), **ran}
         assert (out is buf) == inplace
         assert torch.equal(out, want)
         if not inplace:

@@ -245,26 +245,29 @@ def test_wrappers_flat_round_trip_and_checks(rng):
 # -- spy tests: each sheared path through T2/T3 and nothing else ----------------
 
 class _Spy:
-    """Counts T2, T3, T4 and deblock calls and bans, outside the kernels'
-    wrappers, the layout work they replace: F.pad, torch.stack, torch.cat,
-    Tensor.contiguous, Tensor.copy_ (copy=False) and the plain relayouts."""
+    """Counts T2, T3, T4, deblock and K2 (the packed step's one kernel)
+    calls and bans, outside the kernels' wrappers, the layout work they
+    replace: F.pad, torch.stack, torch.cat, Tensor.contiguous, Tensor.copy_
+    (copy=False) and the plain relayouts."""
 
     def __init__(self, monkeypatch, copy=False):
         from gpu_video_codec_tpu_torch.models import resident as res
         from gpu_video_codec_tpu_torch.models import streaming as st
         from gpu_video_codec_tpu_torch.utils import tiles as ut
 
-        self.calls = {"T2": 0, "T3": 0, "T4": 0, "deblock": 0}
+        self.calls = {"T2": 0, "T3": 0, "T4": 0, "deblock": 0, "K2": 0}
         self.inside = 0
         wrapped = [self._counted(kind, getattr(mod, name)) for mod, name, kind in (
             (rk, "plane_to_tiles_cuda", "T2"), (rk, "tiles_to_plane_cuda", "T3"),
-            (rk, "pack_yv12_cuda", "T4"), (ck, "deblock_tiles_cuda", "deblock"))]
+            (rk, "pack_yv12_cuda", "T4"), (ck, "deblock_tiles_cuda", "deblock"),
+            (ck, "deblock_packed_cuda", "K2"))]
         for fn, name in zip(wrapped, ("plane_to_tiles_cuda", "tiles_to_plane_cuda",
-                                      "pack_yv12_cuda", "deblock_tiles_cuda")):
+                                      "pack_yv12_cuda", "deblock_tiles_cuda",
+                                      "deblock_packed_cuda")):
             for mod in (rk, ck, st):  # where the paths look the wrappers up
                 if hasattr(mod, name):
                     monkeypatch.setattr(mod, name, fn)
-        monkeypatch.setitem(res._KERNELS, "cuda", tuple(wrapped))
+        monkeypatch.setitem(res._KERNELS, "cuda", tuple(wrapped[:4]))
         banned = [(F, "pad"), (torch, "stack"), (torch, "cat"), (torch.Tensor, "contiguous"),
                   (ut, "plane_to_tiles"), (ut, "tiles_to_plane"), (ut, "join_covered"),
                   (ut, "split_covered_data"), (rk, "plane_to_tiles_plain"),
@@ -317,16 +320,16 @@ def test_streaming_sheared_goes_through_t2_t3(rng, monkeypatch, w, h):
     bufs = [s._put(r) for r in raws]
     spy = _Spy(monkeypatch)
     out = s._packed(bufs[0], False)
-    assert spy.calls == {"T2": 2, "T3": 2, "T4": 0, "deblock": 2}
+    assert spy.calls == {"T2": 2, "T3": 2, "T4": 0, "deblock": 2, "K2": 0}
     assert s._chain(bufs[1], 2) is bufs[1]
-    assert spy.calls == {"T2": 6, "T3": 6, "T4": 0, "deblock": 6}
+    assert spy.calls == {"T2": 6, "T3": 6, "T4": 0, "deblock": 6, "K2": 0}
     assert np.array_equal(out.numpy().ravel(), _gold(raws[0], w, h))
     assert np.array_equal(bufs[1].numpy().ravel(), _gold(raws[1], w, h, steps=2))
     assert not np.array_equal(bufs[0].numpy().ravel(), out.numpy().ravel())  # input kept
     monkeypatch.undo()
     spy = _Spy(monkeypatch)
     outs = list(s.run(raws))
-    assert spy.calls == {"T2": 4, "T3": 4, "T4": 0, "deblock": 4}
+    assert spy.calls == {"T2": 4, "T3": 4, "T4": 0, "deblock": 4, "K2": 0}
     assert all(np.array_equal(o, _gold(r, w, h)) for o, r in zip(outs, raws))
 
 
@@ -342,10 +345,10 @@ def test_resident_sheared_ingest_readback_go_through_t2_t3(rng, monkeypatch, w, 
     buf = torch.from_numpy(raws.copy())
     spy = _Spy(monkeypatch)
     tf = rd.ingest(buf)
-    assert spy.calls == {"T2": 2, "T3": 0, "T4": 0, "deblock": 0}
+    assert spy.calls == {"T2": 2, "T3": 0, "T4": 0, "deblock": 0, "K2": 0}
     tf = rd.step(tf)
     out = _readback(tf, w, h)
-    assert spy.calls == {"T2": 2, "T3": 2, "T4": 1, "deblock": 2}
+    assert spy.calls == {"T2": 2, "T3": 2, "T4": 1, "deblock": 2, "K2": 0}
     monkeypatch.undo()
     _, tail = split_covered_data(F.pad(
         torch.from_numpy(raws[:, w * h :].reshape(3, 2, h // 2, w // 2)), (4, 4, 4, 4)))
@@ -368,7 +371,7 @@ def test_chroma_ext_goes_through_t2_t3(rng, monkeypatch, w, h):
     u, v = torch.from_numpy(frame.u), torch.from_numpy(frame.v)
     spy = _Spy(monkeypatch)
     uo, vo = ck.deblock_chroma_ext_cuda(u, v, cm, get_beta(35), get_tc(35))
-    assert spy.calls == {"T2": 2, "T3": 2, "T4": 0, "deblock": 1}
+    assert spy.calls == {"T2": 2, "T3": 2, "T4": 0, "deblock": 1, "K2": 0}
     monkeypatch.undo()
     gold = deblock_frame_golden(frame, bs, 35)
     assert np.array_equal(uo.numpy(), gold.u) and np.array_equal(vo.numpy(), gold.v)
@@ -386,7 +389,7 @@ def test_pipeline_batch_goes_through_t2_t3(rng, monkeypatch, w, h):
     pipe = DeblockPipeline(w, h, 35, device="cpu")
     spy = _Spy(monkeypatch)
     outs = pipe.batch(frames)
-    assert spy.calls == {"T2": 2, "T3": 2, "T4": 0, "deblock": 2}
+    assert spy.calls == {"T2": 2, "T3": 2, "T4": 0, "deblock": 2, "K2": 0}
     monkeypatch.undo()
     bs = BoundaryStrength.intra_default(w, h)
     for f, o in zip(frames, outs):

@@ -259,16 +259,18 @@ def test_packed_impl_backends_agree(rng):
 @pytest.mark.parametrize("w,h", [(64, 48), (40, 24), (360, 288)],
                          ids=["64x48", "sheared-40x24", "sheared-360x288"])
 def test_cuda_backend_goes_through_t2_t3(rng, monkeypatch, w, h, luma_only):
-    """The cuda backend's packed and planes steps call T2 and T3
-    (plane_to_tiles_cuda, tiles_to_plane_cuda) -- once each for luma, once
-    more for U+V -- and never the plain relayout (interior_to_tiles,
-    tiles_to_interior) or deblock_chroma_ext_cuda, in place or not; the
-    bytes equal the JAX StreamingDeblocker's and golden."""
+    """The cuda backend's packed and planes steps call K2
+    (deblock_packed_cuda) once where its guard takes the geometry (64x48),
+    and elsewhere (the sheared widths) T2 and T3 (plane_to_tiles_cuda,
+    tiles_to_plane_cuda) -- once each for luma, once more for U+V -- and
+    never the plain relayout (interior_to_tiles, tiles_to_interior) or
+    deblock_chroma_ext_cuda, in place or not; the bytes equal the JAX
+    StreamingDeblocker's and golden."""
     import gpu_video_codec_tpu_torch.models.streaming as st
     import gpu_video_codec_tpu_torch.ops.cuda_kernel as ck
     import gpu_video_codec_tpu_torch.utils.tiles as tl
 
-    calls = {"T2": 0, "T3": 0}
+    calls = {"T2": 0, "T3": 0, "K2": 0}
 
     def spy(name, fn):
         def counted(*args, **kwargs):
@@ -281,6 +283,7 @@ def test_cuda_backend_goes_through_t2_t3(rng, monkeypatch, w, h, luma_only):
 
     monkeypatch.setattr(st, "plane_to_tiles_cuda", spy("T2", st.plane_to_tiles_cuda))
     monkeypatch.setattr(st, "tiles_to_plane_cuda", spy("T3", st.tiles_to_plane_cuda))
+    monkeypatch.setattr(st, "deblock_packed_cuda", spy("K2", st.deblock_packed_cuda))
     for mod, name in ((tl, "interior_to_tiles"), (tl, "tiles_to_interior"),
                       (ck, "deblock_chroma_ext_cuda"), (st, "interior_to_tiles"),
                       (st, "tiles_to_interior"), (st, "deblock_chroma_ext_cuda")):
@@ -299,5 +302,8 @@ def test_cuda_backend_goes_through_t2_t3(rng, monkeypatch, w, h, luma_only):
         assert np.array_equal(out.numpy().ravel(), want)
     y, uv = s.step_planes(*s.put_planes(raw))
     assert np.array_equal(np.concatenate([y.numpy().ravel(), uv.numpy().ravel()]), want)
-    per_step = 1 if luma_only else 2
-    assert calls == {"T2": 3 * per_step, "T3": 3 * per_step}
+    if ck.packed_fits(w):  # the geometry K2 takes; the buffers here are fresh, so aligned
+        assert calls == {"T2": 0, "T3": 0, "K2": 3}
+    else:
+        per_step = 1 if luma_only else 2
+        assert calls == {"T2": 3 * per_step, "T3": 3 * per_step, "K2": 0}

@@ -424,7 +424,7 @@ def test_validate_reports_an_unfiltered_reference(tmp_path):
     assert lines[-1].startswith("fuzz: 2 cases, ") and not lines[-1].endswith(" 0 real divergences")
 
 
-@pytest.mark.parametrize("backend", ["cuda", "torch", "golden", "native"])
+@pytest.mark.parametrize("backend", ["cuda", "torch", "golden", "native", "packed"])
 def test_validate_fuzz_identical_to_a_filtering_reference(tmp_path, backend):
     """Against a stand-in that filters with the port's runtime/src, every
     backend (cuda and torch on the CPU: the kernels' plain versions) is
