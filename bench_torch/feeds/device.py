@@ -7,6 +7,21 @@ and calls the program's packed batch step on it, in place
 The mix's parameters: streams (k), in_flight (batches queued at most),
 warmup_batches, samples (seeded instants of the window whose batch is
 kept for the check) and trace_batches (the traced stretch's length).
+
+The frames are of the configuration's bit_depth (lib/frames.frame_pool),
+and so are the batch buffer and the captures.  The program's call:
+
+  bit_depth 8   deblock_packed_batch_sharded_jit(mesh, buf, lm, cm, beta,
+                tc, w=w, h=h), buf a uint8 (k, 3h/2, w) batch;
+  bit_depth 10  the same call with bit_depth=10 as one more keyword, buf
+                an int16 (k, 3h/2, w) batch of samples in [0, 1023] (the
+                16-bit words of yuv420p10le planes).  beta and tc stay the
+                tables' beta' and tc' at the QP: the program scales them by
+                2^(bit_depth - 8) and clips to [0, 2^bit_depth - 1], as
+                H.265 does and as references/hevc_deblock.py documents.
+
+A program that does not take bit_depth raises at the first call of
+set-up's warm-up, and the run ends with that error and no result.
 """
 
 from __future__ import annotations
@@ -28,7 +43,7 @@ class Feed(Base):
         self.k, self.dpb = k, dpb
         self.pool = self.frame_pool(dpb * k).view(dpb, k, 3 * self.h // 2, self.w)
         self.buf = torch.empty_like(self.pool[0])
-        self.captures = torch.empty((len(self.fractions), *self.buf.shape), dtype=torch.uint8,
+        self.captures = torch.empty((len(self.fractions), *self.buf.shape), dtype=self.buf.dtype,
                                     device=self.device)
         if self.control:
             def step():
@@ -47,9 +62,15 @@ class Feed(Base):
                                         device=self.device)
             mesh = pm.make_mesh(1, 1, devices=[self.device])
             beta, tc = get_beta(self.qp), get_tc(self.qp)
+            bd = self.bit_depth
 
-            def step():
-                pm.deblock_packed_batch_sharded_jit(mesh, self.buf, lm, cm, beta, tc, w=w, h=h)
+            if bd == 8:
+                def step():
+                    pm.deblock_packed_batch_sharded_jit(mesh, self.buf, lm, cm, beta, tc, w=w, h=h)
+            else:
+                def step():
+                    pm.deblock_packed_batch_sharded_jit(mesh, self.buf, lm, cm, beta, tc, w=w, h=h,
+                                                        bit_depth=bd)
         self.step = step
         for i in range(int(self.mix["warmup_batches"])):
             self.buf.copy_(self.pool[i % dpb])

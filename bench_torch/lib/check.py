@@ -1,12 +1,13 @@
 """The comparison that decides `correct`.
 
 Every sampled output frame is compared byte for byte with the plain
-reference run on its input (references/<config's reference>.py).  The
-numbers compared, each with its limit:
+reference run on its input (references/<config's reference>.py) at the
+configuration's bit_depth.  The numbers compared, each with its limit:
 
   wrong_bytes     output bytes of the sampled frames that differ from the
-                  reference's: limit 0, since the guarantee is byte-exact
-                  output (an exact comparison);
+                  reference's, the frames viewed as bytes (a 10-bit
+                  sample's int16 counts 1 or 2): limit 0, since the
+                  guarantee is byte-exact output (an exact comparison);
   missing_frames  frames handed to the program that never came back, for
                   a feed whose missing() counts them (the device feed's
                   step returns with its batch done in place, so it has
@@ -33,21 +34,27 @@ def reference_of(cfg: dict):
 def wrong_bytes(samples, cfg: dict, bs: dict, device) -> tuple[int, int, int]:
     """(bytes that differ from the reference, frames compared, frames with
     a wrong byte) over the samples, each (inputs, outputs) of shape
-    (n, 3h/2, w) uint8, numpy arrays or tensors."""
+    (n, 3h/2, w) of the bit depth's dtype (lib/frames.sample_dtype),
+    numpy arrays or tensors."""
     ref = reference_of(cfg)
-    w, h, qp = int(cfg["width"]), int(cfg["height"]), int(cfg["qp"])
-    per = max(1, _BLOCK_BYTES // (3 * w * h // 2))
+    w, h, qp, bd = (int(cfg[k]) for k in ("width", "height", "qp", "bit_depth"))
     wrong = frames = bad = 0
     for inputs, outputs in samples:
         x = torch.as_tensor(inputs).to(device).reshape(-1, 3 * h // 2, w)
         y = torch.as_tensor(outputs).to(device).reshape(-1, 3 * h // 2, w)
+        per = max(1, _BLOCK_BYTES // x[0].nbytes)
         for a in range(0, x.shape[0], per):
-            expect = ref.deblock_packed(x[a : a + per], w, h, qp, bs)
-            diff = (expect != y[a : a + per]).flatten(1).sum(1)
+            expect = ref.deblock_packed(x[a : a + per], w, h, qp, bs, bit_depth=bd)
+            diff = (_bytes(expect) != _bytes(y[a : a + per])).flatten(1).sum(1)
             wrong += int(diff.sum())
             bad += int((diff > 0).sum())
         frames += x.shape[0]
     return wrong, frames, bad
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """t's bytes as uint8, the last axis times the sample's size."""
+    return t.contiguous().view(torch.uint8)
 
 
 def decide(values: dict) -> bool:

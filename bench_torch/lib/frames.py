@@ -4,11 +4,20 @@ Everything is drawn from the run's seed with torch.Generator objects on
 the device that holds the frames, in a few large calls, so that the same
 seed gives the same inputs and set-up does not depend on the host.
 
-Frames are packed 8-bit YV12, (3h/2, w) rows: luma, then the two chroma
-planes (h/2, w/2) one after the other.  Each plane is a gradient with a
-per-frame phase, a DC offset per 8x8 block and, per block, noise of
-amplitude 0, 1 or 2: steps between blocks of a few levels take the strong
-luma filter, larger ones the normal filter, the largest skip it.
+Frames are packed YV12, (3h/2, w) rows: luma, then the two chroma planes
+(h/2, w/2) one after the other.  At a bit depth of 8 (HEVC Main) a sample
+is one uint8; at 10 (Main 10) one int16 in [0, 1023], each row the
+little-endian 16-bit words of a yuv420p10le plane.  Each plane is a
+gradient with a per-frame phase, a DC offset per 8x8 block and, per
+block, noise: steps between blocks of a few levels take the strong luma
+filter, larger ones the normal filter, the largest skip it.  The gradient
+and the phase scale by 2^(bit_depth - 8); the DC offsets reach up to the
+configuration's luma_dc (chroma_dc) in its own sample scale.  Noise is an
+amplitude A a block, 0, 1 or 2 levels at 8 bits and 0, 4 or 8 at 10, times
+a draw of -2..2 a sample; at 10 bits a noisy block's samples also draw
+-2..2 levels each, so noise is not a multiple of 4 and the two low bits
+carry content of their own (the filter's on, strong and normal shares
+stay near the 8-bit ones).
 
 BS arrays have the reference's flat sizes and index order (cpu.h:86-117).
 "ai" is the reference's own all-intra default: every entry 2 except the
@@ -32,34 +41,51 @@ def generator(seed: int, stream: int, device) -> torch.Generator:
     return g
 
 
-def _plane(n, h, w, dc, g, device, out):
-    """Fill out (n, h, w) uint8 with blocky content."""
+def sample_dtype(bit_depth: int) -> torch.dtype:
+    """A sample's dtype: uint8 at 8 bits, int16 at 10 (Main and Main 10)."""
+    if bit_depth == 8:
+        return torch.uint8
+    if bit_depth == 10:
+        return torch.int16
+    raise ValueError(f"bit_depth must be 8 or 10 (HEVC Main, Main 10), got {bit_depth!r}")
+
+
+def _plane(n, h, w, dc, g, device, out, bit_depth):
+    """Fill out (n, h, w) with blocky content at `bit_depth`."""
+    s = 1 << (bit_depth - 8)
     y = torch.arange(h, device=device, dtype=torch.int32)[:, None]
     x = torch.arange(w, device=device, dtype=torch.int32)[None, :]
-    span = 128
-    phase = torch.randint(0, 64, (n, 1, 1), generator=g, device=device, dtype=torch.int32)
+    span = 128 * s
+    phase = torch.randint(0, 64 * s, (n, 1, 1), generator=g, device=device, dtype=torch.int32)
     offs = torch.randint(-dc, dc + 1, (n, h // B + 1, w // B + 1), generator=g, device=device,
                          dtype=torch.int32)
     amp = torch.randint(0, 3, (n, h // B + 1, w // B + 1), generator=g, device=device,
                         dtype=torch.int32)
-    grad = 64 + ((x + 2 * y) * span) // (w + 2 * h)
+    grad = 64 * s + ((x + 2 * y) * span) // (w + 2 * h)
     for f in range(n):
         blocks = (offs[f], amp[f])
         dcf, ampf = (t.repeat_interleave(B, 0)[:h].repeat_interleave(B, 1)[:, :w] for t in blocks)
         noise = torch.randint(-2, 3, (h, w), generator=g, device=device, dtype=torch.int32)
-        out[f] = (grad + phase[f] + dcf + noise * ampf).clamp(0, 255).to(torch.uint8)
+        noise = noise * (s * ampf)
+        if bit_depth > 8:
+            low = torch.randint(-2, 3, (h, w), generator=g, device=device, dtype=torch.int32)
+            noise += low * (ampf > 0)
+        out[f] = (grad + phase[f] + dcf + noise).clamp(0, (1 << bit_depth) - 1).to(out.dtype)
 
 
-def frame_pool(n: int, width: int, height: int, seed: int, content: dict, device) -> torch.Tensor:
-    """n packed YV12 frames (n, 3h/2, w) uint8 on `device`, from the seed."""
+def frame_pool(n: int, width: int, height: int, seed: int, content: dict, device,
+               bit_depth: int = 8) -> torch.Tensor:
+    """n packed YV12 frames (n, 3h/2, w) on `device`, from the seed: uint8
+    at bit_depth 8, int16 at 10; ValueError at any other."""
     w, h = width, height
+    dtype = sample_dtype(bit_depth)
     g = generator(seed, 0, device)
-    pool = torch.empty((n, 3 * h // 2, w), dtype=torch.uint8, device=device)
-    _plane(n, h, w, int(content["luma_dc"]), g, device, pool[:, :h])
+    pool = torch.empty((n, 3 * h // 2, w), dtype=dtype, device=device)
+    _plane(n, h, w, int(content["luma_dc"]), g, device, pool[:, :h], bit_depth)
     chroma = pool[:, h:].view(n, 2, h // 2, w // 2)
     for i in range(2):
-        tmp = torch.empty((n, h // 2, w // 2), dtype=torch.uint8, device=device)
-        _plane(n, h // 2, w // 2, int(content["chroma_dc"]), g, device, tmp)
+        tmp = torch.empty((n, h // 2, w // 2), dtype=dtype, device=device)
+        _plane(n, h // 2, w // 2, int(content["chroma_dc"]), g, device, tmp, bit_depth)
         chroma[:, i] = tmp
     return pool
 

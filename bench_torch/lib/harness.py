@@ -10,7 +10,9 @@ control (the plain reference with broken arithmetic in the program's
 place) for the check of the comparison; benchmark runs never pass it.
 
 Without a CUDA device, or with fewer than the cell asks for, it exits 2
-and prints no result: nothing falls back to the CPU.  The last lines on
+and prints no result: nothing falls back to the CPU.  Where the process
+holds JAX or the JAX package once the window has closed, it names the
+modules on standard error and exits 3 with no result.  The last lines on
 standard error are the numbers compared with their limits; the last line
 on standard output is the result:
 
@@ -26,6 +28,16 @@ import time
 
 from . import check, spec
 from . import trace as tr
+
+
+# top-level module names that a run of the port may not load
+FORBIDDEN = ("jax", "jaxlib", "flax", "gpu_video_codec_tpu")
+
+
+def forbidden_modules() -> list[str]:
+    """The loaded modules whose top-level name is one of FORBIDDEN, whole:
+    `gpu_video_codec_tpu_torch` is the port and does not count."""
+    return sorted(n for n in list(sys.modules) if n.split(".", 1)[0] in FORBIDDEN)
 
 
 def parse(argv):
@@ -67,7 +79,8 @@ def run_cell(spec_: dict, cell: dict, cfg: dict, mix: dict, seed: int, seconds: 
     for d in cards:
         torch.cuda.synchronize(d)
         torch.cuda.reset_peak_memory_stats(d)
-    rec = Record(mix["feed"], feed.w, feed.h, int(mix.get("streams", 1)), feed.kind())
+    rec = Record(mix["feed"], feed.w, feed.h, int(mix.get("streams", 1)), feed.kind(),
+                 feed.sample_bytes)
     rec.setup_s = time.perf_counter() - t0
     tracer = Tracer(trace and cuda)
     feed.window(seconds, tracer, rec)
@@ -115,6 +128,11 @@ def main(argv, t0: float) -> int:
         return 2
     result, compared = run_cell(spec_, cell, cfg, mix, args.seed, args.seconds,
                                 bool(args.trace), args.control, t0)
+    loaded = forbidden_modules()
+    if loaded:
+        print(f"bench_torch: {args.workload} seed {args.seed}: JAX or the JAX package "
+              f"loaded in the run: {', '.join(loaded)}; no result", file=sys.stderr)
+        return 3
     print(f"bench_torch: {args.workload} seed {args.seed}: {compared['frames_compared']} "
           f"frames compared with the reference{' (control)' if args.control else ''}",
           file=sys.stderr)

@@ -1,8 +1,9 @@
 """Roofline arithmetic: the least bytes the work needs, and the card's peak.
 
-Deblocking a packed 8-bit YV12 frame reads each of its 3wh/2 bytes once
-and writes each once, whatever kernels implement it (a fused kernel, a
-relayout on either side, several launches): 2 x 3wh/2 bytes a frame.
+Deblocking a packed YV12 frame reads each of its 3wh/2 samples once and
+writes each once, whatever kernels implement it (a fused kernel, a
+relayout on either side, several launches): 2 x 3wh/2 samples a frame, of
+1 byte at 8 bits and 2 (an int16) at 10.
 There is no operation bound (no integer rate in the data sheet's table),
 so the bound is bytes over the memory bandwidth.
 """
@@ -15,15 +16,15 @@ PEAKS = {
 }
 
 
-def frame_bytes(width: int, height: int) -> int:
-    """Bytes of one packed 8-bit 4:2:0 frame."""
-    return 3 * width * height // 2
+def frame_bytes(width: int, height: int, sample_bytes: int = 1) -> int:
+    """Bytes of one packed 4:2:0 frame of `sample_bytes` a sample."""
+    return 3 * width * height // 2 * sample_bytes
 
 
-def deblock_bytes(width: int, height: int, frames: int = 1) -> int:
+def deblock_bytes(width: int, height: int, frames: int = 1, sample_bytes: int = 1) -> int:
     """Bytes the deblocking of `frames` frames must move: each read once
     and written once."""
-    return 2 * frame_bytes(width, height) * frames
+    return 2 * frame_bytes(width, height, sample_bytes) * frames
 
 
 def hbm_bytes_per_s(kind: str) -> float | None:

@@ -1,6 +1,7 @@
 """step_roofline_pct.devfed: the packed batch step's share of the card's
 bandwidth bound.  Bytes: each frame of the batch read once and written
-once (lib/roofline.deblock_bytes), whatever kernels do the work.  Time:
+once at its bytes a sample (lib/roofline.deblock_bytes; 1 at 8 bits, 2 at
+10), whatever kernels do the work.  Time:
 the device time per batch of everything the traced window ran except what
 the harness launched itself (the refresh and the sample copies)."""
 
@@ -18,5 +19,5 @@ def read(rec):
     if us <= 0:
         return None
     seconds = us / 1e6 / t["batches"]
-    return roofline.roofline_pct(roofline.deblock_bytes(rec.width, rec.height, rec.per_batch),
-                                 seconds, rec.kind)
+    moved = roofline.deblock_bytes(rec.width, rec.height, rec.per_batch, rec.sample_bytes)
+    return roofline.roofline_pct(moved, seconds, rec.kind)

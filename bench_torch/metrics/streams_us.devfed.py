@@ -1,8 +1,8 @@
-"""streams_us.devfed: the slot's device and stream switches of one packed
-batch call, in us: the program's spans mesh.fork (the slot's device made
-current, its stream ordered after the caller's) and mesh.join (the
-caller's stream ordered after the slot's, both restored), the mean per
-recorded unprofiled call."""
+"""streams_us.devfed: the slot's device switch of one packed batch call,
+in us: the program's spans mesh.fork (the slot's device made current) and
+mesh.join (the caller's device restored), the mean per recorded
+unprofiled call.  The replay runs on the caller's current stream of the
+slot's device, so neither span orders one stream after another."""
 
 from bench_torch.lib import program_spans as ps
 

@@ -1,10 +1,11 @@
 """Plain PyTorch reference of the reference deblocker's semantics.
 
-HEVC in-loop deblocking of 8-bit 4:2:0 frames as the reference CPU
+HEVC in-loop deblocking of 4:2:0 frames as the reference CPU
 implementation (RomanKazantsev/gpu_video_codec,
-hevc_deblocking_filter_cpu.h) defines it, written from that file's
-description alone, vectorised over every tile of a batch of frames.  It
-imports nothing of the program under test and takes nothing it made.
+hevc_deblocking_filter_cpu.h) defines it for 8-bit samples, written from
+that file's description alone, vectorised over every tile of a batch of
+frames.  It imports nothing of the program under test and takes nothing
+it made.
 
 What it computes, per frame and per plane:
   * the plane is zero-extended by 4 samples on every side (padding is 0)
@@ -27,6 +28,18 @@ What it computes, per frame and per plane:
   * all arithmetic is 32-bit with right shifts that round toward minus
     infinity.
 
+Bit depth.  The reference project filters 8-bit samples only.  At
+`bit_depth` 10 (HEVC Main 10; frames int16, samples in [0, 1023]) this
+module departs from it only as H.265's edge filtering (8.7.2.5) does for
+BitDepth > 8: beta = beta' * 2^(bd - 8) and tc = tc' * 2^(bd - 8), beta'
+and tc' the tables' values at the frame's QP, for luma and for chroma
+alike, and every filtered sample is clipped (Clip1) to [0, 2^bd - 1] in
+place of [0, 255].  Every threshold derived from beta and tc (beta/8, 3 beta/16,
+5 tc/2, 10 tc, the clamps at 2 tc and tc/2) follows from the scaled
+values.  The segment order, the column mismatch, the chroma gate by the
+luma tile counts, the sheared chroma sweep and the floor shifts are those
+above.  Output keeps the input's dtype.  At bit_depth 8 nothing changes.
+
 `shift="trunc"` replaces every right shift by a division that rounds
 toward zero: the control, which breaks the stated arithmetic guarantee.
 """
@@ -38,7 +51,6 @@ import torch.nn.functional as F
 
 B = 8
 HALF = 4
-MAX_PIXEL = 255
 
 # QP 0..51 (cpu.h beta_table and tc_table); QP above 51 reads QP 51
 BETA = (0,) * 16 + (6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 20, 22, 24,
@@ -57,9 +69,15 @@ _PHASES = (
 )
 
 
-def beta_tc(qp: int) -> tuple[int, int]:
+def beta_tc(qp: int, bit_depth: int = 8) -> tuple[int, int]:
+    """(beta, tc) at the QP, scaled by 2^(bit_depth - 8) as H.265 does."""
     q = min(int(qp), 51)
-    return BETA[q], TC[q]
+    s = 1 << (int(bit_depth) - 8)
+    return BETA[q] * s, TC[q] * s
+
+
+def max_pixel(bit_depth: int = 8) -> int:
+    return (1 << int(bit_depth)) - 1
 
 
 def _shifter(shift: str):
@@ -100,11 +118,7 @@ def gates(flat_vert, flat_hor, lookup_w: int, ny: int, nx: int, gate_ny: int, ga
     return bs == 2 if chroma else bs > 0
 
 
-def _clip2(x):
-    return x.clamp(0, MAX_PIXEL)
-
-
-def _luma(p, q, beta: int, tc: int, shr):
+def _luma(p, q, beta: int, tc: int, shr, top: int):
     """p, q: (..., 4 rows, 4 distances) int32 -> new (..., 4, 3) each."""
     def second(x, r):
         return (x[..., r, 2] - 2 * x[..., r, 1] + x[..., r, 0]).abs()
@@ -123,7 +137,8 @@ def _luma(p, q, beta: int, tc: int, shr):
         d0 = shr(x2 + 2 * x1 - 6 * x0 + 2 * y0 + y1 + 4, 3).clamp(-c, c)
         d1 = shr(x2 - 3 * x1 + x0 + y0 + 2, 2).clamp(-c, c)
         d2 = shr(2 * x3 - 5 * x2 + x1 + x0 + y0 + 4, 3).clamp(-c, c)
-        return torch.stack([_clip2(x0 + d0), _clip2(x1 + d1), _clip2(x2 + d2)], dim=-1)
+        return torch.stack([(x0 + d0).clamp(0, top), (x1 + d1).clamp(0, top),
+                            (x2 + d2).clamp(0, top)], dim=-1)
 
     sp, sq = strong_side(p, q), strong_side(q, p)
 
@@ -137,10 +152,10 @@ def _luma(p, q, beta: int, tc: int, shr):
     d = delta0.clamp(-c, c)
     dp1 = shr(shr(p2 + p0 + 1, 1) - p1 + d, 1).clamp(-c2, c2)
     dq1 = shr(shr(q2 + q0 + 1, 1) - q1 - d, 1).clamp(-c2, c2)
-    np_ = torch.stack([torch.where(row, _clip2(p0 + d), p0),
-                       torch.where(row & side_p, _clip2(p1 + dp1), p1), p2], dim=-1)
-    nq_ = torch.stack([torch.where(row, _clip2(q0 - d), q0),
-                       torch.where(row & side_q, _clip2(q1 + dq1), q1), q2], dim=-1)
+    np_ = torch.stack([torch.where(row, (p0 + d).clamp(0, top), p0),
+                       torch.where(row & side_p, (p1 + dp1).clamp(0, top), p1), p2], dim=-1)
+    nq_ = torch.stack([torch.where(row, (q0 - d).clamp(0, top), q0),
+                       torch.where(row & side_q, (q1 + dq1).clamp(0, top), q1), q2], dim=-1)
 
     keep = (~on)[..., None, None]
     strong = strong[..., None, None]
@@ -148,25 +163,27 @@ def _luma(p, q, beta: int, tc: int, shr):
             torch.where(keep, q[..., :3], torch.where(strong, sq, nq_)))
 
 
-def _chroma(p, q, tc: int, shr):
+def _chroma(p, q, tc: int, shr, top: int):
     """p, q: (..., 4 rows, 2 distances) int32 -> new (..., 4, 1) each."""
     p0, p1, q0, q1 = p[..., 0], p[..., 1], q[..., 0], q[..., 1]
     dp = shr((p0 - q0) * 4 + p1 - q1 + 4, 3).clamp(-tc, tc)
     dq = shr((q0 - p0) * 4 + q1 - p1 + 4, 3).clamp(-tc, tc)
-    return _clip2(p0 + dp)[..., None], _clip2(q0 - dq)[..., None]
+    return (p0 + dp).clamp(0, top)[..., None], (q0 - dq).clamp(0, top)[..., None]
 
 
-def deblock_tiles(tiles, gate, beta: int, tc: int, chroma: bool, shift: str = "floor"):
-    """Filter tiles (N, ny, nx, 64) int32 in place; gate (4, ny, nx) bool."""
+def deblock_tiles(tiles, gate, beta: int, tc: int, chroma: bool, shift: str = "floor",
+                  top: int = 255):
+    """Filter tiles (N, ny, nx, 64) int32 in place; gate (4, ny, nx) bool;
+    filtered samples are clipped to [0, top]."""
     shr = _shifter(shift)
     nj, touched = (2, 1) if chroma else (4, 3)
     for k, (p_at, q_at) in enumerate(_PHASES):
         pi, qi = _flat_index(p_at, nj, tiles.device), _flat_index(q_at, nj, tiles.device)
         p, q = tiles[..., pi], tiles[..., qi]
         if chroma:
-            np_, nq_ = _chroma(p, q, tc, shr)
+            np_, nq_ = _chroma(p, q, tc, shr, top)
         else:
-            np_, nq_ = _luma(p, q, beta, tc, shr)
+            np_, nq_ = _luma(p, q, beta, tc, shr, top)
         g = gate[k][None, :, :, None, None]
         tiles[..., pi[:, :touched]] = torch.where(g, np_, p[..., :touched])
         tiles[..., qi[:, :touched]] = torch.where(g, nq_, q[..., :touched])
@@ -184,16 +201,16 @@ def _from_tiles(tiles):
     return tiles.reshape(n, ny, nx, B, B).permute(0, 1, 3, 2, 4).reshape(n, ny * B, nx * B)
 
 
-def _luma_plane(y, bs, beta, tc, shift):
+def _luma_plane(y, bs, beta, tc, shift, top):
     n, h, w = y.shape
     ext = F.pad(y.to(torch.int32), (HALF, HALF, HALF, HALF))
     ny, nx = h // B + 1, w // B + 1
     g = gates(bs["vert"], bs["hor"], w, ny, nx, ny, nx, False, y.device)
-    out = _from_tiles(deblock_tiles(_to_tiles(ext), g, beta, tc, False, shift))
-    return out[:, HALF : HALF + h, HALF : HALF + w].to(torch.uint8)
+    out = _from_tiles(deblock_tiles(_to_tiles(ext), g, beta, tc, False, shift, top))
+    return out[:, HALF : HALF + h, HALF : HALF + w].to(y.dtype)
 
 
-def _chroma_plane(c, bs, luma_n, beta, tc, shift):
+def _chroma_plane(c, bs, luma_n, beta, tc, shift, top):
     n, ch, cw = c.shape
     ext = F.pad(c.to(torch.int32), (HALF, HALF, HALF, HALF))
     he, we = ext.shape[1:]
@@ -201,24 +218,28 @@ def _chroma_plane(c, bs, luma_n, beta, tc, shift):
     flat = ext.reshape(n, -1)
     core = flat[:, : ncby * B * ncbx * B].reshape(n, ncby * B, ncbx * B)
     g = gates(bs["chroma_vert"], bs["chroma_hor"], cw, ncby, ncbx, *luma_n, True, c.device)
-    swept = _from_tiles(deblock_tiles(_to_tiles(core), g, 0, tc, True, shift))
+    swept = _from_tiles(deblock_tiles(_to_tiles(core), g, 0, tc, True, shift, top))
     flat = torch.cat([swept.reshape(n, -1), flat[:, ncby * B * ncbx * B :]], dim=1)
-    return flat.reshape(n, he, we)[:, HALF : HALF + ch, HALF : HALF + cw].to(torch.uint8)
+    return flat.reshape(n, he, we)[:, HALF : HALF + ch, HALF : HALF + cw].to(c.dtype)
 
 
-def deblock_packed(frames, width: int, height: int, qp: int, bs: dict, shift: str = "floor"):
-    """Packed 8-bit YV12 frames (N, 3h/2, w) uint8 -> filtered frames, new.
+def deblock_packed(frames, width: int, height: int, qp: int, bs: dict, shift: str = "floor",
+                   bit_depth: int = 8):
+    """Packed YV12 frames (N, 3h/2, w) -> filtered frames, new, of the
+    input's dtype: uint8 at bit_depth 8, int16 at 10 (see the module's
+    docstring for what the bit depth changes).
 
     Rows [0, h) are luma; rows [h, 3h/2) hold the two chroma planes one
     after the other, each (h/2, w/2).  bs: the flat arrays "vert", "hor",
     "chroma_vert", "chroma_hor" that every frame of the batch shares."""
     w, h = width, height
-    beta, tc = beta_tc(qp)
+    beta, tc = beta_tc(qp, bit_depth)
+    top = max_pixel(bit_depth)
     n = frames.shape[0]
     out = torch.empty_like(frames)
-    out[:, :h] = _luma_plane(frames[:, :h], bs, beta, tc, shift)
+    out[:, :h] = _luma_plane(frames[:, :h], bs, beta, tc, shift, top)
     chroma = frames[:, h:].reshape(n, 2, h // 2, w // 2)
     luma_n = (h // B + 1, w // B + 1)
-    filtered = [_chroma_plane(chroma[:, i], bs, luma_n, beta, tc, shift) for i in range(2)]
+    filtered = [_chroma_plane(chroma[:, i], bs, luma_n, beta, tc, shift, top) for i in range(2)]
     out[:, h:] = torch.stack(filtered, dim=1).reshape(n, h // 2, w)
     return out

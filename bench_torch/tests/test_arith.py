@@ -6,6 +6,7 @@ generators, the trace reader and the metric readers.
 
 from __future__ import annotations
 
+import hashlib
 import json
 
 import numpy as np
@@ -29,6 +30,13 @@ def test_roofline_bytes_per_geometry(w, h, frame, moved):
     assert roofline.frame_bytes(w, h) == frame
     assert roofline.deblock_bytes(w, h) == moved
     assert roofline.deblock_bytes(w, h, frames=8) == 8 * moved
+
+
+def test_roofline_bytes_at_10_bits():
+    # an int16 a sample: twice the bytes; 4 2160p frames move 199.1 MB
+    assert roofline.frame_bytes(3840, 2160, sample_bytes=2) == 24_883_200
+    assert roofline.deblock_bytes(3840, 2160, 4, sample_bytes=2) == 199_065_600
+    assert roofline.deblock_bytes(64, 48, sample_bytes=2) == 2 * roofline.deblock_bytes(64, 48)
 
 
 def test_roofline_share_against_the_peak():
@@ -77,6 +85,37 @@ def test_ra_bs_shares_on_a_seed():
     other = fr.bs_arrays(1920, 1080, mix, 2**31 + 18, "cpu")
     assert all((again[k] == bs[k]).all() for k in bs)
     assert any((other[k] != bs[k]).any() for k in bs)
+
+
+@pytest.mark.parametrize("n, w, h, seed, digest", [
+    (3, 64, 48, 2**33 + 1, "3fc6b5471fc58666964259d12ef7e8ea850432d77e5c9a5c53d89129cd8e11e9"),
+    (2, 136, 88, 2**31 + 99, "c45198f8ea9926e7cd8acfbd8cc3922ebc6e11baeeb4afd8c13bae4bbd6b90c7"),
+])
+def test_8_bit_pool_keeps_its_bytes(n, w, h, seed, digest):
+    # sha256 of the pools the generator made before it took a bit depth:
+    # 8-bit cells read the same frames as before
+    pool = fr.frame_pool(n, w, h, seed, {"luma_dc": 24, "chroma_dc": 12}, "cpu", 8)
+    assert pool.dtype == torch.uint8
+    assert hashlib.sha256(pool.numpy().tobytes()).hexdigest() == digest
+
+
+def test_10_bit_pool():
+    content = {"luma_dc": 96, "chroma_dc": 48}
+    a = fr.frame_pool(3, 64, 48, 2**33 + 1, content, "cpu", 10)
+    assert a.shape == (3, 72, 64) and a.dtype == torch.int16
+    assert int(a.min()) >= 0 and int(a.max()) <= 1023 and int(a.max()) > 255
+    assert torch.equal(a, fr.frame_pool(3, 64, 48, 2**33 + 1, content, "cpu", 10))
+    assert not torch.equal(a, fr.frame_pool(3, 64, 48, 2**33 + 2, content, "cpu", 10))
+    for plane in (a[:, :48], a[:, 48:]):
+        # the low two bits vary: each of their four values holds a fair share
+        shares = torch.bincount((plane & 3).flatten().long(), minlength=4) / plane.numel()
+        assert (shares > 0.2).all()
+
+
+@pytest.mark.parametrize("bit_depth", [7, 9, 12, 16])
+def test_other_bit_depths_are_refused(bit_depth):
+    with pytest.raises(ValueError, match="bit_depth"):
+        fr.frame_pool(1, 64, 48, 1, {"luma_dc": 24, "chroma_dc": 12}, "cpu", bit_depth)
 
 
 def test_frame_pool_is_the_seed_s():
@@ -153,6 +192,8 @@ def test_step_roofline_leaves_out_the_harness_copy(tmp_path):
     # the step's device time is 20 + 15.5 us: the refresh memcpy is the harness's
     assert got == pytest.approx(roofline.roofline_pct(6_220_800 * 8, 35.5e-6, H100))
     assert spec.reader("step_roofline_pct.devfed")(Record("device", 1, 1, 1, H100)) is None
+    rec.sample_bytes = 2  # 10-bit frames: twice the bytes in the same time
+    assert spec.reader("step_roofline_pct.devfed")(rec) == pytest.approx(2 * got)
 
 
 def test_idle_share_is_the_traced_stretch_s_own(tmp_path):

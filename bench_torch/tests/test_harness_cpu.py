@@ -13,6 +13,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import pytest
 import torch
@@ -32,15 +33,19 @@ def _mix(traffic):
 DEVICE_MIXES = [t for t in MIXES if _mix(t)["feed"] == "device"]
 
 
-def small_run(traffic, control=False, seconds=0.3):
+SEED = 2**31 + 99
+
+
+def small_run(traffic, control=False, seconds=0.3, **cfg_keys):
     """One run of a mix on the CPU at 64x48, under the cell of BENCHMARK.json
-    that uses it (or a cell of its own on the first configuration)."""
+    that uses it (or a cell of its own on the first configuration), with
+    cfg_keys in place of the configuration's own."""
     cell = next((w for w in SPEC["workloads"] if w["traffic"] == traffic),
                 {"name": f"cpu_{traffic}", "config": SPEC["configs"][0]["name"],
                  "traffic": traffic, "chips": 1})
-    cfg = dict(spec.config(SPEC, cell), width=64, height=48)
+    cfg = dict(spec.config(SPEC, cell), width=64, height=48, **cfg_keys)
     mix = dict(_mix(traffic), warmup_batches=2)
-    return harness.run_cell(SPEC, cell, cfg, mix, 2**31 + 99, seconds, False, control,
+    return harness.run_cell(SPEC, cell, cfg, mix, SEED, seconds, False, control,
                             time.perf_counter(), device="cpu")
 
 
@@ -87,6 +92,88 @@ def test_device_fed_faults_are_caught(traffic, fault, monkeypatch):
     assert result["correct"] is False and compared["wrong_bytes"] > 0
 
 
+# -- 10 bits (HEVC Main 10): the program called as feeds/device.py's docstring says,
+# played by the reference's floor arithmetic; a program that filters as at 8 bits fails
+
+MAIN10 = {"bit_depth": 10, "content": {"luma_dc": 96, "chroma_dc": 48}}
+
+
+def _main10_program(mp, traffic, fault=None):
+    """Put a stand-in program in place of deblock_packed_batch_sharded_jit:
+    a copy of the plain reference (its own module, so a fault planted in it
+    leaves the check's reference whole) at the feed's bit depth, with the
+    fault planted."""
+    from gpu_video_codec_tpu_torch.parallel import mesh as pm
+
+    from bench_torch.lib import frames as fr
+    from bench_torch.references import hevc_deblock as tables
+
+    ref = spec._module(spec.BENCH / "references" / "hevc_deblock.py", "standin_hevc_deblock")
+    cell = next(w for w in SPEC["workloads"] if w["traffic"] == traffic)
+    qp = int(spec.config(SPEC, cell)["qp"])
+    bs = fr.bs_arrays(64, 48, _mix(traffic), SEED, "cpu")
+    if fault == "clip_255":
+        ref.max_pixel = lambda bit_depth=8: 255
+    if fault == "unscaled":
+        ref.beta_tc = lambda qp, bit_depth=8: tables.beta_tc(qp)
+
+    def program(mesh, buf, lm, cm, beta, tc, *, w, h, bit_depth=8):
+        # the feed's contract: the int16 batch, the tables' beta' and tc', bit_depth=10
+        assert (buf.dtype, bit_depth, (beta, tc)) == (torch.int16, 10, tables.beta_tc(qp))
+        if fault == "unchanged":
+            return buf
+        if fault == "shifted_8bit":
+            eight = ref.deblock_packed((buf >> 2).to(torch.uint8), w, h, qp, bs)
+            return buf.copy_(eight.to(torch.int16) << 2)
+        part = buf[: buf.shape[0] // 2] if fault == "half_batch" else buf
+        part.copy_(ref.deblock_packed(part, w, h, qp, bs, bit_depth=bit_depth))
+        if fault == "altered":
+            buf[-1, 5, 7] ^= 1  # one byte altered where it is produced
+        return buf
+    mp.setattr(pm, "deblock_packed_batch_sharded_jit", program)
+
+
+@pytest.mark.parametrize("traffic", DEVICE_MIXES)
+def test_main10_sound_program_is_correct(traffic, monkeypatch):
+    _main10_program(monkeypatch, traffic)
+    result, compared = small_run(traffic, **MAIN10)
+    assert result["correct"] is True
+    assert compared["wrong_bytes"] == 0 and compared["frames_compared"] > 0
+
+
+@pytest.mark.parametrize("traffic", DEVICE_MIXES)
+def test_main10_control_is_not_correct(traffic):
+    result, compared = small_run(traffic, control=True, **MAIN10)
+    assert result["correct"] is False and compared["wrong_bytes"] > 0
+
+
+@pytest.mark.parametrize("traffic", DEVICE_MIXES)
+@pytest.mark.parametrize("fault", ["unchanged", "half_batch", "altered", "clip_255",
+                                   "unscaled", "shifted_8bit"])
+def test_main10_faults_are_caught(traffic, fault, monkeypatch):
+    _main10_program(monkeypatch, traffic, fault)
+    result, compared = small_run(traffic, **MAIN10)
+    assert result["correct"] is False and compared["wrong_bytes"] > 0
+    if fault == "altered":  # one byte in each batch compared
+        assert compared["wrong_bytes"] == compared["frames_compared"] // _mix(traffic)["streams"]
+
+
+@pytest.mark.parametrize("bit_depth, flip, wrong", [(8, 0x01, 1), (10, 0x0001, 1), (10, 0x0101, 2)])
+def test_wrong_bytes_counts_bytes(bit_depth, flip, wrong):
+    from bench_torch.lib import check
+    from bench_torch.lib import frames as fr
+
+    cfg = dict(spec.config(SPEC, SPEC["workloads"][0]), width=64, height=48, **MAIN10)
+    cfg["bit_depth"] = bit_depth
+    frames = fr.frame_pool(2, 64, 48, 5, cfg["content"], "cpu", bit_depth)
+    bs = fr.bs_arrays(64, 48, {"bs": "ai"}, 5, "cpu")
+    out = check.reference_of(cfg).deblock_packed(frames, 64, 48, int(cfg["qp"]), bs,
+                                                 bit_depth=bit_depth)
+    assert check.wrong_bytes([(frames, out)], cfg, bs, "cpu") == (0, 2, 0)
+    out[1, 50, 9] ^= flip
+    assert check.wrong_bytes([(frames, out)], cfg, bs, "cpu") == (wrong, 2, 1)
+
+
 def test_no_card_exits_nonzero_without_a_result():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -96,6 +183,44 @@ def test_no_card_exits_nonzero_without_a_result():
     assert res.returncode == 2
     assert res.stdout == ""
     assert "no result" in res.stderr
+
+
+@pytest.mark.parametrize("loads", [None, "jax", "jaxlib", "flax", "gpu_video_codec_tpu",
+                                   "gpu_video_codec_tpu.ops.tables"])
+def test_jax_loaded_in_the_run_gives_no_result(loads, monkeypatch, capsys):
+    """main, its look for a card faked and the run at 64x48 on the CPU: a
+    program that loads JAX or the JAX package in the window gets no result
+    line; the port's own package (a longer name) is no such module."""
+    from gpu_video_codec_tpu_torch.parallel import mesh as pm
+
+    for name in harness.forbidden_modules():  # a test session may hold JAX already
+        monkeypatch.delitem(sys.modules, name)
+    assert "gpu_video_codec_tpu_torch" in sys.modules
+    real_step, real_run = pm.deblock_packed_batch_sharded_jit, harness.run_cell
+    stub = types.ModuleType(loads or "unused")
+
+    def step(*args, **kw):
+        if loads and sys.modules.get(loads) is not stub:
+            monkeypatch.setitem(sys.modules, loads, stub)
+        return real_step(*args, **kw)
+
+    def run_cell(spec_, cell, cfg, mix, *rest):
+        cfg = dict(cfg, width=64, height=48)
+        return real_run(spec_, cell, cfg, dict(mix, warmup_batches=2), *rest, device="cpu")
+
+    monkeypatch.setattr(pm, "deblock_packed_batch_sharded_jit", step)
+    monkeypatch.setattr(harness, "run_cell", run_cell)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cell = next(w["name"] for w in SPEC["workloads"] if _mix(w["traffic"])["feed"] == "device")
+    rc = harness.main(["--workload", cell, "--seed", str(SEED), "--seconds", "0.3"],
+                      time.perf_counter())
+    out, err = capsys.readouterr()
+    if loads is None:
+        assert rc == 0 and json.loads(out.splitlines()[-1])["correct"] is True
+    else:
+        assert rc != 0 and out == ""
+        assert loads in err and "no result" in err
 
 
 # -- the shape of BENCHMARK.json ---------------------------------------------------
