@@ -20,8 +20,10 @@
    K1-i16/K1-i16c at their default TB, for T1 at its default block of
    pairs at the race grid, and T5's route, blocks per SM and shared memory
    at the race grid (TMA) and at Bx 241 (words); and that K2 (the packed
-   step's kernel) does not spill and keeps to 64 registers, with its blocks
-   and warps per SM and shared memory.
+   step's kernel) and K2-10 (its 10-bit instance) do not spill and keep to
+   64 registers, K2 with the registers and static SASS it had before the
+   bit depth became a template parameter (K2_COUNTS), with their blocks and
+   warps per SM and shared memory.
 1. Holds each variant of the deblock kernel against its plain PyTorch
    version on the card, byte for byte, at the main path's grids (1080p luma
    and U+V chroma), a sheared chroma grid, tail grids (Bx 5, 1, 31, 33,
@@ -101,7 +103,9 @@
 4. Times K1 and K1c at TB 32 and 64 in turns with their plain versions,
    K2 at the benchmark cells' shapes, (16, 1620, 1920) and (4, 3240, 3840),
    in turns with the chain it replaces and its plain version beside its
-   byte bound, the packed step (a graph replay) and the copy with CUDA
+   byte bound, K2-10 on 4 4K Main 10 frames against its plain version,
+   byte for byte, then in turns with it beside its byte bound (2 bytes a
+   sample), the packed step (a graph replay) and the copy with CUDA
    events; prints
    time_breakdown(measure_d2h=True) (dispatch per replayed step beside an
    eager step's, the profiler's device split, the synchronous end-to-end
@@ -131,7 +135,11 @@
    ResidentDeblocker; the CLI --streams 4 --mesh 1,1 on 10 frames ==
    golden, tail included.  Every run's launches: K2 1 per slot and batch
    (T2 2, K1 1, K1c 1, T3 2 at the sheared width); the profile of the
-   batched packed step holds K2 alone.
+   batched packed step holds K2 alone.  The Main 10 packed step through
+   deblock_packed_batch_sharded and _jit on a (1, 1) mesh at (4, 3240,
+   3840) int16 with random BS, twice each (the jit's capture and replay,
+   then a replay alone): in place, == its plain version sample for sample,
+   one K2-10 launch a call and no other kernel.
 4d. Times the quad K1 against K1-i16 (the quad at int16_t), T5 (the quad
    on the rows layout, TMA-staged) and T1 (a quad per tile pair) in turns
    at the race grid (136, 256), on blocky tiles, on uniform noise (cond1
@@ -188,6 +196,10 @@ RACE_SHAPE = (8, 8, 136, 256)  # the race grid of rowslayout_exp and swar_exp
 # with CUDA 12.8's nvcc for sm_90a; T = int must compile to the same
 QUAD_INT_COUNTS = {(False, 8): (47, 960), (False, 1): (46, 1032), (False, 4): (53, 992),
                    (True, 8): (32, 384), (True, 1): (44, 416), (True, 4): (32, 384)}
+# deblock_packed_kernel (K2) before its bit depth became a template
+# parameter: (ptxas registers, static SASS count); its 8-bit instance must
+# compile to the same
+K2_COUNTS = (43, 1296)
 
 
 def check(cond: bool, what: str) -> None:
@@ -314,17 +326,26 @@ def main() -> int:
             got = (e.get("registers"), e["sass"] if e["sass"] is not None else want[1])
             check(got == want, f"K1 quad {key[1:]} at T = int: (registers, static SASS) {got}, "
                                f"was {want} before the compute type became a parameter")
-    k2_entries = [e for mangled, e in entries.items() if "deblock_packed_kernel" in mangled]
-    check(len(k2_entries) == 1 and k2_entries[0].get("spill_stores") == 0
-          and k2_entries[0].get("spill_loads") == 0
-          and (k2_entries[0].get("registers") or 99) <= 64,
-          f"K2 (deblock_packed_kernel): one entry, no spills, at most 64 registers: {k2_entries}")
-    k2_entry = k2_entries[0]
+    # deblock_packed_kernel<BD>: K2 (BD 8) and K2-10 (BD 10)
+    k2_entries = {int(m.group(1)): e for mangled, e in entries.items()
+                  if (m := re.search(r"deblock_packed_kernelILi(\d+)EE", mangled))}
+    check(sorted(k2_entries) == [8, 10] and all(
+        e.get("spill_stores") == 0 and e.get("spill_loads") == 0
+        and (e.get("registers") or 99) <= 64 for e in k2_entries.values()),
+          f"K2 and K2-10 (deblock_packed_kernel<8>, <10>): one entry each, no spills, at most "
+          f"64 registers: {k2_entries}")
+    k2_entry = k2_entries[8]
+    got = (k2_entry.get("registers"), k2_entry["sass"] if k2_entry.get("sass") is not None
+           else K2_COUNTS[1])
+    check(got == K2_COUNTS, f"K2 at 8 bits: (registers, static SASS) {got}, was {K2_COUNTS} "
+                            f"before the bit depth became a parameter")
     k2_info = ck.deblock_packed_info(dev)
-    print(f"K2 deblock_packed_kernel: {k2_entry.get('registers')} registers, no spills, "
-          f"{k2_info['smem_bytes']} B shared memory, {k2_info['threads']} threads "
-          f"({k2_info['tiles_per_block']} tiles) per block, {k2_info['blocks_per_sm']} blocks = "
-          f"{k2_info['warps_per_sm']} warps per SM, static SASS {k2_entry.get('sass')}")
+    for bd, name in ((8, "K2"), (10, "K2-10")):
+        e, info = k2_entries[bd], ck.deblock_packed_info(dev, bit_depth=bd)
+        print(f"{name} deblock_packed_kernel<{bd}>: {e.get('registers')} registers, no spills, "
+              f"{info['smem_bytes']} B shared memory, {info['threads']} threads "
+              f"({info['tiles_per_block']} tiles) per block, {info['blocks_per_sm']} blocks = "
+              f"{info['warps_per_sm']} warps per SM, static SASS {e.get('sass')}")
     for key in (("K1", False, 8), ("K1-i16", False, 8), ("T1", False, 8), ("T5", False, 0),
                 ("T5", False, 1)):
         if quads[key].get("opcodes"):
@@ -398,7 +419,8 @@ def main() -> int:
                 "K1c": ck.LAUNCHES["chroma"], "T3": rk.LAUNCHES["inv"],
                 "T4": rk.LAUNCHES["pack"], "K1-i16": ck.LAUNCHES["luma_i16"],
                 "K1-i16c": ck.LAUNCHES["chroma_i16"], "T5": ck.LAUNCHES["rows"],
-                "T1": sk.LAUNCHES["swar"], "K2": ck.LAUNCHES["packed"]}
+                "T1": sk.LAUNCHES["swar"], "K2": ck.LAUNCHES["packed"],
+                "K2-10": ck.LAUNCHES["packed10"]}
 
     def reset() -> None:
         for d in (ck.LAUNCHES, rk.LAUNCHES, sk.LAUNCHES):
@@ -1276,6 +1298,40 @@ def main() -> int:
     print("mesh: the batched packed step's profile holds K2 and no other kernel (no relayout, "
           "copy, fill, cat or stack)")
 
+    # the Main 10 packed step on the mesh's entries, as the Main 10 cell calls
+    # them: int16 samples in [0, 1023] at the cell's shape, random BS
+    w10, h10 = 3840, 2160
+    bs10 = BoundaryStrength.intra_default(w10, h10)
+    bs10.set_luma(rng.integers(0, 3, bs10.vert.size, dtype=np.uint8),
+                  rng.integers(0, 3, bs10.hor.size, dtype=np.uint8))
+    bs10.set_chroma(rng.integers(0, 3, bs10.chroma_vert.size, dtype=np.uint8),
+                    rng.integers(0, 3, bs10.chroma_hor.size, dtype=np.uint8))
+    lm10 = [torch.from_numpy(m).to(dev) for m in luma_segment_maps(bs10)]
+    cm10 = [torch.from_numpy(m).to(dev) for m in chroma_segment_maps(bs10)]
+    src10 = torch.from_numpy(
+        np.stack([blocky_frame(rng, w10, h10) for _ in range(4)]).astype(np.int16) * 4
+        + rng.integers(0, 4, (4, 3 * h10 * w10 // 2), dtype=np.int16)
+    ).reshape(4, 3 * h10 // 2, w10).to(dev)
+    want10 = deblock_packed_plain(src10[:, :h10], src10[:, h10:].view(4, 2, h10 // 2, w10 // 2),
+                                  lm10, cm10, beta35, tc35, bit_depth=10)
+    want10 = torch.cat([want10[0], want10[1].reshape(4, h10 // 2, w10)], dim=1)
+    check(int((want10 != src10).sum()) > 0, "the Main 10 step's plain version changed nothing")
+    buf10m = torch.empty_like(src10)
+    for fn in (pmesh.deblock_packed_batch_sharded, pmesh.deblock_packed_batch_sharded_jit):
+        for call in ("first", "second"):  # the jit: capture and replay, then a replay
+            buf10m.copy_(src10)
+            out10 = mesh_run(f"{fn.__name__} Main 10 (4, 3240, 3840), {call} call",
+                             lambda: fn(mesh11, buf10m, lm10, cm10, beta35, tc35, w=w10, h=h10,
+                                        bit_depth=10),
+                             {"K2-10": 1})
+            check(out10 is buf10m and torch.equal(buf10m, want10),
+                  f"{fn.__name__} Main 10 (4, 3240, 3840), {call} call != its plain version: "
+                  f"{int((buf10m != want10).sum())} samples differ")
+    print(f"mesh: deblock_packed_batch_sharded and _jit, Main 10 (4, 3240, 3840) int16 on "
+          f"(1, 1), random BS, two calls each: in place == the plain version sample for "
+          f"sample; K2-10 1 launch a call, no other kernel ({mesh_launches['K2-10']} in all)")
+    del src10, want10, buf10m, lm10, cm10
+
     new_paths = {"pipeline": pipe_launches, "compat": compat_launches,
                  "sheared": sheared_launches, "mesh": mesh_launches}
 
@@ -1357,8 +1413,45 @@ def main() -> int:
             + f"; bound {bound_k * 1e3:.2f} us, {bound_k / r['K2'][0]:.3f} of K2's time; "
             f"chain / K2 {r['chain'][0] / r['K2'][0]:.3f} (queued ahead: "
             f"{all(ok for _, ok in r.values())}; device time; {smi})")
+    # K2-10 at the Main 10 cell's shape: the 4K frames' samples times 4 plus
+    # 0..3 (int16), random BS; byte for byte against its plain version, then
+    # in turns with it
+    ww, hh = 3840, 2160
+    buf10 = (bufk.to(torch.int16) << 2) + torch.from_numpy(
+        rng.integers(0, 4, tuple(bufk.shape), dtype=np.int16)).to(dev)
+    planes10 = (buf10[:, :hh], buf10[:, hh:].view(4, 2, hh // 2, ww // 2))
+    got10 = ck.deblock_packed_cuda(*planes10, *args_k, bit_depth=10)
+    plain10 = deblock_packed_plain(*planes10, *args_k, bit_depth=10)
+    for plane, g, p in zip(("luma", "U+V"), got10, plain10):
+        check(torch.equal(g, p), f"K2-10 (4, 3240, 3840) {plane} != its plain version: "
+                                 f"{int((g != p).sum())} samples differ")
+    changed = int((got10[0] != planes10[0]).sum() + (got10[1] != planes10[1]).sum())
+    check(changed > 0, "K2-10 (4, 3240, 3840) changed no sample")
+    print(f"K2-10 (4, 3240, 3840), random BS: == its plain version, sample for sample "
+          f"({changed} samples filtered)")
+    del got10, plain10
+    r = in_turns({
+        "K2-10": lambda: ck.deblock_packed_cuda(*planes10, *args_k, out=planes10, bit_depth=10),
+        "plain": lambda: deblock_packed_plain(*planes10, *args_k, bit_depth=10)},
+        {"K2-10": 200, "plain": 3})
+    bound10 = bytes_bound_ms(2 * buf10.numel() * buf10.element_size())
+    print("K2-10 (4, 3240, 3840): "
+          + ", ".join(f"{k} {ms * 1e3:.2f} us" for k, (ms, _) in r.items())
+          + f"; bound {bound10 * 1e3:.2f} us, {bound10 / r['K2-10'][0]:.3f} of K2-10's time "
+          f"(queued ahead: {all(ok for _, ok in r.values())}; device time; {smi})")
+    info10 = ck.deblock_packed_info(dev, bit_depth=10)
+    by_path10 = {path: n["K2-10"] for path, n in new_paths.items()}
+    check(sum(by_path10.values()) == by_path10["mesh"] == 4,
+          f"K2-10's launches by path: {by_path10}")
     by_path = {"stream": launches["K2"], "resident": res_launches["K2"],
                **{path: n["K2"] for path, n in new_paths.items()}}
+    kernels.append({
+        "name": "K2-10 packed step (4, 3240, 3840) int16", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": None, "launches": sum(by_path10.values()),
+        "launches_by_path": by_path10,
+        "ms": r["K2-10"][0], "plain_ms": r["plain"][0], "bound_ms": bound10,
+        "bound_by": "bytes", "library_ms": None, "registers": k2_entries[10].get("registers"),
+        "warps_per_sm": info10["warps_per_sm"], "smem_bytes": info10["smem_bytes"]})
     kernels.append({
         "name": f"K2 packed step {k2_rows[0]['shape']}", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": None, "launches": sum(by_path.values()), "launches_by_path": by_path,

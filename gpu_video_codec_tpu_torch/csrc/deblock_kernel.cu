@@ -2,7 +2,8 @@
 // (K1, K1c) and in int16 (K1-i16, K1-i16c) as one quad kernel of four lanes
 // per tile (deblock_quad_kernel<CHROMA, W, T>), T5, the same quad on the
 // rows layout (deblock_rows_quad_kernel<CHROMA, Staging>), and K2, the same
-// quad on the frames' planes (deblock_packed_kernel).
+// quad on the frames' planes (deblock_packed_kernel<8>), with K2-10, its
+// instance on the 16-bit samples of HEVC Main 10 (deblock_packed_kernel<10>).
 //
 // K1 and K1c replace the TPU kernel
 // gpu_video_codec_tpu/ops/pallas_kernel.py::_kernel (:71, launched by
@@ -59,7 +60,7 @@
 // SASS instructions against int's 960 at 8-byte words, in no more
 // registers (46 against 47; chip_smoke.py phase 0).  The stage traffic,
 // the exchange (dp and dq fit its 10-bit fields in int16 as in int:
-// deblock_quad.cuh::kMaxRowD) and the launch are K1's.
+// deblock_quad.cuh::QuadField) and the launch are K1's.
 // What the design costs: every block loads, filters and stores in
 // lock-step inside the single wave, so the three phases add up rather than
 // overlap, and the quad issues more instructions per tile than one thread
@@ -139,7 +140,7 @@
 // grid, so quad_load_bs serves unchanged.  Lanes of tiles past the grid run
 // every exchange with BS 0 and store nothing.
 //
-// K2 (deblock_packed_kernel) replaces no TPU kernel.  It is the cuda
+// K2 (deblock_packed_kernel<8>) replaces no TPU kernel.  It is the cuda
 // backend's whole packed YV12 step -- T2 -> K1 -> T3 for luma and T2 -> K1c
 // -> T3 for U and V (models/streaming._deblock_planes_impl) -- as one
 // kernel on the frames' planes, for k frames at once.  The tile-planes
@@ -170,7 +171,7 @@
 // first column must lie on a 16-byte boundary (the card refuses others as
 // an illegal instruction), and the tiles start at 8 bx0 - 4, so the box
 // starts 12 bytes early, at 8 bx0 - 16, and is 144 bytes wide
-// (gvct::PackedCell).  The lanes run K1's quad (quad_phases) over the box as
+// (gvct::PackedCell<uint8_t>).  The lanes run K1's quad (quad_phases) over the box as
 // it lands: rows 144 bytes apart, so a quad's four row reads fall in four
 // banks.  Lanes of tiles past the grid run the quad with BS 0 on zeros
 // (outside the plane) and store nothing: skipping whole warps of them
@@ -189,6 +190,24 @@
 // addresses and strides) keeps every other input on the chain.  The maps
 // are encoded on the host (tensor_map, cached as T5's are) when the launch
 // is made or captured into a graph, never at a graph's replay.
+//
+// K2-10 (deblock_packed_kernel<10>) is K2 on HEVC Main 10's samples: 16-bit
+// words in [0, 1023] (yuv420p10le), for 4K HDR services.  It replaces no
+// TPU kernel (the JAX package filters 8-bit samples only) and no kernel of
+// the port (there is no 10-bit chain).  The grid, the blocks, the lanes
+// and the quad are K2's; what the bit depth changes is compile-time: the
+// box is a UINT16 tensor map's, 136 samples (272 bytes) wide from 8 bx0 -
+// 8, so that it still starts on a 16-byte boundary (gvct::PackedCell<
+// uint16_t>: kLead 4 samples); the lanes read and write 2-byte cells; the
+// thresholds are the tables' scaled by 4 (gvct_deblock_packed); the luma
+// exchange packs dp and dq into 12-bit fields (a 10-bit row's dp reaches
+// 2,046, two rows 4,092: gvct::QuadField<10>); every filtered sample is
+// clipped at 1023 (deblock_tile.cuh, clip2<10>); and the block stores its
+// own tiles in 4-byte words of two samples, eight a thread.  What bounds
+// it: bytes, twice K2's on the same tiles, 199.1 MB for 4 4K frames, 59.4
+// us at 3.35 TB/s.  Its guard is w % 16 == 0 (the chroma rows, w/2 samples
+// of 2 bytes, are 16-byte multiples) with K2's address and stride rules
+// (ops/cuda_kernel.packed_fits); a 10-bit batch outside it raises.
 
 #include <cuda.h>  // CUtensorMap and the encode's types; nothing of libcuda is linked
 #include <cuda_runtime.h>
@@ -202,7 +221,7 @@ namespace {
 // The quad's four phases over a staged block (every thread of the block,
 // between the stage's fill and its drain): K1's and T5's lanes alike, on a
 // stage of layout C.
-template <bool CHROMA, typename T, typename C>
+template <bool CHROMA, typename T, typename C, int BD = 8>
 __device__ __forceinline__ void quad_phases(gvct::QuadLane<>& lane, uint8_t* stage,
                                             const gvct::Thresholds& th, int tid) {
   const unsigned quad = 0xFu << (tid & 28);  // the quad's lanes in its warp
@@ -212,21 +231,21 @@ __device__ __forceinline__ void quad_phases(gvct::QuadLane<>& lane, uint8_t* sta
   };
   gvct::quad_read_rows<CHROMA, int, C>(lane, stage);
   if constexpr (CHROMA) {
-    gvct::quad_vert_chroma<T>(lane, th);
+    gvct::quad_vert_chroma<T, BD>(lane, th);
   } else {
     uint32_t w[2];
-    gvct::quad_vert_words<T>(lane, th, w);
+    gvct::quad_vert_words<T, BD>(lane, th, w);
     const uint32_t sum[2] = {quad_sum(w[0]), quad_sum(w[1])};
-    gvct::quad_vert_luma<T>(lane, sum, th);
+    gvct::quad_vert_luma<T, BD>(lane, sum, th);
   }
   gvct::quad_write_rows<CHROMA, int, C>(lane, stage);
   __syncwarp(quad);
   gvct::quad_read_cols<CHROMA, int, C>(lane, stage);
   if constexpr (CHROMA) {
-    gvct::quad_hor_chroma<T>(lane, th);
+    gvct::quad_hor_chroma<T, BD>(lane, th);
   } else {
-    gvct::quad_left_luma<T>(lane, quad_sum(gvct::quad_left_word<T>(lane, th)), th);
-    gvct::quad_right_luma<T>(lane, quad_sum(gvct::quad_right_word<T>(lane, th)), th);
+    gvct::quad_left_luma<T, BD>(lane, quad_sum(gvct::quad_left_word<T, BD>(lane, th)), th);
+    gvct::quad_right_luma<T, BD>(lane, quad_sum(gvct::quad_right_word<T, BD>(lane, th)), th);
   }
   gvct::quad_write_cols<CHROMA, int, C>(lane, stage);
 }
@@ -432,12 +451,16 @@ struct PackedOut {
 
 constexpr int kPackedThreads = gvct::kQuadLanes * gvct::kPackedTiles;
 
-// At most 64 registers, as K1: 16 blocks of two warps to an SM.
+// At most 64 registers, as K1: 16 blocks of two warps to an SM.  BD 8: K2;
+// BD 10: K2-10, the same grid and code on 2-byte samples and cells
+// (gvct::PackedCell<uint16_t>), with thresholds scaled by the caller, the
+// exchange's 12-bit fields and the clip at 1023.
+template <int BD>
 __global__ void __launch_bounds__(kPackedThreads, 16)
     deblock_packed_kernel(__grid_constant__ const CUtensorMap y_in,
                           __grid_constant__ const CUtensorMap uv_in, PackedOut out,
                           PackedMaps maps, gvct::Thresholds th, gvct::PackedGrid g) {
-  using C = gvct::PackedCell;
+  using C = gvct::PackedCell<gvct::PackedSample<BD>>;
   __shared__ __align__(128) uint8_t stage[C::kBytes];
   __shared__ uint64_t bar;
   const int tid = threadIdx.x;
@@ -462,17 +485,17 @@ __global__ void __launch_bounds__(kPackedThreads, 16)
   gvct::quad_load_bs(lane, map(0), map(1), map(2), map(3), blk.map, blk.n);
   barrier_wait(&bar);
   if (chroma) {
-    quad_phases<true, int, C>(lane, stage, th, tid);
+    quad_phases<true, int, C, BD>(lane, stage, th, tid);
   } else {
-    quad_phases<false, int, C>(lane, stage, th, tid);
+    quad_phases<false, int, C, BD>(lane, stage, th, tid);
   }
   __syncthreads();
   uint8_t* plane = chroma ? out.uv + f * out.uv_frame + z * out.uv_plane : out.y + f * out.y_frame;
   const long long row = chroma ? out.uv_row : out.y_row;
   const int ph = chroma ? g.h / 2 : g.h, pw = chroma ? g.w / 2 : g.w;
 #pragma unroll
-  for (int q = tid; q < 16 * gvct::kPackedTiles; q += kPackedThreads) {
-    gvct::packed_store_word(stage, plane, row, ph, pw, x0, y0, q);
+  for (int q = tid; q < 8 * C::kRowWords; q += kPackedThreads) {
+    gvct::packed_store_word<C>(stage, plane, row, ph, pw, x0, y0, q);
   }
 }
 
@@ -579,24 +602,25 @@ int encode_entry(EncodeTiled* fn) {
   return status;
 }
 
-// A tensor map of the uint8 tensor at `ptr`: `rank` dims innermost first,
-// the byte strides of dims 1.., box `box`, no swizzle, zero fill outside
-// the tensor.  Encoded maps are cached by all of these, a map's only
-// inputs, so a cached map is the map the encode would give; 32 entries,
-// replaced in turn.
+// A tensor map of the tensor of `type` elements (UINT8 or UINT16) at
+// `ptr`: `rank` dims innermost first, the byte strides of dims 1.., box
+// `box` (elements), no swizzle, zero fill outside the tensor.  Encoded maps
+// are cached by all of these, a map's only inputs, so a cached map is the
+// map the encode would give; 32 entries, replaced in turn.
 constexpr int kMaxRank = 4;
 
-int tensor_map(const void* ptr, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
-               const cuuint32_t* box, CUtensorMap* map) {
+int tensor_map(CUtensorMapDataType type, const void* ptr, int rank, const cuuint64_t* dims,
+               const cuuint64_t* strides, const cuuint32_t* box, CUtensorMap* map) {
   struct Entry {
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_UINT8;
     const void* ptr = nullptr;
     int rank = 0;
     cuuint64_t dims[kMaxRank] = {}, strides[kMaxRank - 1] = {};
     cuuint32_t box[kMaxRank] = {};
     CUtensorMap map;
-    bool same(const void* p, int n, const cuuint64_t* d, const cuuint64_t* s,
-              const cuuint32_t* b) const {
-      if (p != ptr || n != rank) return false;
+    bool same(CUtensorMapDataType t, const void* p, int n, const cuuint64_t* d,
+              const cuuint64_t* s, const cuuint32_t* b) const {
+      if (t != type || p != ptr || n != rank) return false;
       for (int i = 0; i < n; ++i) {
         if (d[i] != dims[i] || b[i] != box[i] || (i + 1 < n && s[i] != strides[i])) return false;
       }
@@ -609,7 +633,7 @@ int tensor_map(const void* ptr, int rank, const cuuint64_t* dims, const cuuint64
   {
     std::lock_guard<std::mutex> g(lock);
     for (const Entry& e : cache) {
-      if (e.same(ptr, rank, dims, strides, box)) {
+      if (e.same(type, ptr, rank, dims, strides, box)) {
         *map = e.map;
         return 0;
       }
@@ -618,12 +642,13 @@ int tensor_map(const void* ptr, int rank, const cuuint64_t* dims, const cuuint64
   EncodeTiled encode = nullptr;
   if (const int err = encode_entry(&encode)) return err;
   const cuuint32_t unit[kMaxRank] = {1, 1, 1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(ptr), dims, strides, box,
+  if (encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box,
              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
     return kEncodeRefused;
   }
   Entry e;
+  e.type = type;
   e.ptr = ptr;
   e.rank = rank;
   for (int i = 0; i < rank; ++i) {
@@ -646,20 +671,51 @@ int rows_tensor_map(const void* ptr, int by, int bx, CUtensorMap* map) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(bx), 8, 8ull * by};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(bx), 8ull * bx};  // bytes, dims 1-2
   const cuuint32_t box[3] = {C::kBoxTiles, C::kBoxC, 8};
-  return tensor_map(ptr, 3, dims, strides, box, map);
+  return tensor_map(CU_TENSOR_MAP_DATA_TYPE_UINT8, ptr, 3, dims, strides, box, map);
 }
 
-// K2's tensor map of k frames' planes at `ptr`: dims (w, h, planes, k)
-// innermost first, strides row, plane and frame (bytes), box (the stage's
-// row, 8, 1, 1).
+// K2's tensor map of k frames' planes of BD-bit samples at `ptr`: dims (w,
+// h, planes, k) innermost first, in samples, strides row, plane and frame
+// (bytes), box (the stage's row, 8, 1, 1).
+template <int BD>
 int packed_tensor_map(const void* ptr, int w, int h, int planes, int k, long long row,
                       long long plane, long long frame, CUtensorMap* map) {
+  using C = gvct::PackedCell<gvct::PackedSample<BD>>;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(w), static_cast<cuuint64_t>(h),
                               static_cast<cuuint64_t>(planes), static_cast<cuuint64_t>(k)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(row), static_cast<cuuint64_t>(plane),
                                  static_cast<cuuint64_t>(frame)};
-  const cuuint32_t box[4] = {gvct::PackedCell::kRow, 8, 1, 1};
-  return tensor_map(ptr, 4, dims, strides, box, map);
+  const cuuint32_t box[4] = {C::kWidth, 8, 1, 1};
+  return tensor_map(BD == 8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_UINT16,
+                    ptr, 4, dims, strides, box, map);
+}
+
+// K2 (BD 8) or K2-10 (BD 10): the maps, then the launch.
+template <int BD>
+int packed_launch(const void* y_in, void* y_out, const void* uv_in, void* uv_out,
+                  const long long* s, const void* const* maps, const gvct::Thresholds& th,
+                  int w, int h, int k, int luma_only, cudaStream_t stream) {
+  const gvct::PackedGrid g = gvct::packed_grid(w, h, luma_only);
+  CUtensorMap tm[2] = {};
+  if (const int e = packed_tensor_map<BD>(y_in, w, h, 1, k, s[1], h * s[1], s[0], &tm[0])) {
+    return e;
+  }
+  if (!luma_only) {
+    if (const int e = packed_tensor_map<BD>(uv_in, w / 2, h / 2, 2, k, s[6], s[5], s[4],
+                                            &tm[1])) {
+      return e;
+    }
+  }
+  const PackedOut out{static_cast<uint8_t*>(y_out), s[2], s[3], static_cast<uint8_t*>(uv_out),
+                      s[7], s[8], s[9]};
+  PackedMaps m;
+  for (int i = 0; i < 4; ++i) {
+    m.luma[i] = static_cast<const uint8_t*>(maps[i]);
+    m.chroma[i] = static_cast<const uint8_t*>(maps[4 + i]);
+  }
+  deblock_packed_kernel<BD><<<dim3(g.gx, g.rows, k), kPackedThreads, 0, stream>>>(
+      tm[0], tm[1], out, m, th, g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -758,59 +814,51 @@ extern "C" int gvct_deblock_rows_occupancy(int chroma, int block_bx, int by, int
 }
 
 // K2, the packed step of k frames: luma planes (k, h, w) and U and V
-// planes (k, 2, h/2, w/2), uint8, read at y_in and uv_in and written at
-// y_out and uv_out (which may be the inputs: in place).  strides, in bytes:
+// planes (k, 2, h/2, w/2) of bit_depth-bit samples, uint8 at 8 (K2) and
+// 16-bit words at 10 (K2-10), read at y_in and uv_in and written at y_out
+// and uv_out (which may be the inputs: in place).  strides, in bytes:
 // [0..1] the luma input's frame and row strides, [2..3] the luma output's,
 // [4..6] the chroma input's frame, plane and row strides, [7..9] the chroma
 // output's; the input's strides and addresses multiples of 16 (a tensor
 // map's demand), the output's of 4 (ops/cuda_kernel.packed_fits asks 16 of
 // both).  maps: the four (By, Bx) luma and the four (cBy, cBx) chroma BS
-// maps, shared by the frames.  luma_only != 0: no chroma blocks (the
-// chroma pointers unused).  Launch on `stream`
+// maps, shared by the frames.  beta and tc: the tables' beta' and tc' at
+// the QP, scaled here by 2^(bit_depth - 8) (H.265 8.7.2.5).  luma_only !=
+// 0: no chroma blocks (the chroma pointers unused).  Launch on `stream`
 // without synchronizing; returns cudaGetLastError() after the launch, or
-// the error of a tensor-map encode that failed (0 = ok).
+// the error of a tensor-map encode that failed, or cudaErrorInvalidValue
+// for a bit depth other than 8 and 10 (0 = ok).
 extern "C" int gvct_deblock_packed(const void* y_in, void* y_out, const void* uv_in, void* uv_out,
                                    const long long* strides, const void* const* maps, int beta,
-                                   int tc, int w, int h, int k, int luma_only, int device,
-                                   void* stream) {
+                                   int tc, int w, int h, int k, int luma_only, int bit_depth,
+                                   int device, void* stream) {
+  if (bit_depth != 8 && bit_depth != 10) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const gvct::PackedGrid g = gvct::packed_grid(w, h, luma_only);
-  CUtensorMap tm[2] = {};
-  const long long* s = strides;
-  if (const int e = packed_tensor_map(y_in, w, h, 1, k, s[1], h * s[1], s[0], &tm[0])) return e;
-  if (!luma_only) {
-    if (const int e = packed_tensor_map(uv_in, w / 2, h / 2, 2, k, s[6], s[5], s[4], &tm[1])) {
-      return e;
-    }
-  }
-  const PackedOut out{static_cast<uint8_t*>(y_out), s[2], s[3], static_cast<uint8_t*>(uv_out),
-                      s[7], s[8], s[9]};
-  PackedMaps m;
-  for (int i = 0; i < 4; ++i) {
-    m.luma[i] = static_cast<const uint8_t*>(maps[i]);
-    m.chroma[i] = static_cast<const uint8_t*>(maps[4 + i]);
-  }
-  deblock_packed_kernel<<<dim3(g.gx, g.rows, k), kPackedThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      tm[0], tm[1], out, m, gvct::make_thresholds(beta, tc), g);
-  return static_cast<int>(cudaGetLastError());
+  const int up = bit_depth - 8;
+  const gvct::Thresholds th = gvct::make_thresholds(beta << up, tc << up);
+  const auto launch = bit_depth == 8 ? packed_launch<8> : packed_launch<10>;
+  return launch(y_in, y_out, uv_in, uv_out, strides, maps, th, w, h, k, luma_only,
+                static_cast<cudaStream_t>(stream));
 }
 
-// K2's launch: info[0] the blocks one SM holds at once, info[1] threads per
-// block, info[2] the kernel's static shared memory in bytes, info[3] its
-// registers per thread.  Returns a CUDA error code (0 = ok).
-extern "C" int gvct_deblock_packed_info(int device, int* info) {
+// K2's launch (bit_depth 8) or K2-10's (10): info[0] the blocks one SM holds
+// at once, info[1] threads per block, info[2] the kernel's static shared
+// memory in bytes, info[3] its registers per thread.  Returns a CUDA error
+// code (0 = ok).
+extern "C" int gvct_deblock_packed_info(int device, int bit_depth, int* info) {
+  if (bit_depth != 8 && bit_depth != 10) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const auto kernel = bit_depth == 8 ? deblock_packed_kernel<8> : deblock_packed_kernel<10>;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, deblock_packed_kernel);
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   info[1] = kPackedThreads;
   info[2] = static_cast<int>(attr.sharedSizeBytes);
   info[3] = attr.numRegs;
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &info[0], deblock_packed_kernel, kPackedThreads, 0));
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], kernel, kPackedThreads, 0));
 }
 
 extern "C" const char* gvct_error_string(int code) {

@@ -7,15 +7,17 @@
 // after another in each thread, the host build runs every thread of a block
 // through one function before the next.  The compute type T (int for K1/K1c,
 // int16_t for K1-i16/K1-i16c) is a template parameter of the lane functions,
-// passed on to deblock_tile.cuh's row math; a lane's rows hold pixel values
-// 0-255 as int whatever T.  T1 (swar_tile.cuh) reuses the lane geometry and
-// the staging words with a tile PAIR per quad (QuadLane<swar::hw2>).  T5
+// passed on to deblock_tile.cuh's row math, and so is the bit depth BD (8,
+// or 10 for K2-10; the luma exchange's field widths follow it); a lane's
+// rows hold sample values 0 .. 2^BD - 1 as int whatever T.  T1
+// (swar_tile.cuh) reuses the lane geometry and the staging words with a
+// tile PAIR per quad (QuadLane<swar::hw2>).  T5
 // (deblock_rows_quad_kernel) runs K1's lanes on the rows layout: a block
 // owns TB tiles of one tile row, staged by TMA into RowsTmaCell's layout or
 // in K1's words (rows_block, rows_staging).  K2 (deblock_packed_kernel)
 // runs them on the frame's planes themselves: a block owns kPackedTiles
 // tiles of one tile row of one plane, staged by TMA as the picture's rows
-// (packed_block, PackedCell).
+// (packed_block, PackedCell<S>: 1-byte samples, or 2-byte ones for K2-10).
 //
 // Thread tid is lane r = tid & 3 of tile t = tid >> 2, so a quad is four
 // adjacent lanes of one warp.  Lane r is segment row r in every phase:
@@ -47,6 +49,7 @@
 #pragma once
 
 #include <cstring>
+#include <type_traits>
 
 #include "deblock_tile.cuh"
 
@@ -285,42 +288,83 @@ GVCT_HD PackedBlock packed_block(const PackedGrid& g, int x, int y) {
   return k;
 }
 
-// K2's stage: the block's TMA box as it lands, 8 picture rows of kRow bytes
-// from column 8 bx0 - 16 -- a tensor copy starts on a 16-byte boundary, and
-// the block's first tile starts at 8 bx0 - 4, kLead bytes in -- so pixel
-// (r, c) of tile t is at r * kRow + kLead + 8t + c.  The box lands densely
-// at a 128-byte aligned address, so only its width spreads the rows over
-// the banks: rows 144 bytes (36 words) apart put a quad's four row reads
-// (rows r .. r + 3 at one c) in four banks, 4 words apart mod 32, and its
-// column reads (bytes r of one word) in one word.  A warp's row reads still
-// fall two to a bank: its 8 tiles' bytes at one c lie in 8 words of a row,
-// 4 rows of them, all of one parity.
+// K2's stage: the block's TMA box as it lands, 8 picture rows of kWidth
+// samples from column 8 bx0 - 4 - kLead -- a tensor copy starts on a
+// 16-byte boundary, and the block's first tile starts at 8 bx0 - 4, kLead
+// samples in -- so sample (r, c) of tile t is at r * kRow + kSample * (kLead
+// + 8t + c) bytes.  S, the sample type, is uint8_t (8 bits: kLead 12, rows
+// of 144 bytes) or uint16_t (K2-10: kLead 4, rows of 136 samples, 272
+// bytes).  The box lands densely at a 128-byte aligned address, so only
+// its width spreads the rows over the banks: rows 36 or 68 words apart (4
+// mod 32) put a quad's four row reads (rows r .. r + 3 at one c) in four
+// banks.  A warp's row reads still fall two to a bank at 1 byte a sample:
+// its 8 tiles' samples at one c lie in 8 words of a row, 4 rows of them,
+// all of one parity; at 2 bytes a sample its 8 tiles lie 4 words apart,
+// so four to a bank.
+template <typename S>
 struct PackedCell : StageCell<int> {
-  static constexpr int kLead = 12;
-  static constexpr int kStride = 1;
-  static constexpr int kRow = kLead + 8 * kPackedTiles + 4;  // 144: a multiple of 16
+  static constexpr int kSample = sizeof(S);                   // bytes a sample
+  static constexpr int kLead = 16 / kSample - 4;              // samples
+  static constexpr int kStride = kSample;                     // bytes per plane column c
+  static constexpr int kWidth = kLead + 8 * kPackedTiles + 4;  // samples in a box row
+  static constexpr int kRow = kSample * kWidth;               // bytes: a multiple of 16
   static constexpr int kBytes = 8 * kRow;
-  GVCT_HD static int offset(int t) { return kLead + 8 * t; }
+  static constexpr int kRowWords = 8 * kPackedTiles * kSample / 4;  // the store's words a row
+  GVCT_HD static int offset(int t) { return kSample * (kLead + 8 * t); }
+  GVCT_HD static int get(const uint8_t* s) {
+    if constexpr (kSample == 1) {
+      return *s;
+    } else {
+#ifdef __CUDA_ARCH__
+      return *reinterpret_cast<const S*>(s);
+#else
+      S v;
+      std::memcpy(&v, s, sizeof(S));
+      return v;
+#endif
+    }
+  }
+  GVCT_HD static void put(uint8_t* s, int v) {
+    if constexpr (kSample == 1) {
+      *s = static_cast<uint8_t>(v);
+    } else {
+#ifdef __CUDA_ARCH__
+      *reinterpret_cast<S*>(s) = static_cast<S>(v);
+#else
+      const S x = static_cast<S>(v);
+      std::memcpy(s, &x, sizeof(S));
+#endif
+    }
+  }
 };
-static_assert((PackedCell::kLead + 4) % 16 == 0 && 8 * kPackedTiles % 16 == 0,
-              "a block's box starts on a 16-byte boundary, 8 bx0 - 16");
-static_assert(PackedCell::kRow % 16 == 0 && PackedCell::kRow <= 256,
+static_assert(PackedCell<uint8_t>::kLead == 12 && PackedCell<uint8_t>::kRow == 144 &&
+                  PackedCell<uint16_t>::kLead == 4 && PackedCell<uint16_t>::kRow == 272,
+              "a block's box starts on a 16-byte boundary, 4 + kLead samples before its tiles");
+static_assert(PackedCell<uint8_t>::kRow % 16 == 0 && PackedCell<uint16_t>::kRow % 16 == 0 &&
+                  PackedCell<uint16_t>::kWidth <= 256,
               "a TMA box row is a multiple of 16 bytes and at most 256 elements");
 
-// Word q of K2's store (0 <= q < 16 * kPackedTiles): the block's 8 rows of
-// 2 * kPackedTiles 4-byte words from column x0 = 8 bx0 - 4 -- its own tiles
-// exactly, which begin 4 bytes past a 16-byte boundary, so no tensor copy
-// can store them -- written into the plane (ph rows of pw bytes, rows `row`
-// bytes apart) where it lies inside it; y0 = 8 by - 4.  pw is a multiple of
-// 4, so a word lies wholly inside the plane or wholly outside.
+// A sample of bit depth BD as the planes hold it: a byte at 8 bits, a
+// 16-bit word at 10 (yuv420p10le); K2's cells are PackedCell<PackedSample<BD>>.
+template <int BD>
+using PackedSample = std::conditional_t<BD == 8, uint8_t, uint16_t>;
+
+// Word q of K2's store (0 <= q < 8 * C::kRowWords): the block's 8 rows of
+// kRowWords 4-byte words (4 samples a word at 1 byte, 2 at 2 bytes) from
+// column x0 = 8 bx0 - 4 -- its own tiles exactly, which begin 4 samples
+// past a 16-byte boundary, so no tensor copy can store them -- written
+// into the plane (ph rows of pw samples, rows `row` bytes apart) where it
+// lies inside it; y0 = 8 by - 4.  pw is a multiple of a word's samples, so
+// a word lies wholly inside the plane or wholly outside.
+template <typename C>
 GVCT_HD void packed_store_word(const uint8_t* stage, uint8_t* plane, long long row, int ph,
                                int pw, int x0, int y0, int q) {
-  using C = PackedCell;
-  const int r = q / (2 * kPackedTiles), j = q - r * (2 * kPackedTiles);
-  const int y = y0 + r, x = x0 + 4 * j;
+  constexpr int kPer = 4 / C::kSample;  // samples a word
+  const int r = q / C::kRowWords, j = q - r * C::kRowWords;
+  const int y = y0 + r, x = x0 + kPer * j;
   if (y < 0 || y >= ph || x < 0 || x >= pw) return;
-  const uint8_t* s = stage + r * C::kRow + C::kLead + 4 * j;
-  uint8_t* d = plane + y * row + x;
+  const uint8_t* s = stage + r * C::kRow + C::offset(0) + 4 * j;
+  uint8_t* d = plane + y * row + C::kSample * x;
 #ifdef __CUDA_ARCH__
   *reinterpret_cast<uint32_t*>(d) = *reinterpret_cast<const uint32_t*>(s);
 #else
@@ -470,24 +514,38 @@ GVCT_HD void quad_write_cols(const QuadLane<E>& lane, uint8_t* stage) {
 
 // -- luma ----------------------------------------------------------------------
 
-// A row's dp and dq are |p2 - 2 p1 + p0| of pixels 0-255: at most 510 in int
-// and in int16_t alike (no int16 wrap), so the quad's sum of two rows fits
-// a 10-bit field and K1-i16 exchanges the same words as K1.
-constexpr int kMaxRowD = 2 * 255;
-static_assert(2 * kMaxRowD < (1 << 10), "a segment's dp or dq must fit its 10-bit field");
+// A row's dp and dq are |p2 - 2 p1 + p0| of samples 0 .. 2^BD - 1: at most
+// 2 (2^BD - 1), 510 at 8 bits in int and in int16_t alike (no int16 wrap)
+// and 2,046 at 10, so the quad's sum of two rows fits a (BD + 2)-bit field:
+// 10 bits at 8 (K1-i16 exchanges the same words as K1), 12 at 10.  The
+// count of rows that fail the strong conditions (at most 2) sits above the
+// two fields.
+template <int BD>
+struct QuadField {
+  static constexpr int kBits = BD + 2;
+  static constexpr uint32_t kMask = (1u << kBits) - 1;
+  static constexpr int kMaxRowD = 2 * ((1 << BD) - 1);
+  static_assert(2 * kMaxRowD <= static_cast<int>(kMask) && 2 * kBits + 2 <= 32,
+                "a segment's dp and dq fit their fields, and the count fits above them");
+};
 
 // The lane's word for the quad sum: its row's dp and dq and a count of rows
 // that fail the strong conditions, from rows 0 and 3 only.
+template <int BD = 8>
 GVCT_HD uint32_t quad_word(const RowTerms& rt, int r) {
-  return (r == 0 || r == 3) ? static_cast<uint32_t>(rt.dp) | static_cast<uint32_t>(rt.dq) << 10 |
-                                  static_cast<uint32_t>(!rt.strong) << 20
+  using F = QuadField<BD>;
+  return (r == 0 || r == 3) ? static_cast<uint32_t>(rt.dp) |
+                                  static_cast<uint32_t>(rt.dq) << F::kBits |
+                                  static_cast<uint32_t>(!rt.strong) << 2 * F::kBits
                             : 0u;
 }
 
 // The segment's terms from the quad sum of quad_word.
+template <int BD = 8>
 GVCT_HD RowTerms segment_terms(uint32_t sum) {
-  return RowTerms{static_cast<int>(sum & 1023), static_cast<int>(sum >> 10 & 1023),
-                  (sum >> 20) == 0};
+  using F = QuadField<BD>;
+  return RowTerms{static_cast<int>(sum & F::kMask), static_cast<int>(sum >> F::kBits & F::kMask),
+                  (sum >> 2 * F::kBits) == 0};
 }
 
 // P and Q of a segment row that lies along a row array: p[j] = row[3 - j],
@@ -530,80 +588,80 @@ GVCT_HD void join_right(QuadLane<E>& lane, const E (&p)[4], const E (&q)[4]) {
 }
 
 // The lane's row of one luma segment, given the quad sum of its words.
-template <typename T>
+template <typename T, int BD = 8>
 GVCT_HD void quad_luma_row(int (&p)[4], int (&q)[4], int bs, uint32_t sum, const Thresholds& th) {
-  if (gated_on<false>(bs)) luma_row<T>(p, q, luma_decision<T>(segment_terms(sum), th), th);
+  if (gated_on<false>(bs)) luma_row<T, BD>(p, q, luma_decision<T>(segment_terms<BD>(sum), th), th);
 }
 
 // Upper-vert and lower-vert words: w[0] of row r, w[1] of row 4 + r.
-template <typename T>
+template <typename T, int BD = 8>
 GVCT_HD void quad_vert_words(const QuadLane<>& lane, const Thresholds& th, uint32_t (&w)[2]) {
   int p[4], q[4];
   split_row(lane.a, p, q);
-  w[0] = quad_word(row_terms<T>(p, q, th), lane.r);
+  w[0] = quad_word<BD>(row_terms<T>(p, q, th), lane.r);
   split_row(lane.b, p, q);
-  w[1] = quad_word(row_terms<T>(p, q, th), lane.r);
+  w[1] = quad_word<BD>(row_terms<T>(p, q, th), lane.r);
 }
 
 // sum = the quad sums of quad_vert_words' w[0] and w[1].
-template <typename T>
+template <typename T, int BD = 8>
 GVCT_HD void quad_vert_luma(QuadLane<>& lane, const uint32_t (&sum)[2], const Thresholds& th) {
   int p[4], q[4];
   split_row(lane.a, p, q);
-  quad_luma_row<T>(p, q, lane.bs[0], sum[0], th);
+  quad_luma_row<T, BD>(p, q, lane.bs[0], sum[0], th);
   join_row(lane.a, p, q);
   split_row(lane.b, p, q);
-  quad_luma_row<T>(p, q, lane.bs[1], sum[1], th);
+  quad_luma_row<T, BD>(p, q, lane.bs[1], sum[1], th);
   join_row(lane.b, p, q);
 }
 
-template <typename T>
+template <typename T, int BD = 8>
 GVCT_HD uint32_t quad_left_word(const QuadLane<>& lane, const Thresholds& th) {
   int p[4], q[4];
   split_row(lane.cl, p, q);
-  return quad_word(row_terms<T>(p, q, th), lane.r);
+  return quad_word<BD>(row_terms<T>(p, q, th), lane.r);
 }
 
-template <typename T>
+template <typename T, int BD = 8>
 GVCT_HD void quad_left_luma(QuadLane<>& lane, uint32_t sum, const Thresholds& th) {
   int p[4], q[4];
   split_row(lane.cl, p, q);
-  quad_luma_row<T>(p, q, lane.bs[2], sum, th);
+  quad_luma_row<T, BD>(p, q, lane.bs[2], sum, th);
   join_row(lane.cl, p, q);
 }
 
-template <typename T>
+template <typename T, int BD = 8>
 GVCT_HD uint32_t quad_right_word(const QuadLane<>& lane, const Thresholds& th) {
   int p[4], q[4];
   split_right(lane, p, q);
-  return quad_word(row_terms<T>(p, q, th), lane.r);
+  return quad_word<BD>(row_terms<T>(p, q, th), lane.r);
 }
 
-template <typename T>
+template <typename T, int BD = 8>
 GVCT_HD void quad_right_luma(QuadLane<>& lane, uint32_t sum, const Thresholds& th) {
   int p[4], q[4];
   split_right(lane, p, q);
-  quad_luma_row<T>(p, q, lane.bs[3], sum, th);
+  quad_luma_row<T, BD>(p, q, lane.bs[3], sum, th);
   join_right(lane, p, q);
 }
 
 // -- chroma: no decision, so no exchange -------------------------------------------
 
-template <typename T>
+template <typename T, int BD = 8>
 GVCT_HD void quad_chroma_row(int& p0, int p1, int& q0, int q1, int bs, int tc) {
-  if (gated_on<true>(bs)) chroma_row<T>(p0, p1, q0, q1, tc);
+  if (gated_on<true>(bs)) chroma_row<T, BD>(p0, p1, q0, q1, tc);
 }
 
-template <typename T>
+template <typename T, int BD = 8>
 GVCT_HD void quad_vert_chroma(QuadLane<>& lane, const Thresholds& th) {
-  quad_chroma_row<T>(lane.a[3], lane.a[2], lane.a[4], lane.a[5], lane.bs[0], th.tc);
-  quad_chroma_row<T>(lane.b[3], lane.b[2], lane.b[4], lane.b[5], lane.bs[1], th.tc);
+  quad_chroma_row<T, BD>(lane.a[3], lane.a[2], lane.a[4], lane.a[5], lane.bs[0], th.tc);
+  quad_chroma_row<T, BD>(lane.b[3], lane.b[2], lane.b[4], lane.b[5], lane.bs[1], th.tc);
 }
 
-template <typename T>
+template <typename T, int BD = 8>
 GVCT_HD void quad_hor_chroma(QuadLane<>& lane, const Thresholds& th) {
-  quad_chroma_row<T>(lane.cl[3], lane.cl[2], lane.cl[4], lane.cl[5], lane.bs[2], th.tc);
-  quad_chroma_row<T>(lane.cr[3], lane.cr[2], lane.cl[4], lane.cl[5], lane.bs[3], th.tc);
+  quad_chroma_row<T, BD>(lane.cl[3], lane.cl[2], lane.cl[4], lane.cl[5], lane.bs[2], th.tc);
+  quad_chroma_row<T, BD>(lane.cr[3], lane.cr[2], lane.cl[4], lane.cl[5], lane.bs[3], th.tc);
 }
 
 }  // namespace gvct

@@ -5,6 +5,7 @@
 // A quad kernel's block (K1, K1c, K1-i16, K1-i16c, T1) runs its threads one
 // after another between the kernel's exchange points.
 
+#include <cstring>
 #include <vector>
 
 #include "deblock_quad.cuh"
@@ -21,14 +22,14 @@ uint32_t quad_sum(const std::vector<uint32_t>& w, int tid, int stride, int i) {
          w[stride * (q + 3) + i];
 }
 
-// One block of deblock_kernel.cu's quad kernel at compute type T over a
-// stage of layout C: `stage_in(stage)` fills the stage as the kernel's
+// One block of deblock_kernel.cu's quad kernel at compute type T and bit
+// depth BD over a stage of layout C: `stage_in(stage)` fills the stage as the kernel's
 // staging does and `stage_out(stage)` drains it; its 4 * tb threads run
 // one after another between the kernel's exchange points; `wv`, `wl` and
 // `wr` stand in for the shuffles: every thread publishes its words there,
 // and each lane of a quad takes the sum of its quad's four.  `map` is the
 // block's first tile in each BS map, n its tiles inside the grid.
-template <bool CHROMA, typename T, typename C, typename In, typename Out>
+template <bool CHROMA, typename T, typename C, int BD = 8, typename In, typename Out>
 void host_quad_block(In stage_in, Out stage_out, const uint8_t* v1, const uint8_t* v2,
                      const uint8_t* h1, const uint8_t* h2, const gvct::Thresholds& th, int tb,
                      size_t map, int n) {
@@ -46,17 +47,17 @@ void host_quad_block(In stage_in, Out stage_out, const uint8_t* v1, const uint8_
     gvct::quad_read_rows<CHROMA, int, C>(lanes[tid], stage.data());
     if (!CHROMA) {
       uint32_t w[2];
-      gvct::quad_vert_words<T>(lanes[tid], th, w);
+      gvct::quad_vert_words<T, BD>(lanes[tid], th, w);
       wv[2 * tid] = w[0];
       wv[2 * tid + 1] = w[1];
     }
   }
   for (int tid = 0; tid < nt; ++tid) {  // after the shuffles
     if (CHROMA) {
-      gvct::quad_vert_chroma<T>(lanes[tid], th);
+      gvct::quad_vert_chroma<T, BD>(lanes[tid], th);
     } else {
       const uint32_t sum[2] = {quad_sum(wv, tid, 2, 0), quad_sum(wv, tid, 2, 1)};
-      gvct::quad_vert_luma<T>(lanes[tid], sum, th);
+      gvct::quad_vert_luma<T, BD>(lanes[tid], sum, th);
     }
     gvct::quad_write_rows<CHROMA, int, C>(lanes[tid], stage.data());
   }
@@ -64,18 +65,18 @@ void host_quad_block(In stage_in, Out stage_out, const uint8_t* v1, const uint8_
   for (int tid = 0; tid < nt; ++tid) {
     gvct::quad_read_cols<CHROMA, int, C>(lanes[tid], stage.data());
     if (CHROMA) {
-      gvct::quad_hor_chroma<T>(lanes[tid], th);
+      gvct::quad_hor_chroma<T, BD>(lanes[tid], th);
     } else {
-      wl[tid] = gvct::quad_left_word<T>(lanes[tid], th);
+      wl[tid] = gvct::quad_left_word<T, BD>(lanes[tid], th);
     }
   }
   if (!CHROMA) {
     for (int tid = 0; tid < nt; ++tid) {
-      gvct::quad_left_luma<T>(lanes[tid], quad_sum(wl, tid, 1, 0), th);
-      wr[tid] = gvct::quad_right_word<T>(lanes[tid], th);
+      gvct::quad_left_luma<T, BD>(lanes[tid], quad_sum(wl, tid, 1, 0), th);
+      wr[tid] = gvct::quad_right_word<T, BD>(lanes[tid], th);
     }
     for (int tid = 0; tid < nt; ++tid) {
-      gvct::quad_right_luma<T>(lanes[tid], quad_sum(wr, tid, 1, 0), th);
+      gvct::quad_right_luma<T, BD>(lanes[tid], quad_sum(wr, tid, 1, 0), th);
     }
   }
   for (int tid = 0; tid < nt; ++tid) {
@@ -259,9 +260,9 @@ extern "C" int gvct_host_rows_staging(int bx, int tb, const void* in, const void
 
 namespace {
 
-// One plane of one frame as K2's tensor maps see it: ph rows of pw bytes,
-// read at `in` with rows in_row bytes apart, written at `out` with rows
-// out_row apart.
+// One plane of one frame as K2's tensor maps see it: ph rows of pw
+// samples, read at `in` with rows in_row bytes apart, written at `out` with
+// rows out_row apart.
 struct HostPlane {
   const uint8_t* in;
   long long in_row;
@@ -271,43 +272,42 @@ struct HostPlane {
 };
 
 // K2's box of a block as the TMA loads it (deblock_kernel.cu,
-// deblock_packed_kernel): the plane's rows y0 .. y0 + 7 and columns
-// x0 - kLead onwards, kRow of them, densely; 0 outside the plane.
+// deblock_packed_kernel<BD>): the plane's rows y0 .. y0 + 7 and columns
+// x0 - kLead onwards, kWidth samples of them, densely; 0 outside the plane.
+template <typename C>
 void host_packed_load(const HostPlane& p, int x0, int y0, uint8_t* stage) {
-  using C = gvct::PackedCell;
   for (int r = 0; r < 8; ++r) {
-    for (int e = 0; e < C::kRow; ++e) {
+    for (int e = 0; e < C::kWidth; ++e) {
       const int y = y0 + r, x = x0 - C::kLead + e;
-      stage[r * C::kRow + e] = y >= 0 && y < p.ph && x >= 0 && x < p.pw ? p.in[y * p.in_row + x] : 0;
+      uint8_t* d = stage + r * C::kRow + C::kSample * e;
+      if (y >= 0 && y < p.ph && x >= 0 && x < p.pw) {
+        std::memcpy(d, p.in + y * p.in_row + C::kSample * x, C::kSample);
+      } else {
+        std::memset(d, 0, C::kSample);
+      }
     }
   }
 }
 
-template <bool CHROMA>
+template <bool CHROMA, int BD>
 void host_packed_block(const HostPlane& p, const gvct::PackedBlock& blk,
                        const uint8_t* const* maps, const gvct::Thresholds& th) {
+  using C = gvct::PackedCell<gvct::PackedSample<BD>>;
   const int x0 = 8 * blk.bx0 - 4, y0 = 8 * blk.by - 4;
-  host_quad_block<CHROMA, int, gvct::PackedCell>(
-      [&](uint8_t* stage) { host_packed_load(p, x0, y0, stage); },
+  host_quad_block<CHROMA, int, C, BD>(
+      [&](uint8_t* stage) { host_packed_load<C>(p, x0, y0, stage); },
       [&](const uint8_t* stage) {
-        for (int q = 0; q < 16 * gvct::kPackedTiles; ++q) {
-          gvct::packed_store_word(stage, p.out, p.out_row, p.ph, p.pw, x0, y0, q);
+        for (int q = 0; q < 8 * C::kRowWords; ++q) {
+          gvct::packed_store_word<C>(stage, p.out, p.out_row, p.ph, p.pw, x0, y0, q);
         }
       },
       maps[0], maps[1], maps[2], maps[3], th, gvct::kPackedTiles, blk.map, blk.n);
 }
 
-}  // namespace
-
-// K2 (deblock_kernel.cu's packed quad) over its grid, with
-// gvct_deblock_packed's arguments (strides in bytes), its blocks one after
-// another, each staged as its TMA box would stage it (the tensor map's zero
-// fill done by hand) and stored in the kernel's words.  Returns 0.
-extern "C" int gvct_host_deblock_packed(const uint8_t* y_in, uint8_t* y_out, const uint8_t* uv_in,
-                                        uint8_t* uv_out, const long long* s,
-                                        const uint8_t* const* maps, int beta, int tc, int w,
-                                        int h, int k, int luma_only) {
-  const gvct::Thresholds th = gvct::make_thresholds(beta, tc);
+template <int BD>
+void host_packed(const uint8_t* y_in, uint8_t* y_out, const uint8_t* uv_in, uint8_t* uv_out,
+                 const long long* s, const uint8_t* const* maps, const gvct::Thresholds& th,
+                 int w, int h, int k, int luma_only) {
   const gvct::PackedGrid g = gvct::packed_grid(w, h, luma_only);
   for (int f = 0; f < k; ++f) {
     for (int b = 0; b < g.rows * g.gx; ++b) {
@@ -315,15 +315,34 @@ extern "C" int gvct_host_deblock_packed(const uint8_t* y_in, uint8_t* y_out, con
       if (blk.n <= 0) continue;
       if (blk.plane == 0) {
         const HostPlane p{y_in + f * s[0], s[1], y_out + f * s[2], s[3], h, w};
-        host_packed_block<false>(p, blk, maps, th);
+        host_packed_block<false, BD>(p, blk, maps, th);
       } else {
         const long long z = blk.plane - 1;
         const HostPlane p{uv_in + f * s[4] + z * s[5], s[6], uv_out + f * s[7] + z * s[8], s[9],
                           h / 2, w / 2};
-        host_packed_block<true>(p, blk, maps + 4, th);
+        host_packed_block<true, BD>(p, blk, maps + 4, th);
       }
     }
   }
+}
+
+}  // namespace
+
+// K2 (bit_depth 8) or K2-10 (10), deblock_kernel.cu's packed quad, over its
+// grid, with gvct_deblock_packed's arguments (strides in bytes; beta and tc
+// the tables', scaled here as there), its blocks one after another, each
+// staged as its TMA box would stage it (the tensor map's zero fill done by
+// hand) and stored in the kernel's words.  Returns 0, or -1 for a bit depth
+// other than 8 and 10.
+extern "C" int gvct_host_deblock_packed(const uint8_t* y_in, uint8_t* y_out, const uint8_t* uv_in,
+                                        uint8_t* uv_out, const long long* s,
+                                        const uint8_t* const* maps, int beta, int tc, int w,
+                                        int h, int k, int luma_only, int bit_depth) {
+  if (bit_depth != 8 && bit_depth != 10) return -1;
+  const int up = bit_depth - 8;
+  const gvct::Thresholds th = gvct::make_thresholds(beta << up, tc << up);
+  const auto run = bit_depth == 8 ? host_packed<8> : host_packed<10>;
+  run(y_in, y_out, uv_in, uv_out, s, maps, th, w, h, k, luma_only);
   return 0;
 }
 

@@ -221,7 +221,7 @@ GVCT_HD RowTerms2 row_terms(const hw2 (&p)[4], const hw2 (&q)[4], const Consts& 
 
 // A lane's two words for the quad sums of a segment, from rows 0 and 3
 // only (the other rows give 0): dp per lane with 1 at bit 10 where the row
-// fails cond2-cond4, and dq.  Two rows sum to at most 2 * kMaxRowD + 2^11
+// fails cond2-cond4, and dq.  Two rows sum to at most 2 * 510 + 2^11
 // per lane, below 2^15, so the quad's 32-bit adds never carry from the low
 // lane into the high one: they are __vadd2's sums.
 constexpr uint32_t kFailBit = 0x04000400u;

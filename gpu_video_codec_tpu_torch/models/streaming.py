@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.cuda_kernel import (
-    BLOCK_BX, CHROMA_BLOCK_BX, deblock_packed_cuda, deblock_tiles_cuda, packed_fits,
+    BLOCK_BX, CHROMA_BLOCK_BX, deblock_packed_cuda, deblock_tiles_cuda, packed_fits, packed_limit,
 )
 from ..ops.deblock import deblock_frame
 from ..ops.relayout_kernel import (
@@ -72,7 +72,8 @@ def _pack_out(buf, parts_at, inplace: bool):
 
 
 def _deblock_planes_impl(y, uv, lm, cm, beta, tc, w, h, luma_only, backend,
-                         luma_block=BLOCK_BX, chroma_block=CHROMA_BLOCK_BX, out=None):
+                         luma_block=BLOCK_BX, chroma_block=CHROMA_BLOCK_BX, out=None,
+                         bit_depth=8):
     """PLANES contract: y (.., h, w) + uv (.., 2, h/2, w/2) uint8 -> (filtered
     y, filtered uv), same shapes, new tensors (uv itself under luma_only).
     At most one leading frame axis: a batch of frames shares one BS map.
@@ -84,18 +85,25 @@ def _deblock_planes_impl(y, uv, lm, cm, beta, tc, w, h, luma_only, backend,
     strides, last axis contiguous), returned in place of new tensors.
     backend "torch": the plain version on zero-extended planes.
     luma_block/chroma_block: K1's and K1c's tiles per block, so the chain's
-    only; K2's are a constant of its design (ops/cuda_kernel.PACKED_TILES)."""
+    only; K2's are a constant of its design (ops/cuda_kernel.PACKED_TILES).
+    bit_depth=10: int16 planes of Main 10 samples, beta and tc the tables'
+    (scaled by the filter); the cuda backend runs K2-10 where packed_fits
+    holds and raises ValueError where it does not (there is no 10-bit
+    chain)."""
     p = HALF_BLOCK
     cw, ch = w // 2, h // 2
     pads = (p, p, p, p)
     if backend == "cuda":
-        if packed_fits(w, y, uv, *(out or ())):
-            return deblock_packed_cuda(y, uv, lm, cm, beta, tc, luma_only=luma_only, out=out)
-        return _tile_chain(y, uv, lm, cm, beta, tc, w, h, luma_only, luma_block, chroma_block,
-                           out)
+        if packed_fits(w, y, uv, *(out or ()), bit_depth=bit_depth):
+            return deblock_packed_cuda(y, uv, lm, cm, beta, tc, luma_only=luma_only, out=out,
+                                       bit_depth=bit_depth)
+        if bit_depth == 8:
+            return _tile_chain(y, uv, lm, cm, beta, tc, w, h, luma_only, luma_block,
+                               chroma_block, out)
+        raise ValueError(f"no {bit_depth}-bit chain: {packed_limit(w, bit_depth)}")
     ye, ue, ve = deblock_frame(F.pad(y, pads), F.pad(uv[..., 0, :, :], pads),
                                F.pad(uv[..., 1, :, :], pads), lm, cm, beta, tc,
-                               luma_only=luma_only)
+                               luma_only=luma_only, bit_depth=bit_depth)
     y_int = ye[..., p : p + h, p : p + w]
     if luma_only:
         return y_int, uv
@@ -136,10 +144,12 @@ def _tile_chain(y, uv, lm, cm, beta, tc, w, h, luma_only, luma_block, chroma_blo
 
 def _deblock_yv12_packed_impl(buf, lm, cm, beta, tc, w, h, luma_only, backend,
                               luma_block=BLOCK_BX, chroma_block=CHROMA_BLOCK_BX,
-                              inplace=False):
+                              inplace=False, bit_depth=8):
     """Packed YV12 uint8 (.., 3h/2, w) -> filtered packed YV12; a leading
     axis is a batch of frames (the multi-stream step, parallel/mesh.py),
     which the cuda backend runs through the same launches as one frame.
+    bit_depth=10: an int16 buffer of Main 10 samples (_deblock_planes_impl);
+    on the CPU it takes backend "torch"'s plain version at every width.
 
     Luma is the leading h rows; the chroma rows are U then V, viewed as
     (2, h/2, w/2).  The filter is the planes contract; inplace=True writes
@@ -152,27 +162,32 @@ def _deblock_yv12_packed_impl(buf, lm, cm, beta, tc, w, h, luma_only, backend,
     def planes(b):  # (y, uv) views of a packed buffer
         return b[..., :h, :], b[..., h:, :].view(*lead, 2, h // 2, w // 2)
 
+    if backend == "cuda" and bit_depth != 8 and buf.device.type == "cpu":
+        backend = "torch"  # no 10-bit chain to model on the CPU
     if backend == "cuda":
         dst = buf if inplace else torch.empty_like(buf)
         if luma_only and not inplace:
             dst[..., h:, :].copy_(buf[..., h:, :])
         _deblock_planes_impl(*planes(buf), lm, cm, beta, tc, w, h, luma_only, backend,
-                             luma_block, chroma_block, out=planes(dst))
+                             luma_block, chroma_block, out=planes(dst), bit_depth=bit_depth)
         return dst
     y_int, uv_int = _deblock_planes_impl(*planes(buf), lm, cm, beta, tc, w, h, luma_only,
-                                         backend, luma_block, chroma_block)
+                                         backend, luma_block, chroma_block,
+                                         bit_depth=bit_depth)
     parts = [(0, y_int)]
     if not luma_only:
         parts.append((h, uv_int.reshape(*lead, h // 2, w)))
     return _pack_out(buf, parts, inplace)
 
 
-def _packed_steps(n, beta, tc, w, h, luma_only, backend, luma_block, chroma_block):
+def _packed_steps(n, beta, tc, w, h, luma_only, backend, luma_block, chroma_block,
+                  bit_depth=8):
     """fn(buf, *lm, *cm): n in-place packed steps on buf (returns None)."""
     def steps(buf, *maps):
         for _ in range(n):
             _deblock_yv12_packed_impl(buf, maps[:4], maps[4:], beta, tc, w, h, luma_only,
-                                      backend, luma_block, chroma_block, inplace=True)
+                                      backend, luma_block, chroma_block, inplace=True,
+                                      bit_depth=bit_depth)
     return steps
 
 

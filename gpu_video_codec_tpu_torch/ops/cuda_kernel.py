@@ -15,7 +15,9 @@ a block's tiles of one tile row staged by the tensor memory accelerator
 packed step's one kernel: the same quad on the frames' planes themselves,
 each block's shifted tiles staged by TMA straight from the picture, in
 place of T2 -> K1 -> T3 and T2 -> K1c -> T3 wherever its guard
-(packed_fits) takes the geometry and the buffers.
+(packed_fits) takes the geometry and the buffers; and K2-10, its instance
+on HEVC Main 10's 16-bit samples (deblock_packed_cuda(..., bit_depth=10)),
+which has no chain to fall back to.
 
 The library is built at first use with nvcc, from csrc/ only, into
 build/torch_kernels/ beside the package, under a name keyed on a hash of
@@ -44,6 +46,7 @@ import torch
 
 from ..utils.tracing import RECORDER
 from .deblock import deblock_packed_plain, deblock_rows_plain, deblock_tiles_plain
+from .tables import check_bit_depth
 
 # Tiles per block of the quad kernel (K1, K1c, K1-i16, K1-i16c): consecutive
 # tiles of the flattened (By, Bx) grid, QUAD threads each, at most
@@ -64,14 +67,18 @@ ROWS_BLOCK_BX = 32
 # timings at the benchmark cells' shapes (PERF.md §6).
 PACKED_TILES = 16
 # K2's guard: row, plane and frame strides and base addresses in multiples
-# of this many bytes (what a tensor map demands), and w % PACKED_WIDTH == 0,
-# so that the chroma rows, w/2 bytes, are 16-byte multiples too.
+# of this many bytes (what a tensor map demands), and w % PACKED_WIDTHS[bit
+# depth] == 0, so that the chroma rows, w/2 samples, are 16-byte multiples too:
+# w % 32 at 8 bits, w % 16 at 10 (K2-10).
 _TMA_ALIGN = 16
-PACKED_WIDTH = 2 * _TMA_ALIGN
+# a packed step's samples by bit depth
+SAMPLE_DTYPES = {8: torch.uint8, 10: torch.int16}
+PACKED_WIDTHS = {bd: 2 * _TMA_ALIGN // t.itemsize for bd, t in SAMPLE_DTYPES.items()}
 
 # Kernel launches per variant since import (or since a caller reset them):
-# K1, K1c, K1-i16 luma and chroma, T5 (luma and chroma), K2.
-LAUNCHES = {"luma": 0, "chroma": 0, "luma_i16": 0, "chroma_i16": 0, "rows": 0, "packed": 0}
+# K1, K1c, K1-i16 luma and chroma, T5 (luma and chroma), K2, K2-10.
+LAUNCHES = {"luma": 0, "chroma": 0, "luma_i16": 0, "chroma_i16": 0, "rows": 0, "packed": 0,
+            "packed10": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
@@ -153,9 +160,10 @@ _TILE_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong, ct
 # in, out, four maps, beta, tc, By, Bx, chroma: T5's and T1's arguments
 GRID_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
 _LAUNCH_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # threads, device, stream
-# y_in, y_out, uv_in, uv_out, 10 strides, 8 maps, beta, tc, w, h, k, luma_only
+# y_in, y_out, uv_in, uv_out, 10 strides, 8 maps, beta, tc, w, h, k, luma_only,
+# bit_depth
 _PACKED_ARGS = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong),
-                                        ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 6
+                                        ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 7
 
 
 def _setup_cuda(lib) -> None:
@@ -171,7 +179,7 @@ def _setup_cuda(lib) -> None:
     lib.gvct_deblock_rows_occupancy.restype = ctypes.c_int
     lib.gvct_deblock_packed.argtypes = _PACKED_ARGS + [ctypes.c_int, ctypes.c_void_p]
     lib.gvct_deblock_packed.restype = ctypes.c_int
-    lib.gvct_deblock_packed_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.gvct_deblock_packed_info.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
     lib.gvct_deblock_packed_info.restype = ctypes.c_int
     lib.gvct_error_string.argtypes = [ctypes.c_int]
     lib.gvct_error_string.restype = ctypes.c_char_p
@@ -202,8 +210,8 @@ def load_host_library() -> ctypes.CDLL:
     another between the kernel's exchange points; gvct_host_deblock_rows(tb,
     tma, ...) for T5, the same quad on the rows layout, staged in route B's
     words or as route A's TMA boxes would stage it, and
-    gvct_host_rows_staging, the route rule; gvct_host_deblock_packed for K2,
-    its blocks staged as its TMA box would stage them, with
+    gvct_host_rows_staging, the route rule; gvct_host_deblock_packed for K2
+    and K2-10, its blocks staged as its TMA box would stage them, with
     packed_launch_args' arguments; ops/relayout_kernel.py and
     ops/swar_kernel.py bind the rest)."""
     gxx = shutil.which("g++")
@@ -408,17 +416,19 @@ def deblock_rows_occupancy(tiles_rows, chroma: bool = False) -> dict:
 
 # -- K2: the packed step on the frames' planes ---------------------------------------
 
-def packed_fits(w: int, *tensors) -> bool:
-    """K2's guard, from the frame width and the tensors alone (None skipped):
-    w % 32 == 0, so that the luma rows (w bytes) and the chroma rows (w/2)
-    are 16-byte multiples -- which also leaves out every sheared width (Q9,
-    w % 16 == 8) -- and every tensor has a contiguous last axis, a 16-byte
-    aligned base address and its other strides in 16-byte multiples, as a
-    tensor map demands.  Where it fails, the packed step keeps the chain
-    T2 -> K1 -> T3."""
-    return w % PACKED_WIDTH == 0 and all(
+def packed_fits(w: int, *tensors, bit_depth: int = 8) -> bool:
+    """K2's guard, from the frame width, the bit depth and the tensors alone
+    (None skipped): the chroma rows, w/2 samples, are 16-byte multiples --
+    w % 32 == 0 at 8 bits, w % 16 == 0 at 10 (2 bytes a sample; K2-10) --
+    which also leaves out every sheared width (Q9, w % 16 == 8), and every
+    tensor has a contiguous last axis, a 16-byte aligned base address and
+    its other strides in 16-byte multiples (in bytes), as a tensor map
+    demands.  Where it fails, the 8-bit packed step keeps the chain T2 ->
+    K1 -> T3; a 10-bit one has no chain (models/streaming raises on a
+    CUDA device)."""
+    return w % PACKED_WIDTHS[bit_depth] == 0 and all(
         t.stride(-1) == 1 and t.data_ptr() % _TMA_ALIGN == 0
-        and all(s % _TMA_ALIGN == 0 for s in t.stride()[:-1])
+        and all(s * t.element_size() % _TMA_ALIGN == 0 for s in t.stride()[:-1])
         for t in tensors if t is not None)
 
 
@@ -429,11 +439,12 @@ def packed_grids(w: int, h: int) -> tuple[tuple[int, int], tuple[int, int]]:
     return ((h + 8) // 8, (w + 8) // 8), ((h // 2 + 8) // 8, (w // 2 + 8) // 8)
 
 
-def _check_packed(y, uv, luma_maps, chroma_maps, beta, tc, out) -> None:
+def _check_packed(y, uv, luma_maps, chroma_maps, beta, tc, out, bit_depth) -> None:
     """deblock_packed_cuda's operand checks; raises ValueError."""
+    dtype = SAMPLE_DTYPES[check_bit_depth(bit_depth)]
     for name, t in (("y", y), ("uv", uv)):
-        if not isinstance(t, torch.Tensor) or t.dtype != torch.uint8:
-            raise ValueError(f"{name} must be a uint8 tensor, got "
+        if not isinstance(t, torch.Tensor) or t.dtype != dtype:
+            raise ValueError(f"{name} must be a {dtype} tensor at bit_depth {bit_depth}, got "
                              f"{getattr(t, 'dtype', type(t).__name__)}")
     if y.dim() not in (2, 3) or uv.dim() != y.dim() + 1:
         raise ValueError(f"y must be (h, w) or (k, h, w) and uv (.., 2, h/2, w/2) with the same "
@@ -453,25 +464,33 @@ def _check_packed(y, uv, luma_maps, chroma_maps, beta, tc, out) -> None:
         if len(out) != 2:
             raise ValueError("out must be a (y, uv) pair")
         for name, t, like in (("out y", out[0], y), ("out uv", out[1], uv)):
-            if (not isinstance(t, torch.Tensor) or t.dtype != torch.uint8
+            if (not isinstance(t, torch.Tensor) or t.dtype != dtype
                     or t.shape != like.shape or t.device != y.device):
-                raise ValueError(f"{name} must be a uint8 {tuple(like.shape)} tensor on "
+                raise ValueError(f"{name} must be a {dtype} {tuple(like.shape)} tensor on "
                                  f"{y.device}")
-    if not packed_fits(w, y, uv, *(out or ())):
-        raise ValueError(f"K2 takes w % {PACKED_WIDTH} == 0 (got {w}) and planes with a "
-                         f"contiguous last axis, addresses and strides in {_TMA_ALIGN}-byte "
-                         f"multiples (packed_fits)")
+    if not packed_fits(w, y, uv, *(out or ()), bit_depth=bit_depth):
+        raise ValueError(packed_limit(w, bit_depth))
     if y.dim() == 3 and y.shape[0] > _MAX_GRID_YZ:
         raise ValueError(f"batch of {y.shape[0]} frames is too large for one launch")
 
 
+def packed_limit(w: int, bit_depth: int) -> str:
+    """What K2 (or K2-10) takes, for an error message."""
+    name = "K2" if bit_depth == 8 else "K2-10"
+    return (f"{name} takes w % {PACKED_WIDTHS[bit_depth]} == 0 (got {w}) and planes with a "
+            f"contiguous last axis, addresses and strides in {_TMA_ALIGN}-byte multiples "
+            f"(packed_fits)")
+
+
 def packed_launch_args(y, uv, y_out, uv_out, luma_maps, chroma_maps, beta, tc,
-                       luma_only) -> tuple:
+                       luma_only, bit_depth: int = 8) -> tuple:
     """gvct_deblock_packed's arguments up to its device and stream (and
     gvct_host_deblock_packed's, all of them): the planes' addresses, their
-    frame, plane and row strides, the eight maps, the thresholds and the
-    geometry (csrc/deblock_kernel.cu)."""
+    frame, plane and row strides in bytes, the eight maps, the thresholds
+    (the tables', which the entries scale to the bit depth), the geometry
+    and the bit depth (csrc/deblock_kernel.cu)."""
     h, w = y.shape[-2:]
+    size = y.element_size()
 
     def frame(t, n):  # the frame stride of a group of n axes, batched or not
         return t.stride(0) if t.dim() == n + 1 else t.shape[0] * t.stride(0)
@@ -480,15 +499,17 @@ def packed_launch_args(y, uv, y_out, uv_out, luma_maps, chroma_maps, beta, tc,
     strides += [0] * 6 if luma_only else [
         frame(uv, 3), uv.stride(-3), uv.stride(-2),
         frame(uv_out, 3), uv_out.stride(-3), uv_out.stride(-2)]
+    if size != 1:
+        strides = [size * s for s in strides]
     maps = (ctypes.c_void_p * 8)(*(m.data_ptr() for m in (*luma_maps, *chroma_maps)))
     chroma = (None, None) if luma_only else (uv.data_ptr(), uv_out.data_ptr())
     return (y.data_ptr(), y_out.data_ptr(), chroma[0], chroma[1],
             (ctypes.c_longlong * 10)(*strides), maps, int(beta), int(tc), w, h,
-            y.shape[0] if y.dim() == 3 else 1, int(luma_only))
+            y.shape[0] if y.dim() == 3 else 1, int(luma_only), int(bit_depth))
 
 
 def deblock_packed_cuda(y, uv, luma_maps, chroma_maps, beta, tc, *, luma_only: bool = False,
-                        out=None):
+                        out=None, bit_depth: int = 8):
     """K2: the packed YV12 step of k frames in one launch, on their planes
     (csrc/deblock_kernel.cu, deblock_packed_kernel): each block's shifted
     8x8 tiles staged by TMA straight from a plane, K1's or K1c's quad run on
@@ -498,7 +519,11 @@ def deblock_packed_cuda(y, uv, luma_maps, chroma_maps, beta, tc, *, luma_only: b
     y: (h, w) or (k, h, w) luma and uv: (.., 2, h/2, w/2) U and V planes,
     uint8 (e.g. the views of a packed (k, 3h/2, w) buffer); luma_maps: four
     (By, Bx) and chroma_maps four (cBy, cBx) contiguous uint8 BS maps
-    (packed_grids), shared by the frames, and by U and V.  beta, tc: ints.
+    (packed_grids), shared by the frames, and by U and V.  beta, tc: ints,
+    the tables' at the QP.  bit_depth=10 (HEVC Main 10): int16 planes of
+    samples in [0, 1023], filtered by K2-10 with beta and tc scaled by 4
+    and every filtered sample clipped to [0, 1023]
+    (LAUNCHES["packed10"]).
     out: optional (y, uv) destinations of the planes' shapes -- the planes
     themselves for in place.  Returns out, or new contiguous (y, uv); under
     luma_only the chroma is not filtered and uv itself comes back.
@@ -508,10 +533,10 @@ def deblock_packed_cuda(y, uv, luma_maps, chroma_maps, beta, tc, *, luma_only: b
     stream and does not synchronize.  CPU tensors take the plain version
     (ops/deblock.deblock_packed_plain)."""
     beta, tc = int(beta), int(tc)
-    _check_packed(y, uv, luma_maps, chroma_maps, beta, tc, out)
+    _check_packed(y, uv, luma_maps, chroma_maps, beta, tc, out, bit_depth)
     if y.device.type == "cpu":
         y_new, uv_new = deblock_packed_plain(y, uv, luma_maps, chroma_maps, beta, tc,
-                                             luma_only)
+                                             luma_only, bit_depth)
         if out is None:
             return y_new, uv_new
         out[0].copy_(y_new)
@@ -521,28 +546,30 @@ def deblock_packed_cuda(y, uv, luma_maps, chroma_maps, beta, tc, *, luma_only: b
     if y.device.type != "cuda":
         raise ValueError(f"deblock_packed_cuda takes CUDA or CPU tensors, got {y.device}")
     if out is None:
-        out = (torch.empty(y.shape, dtype=torch.uint8, device=y.device),
-               uv if luma_only else torch.empty(uv.shape, dtype=torch.uint8, device=y.device))
+        out = (torch.empty(y.shape, dtype=y.dtype, device=y.device),
+               uv if luma_only else torch.empty(uv.shape, dtype=y.dtype, device=y.device))
     if y.numel() == 0:
         return out[0], uv if luma_only else out[1]
     lib = _load("cuda", build_library, _setup_cuda)
     err = lib.gvct_deblock_packed(
-        *packed_launch_args(y, uv, *out, luma_maps, chroma_maps, beta, tc, luma_only),
+        *packed_launch_args(y, uv, *out, luma_maps, chroma_maps, beta, tc, luma_only, bit_depth),
         y.device.index, torch.cuda.current_stream(y.device).cuda_stream)
     raise_on_launch(err, lib, "deblock_packed")
-    LAUNCHES["packed"] += 1
+    LAUNCHES["packed" if bit_depth == 8 else "packed10"] += 1
     return out[0], uv if luma_only else out[1]
 
 
-def deblock_packed_info(device=None) -> dict:
-    """K2's launch on `device` (default: the current CUDA device):
-    {"tiles_per_block", "threads", "blocks_per_sm", "warps_per_sm",
-    "smem_bytes" (static shared memory per block), "registers"}."""
+def deblock_packed_info(device=None, bit_depth: int = 8) -> dict:
+    """K2's launch (K2-10's at bit_depth 10) on `device` (default: the
+    current CUDA device): {"tiles_per_block", "threads", "blocks_per_sm",
+    "warps_per_sm", "smem_bytes" (static shared memory per block),
+    "registers"}."""
     device = torch.device("cuda", torch.cuda.current_device()) if device is None \
         else torch.device(device)
     lib = _load("cuda", build_library, _setup_cuda)
     info = (ctypes.c_int * 4)()
-    raise_on_launch(lib.gvct_deblock_packed_info(device.index, info), lib, "occupancy")
+    raise_on_launch(lib.gvct_deblock_packed_info(device.index, check_bit_depth(bit_depth), info),
+                    lib, "occupancy")
     blocks, threads, smem, regs = info
     return {"tiles_per_block": PACKED_TILES, "threads": threads, "blocks_per_sm": blocks,
             "warps_per_sm": blocks * ((threads + 31) // 32), "smem_bytes": smem,

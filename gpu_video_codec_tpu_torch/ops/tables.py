@@ -34,6 +34,33 @@ SAMPLE_BLOCK_SIZE = 8
 HALF_BLOCK = SAMPLE_BLOCK_SIZE // 2
 MAX_PIXEL = (1 << 8) - 1  # cpu.h:1202
 
+# The sample bit depths the port filters: 8 (HEVC Main; uint8 samples) and
+# 10 (Main 10; int16 samples in [0, 1023], the 16-bit words of yuv420p10le
+# planes).  At 10 bits beta and tC are the tables' values scaled by
+# 2^(bit_depth - 8) and every filtered sample is clipped to
+# [0, 2^bit_depth - 1], as H.265's edge filtering (8.7.2.5) does; the
+# reference project filters 8-bit samples only.
+BIT_DEPTHS = (8, 10)
+
+
+def check_bit_depth(bit_depth) -> int:
+    """bit_depth as an int; raises ValueError outside BIT_DEPTHS."""
+    if bit_depth not in BIT_DEPTHS:
+        raise ValueError(f"bit_depth must be one of {BIT_DEPTHS}, got {bit_depth!r}")
+    return int(bit_depth)
+
+
+def max_pixel(bit_depth: int = 8) -> int:
+    """The largest sample value, 2^bit_depth - 1 (the clip of every filtered
+    sample)."""
+    return (1 << check_bit_depth(bit_depth)) - 1
+
+
+def scale_thresholds(beta: int, tc: int, bit_depth: int = 8) -> tuple[int, int]:
+    """The tables' beta and tC at a bit depth: each times 2^(bit_depth - 8)."""
+    up = check_bit_depth(bit_depth) - 8
+    return int(beta) << up, int(tc) << up
+
 
 def get_beta(qp: int) -> int:
     """QP -> beta threshold (cpu.h:1064-1067; QP clamped at 51)."""

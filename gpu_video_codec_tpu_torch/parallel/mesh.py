@@ -34,12 +34,13 @@ import numpy as np
 import torch
 
 from ..models.streaming import _packed_steps
-from ..ops.cuda_kernel import BLOCK_BX, CHROMA_BLOCK_BX, deblock_tiles_cuda
+from ..ops.cuda_kernel import BLOCK_BX, CHROMA_BLOCK_BX, SAMPLE_DTYPES, deblock_tiles_cuda
 from ..ops.deblock import deblock_tiles_plain
 from ..ops.relayout_kernel import (
     plane_to_tiles_cuda, plane_to_tiles_plain, tiles_to_plane_cuda, tiles_to_plane_plain,
 )
 from ..ops.tables import SAMPLE_BLOCK_SIZE as _B
+from ..ops.tables import check_bit_depth
 from ..utils.graphs import CapturedStep, GraphCache, graphed, tensor_key
 from ..utils.tiles import split_covered_data
 from ..utils.tracing import RECORDER, stamp
@@ -311,14 +312,17 @@ def deblock_batch_sharded_jit(mesh: Mesh, *args, luma_only: bool = False,
 # -- packed YV12 batches: whole frames over every slot ----------------------------
 
 def _packed_sharded(mesh, buf, luma_maps, chroma_maps, beta, tc, w, h, luma_only, backend,
-                    luma_block, chroma_block, graphs: bool):
+                    luma_block, chroma_block, graphs: bool, bit_depth):
     stamps = RECORDER.start_call()  # the call's stamps where it is recorded, else None
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    if buf.dim() != 3 or tuple(buf.shape[1:]) != (3 * h // 2, w) or buf.dtype != torch.uint8:
-        raise ValueError(f"buf must be a uint8 (N, {3 * h // 2}, {w}) packed batch, got "
-                         f"{tuple(buf.shape)} {buf.dtype}")
+    if (buf.dim() != 3 or tuple(buf.shape[1:]) != (3 * h // 2, w)
+            or buf.dtype != SAMPLE_DTYPES.get(bit_depth)):
+        dtype = SAMPLE_DTYPES[check_bit_depth(bit_depth)]  # raises outside (8, 10)
+        raise ValueError(f"buf must be a {dtype} (N, {3 * h // 2}, {w}) packed batch at "
+                         f"bit_depth {bit_depth}, got {tuple(buf.shape)} {buf.dtype}")
     beta, tc = int(beta), int(tc)
+    # the graph key holds the bit depth through the buffer's dtype (tensor_key)
     static = (beta, tc, w, h, bool(luma_only), backend, int(luma_block), int(chroma_block))
     for index, (lo, hi) in enumerate(packed_batch_sharding(mesh, buf.shape[0])):
         if lo == hi:
@@ -329,8 +333,8 @@ def _packed_sharded(mesh, buf, luma_maps, chroma_maps, beta, tc, w, h, luma_only
         lm, cm = _placed(luma_maps, dev), _placed(chroma_maps, dev)
         on_card = (graphs and graphed(backend, dev) and local is view
                    and all(p is m for p, m in zip((*lm, *cm), (*luma_maps, *chroma_maps))))
-        _run(mesh, index, _packed_steps(1, *static), (local, *lm, *cm), ("packed", *static),
-             on_card, stamps)
+        _run(mesh, index, _packed_steps(1, *static, bit_depth), (local, *lm, *cm),
+             ("packed", *static), on_card, stamps)
         _home(view, local)
     if stamps is not None:
         RECORDER.end_call(stamps)
@@ -339,7 +343,7 @@ def _packed_sharded(mesh, buf, luma_maps, chroma_maps, beta, tc, w, h, luma_only
 
 def deblock_packed_batch_sharded(mesh: Mesh, buf, luma_maps, chroma_maps, beta, tc, *, w, h,
                                  luma_only=False, backend="cuda", luma_block=BLOCK_BX,
-                                 chroma_block=CHROMA_BLOCK_BX):
+                                 chroma_block=CHROMA_BLOCK_BX, bit_depth=8):
     """Filter a packed YV12 batch (N, 3h/2, w) uint8 IN PLACE; returns buf.
 
     Frames go over all slots in contiguous chunks (packed_batch_sharding).
@@ -354,20 +358,31 @@ def deblock_packed_batch_sharded(mesh: Mesh, buf, luma_maps, chroma_maps, beta, 
     buffer of their own).  No layout copy outside the kernels.
     luma_maps/chroma_maps: the four (By, Bx) and four (cBy, cBx) segment
     gate maps (utils/bs; chroma gated with the luma tile counts, Q2).
-    luma_block/chroma_block: K1/K1c's tiles per block, so the chain's only."""
+    luma_block/chroma_block: K1/K1c's tiles per block, so the chain's only.
+    bit_depth: 8 (HEVC Main), or 10 (Main 10): buf an int16 batch of
+    samples in [0, 1023] (the 16-bit words of yuv420p10le planes), beta and
+    tc still the tables' beta' and tc' at the QP, which the step scales by
+    4, every filtered sample clipped to [0, 1023] (H.265 8.7.2.5).  On a
+    CUDA slot a 10-bit chunk runs K2-10, one launch, where packed_fits
+    holds (w % 16 == 0 and 16-byte aligned frames); elsewhere it raises
+    ValueError (there is no 10-bit chain).  A CPU slot takes the plain
+    version at any width.  A buffer of the other bit depth's dtype, or a
+    bit_depth outside (8, 10), raises ValueError."""
     return _packed_sharded(mesh, buf, luma_maps, chroma_maps, beta, tc, w, h, luma_only,
-                           backend, luma_block, chroma_block, graphs=False)
+                           backend, luma_block, chroma_block, graphs=False, bit_depth=bit_depth)
 
 
 def deblock_packed_batch_sharded_jit(mesh: Mesh, buf, luma_maps, chroma_maps, beta, tc, *,
                                      w, h, luma_only=False, backend="cuda",
-                                     luma_block=BLOCK_BX, chroma_block=CHROMA_BLOCK_BX):
+                                     luma_block=BLOCK_BX, chroma_block=CHROMA_BLOCK_BX,
+                                     bit_depth=8):
     """deblock_packed_batch_sharded with each slot's batched step as ONE
     CUDA graph replay on the slot's stream, captured at the first call on
     the same buffer and maps (cuda backend, a CUDA slot that holds the
-    buffer, the maps as tensors on its device); elsewhere eager."""
+    buffer, the maps as tensors on its device); elsewhere eager.  At
+    bit_depth 10 the replay is one K2-10 launch (LAUNCHES["packed10"])."""
     return _packed_sharded(mesh, buf, luma_maps, chroma_maps, beta, tc, w, h, luma_only,
-                           backend, luma_block, chroma_block, graphs=True)
+                           backend, luma_block, chroma_block, graphs=True, bit_depth=bit_depth)
 
 
 __all__ = [

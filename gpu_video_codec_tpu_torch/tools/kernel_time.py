@@ -22,12 +22,15 @@ uniform in 0..2): the chain T2 -> K1 -> T3, T2 -> K1c -> T3 (the public
 wrappers, as the tree's streaming step composes them) and, where the tree
 has it, K2 (deblock_packed_cuda) and its plain version (3 launches a
 repeat), beside the byte bound of the step and K2's registers, occupancy
-and shared memory.
+and shared memory; and, where the tree has it, K2-10
+(deblock_packed_cuda(..., bit_depth=10)) and its plain version on 4 4K
+Main 10 frames (the 4K frames' samples times 4 plus 0..3, int16), with its
+bound (2 bytes a sample) and its launch.
 Prints one JSON line: per kernel the device us per launch of each repeat
 (utils.timing.device_ms: CUDA events around `iters` launches queued
 behind a spin kernel) and whether every repeat was queued ahead; the
-packed step's bounds in us ("bound_us") and K2's launch ("k2", null in a
-tree without it).  Exits non-zero without a CUDA device.
+packed step's bounds in us ("bound_us") and K2's and K2-10's launches
+("k2", "k2_10", null in a tree without them).  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -118,6 +121,7 @@ def main(argv: list[str] | None = None) -> int:
         "T5 (136, 8, 8, 241)": lambda: ck.deblock_rows_cuda(rows_241, *luma[1], beta, tc),
     }
     k2 = hasattr(ck, "deblock_packed_cuda")
+    k2_10 = "packed10" in ck.LAUNCHES
     plain_fns, bounds = {}, {}
     b37, t37 = get_beta(37), get_tc(37)
     for k, w, h in ((16, 1920, 1080), (4, 3840, 2160)):
@@ -150,6 +154,15 @@ def main(argv: list[str] | None = None) -> int:
             plain_fns[f"K2 plain {shape}"] = lambda y=y, uv=uv, lm=lm, cm=cm: (
                 deblock_packed_plain(y, uv, lm, cm, b37, t37))
         bounds[shape] = 2 * buf.numel() / 3.35e12 * 1e6  # read once, written once
+        if k2_10 and w == 3840:
+            buf10 = (buf.to(torch.int16) << 2) + torch.from_numpy(
+                rng.integers(0, 4, tuple(buf.shape), dtype=np.int16)).to(dev)
+            y10, uv10 = buf10[:, :h], buf10[:, h:].view(k, 2, h // 2, w // 2)
+            fns[f"K2-10 {shape}"] = lambda y=y10, uv=uv10, lm=lm, cm=cm: ck.deblock_packed_cuda(
+                y, uv, lm, cm, b37, t37, out=(y, uv), bit_depth=10)
+            plain_fns[f"K2-10 plain {shape}"] = lambda y=y10, uv=uv10, lm=lm, cm=cm: (
+                deblock_packed_plain(y, uv, lm, cm, b37, t37, bit_depth=10))
+            bounds[f"{shape} 10-bit"] = 2 * buf10.numel() * 2 / 3.35e12 * 1e6
     runs = {name: [device_ms(fn, args.iters) for _ in range(args.repeats)]
             for name, fn in fns.items()}
     runs.update({name: [device_ms(fn, 3) for _ in range(args.repeats)]
@@ -158,7 +171,8 @@ def main(argv: list[str] | None = None) -> int:
         "tree": os.path.relpath(os.path.dirname(os.path.dirname(pkg.__file__))), "card": smi,
         "us": {name: [ms * 1e3 for ms, _ in r] for name, r in runs.items()},
         "queued_ahead": all(ok for r in runs.values() for _, ok in r),
-        "bound_us": bounds, "k2": ck.deblock_packed_info(dev) if k2 else None}))
+        "bound_us": bounds, "k2": ck.deblock_packed_info(dev) if k2 else None,
+        "k2_10": ck.deblock_packed_info(dev, bit_depth=10) if k2_10 else None}))
     return 0
 
 

@@ -1,0 +1,408 @@
+"""HEVC Main 10 on the PyTorch port: the packed batch step at bit_depth=10.
+
+The mesh's packed entry points (parallel/mesh.deblock_packed_batch_sharded
+and its _jit twin), the streaming packed step under them, K2-10's plain
+version (ops/deblock.deblock_packed_plain) and the g++ build of K2-10
+(csrc/host_shim.cpp, gvct_host_deblock_packed at bit depth 10) filter int16
+batches of 10-bit samples in [0, 1023], with beta and tc the tables' at the
+QP (the port scales them by 4) and every filtered sample clipped to 1023.
+Every case is held byte for byte to the plain reference
+bench_torch/references/hevc_deblock.py at bit_depth=10: plain PyTorch,
+written apart from the port, imported as it is.  On the CPU:
+  - seeded random 10-bit frames at QPs 22, 27, 32, 37 and 51, all-intra and
+    random BS, at 64x48, 96x64 and (mesh only: the plain path takes every
+    width) a sheared 72x40;
+  - hand-built frames that catch the likely faults: a segment whose rows'
+    dp and dq overflow a 10-bit field, strong filters beside 1023, edges
+    that filter only with scaled beta and tc, and 8-bit filtering of the
+    samples shifted right by 2, each through the mesh, the plain version
+    and the g++ build;
+  - the argument errors: bit_depth 9, a uint8 buffer at 10 bits, an int16
+    buffer at 8, and K2-10's width guard.
+Tests marked `cuda` launch K2-10 on the card (one launch a call, under its
+own counter) against the plain path at the 4K cell's shape, at 720x576
+(w % 32 == 16) and on the buffer's views, and check that a sheared 10-bit
+width raises there; they skip without a card, and nothing here imports JAX
+(`python -m pytest tests/test_torch_main10.py -m cuda`)."""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from bench_torch.references import hevc_deblock as ref
+from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
+from gpu_video_codec_tpu_torch.ops.deblock import deblock_packed_plain
+from gpu_video_codec_tpu_torch.ops.tables import get_beta, get_tc
+from gpu_video_codec_tpu_torch.parallel import mesh as pm
+from gpu_video_codec_tpu_torch.utils.bs import BoundaryStrength, segment_bs_maps_device
+
+QPS = [22, 27, 32, 37, 51]
+BS_KINDS = ["ai", "random"]
+ENTRIES = {"eager": pm.deblock_packed_batch_sharded, "jit": pm.deblock_packed_batch_sharded_jit}
+TOP = 1023
+
+
+def _bs(kind, w, h, seed=0):
+    """The reference's flat BS arrays: all-intra, or uniform in 0..2."""
+    ai = BoundaryStrength.intra_default(w, h)
+    bs = {k: getattr(ai, k) for k in ("vert", "hor", "chroma_vert", "chroma_hor")}
+    if kind == "random":
+        rng = np.random.default_rng([w, h, seed, 7])
+        bs = {k: rng.integers(0, 3, v.size, dtype=np.uint8) for k, v in bs.items()}
+    return bs
+
+
+def _maps(bs, w, h, device="cpu"):
+    """The port's luma and chroma gate maps, built as the benchmark's feed
+    builds them."""
+    b = 8
+    ny, nx = h // b + 1, w // b + 1
+    lm = segment_bs_maps_device(bs["vert"], bs["hor"], w, ny, nx, ny, nx, device=device)
+    cm = segment_bs_maps_device(bs["chroma_vert"], bs["chroma_hor"], w // 2, (h // 2) // b + 1,
+                                (w // 2) // b + 1, ny, nx, device=device)
+    return lm, cm
+
+
+def _frames(seed, n, w, h):
+    """n packed 10-bit frames (int16, (n, 3h/2, w)): flat 4x4 cells with
+    small noise (both filters fire), a tenth of the cells at the ends of
+    the range, a quarter uniform noise."""
+    rng = np.random.default_rng(seed)
+    rows = 3 * h // 2
+    cell = (n, rows // 4 + 1, w // 4 + 1)
+
+    def up(a):
+        return np.repeat(np.repeat(a, 4, 1), 4, 2)[:, :rows, :w]
+
+    base = rng.integers(160, 864, cell)
+    ends = rng.random(cell)
+    base = np.where(ends < 0.05, rng.integers(0, 40, cell), base)
+    base = np.where(ends > 0.95, rng.integers(984, 1024, cell), base)
+    f = up(base) + rng.integers(-12, 13, (n, rows, w))
+    f = np.where(up(rng.random(cell) < 0.25), rng.integers(0, 1024, (n, rows, w)), f)
+    return torch.from_numpy(np.clip(f, 0, TOP).astype(np.int16))
+
+
+def _planes(buf, h):
+    lead = tuple(buf.shape[:-2])
+    return buf[..., :h, :], buf[..., h:, :].view(*lead, 2, h // 2, buf.shape[-1] // 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _case(qp, kind, w, h):
+    """Three frames, their BS and the reference's output (read-only)."""
+    frames = _frames([qp, w, h, len(kind)], 3, w, h)
+    bs = _bs(kind, w, h, qp)
+    return frames, bs, ref.deblock_packed(frames, w, h, qp, bs, bit_depth=10)
+
+
+def _mesh_step(entry, frames, bs, qp, w, h):
+    buf = frames.clone()
+    lm, cm = _maps(bs, w, h)
+    mesh = pm.make_mesh(1, 2, devices=["cpu"] * 2)
+    out = ENTRIES[entry](mesh, buf, lm, cm, get_beta(qp), get_tc(qp), w=w, h=h, bit_depth=10)
+    assert out is buf
+    return buf
+
+
+def _plain_step(frames, bs, qp, w, h):
+    lm, cm = _maps(bs, w, h, frames.device)
+    y, uv = deblock_packed_plain(*_planes(frames, h), lm, cm, get_beta(qp), get_tc(qp),
+                                 bit_depth=10)
+    return torch.cat([y, uv.reshape(*frames.shape[:-2], h // 2, w)], dim=-2)
+
+
+def _host_step(frames, bs, qp, w, h):
+    """gvct_host_deblock_packed (the g++ build of K2-10) in place on a copy."""
+    lib = ck.load_host_library()
+    buf = frames.clone()
+    lm, cm = _maps(bs, w, h)
+    y, uv = _planes(buf, h)
+    assert lib.gvct_host_deblock_packed(*ck.packed_launch_args(
+        y, uv, y, uv, lm, cm, get_beta(qp), get_tc(qp), False, 10)) == 0
+    return buf
+
+
+# -- seeded random frames against the reference -----------------------------------------
+
+@pytest.mark.parametrize("entry", list(ENTRIES))
+@pytest.mark.parametrize("w,h", [(64, 48), (96, 64), (72, 40)], ids=["64x48", "96x64",
+                                                                    "72x40-sheared"])
+@pytest.mark.parametrize("kind", BS_KINDS)
+@pytest.mark.parametrize("qp", QPS)
+def test_mesh_main10_matches_reference(qp, kind, w, h, entry):
+    """The mesh's packed entries on two CPU slots (3 frames: 2 and 1)."""
+    frames, bs, want = _case(qp, kind, w, h)
+    got = _mesh_step(entry, frames, bs, qp, w, h)
+    assert torch.equal(got, want)
+    assert qp < 30 or (want != frames).sum() > 100  # the filter does work
+
+
+@pytest.mark.parametrize("path", ["plain", "host"])
+@pytest.mark.parametrize("w,h", [(64, 48), (96, 64)], ids=["64x48", "96x64"])
+@pytest.mark.parametrize("kind", BS_KINDS)
+@pytest.mark.parametrize("qp", QPS)
+def test_k2_10_paths_match_reference(qp, kind, w, h, path):
+    """K2-10's plain version and its g++ build, on the frames' planes."""
+    frames, bs, want = _case(qp, kind, w, h)
+    step = _plain_step if path == "plain" else _host_step
+    assert torch.equal(step(frames, bs, qp, w, h), want)
+
+
+# -- hand-built frames that catch the likely faults ----------------------------------------
+
+W, H = 64, 48
+
+
+def _flat(v=512):
+    return torch.full((1, 3 * H // 2, W), v, dtype=torch.int16)
+
+
+def _overflow_frame():
+    """Flat 512 but for segment rows 16 and 19 of the vertical edge at x = 16:
+    p2, p1, p0 = 1, 0, 1023 and q0, q1, q2 = 1003, 0, 21, so dp = dq = 1024
+    in each row and dp0 + dp3 = dq0 + dq3 = 2048 (the segment is skipped)."""
+    f = _flat()
+    for r in (16, 19):
+        f[0, r, 13:19] = torch.tensor([1, 0, 1023, 1003, 0, 21])
+    return f
+
+
+def _strong_frame():
+    """Smooth halves at 1020 and 1000 (luma) and 1015 and 1000 (U, V): the
+    strong filter and the chroma filter set samples above 255."""
+    f = _flat()
+    f[0, :H, : W // 2] = 1020
+    f[0, :H, W // 2 :] = 1000
+    c = f[0, H:].view(2, H // 2, W // 2)
+    c[:, :, : W // 4] = 1015
+    c[:, :, W // 4 :] = 1000
+    return f
+
+
+def _scaled_frame():
+    """Every 8 columns q0..q3, p3..p0 = 540, 540, 550, 545, 505, 510, 500, 500:
+    dp = dq = 10 a row, so a segment's d is 40, at or above QP 32's beta'
+    26 but below its scaled beta 104; the step of 40 passes the normal
+    filter's gate at the scaled tc."""
+    f = _flat()
+    pattern = torch.tensor([540, 540, 550, 545, 505, 510, 500, 500], dtype=torch.int16)
+    f[0, :H] = pattern.repeat(W // 8)
+    return f
+
+
+def _overflow_fault(frame):
+    """The 10-bit-field exchange's reading of the segment at x = 16, rows
+    16-19: rows 0 and 3 packed as dp | dq << 10 | fail << 20 and summed;
+    returns (dp + dq as that sum reads it, as it is)."""
+    def d(row, a, b, c):
+        return abs(int(frame[0, row, a]) - 2 * int(frame[0, row, b]) + int(frame[0, row, c]))
+
+    dps = [d(r, 13, 14, 15) for r in (16, 19)]
+    dqs = [d(r, 18, 17, 16) for r in (16, 19)]
+    total = sum(dp | dq << 10 for dp, dq in zip(dps, dqs))
+    return (total & 1023) + (total >> 10 & 1023), sum(dps) + sum(dqs)
+
+
+FAULTS = {
+    # name: (frame, qp, bs kind)
+    "dp-dq-overflow": (_overflow_frame, 37, "ai"),
+    "strong-beside-1023": (_strong_frame, 51, "ai"),
+    "unscaled-thresholds": (_scaled_frame, 32, "ai"),
+    "shifted-8-bit": (_strong_frame, 37, "random"),
+}
+
+
+def _faulty(name, frame, qp, bs, monkeypatch):
+    """What the fault would give where the reference can say (None where it
+    cannot: the overflow is shown on the exchange's arithmetic)."""
+    if name == "strong-beside-1023":
+        with monkeypatch.context() as m:
+            m.setattr(ref, "max_pixel", lambda bit_depth=8: 255)
+            return ref.deblock_packed(frame, W, H, qp, bs, bit_depth=10)
+    if name == "unscaled-thresholds":
+        with monkeypatch.context() as m:
+            m.setattr(ref, "beta_tc", lambda q, bit_depth=8: (ref.BETA[q], ref.TC[q]))
+            return ref.deblock_packed(frame, W, H, qp, bs, bit_depth=10)
+    if name == "shifted-8-bit":
+        eight = ref.deblock_packed((frame >> 2).to(torch.uint8), W, H, qp, bs)
+        return eight.to(torch.int16) << 2
+    return None
+
+
+@pytest.mark.parametrize("path", ["mesh", "plain", "host"])
+@pytest.mark.parametrize("name", list(FAULTS))
+def test_main10_catches_likely_faults(name, path, monkeypatch):
+    make, qp, kind = FAULTS[name]
+    frame = make()
+    bs = _bs(kind, W, H, qp)
+    want = ref.deblock_packed(frame, W, H, qp, bs, bit_depth=10)
+    if path == "mesh":
+        got = _mesh_step("jit", frame, bs, qp, W, H)
+    elif path == "plain":
+        got = _plain_step(frame, bs, qp, W, H)
+    else:
+        got = _host_step(frame, bs, qp, W, H)
+    assert torch.equal(got, want)
+    faulty = _faulty(name, frame, qp, bs, monkeypatch)
+    if faulty is None:  # 12-bit fields hold what 10-bit ones wrap
+        wrapped, d = _overflow_fault(frame)
+        beta = get_beta(qp) * 4
+        assert d >= beta > wrapped  # skipped, where 10-bit fields would filter
+        assert torch.equal(want[0, 16:20, 14:18], frame[0, 16:20, 14:18])
+    else:
+        assert not torch.equal(faulty, want)
+    assert int(want.max()) > 255 and int(want.min()) >= 0
+
+
+# -- argument errors ------------------------------------------------------------------------
+
+def _args(dtype=torch.int16, w=W, h=H):
+    bs = _bs("ai", w, h)
+    lm, cm = _maps(bs, w, h)
+    return torch.zeros((2, 3 * h // 2, w), dtype=dtype), lm, cm, get_beta(32), get_tc(32)
+
+
+@pytest.mark.parametrize("entry", list(ENTRIES))
+@pytest.mark.parametrize("dtype,bit_depth", [(torch.int16, 9), (torch.uint8, 9),
+                                             (torch.uint8, 10), (torch.int16, 8),
+                                             (torch.int32, 10)],
+                         ids=["int16-bd9", "uint8-bd9", "uint8-bd10", "int16-bd8",
+                              "int32-bd10"])
+def test_mesh_main10_argument_errors(entry, dtype, bit_depth):
+    buf, lm, cm, beta, tc = _args(dtype)
+    before = buf.clone()
+    mesh = pm.make_mesh(1, 1, devices=["cpu"])
+    with pytest.raises(ValueError, match="bit_depth"):
+        ENTRIES[entry](mesh, buf, lm, cm, beta, tc, w=W, h=H, bit_depth=bit_depth)
+    assert torch.equal(buf, before)
+
+
+def test_packed_wrapper_main10_argument_errors():
+    buf, lm, cm, beta, tc = _args()
+    y, uv = _planes(buf, H)
+    with pytest.raises(ValueError, match="bit_depth"):
+        ck.deblock_packed_cuda(y, uv, lm, cm, beta, tc, bit_depth=9)
+    with pytest.raises(ValueError, match="int16"):
+        ck.deblock_packed_cuda(*_planes(buf.to(torch.uint8), H), lm, cm, beta, tc, bit_depth=10)
+    with pytest.raises(ValueError, match="uint8"):
+        ck.deblock_packed_cuda(y, uv, lm, cm, beta, tc)
+    assert ck.load_host_library().gvct_host_deblock_packed(*ck.packed_launch_args(
+        y, uv, y, uv, lm, cm, beta, tc, False, 9)) == -1
+
+
+GUARD_10 = [
+    # (w, h, takes K2-10, takes K2)
+    (64, 48, True, True),
+    (720, 576, True, False),     # w % 32 == 16
+    (3840, 2160, True, True),
+    (72, 40, False, False),      # sheared (Q9: w % 16 == 8)
+    (360, 288, False, False),    # sheared
+]
+
+
+@pytest.mark.parametrize("w,h,takes10,takes8", GUARD_10,
+                         ids=[f"{w}x{h}" for w, h, _, _ in GUARD_10])
+def test_packed_guard_main10(w, h, takes10, takes8):
+    """K2-10's width rule, w % 16 == 0, beside K2's w % 32 == 0, on int16
+    and uint8 planes of a 16-byte aligned batch; every JCTVC-L1100 / JVET
+    CTC width passes it."""
+    buf = torch.zeros((1, 3 * h // 2, w), dtype=torch.int16)
+    assert buf.data_ptr() % 16 == 0
+    assert ck.packed_fits(w, *_planes(buf, h), bit_depth=10) is takes10
+    assert ck.packed_fits(w, *_planes(buf.to(torch.uint8), h)) is takes8
+    for ctc in (3840, 2560, 1920, 1280, 832, 416):
+        assert ck.packed_fits(ctc, bit_depth=10)
+
+
+def test_packed_guard_main10_counts_bytes():
+    """Strides count in bytes: an int16 view 8 samples (16 bytes) in fits,
+    one 4 samples (8 bytes) in does not."""
+    raw = torch.zeros(3 * H // 2 * W + 64, dtype=torch.int16)
+    base = (-raw.data_ptr() // 2) % 8
+    for off, fits in ((0, True), (8, True), (4, False)):
+        buf = raw[base + off : base + off + 3 * H // 2 * W].view(1, 3 * H // 2, W)
+        assert ck.packed_fits(W, *_planes(buf, H), bit_depth=10) is fits
+
+
+# -- the card ---------------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _launches():
+    return {k: ck.LAUNCHES[k] for k in ("packed", "packed10", "luma", "chroma")}
+
+
+def _card_case(k, w, h, dev, qp=32):
+    frames = _frames([k, w, h], k, w, h).to(dev)
+    bs = _bs("random", w, h, k)
+    return frames, bs, _maps(bs, w, h, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,w,h", [(4, 3840, 2160), (2, 720, 576), (3, 64, 48)],
+                         ids=["k4-2160p", "k2-720x576", "k3-64x48"])
+def test_k2_10_matches_plain_on_card(cuda_device, k, w, h):
+    """K2-10 through the mesh's graph replay == the plain path on the card,
+    one K2-10 launch a call; on the buffer's views through the wrapper, in
+    place and into new planes; and == the reference below 4K."""
+    qp = 32
+    frames, bs, (lm, cm) = _card_case(k, w, h, cuda_device, qp)
+    want = _plain_step(frames, bs, qp, w, h)
+    mesh = pm.make_mesh(1, 1, devices=[cuda_device])
+    for _ in range(2):  # the call that captures, then a replay
+        buf = frames.clone()
+        before = _launches()
+        pm.deblock_packed_batch_sharded_jit(mesh, buf, lm, cm, get_beta(qp), get_tc(qp), w=w,
+                                            h=h, bit_depth=10)
+        torch.cuda.synchronize()
+        assert {n: v - before[n] for n, v in _launches().items()} == {
+            "packed": 0, "packed10": 1, "luma": 0, "chroma": 0}
+        assert torch.equal(buf, want)
+    y, uv = _planes(frames, h)
+    new_y, new_uv = ck.deblock_packed_cuda(y, uv, lm, cm, get_beta(qp), get_tc(qp),
+                                           bit_depth=10)
+    assert torch.equal(torch.cat([new_y, new_uv.reshape(k, h // 2, w)], dim=-2), want)
+    if w <= 720:
+        assert torch.equal(want.cpu(), ref.deblock_packed(frames.cpu(), w, h, qp, bs,
+                                                          bit_depth=10))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", list(ENTRIES))
+def test_k2_10_sheared_or_misaligned_raises_on_card(cuda_device, entry):
+    """A 10-bit width K2-10 cannot take, or a buffer off 16 bytes, raises
+    ValueError on the card and leaves the buffer as it was; the card then
+    still runs K2-10."""
+    w, h = 360, 288
+    frames, bs, (lm, cm) = _card_case(1, w, h, cuda_device)
+    mesh = pm.make_mesh(1, 1, devices=[cuda_device])
+    before = frames.clone()
+    with pytest.raises(ValueError, match="K2-10 takes w % 16 == 0"):
+        ENTRIES[entry](mesh, frames, lm, cm, get_beta(32), get_tc(32), w=w, h=h, bit_depth=10)
+    raw = torch.zeros(3 * H // 2 * W + 8, dtype=torch.int16, device=cuda_device)
+    buf = raw[4 : 4 + 3 * H // 2 * W].view(1, 3 * H // 2, W)  # 8 bytes off
+    buf.copy_(_frames(3, 1, W, H))
+    lm, cm = _maps(_bs("ai", W, H), W, H, cuda_device)
+    with pytest.raises(ValueError, match="K2-10"):
+        ENTRIES[entry](mesh, buf, lm, cm, get_beta(32), get_tc(32), w=W, h=H, bit_depth=10)
+    torch.cuda.synchronize()
+    assert torch.equal(frames, before) and torch.equal(buf.cpu(), _frames(3, 1, W, H))
+    good = buf.clone()
+    ENTRIES[entry](mesh, good, lm, cm, get_beta(32), get_tc(32), w=W, h=H, bit_depth=10)
+    assert torch.equal(good.cpu(), ref.deblock_packed(buf.cpu(), W, H, 32, _bs("ai", W, H),
+                                                      bit_depth=10))
+
+
+@pytest.mark.cuda
+def test_k2_10_info_on_card(cuda_device):
+    info = ck.deblock_packed_info(cuda_device, bit_depth=10)
+    assert info["threads"] == 4 * ck.PACKED_TILES and info["registers"] <= 64
+    assert info["blocks_per_sm"] >= 8 and info["smem_bytes"] >= 8 * 272
