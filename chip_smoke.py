@@ -246,10 +246,11 @@ def main() -> int:
     from gpu_video_codec_tpu_torch.models.golden import deblock_frame_golden
     from gpu_video_codec_tpu_torch.models.pipeline import DeblockPipeline
     from gpu_video_codec_tpu_torch.models.resident import ResidentDeblocker, _readback
-    from gpu_video_codec_tpu_torch.models.streaming import StreamingDeblocker, _tile_chain
+    from gpu_video_codec_tpu_torch.models.streaming import StreamingDeblocker
     from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
     from gpu_video_codec_tpu_torch.ops import relayout_kernel as rk
     from gpu_video_codec_tpu_torch.ops import swar_kernel as sk
+    from gpu_video_codec_tpu_torch.ops.chain import deblock_frame_cuda, tile_chain
     from gpu_video_codec_tpu_torch.ops.deblock import (
         deblock_packed_plain, deblock_rows_plain, deblock_tiles_plain,
     )
@@ -739,7 +740,7 @@ def main() -> int:
         cm = [torch.from_numpy(m).to(dev) for m in chroma_segment_maps(bs)]
         planes = [torch.from_numpy(p).to(dev) for p in (fp.y, fp.u, fp.v)]
         reset()
-        y, u, v = ck.deblock_frame_cuda(*planes, lm, cm, beta35, tc35, dtype=torch.int16)
+        y, u, v = deblock_frame_cuda(*planes, lm, cm, beta35, tc35, dtype=torch.int16)
         got = counts()
         check(got == only(**{"K1-i16": 1, "K1-i16c": 1, "T2": 3, "T3": 3}),
               f"int16 frame {w}x{h}: launches {got}")
@@ -1372,6 +1373,10 @@ def main() -> int:
     # K2 at the benchmark cells' shapes: first out of place against the chain
     # it replaces and its plain version, byte for byte with random BS; then
     # in turns with both, in place on the same batch of blocky frames
+    def chain(y, uv, lm, cm, beta, tc, out=(None, None)):  # the packed step's chain, pad 4
+        (y,) = tile_chain([y], lm, beta, tc, pad=4, chroma=False, out=out[:1])
+        return y, *tile_chain([uv], cm, beta, tc, pad=4, chroma=True, out=out[1:])
+
     k2_rows = []
     for kk, ww, hh in ((16, w, h), (4, 3840, 2160)):
         sk2 = StreamingDeblocker(ww, hh, 37, device=dev)
@@ -1386,8 +1391,7 @@ def main() -> int:
         planes_k = (bufk[:, :hh], bufk[:, hh:].view(kk, 2, hh // 2, ww // 2))
         args_k = (sk2._lm, sk2._cm, sk2._beta, sk2._tc)
         got_k = ck.deblock_packed_cuda(*planes_k, *args_k)
-        chain_k = _tile_chain(*planes_k, *args_k, ww, hh, False, ck.BLOCK_BX,
-                              ck.CHROMA_BLOCK_BX, None)
+        chain_k = chain(*planes_k, *args_k)
         plain_k = deblock_packed_plain(*planes_k, *args_k)
         for plane, g, c, p in zip(("luma", "U+V"), got_k, chain_k, plain_k):
             check(torch.equal(g, c) and torch.equal(g, p),
@@ -1400,8 +1404,7 @@ def main() -> int:
         del got_k, chain_k, plain_k
         r = in_turns({
             "K2": lambda pk=planes_k, ak=args_k: ck.deblock_packed_cuda(*pk, *ak, out=pk),
-            "chain": lambda pk=planes_k, ak=args_k, ww=ww, hh=hh: _tile_chain(
-                *pk, *ak, ww, hh, False, ck.BLOCK_BX, ck.CHROMA_BLOCK_BX, pk),
+            "chain": lambda pk=planes_k, ak=args_k: chain(*pk, *ak, out=pk),
             "plain": lambda pk=planes_k, ak=args_k: deblock_packed_plain(*pk, *ak)},
             {"K2": 200, "chain": 200, "plain": 3})
         k2_rows.append({"shape": f"({kk}, {3 * hh // 2}, {ww})", "ms": r["K2"][0],

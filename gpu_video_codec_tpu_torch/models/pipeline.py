@@ -5,7 +5,7 @@ reference's ExecuteCpu / ExecuteGpu drivers (main.cu:36-83,
 gpu.cu:1230-1306) with a backend-dispatching pipeline object:
 
   backend="cuda"   the hand-written kernels on `device`
-                   (ops/cuda_kernel.deblock_frame_cuda: per frame T2, K1 and
+                   (ops/chain.deblock_frame_cuda: per frame T2, K1 and
                    T3 for luma, T2 and T3 per plane and one K1c for U and V);
                    the counterpart of the JAX "pallas"
   backend="torch"  the plain PyTorch version on `device` (ops/deblock.py);
@@ -23,15 +23,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.cuda_kernel import deblock_frame_cuda
+from ..ops.chain import KERNELS, deblock_frame_cuda, tile_chain
 from ..ops.deblock import deblock_frame
-from ..ops.relayout_kernel import flat_view
-from ..ops.tables import SAMPLE_BLOCK_SIZE as _B, get_beta, get_tc
+from ..ops.tables import get_beta, get_tc
 from ..utils.bs import BoundaryStrength, chroma_segment_maps, luma_segment_maps
 from ..utils.yuv import FramePlanes
-from .resident import _KERNELS
-
-_DEVICE_BACKENDS = ("cuda", "torch")
 
 
 def _host(t) -> np.ndarray:
@@ -62,7 +58,7 @@ class DeblockPipeline:
         self.backend = backend
         self.num_threads = num_threads
         self.device = torch.device(device)
-        if backend in _DEVICE_BACKENDS:
+        if backend in KERNELS:
             if self.device.type not in ("cuda", "cpu"):
                 raise ValueError(f"device must be a CUDA or CPU device, got {self.device}")
             if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -75,7 +71,7 @@ class DeblockPipeline:
         if (bs.width, bs.height) != (self.width, self.height):
             raise ValueError("BoundaryStrength geometry mismatch")
         self.bs = bs
-        if self.backend in _DEVICE_BACKENDS:
+        if self.backend in KERNELS:
             self.luma_maps = tuple(torch.from_numpy(m).to(self.device)
                                    for m in luma_segment_maps(bs))
             self.chroma_maps = tuple(torch.from_numpy(m).to(self.device)
@@ -130,41 +126,25 @@ class DeblockPipeline:
 
         The JAX package folds the frames into one taller tile grid by row
         concatenation; here the batch is the kernels' leading axis, with one
-        shared BS map, so nothing is concatenated on the device.  Per batch:
-        T2, K1 and T3 for the (N, Hext, Wext) luma planes; T2, K1c and T3
-        for the (N, 2, cHext, cWext) U/V planes through their flat view
-        (quirk Q9, sheared or not), the flat tails copied out by T2 and
-        written back by T3.  Device backends only ("cuda", "torch")."""
-        if self.backend not in _DEVICE_BACKENDS:
+        shared BS map, so nothing is concatenated on the device.  Per batch
+        one chain (ops/chain.tile_chain, pad 0): T2, K1 and T3 for the (N,
+        Hext, Wext) luma planes; T2, K1c and T3 for the (N, 2, cHext, cWext)
+        U/V planes.  Device backends only ("cuda", "torch")."""
+        if self.backend not in KERNELS:
             raise ValueError("batch() requires a device backend ('cuda' or 'torch')")
         for f in frames:
             if (f.width, f.height) != (self.width, self.height):
                 raise ValueError("frame geometry mismatch in batch")
         if not frames:
             return []
-        t2, t3, _, deblock = _KERNELS[self.backend]
-        n = len(frames)
-        dev = self.device
         (y,) = self._put([np.stack([f.y for f in frames])])
-        hy, wy = y.shape[-2:]
-        yt = torch.empty((n, _B, _B, hy // _B, wy // _B), dtype=torch.uint8, device=dev)
-        t2(y, 0, out=yt)
-        yt = deblock(yt, *(m[None] for m in self.luma_maps), self.beta, self.tc, chroma=False,
-                     block_bx=None)
-        yo = _host(t3(yt, 0, hy, wy))
+        yo = _host(tile_chain([y], self.luma_maps, self.beta, self.tc, pad=0, chroma=False,
+                              backend=self.backend)[0])
         if self.luma_only:
             return [FramePlanes(yo[i], f.u.copy(), f.v.copy(), self.width, self.height)
                     for i, f in enumerate(frames)]
         (uv,) = self._put([np.stack([np.stack([f.u, f.v]) for f in frames])])
-        hc, wc = uv.shape[-2:]
-        vh, vw, tail = flat_view(hc, wc, 0)
-        uvt = torch.empty((n, 2, _B, _B, vh // _B, vw // _B), dtype=torch.uint8, device=dev)
-        rem = torch.empty((n, 2, tail), dtype=torch.uint8, device=dev)
-        t2(uv, 0, out=uvt, flat=True, rem_out=rem)
-        uvt = deblock(uvt.reshape(2 * n, _B, _B, vh // _B, vw // _B),
-                      *(m[None] for m in self.chroma_maps), self.beta, self.tc, chroma=True,
-                      block_bx=None)
-        uvo = _host(t3(uvt.reshape(n, 2, _B, _B, vh // _B, vw // _B), 0, hc, wc, flat=True,
-                       rem=rem))
+        uvo = _host(tile_chain([uv], self.chroma_maps, self.beta, self.tc, pad=0, chroma=True,
+                               backend=self.backend)[0])
         return [FramePlanes(yo[i], uvo[i, 0], uvo[i, 1], self.width, self.height)
-                for i in range(n)]
+                for i in range(len(frames))]

@@ -12,7 +12,7 @@ layout cost once, at the pipeline's boundaries:
   readback(st)   T3 (tile-planes -> planes) for luma and for U+V, T4 (pack
                  into one YV12 buffer), one device-to-host copy
 
-T2, T3 and T4 are ops/relayout_kernel.py, K1/K1c ops/cuda_kernel.py.  The
+T2, T3, T4 and K1/K1c come from ops/chain.KERNELS by backend.  The
 tile grid is the exact (By, Bx) of the covered tiles: the kernels guard
 their own tails, so the JAX package's padding of the grid to Pallas block
 multiples has no counterpart here.  A leading batch axis on the state runs
@@ -34,12 +34,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.cuda_kernel import BLOCK_BX, CHROMA_BLOCK_BX, deblock_tiles_cuda
-from ..ops.deblock import deblock_tiles_plain
-from ..ops.relayout_kernel import (
-    flat_tail_plain, flat_view, pack_yv12_cuda, pack_yv12_plain, plane_to_tiles_cuda,
-    plane_to_tiles_plain, tiles_to_plane_cuda, tiles_to_plane_plain,
-)
+from ..ops.chain import KERNELS
+from ..ops.cuda_kernel import BLOCK_BX, CHROMA_BLOCK_BX
+from ..ops.relayout_kernel import flat_view
 from ..ops.tables import HALF_BLOCK, SAMPLE_BLOCK_SIZE as _B, get_beta, get_tc
 from ..utils.bs import BoundaryStrength, segment_bs_maps_device
 from ..utils.graphs import CapturedStep, GraphCache, graphed, tensor_key
@@ -79,23 +76,6 @@ class TileFrame(NamedTuple):
     v_rem: torch.Tensor
 
 
-def _plane_to_tiles_plain(x, pad, *, out, flat=False, rem_out=None):
-    if rem_out is not None:
-        rem_out.copy_(flat_tail_plain(x, pad))
-    return out.copy_(plane_to_tiles_plain(x, pad, flat=flat))
-
-
-def _deblock_plain(tiles, *operands, chroma, block_bx):
-    return deblock_tiles_plain(tiles, *operands, chroma=chroma)
-
-
-# backend -> (T2, T3, T4, K1/K1c), each with the CUDA wrapper's signature
-_KERNELS = {
-    "cuda": (plane_to_tiles_cuda, tiles_to_plane_cuda, pack_yv12_cuda, deblock_tiles_cuda),
-    "torch": (_plane_to_tiles_plain, tiles_to_plane_plain, pack_yv12_plain, _deblock_plain),
-}
-
-
 def _sheared(w: int) -> bool:
     """Q9: the extended chroma width is not 8-aligned (w % 16 == 8)."""
     return (w // 2 + 2 * HALF_BLOCK) % _B != 0
@@ -110,15 +90,12 @@ def _ingest(buf, w: int, h: int, backend: str = "cuda") -> TileFrame:
     geometries (Q9) that launch tiles the flat view of the padded planes
     (flat=True) and copies their flat tails out into the state's
     remainders, straight from the packed buffer."""
-    t2 = _KERNELS[backend][0]
+    t2 = KERNELS[backend][0]
     p = HALF_BLOCK
     cw, ch = w // 2, h // 2
     lead = tuple(buf.shape[:-1])
     n = len(lead)
-    y_int = buf[..., : w * h].reshape(*lead, h, w)
-    y = torch.empty((*lead, _B, _B, (h + 2 * p) // _B, (w + 2 * p) // _B),
-                    dtype=torch.uint8, device=buf.device)
-    t2(y_int, p, out=y)
+    y = t2(buf[..., : w * h].reshape(*lead, h, w), p)
     uv_int = buf[..., w * h :].reshape(*lead, 2, ch, cw)
     vh, vw, tail = flat_view(ch, cw, p)
     flat = _sheared(w)
@@ -145,7 +122,7 @@ def _readback(tf: TileFrame, w: int, h: int, backend: str = "cuda"):
     """TileFrame -> filtered packed YV12 uint8 (.., 3wh/2) on the device:
     T3 for luma, T3 for U and V together (on sheared geometries from the
     flat view, the flat tails from the state's remainders), T4 to pack."""
-    _, t3, t4, _ = _KERNELS[backend]
+    _, t3, t4, _ = KERNELS[backend]
     p = HALF_BLOCK
     cw, ch = w // 2, h // 2
     lead = tuple(tf.y.shape[:-4])
@@ -165,7 +142,7 @@ def _step_core(tf: TileFrame, lm, cm, beta, tc, luma_only: bool, backend: str = 
                luma_block: int = BLOCK_BX, chroma_block: int = CHROMA_BLOCK_BX) -> TileFrame:
     """The steady state: the deblock kernels only, no layout work.  A
     batched TileFrame shares one BS map across its frames."""
-    deblock = _KERNELS[backend][3]
+    deblock = KERNELS[backend][3]
     if tf.y.dim() == 5:
         lm = tuple(m[None] for m in lm)
         cm = tuple(m[None] for m in cm)
@@ -240,7 +217,7 @@ class ResidentDeblocker:
                  luma_only: bool = False, bs: BoundaryStrength | None = None,
                  backend: str = "cuda", luma_block: int = BLOCK_BX,
                  chroma_block: int = CHROMA_BLOCK_BX, device="cuda"):
-        if backend not in _KERNELS:
+        if backend not in KERNELS:
             raise ValueError(f"resident backend must be 'cuda' or 'torch', got {backend!r}")
         check_dims(width, height)  # reference contract (cpu.h:46-48)
         self.device = torch.device(device)

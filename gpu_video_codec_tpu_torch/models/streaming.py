@@ -14,8 +14,8 @@ Counterpart of the main path of gpu_video_codec_tpu/models/streaming.py:
   16-byte aligned buffers) holds.  Elsewhere -- the sheared widths (Q9),
   w % 32 == 16, misaligned buffers -- luma goes interior -> tile-planes
   (T2) -> deblock kernel (K1) -> interior (T3), and U and V go the same way
-  as one batch, one launch each of T2, K1c and T3 (ops/relayout_kernel.py,
-  ops/cuda_kernel.py), T3 writing straight into the frame's buffer;
+  as one batch, one launch each of T2, K1c and T3 (ops/chain.tile_chain),
+  T3 writing straight into the frame's buffer;
 * on a CUDA device with the cuda backend a step is ONE replay of a CUDA
   graph of those launches (utils/graphs.py), the counterpart of one jit
   dispatch: _step and _chain replay a graph per buffer from a bounded
@@ -40,13 +40,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.chain import tile_chain
 from ..ops.cuda_kernel import (
-    BLOCK_BX, CHROMA_BLOCK_BX, deblock_packed_cuda, deblock_tiles_cuda, packed_fits, packed_limit,
+    BLOCK_BX, CHROMA_BLOCK_BX, deblock_packed_cuda, packed_fits, packed_limit,
 )
 from ..ops.deblock import deblock_frame
-from ..ops.relayout_kernel import (
-    flat_view, plane_to_tiles_cuda, tail_holds_interior, tiles_to_plane_cuda,
-)
 from ..ops.tables import HALF_BLOCK, SAMPLE_BLOCK_SIZE, get_beta, get_tc
 from ..utils.bs import BoundaryStrength, segment_bs_maps_device
 from ..utils.graphs import CapturedStep, GraphCache, graphed, tensor_key
@@ -80,9 +78,11 @@ def _deblock_planes_impl(y, uv, lm, cm, beta, tc, w, h, luma_only, backend,
 
     backend "cuda": K2, one launch for luma, U and V (deblock_packed_cuda),
     where its guard (packed_fits) holds for the planes and destinations;
-    elsewhere the chain (_tile_chain).
+    elsewhere the chain (ops/chain.tile_chain, pad 4): luma through T2, K1
+    and T3, U and V as one tensor through T2, K1c and T3.
     out: optional (y, uv) destinations the cuda backend writes into (any
-    strides, last axis contiguous), returned in place of new tensors.
+    strides, last axis contiguous; y and uv themselves for in place),
+    returned in place of new tensors.
     backend "torch": the plain version on zero-extended planes.
     luma_block/chroma_block: K1's and K1c's tiles per block, so the chain's
     only; K2's are a constant of its design (ops/cuda_kernel.PACKED_TILES).
@@ -97,10 +97,15 @@ def _deblock_planes_impl(y, uv, lm, cm, beta, tc, w, h, luma_only, backend,
         if packed_fits(w, y, uv, *(out or ()), bit_depth=bit_depth):
             return deblock_packed_cuda(y, uv, lm, cm, beta, tc, luma_only=luma_only, out=out,
                                        bit_depth=bit_depth)
-        if bit_depth == 8:
-            return _tile_chain(y, uv, lm, cm, beta, tc, w, h, luma_only, luma_block,
-                               chroma_block, out)
-        raise ValueError(f"no {bit_depth}-bit chain: {packed_limit(w, bit_depth)}")
+        if bit_depth != 8:
+            raise ValueError(f"no {bit_depth}-bit chain: {packed_limit(w, bit_depth)}")
+        y_dst, uv_dst = out or (None, None)
+        (y_int,) = tile_chain([y], lm, beta, tc, pad=p, chroma=False, out=[y_dst],
+                              block_bx=luma_block)
+        if luma_only:
+            return y_int, uv
+        return y_int, *tile_chain([uv], cm, beta, tc, pad=p, chroma=True, out=[uv_dst],
+                                  block_bx=chroma_block)
     ye, ue, ve = deblock_frame(F.pad(y, pads), F.pad(uv[..., 0, :, :], pads),
                                F.pad(uv[..., 1, :, :], pads), lm, cm, beta, tc,
                                luma_only=luma_only, bit_depth=bit_depth)
@@ -109,37 +114,6 @@ def _deblock_planes_impl(y, uv, lm, cm, beta, tc, w, h, luma_only, backend,
         return y_int, uv
     return y_int, torch.stack([ue[..., p : p + ch, p : p + cw], ve[..., p : p + ch, p : p + cw]],
                               dim=-3)
-
-
-def _tile_chain(y, uv, lm, cm, beta, tc, w, h, luma_only, luma_block, chroma_block, out):
-    """The cuda backend's packed step where K2's guard fails, as
-    _deblock_planes_impl takes it: luma goes interior -> tile-planes (T2) ->
-    K1 -> interior (T3); T2 does the Q6 zero padding.  U and V go the same
-    way as a batch of two (of 2k for k frames), one launch each, with one
-    shared map.  Sheared geometries (Q9, w % 16 == 8) take T2's and T3's
-    flat view of the padded pair (flat=True) straight from and to the
-    interior planes; where the flat tail past the view holds interior
-    pixels, T2 copies it out and T3 writes it back (rem), so it leaves the
-    step as it came in.  out: T3's destinations, or None."""
-    p = HALF_BLOCK
-    cw, ch = w // 2, h // 2
-    lead = tuple(y.shape[:-2])
-    y_dst, uv_dst = out or (None, None)
-    lmaps = [m[None] for m in lm] if lead else lm  # shared across the frame batch
-    yt = deblock_tiles_cuda(plane_to_tiles_cuda(y, p), *lmaps, beta, tc, chroma=False,
-                            block_bx=luma_block)
-    y_int = tiles_to_plane_cuda(yt, p, h, w, out=y_dst)
-    if luma_only:
-        return y_int, uv
-    cmaps = [m[None] for m in cm]  # one shared map across the U/V batch
-    flat = (cw + 2 * p) % SAMPLE_BLOCK_SIZE != 0
-    rem = (torch.empty((*lead, 2, flat_view(ch, cw, p)[2]), dtype=torch.uint8,
-                       device=uv.device)
-           if flat and tail_holds_interior(ch, cw, p) else None)
-    uvt = plane_to_tiles_cuda(uv, p, flat=flat, rem_out=rem)  # (.., 2, 8, 8, cBy, cBx)
-    uvt = deblock_tiles_cuda(uvt.reshape(-1, *uvt.shape[-4:]), *cmaps, beta, tc,
-                             chroma=True, block_bx=chroma_block).reshape(uvt.shape)
-    return y_int, tiles_to_plane_cuda(uvt, p, ch, cw, out=uv_dst, flat=flat, rem=rem)
 
 
 def _deblock_yv12_packed_impl(buf, lm, cm, beta, tc, w, h, luma_only, backend,
@@ -168,8 +142,10 @@ def _deblock_yv12_packed_impl(buf, lm, cm, beta, tc, w, h, luma_only, backend,
         dst = buf if inplace else torch.empty_like(buf)
         if luma_only and not inplace:
             dst[..., h:, :].copy_(buf[..., h:, :])
-        _deblock_planes_impl(*planes(buf), lm, cm, beta, tc, w, h, luma_only, backend,
-                             luma_block, chroma_block, out=planes(dst), bit_depth=bit_depth)
+        src = planes(buf)
+        _deblock_planes_impl(*src, lm, cm, beta, tc, w, h, luma_only, backend, luma_block,
+                             chroma_block, out=src if inplace else planes(dst),
+                             bit_depth=bit_depth)
         return dst
     y_int, uv_int = _deblock_planes_impl(*planes(buf), lm, cm, beta, tc, w, h, luma_only,
                                          backend, luma_block, chroma_block,

@@ -27,9 +27,8 @@ and is loaded with ctypes (no PyTorch headers, so the build takes seconds).
 deblock_tiles_cuda, deblock_rows_cuda and deblock_packed_cuda launch their
 kernel for a CUDA tensor and raise on any failure; for a CPU tensor they
 run the plain version (ops/deblock.deblock_tiles_plain, deblock_rows_plain,
-deblock_packed_plain).  The frame wrappers (deblock_frame_cuda,
-deblock_chroma_ext_cuda) relayout with T2 and T3 (ops/relayout_kernel.py).
-LAUNCHES counts kernel launches.
+deblock_packed_plain).  The chain around K1 and K1c, T2 -> K1 -> T3, is
+ops/chain.py.  LAUNCHES counts kernel launches.
 """
 
 from __future__ import annotations
@@ -575,51 +574,3 @@ def deblock_packed_info(device=None, bit_depth: int = 8) -> dict:
             "warps_per_sm": blocks * ((threads + 31) // 32), "smem_bytes": smem,
             "registers": regs}
 
-
-def deblock_frame_cuda(y_ext, u_ext, v_ext, luma_maps, chroma_maps, beta, tc,
-                       luma_only: bool = False, luma_block: int | None = None,
-                       chroma_block: int | None = None, dtype=torch.int32):
-    """Full-frame deblock of extended planes through the kernels: one luma
-    launch, and one chroma launch for U and V together
-    (deblock_chroma_ext_cuda).  The luma plane goes to tile-planes and back
-    through T2 and T3 (ops/relayout_kernel.py, pad 0 on the extended plane;
-    on a CPU tensor their plain versions).  dtype=torch.int16 runs K1-i16
-    for both (the same bytes as the default torch.int32).
-    luma_block/chroma_block: deblock_tiles_cuda's block_bx (default: its
-    own for the dtype)."""
-    from . import relayout_kernel as rk  # it imports this module
-
-    y_out = deblock_tiles_cuda(rk.plane_to_tiles_cuda(y_ext, 0), *luma_maps, beta, tc,
-                               chroma=False, block_bx=luma_block, dtype=dtype)
-    y_plane = rk.tiles_to_plane_cuda(y_out, 0, *y_ext.shape[-2:])
-    if luma_only:
-        return y_plane, u_ext, v_ext
-    u_plane, v_plane = deblock_chroma_ext_cuda(u_ext, v_ext, chroma_maps, beta, tc,
-                                               chroma_block=chroma_block, dtype=dtype)
-    return y_plane, u_plane, v_plane
-
-
-def deblock_chroma_ext_cuda(u_ext, v_ext, chroma_maps, beta, tc,
-                            chroma_block: int | None = None, dtype=torch.int32):
-    """Chroma-only deblock of extended U/V planes in one launch, computed in
-    `dtype` (torch.int32 or torch.int16).  Chroma sweeps the reference's
-    flat (8*ncby, 8*ncbx) view of each plane (quirk Q9: sheared when the
-    extended width is not 8-aligned; the flat remainder is untouched): each
-    plane goes through T2's flat view (pad 0) into one U-over-V tile stack,
-    copying its flat tail out, the kernel runs the stack as a batch of two
-    with one shared map, and T3 writes each plane anew, its flat tail from
-    the copy."""
-    from . import relayout_kernel as rk  # it imports this module
-
-    planes = (u_ext, v_ext)
-    hh, ww = u_ext.shape
-    vh, vw, n = rk.flat_view(hh, ww, 0)
-    tiles = torch.empty((2, 8, 8, vh // 8, vw // 8), dtype=torch.uint8, device=u_ext.device)
-    rems = torch.empty((2, n), dtype=torch.uint8, device=u_ext.device)
-    for x, dst, rem in zip(planes, tiles, rems):
-        rk.plane_to_tiles_cuda(x, 0, out=dst, flat=True, rem_out=rem)
-    tiles = deblock_tiles_cuda(tiles, *(m[None] for m in chroma_maps), beta, tc, chroma=True,
-                               block_bx=chroma_block, dtype=dtype)
-    u_out, v_out = (rk.tiles_to_plane_cuda(t, 0, hh, ww, flat=True, rem=rem)
-                    for t, rem in zip(tiles, rems))
-    return u_out, v_out

@@ -34,11 +34,8 @@ import numpy as np
 import torch
 
 from ..models.streaming import _packed_steps
-from ..ops.cuda_kernel import BLOCK_BX, CHROMA_BLOCK_BX, SAMPLE_DTYPES, deblock_tiles_cuda
-from ..ops.deblock import deblock_tiles_plain
-from ..ops.relayout_kernel import (
-    plane_to_tiles_cuda, plane_to_tiles_plain, tiles_to_plane_cuda, tiles_to_plane_plain,
-)
+from ..ops.chain import tile_chain
+from ..ops.cuda_kernel import BLOCK_BX, CHROMA_BLOCK_BX, SAMPLE_DTYPES
 from ..ops.tables import SAMPLE_BLOCK_SIZE as _B
 from ..ops.tables import check_bit_depth
 from ..utils.graphs import CapturedStep, GraphCache, graphed, tensor_key
@@ -206,28 +203,12 @@ def _run(mesh: Mesh, index: int, fn, operands: tuple, static: tuple, graph: bool
 
 def _slab_deblock(chroma: bool, beta: int, tc: int, backend: str):
     """fn(*slabs, *maps): the slabs (k, 8r, W) of one plane, or of U and V
-    as one launch, through T2 (pad 0), K1 or K1c with the slab's rows of
-    the four maps, and T3 back into the slabs, in place; backend "torch"
-    takes the three kernels' plain versions."""
+    as one launch, through the chain (ops/chain.tile_chain, pad 0) with the
+    slab's rows of the four maps, back into the slabs, in place."""
     def deblock(*operands):
-        n = len(operands) - 4
-        slabs, maps = operands[:n], [m[None] for m in operands[n:]]  # one map for all
-        k, hh, ww = slabs[0].shape
-        tiles = torch.empty((n, k, _B, _B, hh // _B, ww // _B), dtype=torch.uint8,
-                            device=slabs[0].device)
-        batch = tiles.view(n * k, *tiles.shape[2:])
-        if backend == "cuda":
-            for x, t in zip(slabs, tiles):
-                plane_to_tiles_cuda(x, 0, out=t)
-            out = deblock_tiles_cuda(batch, *maps, beta, tc, chroma=chroma).view(tiles.shape)
-            for x, t in zip(slabs, out):
-                tiles_to_plane_cuda(t, 0, hh, ww, out=x)
-            return
-        for x, t in zip(slabs, tiles):
-            t.copy_(plane_to_tiles_plain(x, 0))
-        out = deblock_tiles_plain(batch, *maps, beta, tc, chroma=chroma).reshape(tiles.shape)
-        for x, t in zip(slabs, out):
-            x.copy_(tiles_to_plane_plain(t, 0, hh, ww))
+        slabs = operands[:-4]
+        tile_chain(slabs, operands[-4:], beta, tc, pad=0, chroma=chroma, backend=backend,
+                   out=slabs)
     return deblock
 
 
@@ -301,11 +282,12 @@ def deblock_batch_sharded(mesh: Mesh, y_batch, u_batch, v_batch, luma_maps, chro
 def deblock_batch_sharded_jit(mesh: Mesh, *args, luma_only: bool = False,
                               backend: str = "cuda"):
     """deblock_batch_sharded with each slot's work as ONE CUDA graph replay
-    on the slot's stream (utils/graphs.py), captured at the first call on
-    the same tensors: with the cuda backend, on a CUDA slot that holds the
-    planes and whose maps are the given tensors on its device (the graph
-    reads them by address; rewrite them in place to change BS).  Every
-    other slot, and every CPU slot, runs the eager function."""
+    on the caller's current stream of the slot's device (utils/graphs.py;
+    _run), captured at the first call on the same tensors: with the cuda
+    backend, on a CUDA slot that holds the planes and whose maps are the
+    given tensors on its device (the graph reads them by address; rewrite
+    them in place to change BS).  Every other slot, and every CPU slot,
+    runs the eager function."""
     return _batch_sharded(mesh, *args, luma_only=luma_only, backend=backend, graphs=True)
 
 
@@ -377,10 +359,11 @@ def deblock_packed_batch_sharded_jit(mesh: Mesh, buf, luma_maps, chroma_maps, be
                                      luma_block=BLOCK_BX, chroma_block=CHROMA_BLOCK_BX,
                                      bit_depth=8):
     """deblock_packed_batch_sharded with each slot's batched step as ONE
-    CUDA graph replay on the slot's stream, captured at the first call on
-    the same buffer and maps (cuda backend, a CUDA slot that holds the
-    buffer, the maps as tensors on its device); elsewhere eager.  At
-    bit_depth 10 the replay is one K2-10 launch (LAUNCHES["packed10"])."""
+    CUDA graph replay on the caller's current stream of the slot's device
+    (_run), captured at the first call on the same buffer and maps (cuda
+    backend, a CUDA slot that holds the buffer, the maps as tensors on its
+    device); elsewhere eager.  At bit_depth 10 the replay is one K2-10
+    launch (LAUNCHES["packed10"])."""
     return _packed_sharded(mesh, buf, luma_maps, chroma_maps, beta, tc, w, h, luma_only,
                            backend, luma_block, chroma_block, graphs=True, bit_depth=bit_depth)
 

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from . import device_name
-from ..ops.cuda_kernel import deblock_frame_cuda, deblock_tiles_cuda
+from ..ops.chain import deblock_frame_cuda
+from ..ops.cuda_kernel import deblock_tiles_cuda
 from ..ops.tables import get_beta, get_tc
 from ..utils.bs import BoundaryStrength, chroma_segment_maps, luma_segment_maps
 from ..utils.tiles import plane_to_tiles

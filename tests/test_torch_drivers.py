@@ -16,6 +16,7 @@ import torch
 
 from gpu_video_codec_tpu_torch.models.golden import deblock_frame_golden
 from gpu_video_codec_tpu_torch.models.pipeline import DeblockPipeline
+from gpu_video_codec_tpu_torch.ops import chain
 from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
 from gpu_video_codec_tpu_torch.ops import relayout_kernel as rk
 from gpu_video_codec_tpu_torch.utils.bs import BoundaryStrength
@@ -83,9 +84,9 @@ def test_pipeline_cuda_call_goes_through_the_frame_kernels(rng, monkeypatch, lum
             return fn(*args, **kwargs)
         return counted
 
-    monkeypatch.setattr(rk, "plane_to_tiles_cuda", spy("T2", rk.plane_to_tiles_cuda))
-    monkeypatch.setattr(rk, "tiles_to_plane_cuda", spy("T3", rk.tiles_to_plane_cuda))
-    monkeypatch.setattr(ck, "deblock_tiles_cuda", spy("deblock", ck.deblock_tiles_cuda))
+    t2, t3, t4, k1 = chain.KERNELS["cuda"]
+    monkeypatch.setitem(chain.KERNELS, "cuda",
+                        (spy("T2", t2), spy("T3", t3), t4, spy("deblock", k1)))
     w, h = 40, 24
     frame = _frame(rng, w, h)
     out = DeblockPipeline(w, h, 35, luma_only=luma_only, device="cpu")(frame)

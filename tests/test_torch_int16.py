@@ -27,6 +27,7 @@ import torch
 
 from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
 from gpu_video_codec_tpu_torch.ops import filters as tf
+from gpu_video_codec_tpu_torch.ops.chain import deblock_frame_cuda
 from gpu_video_codec_tpu_torch.ops.deblock import deblock_frame, deblock_tiles, deblock_tiles_plain
 from gpu_video_codec_tpu_torch.ops.tables import get_beta, get_tc
 from gpu_video_codec_tpu_torch.tools import int16_probe
@@ -158,17 +159,17 @@ def test_frame_cuda_int16_cpu_matches_pallas(rng, w, h):
     bs = BoundaryStrength.intra_default(w, h)
     lm, cm = luma_segment_maps(bs), chroma_segment_maps(bs)
     before = dict(ck.LAUNCHES)
-    out = ck.deblock_frame_cuda(*map(torch.from_numpy, planes), [torch.from_numpy(m) for m in lm],
-                                [torch.from_numpy(m) for m in cm], get_beta(qp), get_tc(qp),
-                                dtype=torch.int16)
+    out = deblock_frame_cuda(*map(torch.from_numpy, planes), [torch.from_numpy(m) for m in lm],
+                             [torch.from_numpy(m) for m in cm], get_beta(qp), get_tc(qp),
+                             dtype=torch.int16)
     assert ck.LAUNCHES == before  # the CPU path launches nothing
     ref = deblock_frame_pallas(*map(jnp.asarray, planes), [jnp.asarray(m) for m in lm],
                                [jnp.asarray(m) for m in cm], get_beta(qp), get_tc(qp),
                                dtype=jnp.int16, interpret=True)
     for a, b in zip(out, ref):
         assert np.array_equal(a.numpy(), np.asarray(b))
-    i32 = ck.deblock_frame_cuda(*map(torch.from_numpy, planes), [torch.from_numpy(m) for m in lm],
-                                [torch.from_numpy(m) for m in cm], get_beta(qp), get_tc(qp))
+    i32 = deblock_frame_cuda(*map(torch.from_numpy, planes), [torch.from_numpy(m) for m in lm],
+                             [torch.from_numpy(m) for m in cm], get_beta(qp), get_tc(qp))
     assert all(torch.equal(a, b) for a, b in zip(out, i32))
 
 
@@ -380,9 +381,10 @@ def test_int16_frame_and_probe_on_card(rng, cuda_device):
     lm = [torch.from_numpy(m).to(cuda_device) for m in luma_segment_maps(bs)]
     cm = [torch.from_numpy(m).to(cuda_device) for m in chroma_segment_maps(bs)]
     before = dict(ck.LAUNCHES)
-    out = ck.deblock_frame_cuda(*planes, lm, cm, get_beta(qp), get_tc(qp), dtype=torch.int16)
+    out = deblock_frame_cuda(*planes, lm, cm, get_beta(qp), get_tc(qp), dtype=torch.int16)
     assert {k: ck.LAUNCHES[k] - before[k] for k in before} == {
-        "luma": 0, "chroma": 0, "luma_i16": 1, "chroma_i16": 1, "rows": 0, "packed": 0}
+        "luma": 0, "chroma": 0, "luma_i16": 1, "chroma_i16": 1, "rows": 0, "packed": 0,
+        "packed10": 0}
     ref = deblock_frame(*planes, lm, cm, get_beta(qp), get_tc(qp), dtype=torch.int16)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     assert int16_probe.main([])["int16_on_gpu"] == "ok-bitexact"

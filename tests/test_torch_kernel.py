@@ -19,7 +19,9 @@ import pytest
 import torch
 
 from gpu_video_codec_tpu_torch.models.streaming import StreamingDeblocker
+from gpu_video_codec_tpu_torch.ops import chain
 from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
+from gpu_video_codec_tpu_torch.ops.chain import deblock_frame_cuda
 from gpu_video_codec_tpu_torch.ops.deblock import deblock_frame, deblock_tiles_plain
 from gpu_video_codec_tpu_torch.ops.tables import get_beta, get_tc
 from gpu_video_codec_tpu_torch.utils.bs import (
@@ -107,8 +109,8 @@ def test_wrapper_rejects_bad_operands():
 
 @pytest.mark.parametrize("w,h", [(64, 72), (88, 72), (352, 288)])
 def test_frame_and_chroma_ext_cpu_match_jax(rng, w, h):
-    """deblock_frame_cuda (sheared chroma through deblock_chroma_ext_cuda
-    for 88x72) on CPU tensors against the JAX deblock_frame."""
+    """deblock_frame_cuda (sheared chroma through the chain's flat view for
+    88x72) on CPU tensors against the JAX deblock_frame."""
     import jax.numpy as jnp
 
     import gpu_video_codec_tpu.ops.deblock as jdeblock
@@ -118,17 +120,17 @@ def test_frame_and_chroma_ext_cpu_match_jax(rng, w, h):
               for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
     bs = BoundaryStrength.intra_default(w, h)
     lm, cm = luma_segment_maps(bs), chroma_segment_maps(bs)
-    out = ck.deblock_frame_cuda(*map(torch.from_numpy, planes),
-                                [torch.from_numpy(m) for m in lm],
-                                [torch.from_numpy(m) for m in cm], get_beta(qp), get_tc(qp))
+    out = deblock_frame_cuda(*map(torch.from_numpy, planes),
+                             [torch.from_numpy(m) for m in lm],
+                             [torch.from_numpy(m) for m in cm], get_beta(qp), get_tc(qp))
     ref = jdeblock.deblock_frame(*map(jnp.asarray, planes), [jnp.asarray(m) for m in lm],
                                  [jnp.asarray(m) for m in cm], get_beta(qp), get_tc(qp))
     for a, b in zip(out, ref):
         assert np.array_equal(a.numpy(), np.asarray(b))
-    y_only = ck.deblock_frame_cuda(*map(torch.from_numpy, planes),
-                                   [torch.from_numpy(m) for m in lm],
-                                   [torch.from_numpy(m) for m in cm], get_beta(qp), get_tc(qp),
-                                   luma_only=True)
+    y_only = deblock_frame_cuda(*map(torch.from_numpy, planes),
+                                [torch.from_numpy(m) for m in lm],
+                                [torch.from_numpy(m) for m in cm], get_beta(qp), get_tc(qp),
+                                luma_only=True)
     assert torch.equal(y_only[0], out[0]) and np.array_equal(y_only[1].numpy(), planes[1])
 
 
@@ -136,9 +138,9 @@ def test_frame_and_chroma_ext_cpu_match_jax(rng, w, h):
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int16], ids=["int32", "int16"])
 @pytest.mark.parametrize("w,h", [(64, 72), (88, 72)], ids=["64x72", "sheared-88x72"])
 def test_frame_cuda_goes_through_t2_t3(rng, monkeypatch, w, h, dtype, luma_only):
-    """deblock_frame_cuda and deblock_chroma_ext_cuda relayout with T2 and
-    T3 (plane_to_tiles_cuda, tiles_to_plane_cuda) -- once each for luma,
-    once per plane for U and V -- and, outside the kernels' wrappers, never
+    """deblock_frame_cuda relayouts with T2 and T3 (plane_to_tiles_cuda,
+    tiles_to_plane_cuda, as ops/chain.KERNELS holds them) -- once each for
+    luma, once per plane for U and V -- and, outside the kernels' wrappers, never
     with the plain relayout (utils/tiles.py's plane_to_tiles,
     tiles_to_plane and join_covered, the relayout kernels' plain versions)
     or a torch.stack / torch.cat of the planes.  The path is the same on
@@ -169,9 +171,9 @@ def test_frame_cuda_goes_through_t2_t3(rng, monkeypatch, w, h, dtype, luma_only)
             return fn(*args, **kwargs)
         return guarded
 
-    monkeypatch.setattr(rk, "plane_to_tiles_cuda", spy("T2", rk.plane_to_tiles_cuda))
-    monkeypatch.setattr(rk, "tiles_to_plane_cuda", spy("T3", rk.tiles_to_plane_cuda))
-    monkeypatch.setattr(ck, "deblock_tiles_cuda", spy("deblock", ck.deblock_tiles_cuda))
+    t2, t3, t4, k1 = chain.KERNELS["cuda"]
+    monkeypatch.setitem(chain.KERNELS, "cuda",
+                        (spy("T2", t2), spy("T3", t3), t4, spy("deblock", k1)))
     for mod, name in ((ut, "plane_to_tiles"), (ut, "tiles_to_plane"), (ut, "join_covered"),
                       (rk, "plane_to_tiles_plain"), (rk, "tiles_to_plane_plain"),
                       (torch, "stack"), (torch, "cat")):
@@ -181,10 +183,10 @@ def test_frame_cuda_goes_through_t2_t3(rng, monkeypatch, w, h, dtype, luma_only)
               for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
     bs = BoundaryStrength.intra_default(w, h)
     lm, cm = luma_segment_maps(bs), chroma_segment_maps(bs)
-    out = ck.deblock_frame_cuda(*map(torch.from_numpy, planes),
-                                [torch.from_numpy(m) for m in lm],
-                                [torch.from_numpy(m) for m in cm], get_beta(qp), get_tc(qp),
-                                luma_only=luma_only, dtype=dtype)
+    out = deblock_frame_cuda(*map(torch.from_numpy, planes),
+                             [torch.from_numpy(m) for m in lm],
+                             [torch.from_numpy(m) for m in cm], get_beta(qp), get_tc(qp),
+                             luma_only=luma_only, dtype=dtype)
     ref = jdeblock.deblock_frame(*map(jnp.asarray, planes), [jnp.asarray(m) for m in lm],
                                  [jnp.asarray(m) for m in cm], get_beta(qp), get_tc(qp),
                                  luma_only=luma_only)
@@ -296,7 +298,7 @@ def test_frame_cuda_matches_plain_on_card(rng, cuda_device):
     from gpu_video_codec_tpu_torch.ops import relayout_kernel as rk
 
     before = {**ck.LAUNCHES, **rk.LAUNCHES}
-    out = ck.deblock_frame_cuda(*planes, lm, cm, get_beta(qp), get_tc(qp))
+    out = deblock_frame_cuda(*planes, lm, cm, get_beta(qp), get_tc(qp))
     after = {**ck.LAUNCHES, **rk.LAUNCHES}
     ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert ran == {"fwd": 3, "luma": 1, "chroma": 1, "inv": 3}  # T2, K1, K1c, T3

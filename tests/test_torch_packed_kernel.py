@@ -34,6 +34,7 @@ from gpu_video_codec_tpu_torch.models.golden import deblock_frame_golden
 from gpu_video_codec_tpu_torch.models.streaming import StreamingDeblocker, _deblock_yv12_packed_impl
 from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
 from gpu_video_codec_tpu_torch.ops import relayout_kernel as rk
+from gpu_video_codec_tpu_torch.ops.chain import tile_chain
 from gpu_video_codec_tpu_torch.ops.deblock import deblock_packed_plain
 from gpu_video_codec_tpu_torch.utils.bs import BoundaryStrength
 from gpu_video_codec_tpu_torch.utils.yuv import planes_from_yv12_bytes, yv12_bytes_from_planes
@@ -96,6 +97,15 @@ def _planes(buf, h):
 
 def _args(sd):
     return sd._lm, sd._cm, sd._beta, sd._tc
+
+
+def _chain(buf, h, sd, luma_only=False):
+    """The chain K2 replaces, in place on buf's planes (ops/chain.tile_chain,
+    pad 4): T2 -> K1 -> T3 for luma, T2 -> K1c -> T3 for U+V."""
+    y, uv = _planes(buf, h)
+    tile_chain([y], sd._lm, sd._beta, sd._tc, pad=4, chroma=False, out=[y])
+    if not luma_only:
+        tile_chain([uv], sd._cm, sd._beta, sd._tc, pad=4, chroma=True, out=[uv])
 
 
 # -- the wrapper (its plain version on the CPU) -----------------------------------
@@ -206,14 +216,14 @@ def test_packed_guard(w, h, k, offset, frame_pad, takes):
     assert ck.packed_fits(w, y, uv, None, None) is takes
     if w <= 360:  # which way the cuda backend's step goes (on the CPU: plain versions)
         calls = []
-        real = {name: getattr(st, name) for name in ("deblock_packed_cuda", "_tile_chain")}
+        real = {name: getattr(st, name) for name in ("deblock_packed_cuda", "tile_chain")}
         sd = StreamingDeblocker(w, h, QP, device="cpu")
         with pytest.MonkeyPatch.context() as mp:
             for name, fn in real.items():
                 mp.setattr(st, name, lambda *a, _n=name, _f=fn, **kw: calls.append(_n) or _f(*a, **kw))
             st._deblock_planes_impl(y, uv, sd._lm, sd._cm, sd._beta, sd._tc, w, h, False,
                                     "cuda", out=(y, uv))
-        assert calls == ["deblock_packed_cuda" if takes else "_tile_chain"]
+        assert calls == (["deblock_packed_cuda"] if takes else ["tile_chain"] * 2)
 
 
 def test_packed_guard_reads_every_tensor():
@@ -301,8 +311,7 @@ def test_packed_kernel_matches_chain_on_card(rng, cuda_device, k, w, h, inplace)
     buf, sd = _card_case(rng, cuda_device, k, w, h)
     for luma_only in (False, True):
         ref = buf.clone()
-        st._tile_chain(*_planes(ref, h), sd._lm, sd._cm, sd._beta, sd._tc, w, h, luma_only,
-                       ck.BLOCK_BX, ck.CHROMA_BLOCK_BX, _planes(ref, h))
+        _chain(ref, h, sd, luma_only)
         before = _counts()
         got = _deblock_yv12_packed_impl(buf, sd._lm, sd._cm, sd._beta, sd._tc, w, h, luma_only,
                                         "cuda", inplace=inplace)
@@ -330,8 +339,7 @@ def test_packed_kernel_graph_replay_on_card(rng, cuda_device, w, h):
     buf = buf[0]
     ref = buf.clone()
     for _ in range(3):
-        st._tile_chain(*_planes(ref, h), sd._lm, sd._cm, sd._beta, sd._tc, w, h, False,
-                       ck.BLOCK_BX, ck.CHROMA_BLOCK_BX, _planes(ref, h))
+        _chain(ref, h, sd)
     for _ in range(2):  # the call that captures, then a replay alone
         x = buf.clone()
         before = _counts()
@@ -352,8 +360,7 @@ def test_packed_kernel_through_the_mesh_on_card(rng, cuda_device, k, w, h, slots
 
     buf, sd = _card_case(rng, cuda_device, k, w, h)
     ref = buf.clone()
-    st._tile_chain(*_planes(ref, h), sd._lm, sd._cm, sd._beta, sd._tc, w, h, False,
-                   ck.BLOCK_BX, ck.CHROMA_BLOCK_BX, _planes(ref, h))
+    _chain(ref, h, sd)
     mesh = pmesh.make_mesh(1, slots, [cuda_device] * slots)
     for _ in range(2):
         x = buf.clone()

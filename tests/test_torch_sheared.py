@@ -6,8 +6,8 @@ The reference sweeps chroma over the flat (vh, vw) view of the padded plane
 interior planes, and copy the flat tail past it out and back (rem), so
 that no F.pad, torch.stack, torch.cat, .contiguous() or copy_ of the
 chroma planes runs outside the kernels' wrappers on any sheared path: the
-streaming step, the resident ingest/readback, deblock_chroma_ext_cuda and
-DeblockPipeline.batch.
+streaming step, the resident ingest/readback, the chain's own calls
+(ops/chain.tile_chain: deblock_frame_cuda's U+V) and DeblockPipeline.batch.
 
 Here on the CPU: the kernels' block loops (g++ build of csrc/host_shim.cpp)
 against split_covered_data + plane_to_tiles_plain at every 16-byte address
@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from gpu_video_codec_tpu_torch.models.golden import deblock_frame_golden
+from gpu_video_codec_tpu_torch.ops import chain
 from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
 from gpu_video_codec_tpu_torch.ops import relayout_kernel as rk
 from gpu_video_codec_tpu_torch.ops.tables import get_beta, get_tc
@@ -42,7 +43,7 @@ SHEARED = [(40, 24), (360, 288)]
 def _RESIDUE_FORMS(cw):
     """(lead, h, w, pad): a sheared chroma plane whose flat tail holds
     interior rows (h % 8 == 4), a U+V pair whose tail is padding, and an
-    extended U+V pair (pad 0, as deblock_chroma_ext_cuda has them)."""
+    extended U+V pair (pad 0, as deblock_frame_cuda has them)."""
     return (((), 12, cw, 4), ((2,), 8, cw, 4), ((2,), 20, cw + 8, 0))
 
 
@@ -251,7 +252,6 @@ class _Spy:
     (copy=False) and the plain relayouts."""
 
     def __init__(self, monkeypatch, copy=False):
-        from gpu_video_codec_tpu_torch.models import resident as res
         from gpu_video_codec_tpu_torch.models import streaming as st
         from gpu_video_codec_tpu_torch.utils import tiles as ut
 
@@ -267,7 +267,7 @@ class _Spy:
             for mod in (rk, ck, st):  # where the paths look the wrappers up
                 if hasattr(mod, name):
                     monkeypatch.setattr(mod, name, fn)
-        monkeypatch.setitem(res._KERNELS, "cuda", tuple(wrapped[:4]))
+        monkeypatch.setitem(chain.KERNELS, "cuda", tuple(wrapped[:4]))
         banned = [(F, "pad"), (torch, "stack"), (torch, "cat"), (torch.Tensor, "contiguous"),
                   (ut, "plane_to_tiles"), (ut, "tiles_to_plane"), (ut, "join_covered"),
                   (ut, "split_covered_data"), (rk, "plane_to_tiles_plain"),
@@ -357,23 +357,38 @@ def test_resident_sheared_ingest_readback_go_through_t2_t3(rng, monkeypatch, w, 
         assert np.array_equal(o, _gold(r, w, h))
 
 
+@pytest.mark.parametrize("how", ["new", "out", "inplace", "torch"])
 @pytest.mark.parametrize("w,h", SHEARED + [(64, 72)], ids=["40x24", "360x288", "64x72"])
-def test_chroma_ext_goes_through_t2_t3(rng, monkeypatch, w, h):
-    """deblock_chroma_ext_cuda: T2 and T3 once per plane, one K1c, the flat
-    tail through the kernels (64x72: 8-aligned, its tail 4 rows of the
-    extended plane); == golden's chroma."""
+def test_chroma_ext_goes_through_t2_t3(rng, monkeypatch, w, h, how):
+    """The chain on extended U and V planes (tile_chain, pad 0, as
+    deblock_frame_cuda calls it): T2 and T3 once per plane, one K1c, the
+    flat tail through the kernels (64x72: 8-aligned, its tail 4 rows of the
+    extended plane); == golden's chroma.  Into new planes; into
+    destinations of zeros, V with a leading axis of its own (the tail must
+    come through T2 and T3); in place (the tail stays where it is); and
+    with backend "torch" (the plain versions), == the cuda backend."""
     from gpu_video_codec_tpu_torch.utils.bs import chroma_segment_maps
 
     frame = FramePlanes(*(extend_plane(rng.integers(0, 256, s, dtype=np.uint8))
                           for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))), w, h)
     bs = BoundaryStrength.intra_default(w, h)
-    cm = [torch.from_numpy(m) for m in chroma_segment_maps(bs)]
-    u, v = torch.from_numpy(frame.u), torch.from_numpy(frame.v)
-    spy = _Spy(monkeypatch)
-    uo, vo = ck.deblock_chroma_ext_cuda(u, v, cm, get_beta(35), get_tc(35))
-    assert spy.calls == {"T2": 2, "T3": 2, "T4": 0, "deblock": 1, "K2": 0}
-    monkeypatch.undo()
     gold = deblock_frame_golden(frame, bs, 35)
+    cm = [torch.from_numpy(m) for m in chroma_segment_maps(bs)]
+    u, v = torch.from_numpy(frame.u.copy()), torch.from_numpy(frame.v.copy())
+    args = (cm, get_beta(35), get_tc(35))
+    if how == "torch":
+        uo, vo = chain.tile_chain([u, v], *args, pad=0, chroma=True, backend="torch")
+        assert all(torch.equal(a, b) for a, b in zip(
+            (uo, vo), chain.tile_chain([u, v], *args, pad=0, chroma=True)))
+    else:
+        planes = [u, v[None]] if how == "out" else [u, v]
+        out = {"new": None, "out": [torch.zeros_like(p) for p in planes], "inplace": planes}[how]
+        spy = _Spy(monkeypatch)
+        got = chain.tile_chain(planes, *args, pad=0, chroma=True, out=out)
+        assert spy.calls == {"T2": 2, "T3": 2, "T4": 0, "deblock": 1, "K2": 0}
+        monkeypatch.undo()
+        assert out is None or all(g is o for g, o in zip(got, out))
+        uo, vo = got[0], got[1].reshape(v.shape)
     assert np.array_equal(uo.numpy(), gold.u) and np.array_equal(vo.numpy(), gold.v)
 
 
@@ -422,7 +437,7 @@ def test_flat_relayout_every_residue_on_card(cuda_device, cw):
                                        (12, 20, 4)])
 def test_flat_relayout_at_frame_sizes_on_card(rng, cuda_device, ch, cw, pad):
     """The sheared 360x288 and 1928x1080 chroma pairs, the 1080p extended
-    chroma pair (pad 0: deblock_chroma_ext_cuda's), 40x24's: T2 and its
+    chroma pair (pad 0: deblock_frame_cuda's), 40x24's: T2 and its
     tail == plain, T3 == plain with and without the tail."""
     x = torch.from_numpy(rng.integers(0, 256, (2, ch, cw), dtype=np.uint8)).to(cuda_device)
     vh, vw, n = rk.flat_view(ch, cw, pad)
@@ -464,8 +479,9 @@ def test_sheared_paths_on_card_equal_golden(rng, cuda_device, w, h):
     lm = [torch.from_numpy(m).to(cuda_device) for m in luma_segment_maps(bs)]
     cm = [torch.from_numpy(m).to(cuda_device) for m in chroma_segment_maps(bs)]
     before = dict(rk.LAUNCHES)
-    y, u, v = ck.deblock_frame_cuda(*(torch.from_numpy(p).to(cuda_device) for p in (f.y, f.u, f.v)),
-                                    lm, cm, get_beta(35), get_tc(35))
+    y, u, v = chain.deblock_frame_cuda(
+        *(torch.from_numpy(p).to(cuda_device) for p in (f.y, f.u, f.v)), lm, cm, get_beta(35),
+        get_tc(35))
     assert rk.LAUNCHES["fwd"] - before["fwd"] == 3 and rk.LAUNCHES["inv"] - before["inv"] == 3
     gf = deblock_frame_golden(f, bs, 35)
     assert np.array_equal(y.cpu().numpy(), gf.y)

@@ -262,11 +262,13 @@ def test_cuda_backend_goes_through_t2_t3(rng, monkeypatch, w, h, luma_only):
     """The cuda backend's packed and planes steps call K2
     (deblock_packed_cuda) once where its guard takes the geometry (64x48),
     and elsewhere (the sheared widths) T2 and T3 (plane_to_tiles_cuda,
-    tiles_to_plane_cuda) -- once each for luma, once more for U+V -- and
-    never the plain relayout (interior_to_tiles, tiles_to_interior) or
-    deblock_chroma_ext_cuda, in place or not; the bytes equal the JAX
+    tiles_to_plane_cuda, as ops/chain.KERNELS holds them) -- once each for
+    luma, once more for U+V -- and never the plain relayout
+    (interior_to_tiles, tiles_to_interior) or the extended planes' frame
+    path (deblock_frame_cuda), in place or not; the bytes equal the JAX
     StreamingDeblocker's and golden."""
     import gpu_video_codec_tpu_torch.models.streaming as st
+    import gpu_video_codec_tpu_torch.ops.chain as chain
     import gpu_video_codec_tpu_torch.ops.cuda_kernel as ck
     import gpu_video_codec_tpu_torch.utils.tiles as tl
 
@@ -281,12 +283,12 @@ def test_cuda_backend_goes_through_t2_t3(rng, monkeypatch, w, h, luma_only):
     def banned(*args, **kwargs):
         raise AssertionError("the cuda backend took the plain relayout")
 
-    monkeypatch.setattr(st, "plane_to_tiles_cuda", spy("T2", st.plane_to_tiles_cuda))
-    monkeypatch.setattr(st, "tiles_to_plane_cuda", spy("T3", st.tiles_to_plane_cuda))
+    t2, t3, t4, k1 = chain.KERNELS["cuda"]
+    monkeypatch.setitem(chain.KERNELS, "cuda", (spy("T2", t2), spy("T3", t3), t4, k1))
     monkeypatch.setattr(st, "deblock_packed_cuda", spy("K2", st.deblock_packed_cuda))
     for mod, name in ((tl, "interior_to_tiles"), (tl, "tiles_to_interior"),
-                      (ck, "deblock_chroma_ext_cuda"), (st, "interior_to_tiles"),
-                      (st, "tiles_to_interior"), (st, "deblock_chroma_ext_cuda")):
+                      (chain, "deblock_frame_cuda"), (st, "interior_to_tiles"),
+                      (st, "tiles_to_interior"), (st, "deblock_frame_cuda")):
         monkeypatch.setattr(mod, name, banned, raising=False)
     raw = _raw_frame(rng, w, h)
     want = _golden(raw, w, h, 35, luma_only=luma_only)
