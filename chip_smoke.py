@@ -21,9 +21,9 @@
    pairs at the race grid, and T5's route, blocks per SM and shared memory
    at the race grid (TMA) and at Bx 241 (words); and that K2 (the packed
    step's kernel) and K2-10 (its 10-bit instance) do not spill and keep to
-   64 registers, K2 with the registers and static SASS it had before the
-   bit depth became a template parameter (K2_COUNTS), with their blocks and
-   warps per SM and shared memory.
+   64 registers, each with the registers and static SASS of its tile in
+   registers (K2_COUNTS), with their blocks and warps per SM and shared
+   memory.
 1. Holds each variant of the deblock kernel against its plain PyTorch
    version on the card, byte for byte, at the main path's grids (1080p luma
    and U+V chroma), a sheared chroma grid, tail grids (Bx 5, 1, 31, 33,
@@ -196,10 +196,10 @@ RACE_SHAPE = (8, 8, 136, 256)  # the race grid of rowslayout_exp and swar_exp
 # with CUDA 12.8's nvcc for sm_90a; T = int must compile to the same
 QUAD_INT_COUNTS = {(False, 8): (47, 960), (False, 1): (46, 1032), (False, 4): (53, 992),
                    (True, 8): (32, 384), (True, 1): (44, 416), (True, 4): (32, 384)}
-# deblock_packed_kernel (K2) before its bit depth became a template
-# parameter: (ptxas registers, static SASS count); its 8-bit instance must
-# compile to the same
-K2_COUNTS = (43, 1296)
+# deblock_packed_kernel<BD> with the lanes' tile in registers, BD -> (ptxas
+# registers, static SASS count) with CUDA 12.8's nvcc for sm_90a; a change
+# that moves them is a change to K2 or K2-10 to measure
+K2_COUNTS = {8: (40, 1384), 10: (39, 1504)}
 
 
 def check(cond: bool, what: str) -> None:
@@ -335,11 +335,11 @@ def main() -> int:
         and (e.get("registers") or 99) <= 64 for e in k2_entries.values()),
           f"K2 and K2-10 (deblock_packed_kernel<8>, <10>): one entry each, no spills, at most "
           f"64 registers: {k2_entries}")
-    k2_entry = k2_entries[8]
-    got = (k2_entry.get("registers"), k2_entry["sass"] if k2_entry.get("sass") is not None
-           else K2_COUNTS[1])
-    check(got == K2_COUNTS, f"K2 at 8 bits: (registers, static SASS) {got}, was {K2_COUNTS} "
-                            f"before the bit depth became a parameter")
+    for bd, e in sorted(k2_entries.items()):
+        want = K2_COUNTS[bd]
+        got = (e.get("registers"), e["sass"] if e.get("sass") is not None else want[1])
+        check(got == want, f"deblock_packed_kernel<{bd}>: (registers, static SASS) {got}, "
+                           f"pinned at {want}")
     k2_info = ck.deblock_packed_info(dev)
     for bd, name in ((8, "K2"), (10, "K2-10")):
         e, info = k2_entries[bd], ck.deblock_packed_info(dev, bit_depth=bd)
@@ -1460,7 +1460,7 @@ def main() -> int:
         "replaces": None, "launches": sum(by_path.values()), "launches_by_path": by_path,
         "ms": k2_rows[0]["ms"], "chain_ms": k2_rows[0]["chain_ms"],
         "plain_ms": k2_rows[0]["plain_ms"], "bound_ms": k2_rows[0]["bound_ms"],
-        "bound_by": "bytes", "library_ms": None, "registers": k2_entry.get("registers"),
+        "bound_by": "bytes", "library_ms": None, "registers": k2_entries[8].get("registers"),
         "warps_per_sm": k2_info["warps_per_sm"], "smem_bytes": k2_info["smem_bytes"],
         "other_shapes": k2_rows[1:]})
 

@@ -171,19 +171,41 @@
 // first column must lie on a 16-byte boundary (the card refuses others as
 // an illegal instruction), and the tiles start at 8 bx0 - 4, so the box
 // starts 12 bytes early, at 8 bx0 - 16, and is 144 bytes wide
-// (gvct::PackedCell<uint8_t>).  The lanes run K1's quad (quad_phases) over the box as
-// it lands: rows 144 bytes apart, so a quad's four row reads fall in four
-// banks.  Lanes of tiles past the grid run the quad with BS 0 on zeros
-// (outside the plane) and store nothing: skipping whole warps of them
-// timed no faster.  After __syncthreads the block stores its
-// own tiles, exactly, in 4-byte words, four a thread, coalesced: the same
-// 16-byte rule keeps a tensor copy from storing them, and the 12 bytes
-// before them and the 4 after belong to the neighbouring blocks.  Words
-// outside the plane (the picture's border of padding, tiles past the grid)
-// are not stored.  in == out is safe: shifted tiles are disjoint, a block
-// stores only its own and loads them before it stores any; the
-// neighbours' bytes its box also holds, filtered or not, are never read by
-// its lanes nor stored.
+// (gvct::PackedCell<uint8_t>).  The tile then lives in the lanes'
+// registers, not in the stage (packed_quad_phases over deblock_quad.cuh's
+// PackedTile): through the stage, as K1 runs, a luma lane made 49
+// one-sample accesses (its rows, their write-back, its columns, theirs),
+// the block read the stage once more to store it after a __syncthreads,
+// and a warp's row reads fell two to a bank (four at 2-byte samples).
+//   1. Each lane reads its tile's rows r and 4 + r from the box as four
+//      words of 4 samples, in an order that differs by lane
+//      (gvct::packed_read) so that no read of the warp is more than
+//      two-way in a bank, where row by row they were four-way (its note
+//      gives the arithmetic).  These four reads and the
+//      mbarrier are the kernel's only shared-memory accesses.
+//   2. The vertical phases run on the rows (K1's functions on QuadLane's
+//      arrays, the samples taken out of the words and put back with byte
+//      permutes, or 16-bit shifts and masks).
+//   3. The quad transposes the tile's 4x4 blocks 0-2, two xor-shuffles of
+//      one word a block (byte, then 16-bit permutes at 8 bits; 16-bit
+//      permutes, then whole words at 10): lane r holds column r and column
+//      4 + r rows 0-3 and runs left-hor and right-hor, with no stage write
+//      and no __syncwarp between the phases; then it transposes back.
+//   4. Each lane stores its own rows straight into the plane, a word of 4
+//      samples a store (4 bytes at 8 bits, 8 at 10; the tile starts 4
+//      samples past an 8-sample boundary, so a wider aligned store would
+//      cross into a neighbour's tile): no __syncthreads and no second pass
+//      over the stage.  Words outside the plane (the picture's border of
+//      padding) and tiles past the grid (which lie outside it too) are not
+//      stored.  No tensor copy can store the tiles: they start 4 samples
+//      past a 16-byte boundary.
+// Lanes of tiles past the grid run the quad with BS 0 on zeros (outside the
+// plane): skipping whole warps of them timed no faster (the stage design).
+// in == out is safe: shifted tiles are disjoint; a block's own bytes land
+// in its box before any of its lanes stores; each lane reads from the box
+// only its own tile's bytes and stores only its own tile; the neighbours'
+// bytes the box also holds, filtered or not, are never read by its lanes
+// nor stored.
 // The tensor maps need 16-byte aligned bases and row, plane and frame
 // strides: the caller's guard (ops/cuda_kernel.packed_fits: w % 32 == 0,
 // which also leaves out the sheared Q9 widths, and 16-byte aligned
@@ -198,12 +220,12 @@
 // and the quad are K2's; what the bit depth changes is compile-time: the
 // box is a UINT16 tensor map's, 136 samples (272 bytes) wide from 8 bx0 -
 // 8, so that it still starts on a 16-byte boundary (gvct::PackedCell<
-// uint16_t>: kLead 4 samples); the lanes read and write 2-byte cells; the
+// uint16_t>: kLead 4 samples); a lane's words are 8 bytes, two 32-bit
+// registers of two samples, read from and stored to 8-byte boundaries; the
 // thresholds are the tables' scaled by 4 (gvct_deblock_packed); the luma
 // exchange packs dp and dq into 12-bit fields (a 10-bit row's dp reaches
-// 2,046, two rows 4,092: gvct::QuadField<10>); every filtered sample is
-// clipped at 1023 (deblock_tile.cuh, clip2<10>); and the block stores its
-// own tiles in 4-byte words of two samples, eight a thread.  What bounds
+// 2,046, two rows 4,092: gvct::QuadField<10>); and every filtered sample is
+// clipped at 1023 (deblock_tile.cuh, clip2<10>).  What bounds
 // it: bytes, twice K2's on the same tiles, 199.1 MB for 4 4K frames, 59.4
 // us at 3.35 TB/s.  Its guard is w % 16 == 0 (the chroma rows, w/2 samples
 // of 2 bytes, are 16-byte multiples) with K2's address and stride rules
@@ -451,10 +473,63 @@ struct PackedOut {
 
 constexpr int kPackedThreads = gvct::kQuadLanes * gvct::kPackedTiles;
 
+// K2's four phases on the lane's tile in registers (deblock_quad.cuh,
+// PackedTile): quad_phases' order and row math, with the quad's transpose of
+// blocks 0-2 (two xor-shuffles a block) where quad_phases goes through the
+// stage between the vertical and the horizontal phases, and again after
+// them, so the lane holds its rows for the store.
+template <bool CHROMA, int BD>
+__device__ __forceinline__ void packed_quad_phases(gvct::QuadLane<>& lane,
+                                                   gvct::PackedTile<BD>& p,
+                                                   const gvct::Thresholds& th) {
+  // K2's blocks are two whole warps and every lane reaches every shuffle, so
+  // the whole warp takes part: with a quad's mask nvcc wrapped each shuffle
+  // in a convergence check, 1-2 us a launch on the card
+  constexpr unsigned kWarp = 0xFFFFFFFFu;
+  auto quad_sum = [](uint32_t w) {
+    w += __shfl_xor_sync(kWarp, w, 1, gvct::kQuadLanes);
+    return w + __shfl_xor_sync(kWarp, w, 2, gvct::kQuadLanes);
+  };
+  auto transpose = [&] {
+#pragma unroll
+    for (int k = 1; k <= 2; k *= 2) {
+      uint32_t sent[3];
+#pragma unroll
+      for (int f = 0; f < 3; ++f) sent[f] = gvct::packed_send(p, f, k, lane.r);
+#pragma unroll
+      for (int f = 0; f < 3; ++f) {
+        gvct::packed_take(p, f, k, lane.r,
+                          __shfl_xor_sync(kWarp, sent[f], k, gvct::kQuadLanes));
+      }
+    }
+  };
+  gvct::packed_rows<CHROMA>(lane, p);
+  if constexpr (CHROMA) {
+    gvct::quad_vert_chroma<int, BD>(lane, th);
+  } else {
+    uint32_t w[2];
+    gvct::quad_vert_words<int, BD>(lane, th, w);
+    const uint32_t sum[2] = {quad_sum(w[0]), quad_sum(w[1])};
+    gvct::quad_vert_luma<int, BD>(lane, sum, th);
+  }
+  gvct::packed_put_rows<CHROMA>(lane, p);
+  transpose();
+  gvct::packed_cols<CHROMA>(lane, p);
+  if constexpr (CHROMA) {
+    gvct::quad_hor_chroma<int, BD>(lane, th);
+  } else {
+    gvct::quad_left_luma<int, BD>(lane, quad_sum(gvct::quad_left_word<int, BD>(lane, th)), th);
+    gvct::quad_right_luma<int, BD>(lane, quad_sum(gvct::quad_right_word<int, BD>(lane, th)),
+                                   th);
+  }
+  gvct::packed_put_cols<CHROMA>(lane, p);
+  transpose();
+}
+
 // At most 64 registers, as K1: 16 blocks of two warps to an SM.  BD 8: K2;
-// BD 10: K2-10, the same grid and code on 2-byte samples and cells
-// (gvct::PackedCell<uint16_t>), with thresholds scaled by the caller, the
-// exchange's 12-bit fields and the clip at 1023.
+// BD 10: K2-10, the same grid and code on 2-byte samples (a UINT16 box,
+// gvct::PackedCell<uint16_t>, and 8-byte words), with thresholds scaled by
+// the caller, the exchange's 12-bit fields and the clip at 1023.
 template <int BD>
 __global__ void __launch_bounds__(kPackedThreads, 16)
     deblock_packed_kernel(__grid_constant__ const CUtensorMap y_in,
@@ -484,19 +559,16 @@ __global__ void __launch_bounds__(kPackedThreads, 16)
   }
   gvct::quad_load_bs(lane, map(0), map(1), map(2), map(3), blk.map, blk.n);
   barrier_wait(&bar);
+  gvct::PackedTile<BD> p;
+  gvct::packed_read(p, stage, lane.t, lane.r);
   if (chroma) {
-    quad_phases<true, int, C, BD>(lane, stage, th, tid);
+    packed_quad_phases<true>(lane, p, th);
   } else {
-    quad_phases<false, int, C, BD>(lane, stage, th, tid);
+    packed_quad_phases<false>(lane, p, th);
   }
-  __syncthreads();
   uint8_t* plane = chroma ? out.uv + f * out.uv_frame + z * out.uv_plane : out.y + f * out.y_frame;
-  const long long row = chroma ? out.uv_row : out.y_row;
-  const int ph = chroma ? g.h / 2 : g.h, pw = chroma ? g.w / 2 : g.w;
-#pragma unroll
-  for (int q = tid; q < 8 * C::kRowWords; q += kPackedThreads) {
-    gvct::packed_store_word<C>(stage, plane, row, ph, pw, x0, y0, q);
-  }
+  gvct::packed_store(p, plane, chroma ? out.uv_row : out.y_row, chroma ? g.h / 2 : g.h,
+                     chroma ? g.w / 2 : g.w, x0, y0, lane.t, lane.r, blk.n);
 }
 
 using TilesKernel = void (*)(const uint8_t*, uint8_t*, const uint8_t*, const uint8_t*,
@@ -820,10 +892,11 @@ extern "C" int gvct_deblock_rows_occupancy(int chroma, int block_bx, int by, int
 // [0..1] the luma input's frame and row strides, [2..3] the luma output's,
 // [4..6] the chroma input's frame, plane and row strides, [7..9] the chroma
 // output's; the input's strides and addresses multiples of 16 (a tensor
-// map's demand), the output's of 4 (ops/cuda_kernel.packed_fits asks 16 of
-// both).  maps: the four (By, Bx) luma and the four (cBy, cBx) chroma BS
-// maps, shared by the frames.  beta and tc: the tables' beta' and tc' at
-// the QP, scaled here by 2^(bit_depth - 8) (H.265 8.7.2.5).  luma_only !=
+// map's demand), the output's of the lanes' stores, 4 bytes at 8 bits and
+// 8 at 10 (ops/cuda_kernel.packed_fits asks 16 of both).  maps: the four
+// (By, Bx) luma and the four (cBy, cBx) chroma BS maps, shared by the
+// frames.  beta and tc: the tables' beta' and tc' at the QP, scaled here
+// by 2^(bit_depth - 8) (H.265 8.7.2.5).  luma_only !=
 // 0: no chroma blocks (the chroma pointers unused).  Launch on `stream`
 // without synchronizing; returns cudaGetLastError() after the launch, or
 // the error of a tensor-map encode that failed, or cudaErrorInvalidValue

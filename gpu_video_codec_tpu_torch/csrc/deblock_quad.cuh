@@ -16,8 +16,10 @@
 // owns TB tiles of one tile row, staged by TMA into RowsTmaCell's layout or
 // in K1's words (rows_block, rows_staging).  K2 (deblock_packed_kernel)
 // runs them on the frame's planes themselves: a block owns kPackedTiles
-// tiles of one tile row of one plane, staged by TMA as the picture's rows
-// (packed_block, PackedCell<S>: 1-byte samples, or 2-byte ones for K2-10).
+// tiles of one tile row of one plane, loaded by TMA as the picture's rows
+// (packed_block, PackedCell<S>: 1-byte samples, or 2-byte ones for K2-10),
+// and its lanes hold their samples in registers and pass them around the
+// quad by shuffles, not through a stage (PackedTile, at the end).
 //
 // Thread tid is lane r = tid & 3 of tile t = tid >> 2, so a quad is four
 // adjacent lanes of one warp.  Lane r is segment row r in every phase:
@@ -288,54 +290,40 @@ GVCT_HD PackedBlock packed_block(const PackedGrid& g, int x, int y) {
   return k;
 }
 
-// K2's stage: the block's TMA box as it lands, 8 picture rows of kWidth
+// K2's box: the block's TMA box as it lands, 8 picture rows of kWidth
 // samples from column 8 bx0 - 4 - kLead -- a tensor copy starts on a
 // 16-byte boundary, and the block's first tile starts at 8 bx0 - 4, kLead
 // samples in -- so sample (r, c) of tile t is at r * kRow + kSample * (kLead
 // + 8t + c) bytes.  S, the sample type, is uint8_t (8 bits: kLead 12, rows
 // of 144 bytes) or uint16_t (K2-10: kLead 4, rows of 136 samples, 272
-// bytes).  The box lands densely at a 128-byte aligned address, so only
-// its width spreads the rows over the banks: rows 36 or 68 words apart (4
-// mod 32) put a quad's four row reads (rows r .. r + 3 at one c) in four
-// banks.  A warp's row reads still fall two to a bank at 1 byte a sample:
-// its 8 tiles' samples at one c lie in 8 words of a row, 4 rows of them,
-// all of one parity; at 2 bytes a sample its 8 tiles lie 4 words apart,
-// so four to a bank.
+// bytes).  The box lands densely at a 128-byte aligned address.  The lanes
+// read it in words of 4 samples, kWord bytes (4 or 8), never one sample at
+// a time (packed_read, below).
+//
+// Banks.  A tile row's half, 4 samples from column 4h (h = 0, 1), is a word
+// at (row) kRow + offset(t) + h kWord bytes: offset(t) is 12 + 8t or 8 +
+// 16t, so the word is aligned to its size (3 + 2t or 1 + 2t words in).
+// Shared memory serves a warp's 4-byte reads in one pass over 32 banks of 4
+// bytes, and its 8-byte reads in two passes, a half-warp each, over 16
+// pairs of banks: kBanks words of kWord bytes (128 bytes) a pass.  A pass is
+// conflict-free where its words lie in distinct banks mod kBanks.  A row
+// moves a word kRowBanks banks (36 mod 32 = 4 at 8 bits, 34 mod 16 = 2 at
+// 10), so rows 4 apart move it 4 kRowBanks = kBanks / 2, and tiles move it
+// 2 banks.  Read row by row, the quad's four rows of a warp's tiles
+// collide: word (row r, tile t) is in bank kRowBanks r + 2t + h + lead,
+// which is one bank for the four (r, t) with 2r + t = 6 (8 bits) or r + t =
+// 3 (10), four-way; packed_read spreads them (its note).
 template <typename S>
-struct PackedCell : StageCell<int> {
+struct PackedCell {
   static constexpr int kSample = sizeof(S);                   // bytes a sample
   static constexpr int kLead = 16 / kSample - 4;              // samples
-  static constexpr int kStride = kSample;                     // bytes per plane column c
   static constexpr int kWidth = kLead + 8 * kPackedTiles + 4;  // samples in a box row
   static constexpr int kRow = kSample * kWidth;               // bytes: a multiple of 16
   static constexpr int kBytes = 8 * kRow;
-  static constexpr int kRowWords = 8 * kPackedTiles * kSample / 4;  // the store's words a row
+  static constexpr int kWord = 4 * kSample;                   // bytes: 4 samples
+  static constexpr int kBanks = 128 / kWord;                  // words a pass spans
+  static constexpr int kRowBanks = kRow / kWord % kBanks;     // banks a row moves a word
   GVCT_HD static int offset(int t) { return kSample * (kLead + 8 * t); }
-  GVCT_HD static int get(const uint8_t* s) {
-    if constexpr (kSample == 1) {
-      return *s;
-    } else {
-#ifdef __CUDA_ARCH__
-      return *reinterpret_cast<const S*>(s);
-#else
-      S v;
-      std::memcpy(&v, s, sizeof(S));
-      return v;
-#endif
-    }
-  }
-  GVCT_HD static void put(uint8_t* s, int v) {
-    if constexpr (kSample == 1) {
-      *s = static_cast<uint8_t>(v);
-    } else {
-#ifdef __CUDA_ARCH__
-      *reinterpret_cast<S*>(s) = static_cast<S>(v);
-#else
-      const S x = static_cast<S>(v);
-      std::memcpy(s, &x, sizeof(S));
-#endif
-    }
-  }
 };
 static_assert(PackedCell<uint8_t>::kLead == 12 && PackedCell<uint8_t>::kRow == 144 &&
                   PackedCell<uint16_t>::kLead == 4 && PackedCell<uint16_t>::kRow == 272,
@@ -343,34 +331,14 @@ static_assert(PackedCell<uint8_t>::kLead == 12 && PackedCell<uint8_t>::kRow == 1
 static_assert(PackedCell<uint8_t>::kRow % 16 == 0 && PackedCell<uint16_t>::kRow % 16 == 0 &&
                   PackedCell<uint16_t>::kWidth <= 256,
               "a TMA box row is a multiple of 16 bytes and at most 256 elements");
+static_assert(4 * PackedCell<uint8_t>::kRowBanks == PackedCell<uint8_t>::kBanks / 2 &&
+                  4 * PackedCell<uint16_t>::kRowBanks == PackedCell<uint16_t>::kBanks / 2,
+              "rows 4 apart lie half a pass of banks apart (packed_read's order relies on it)");
 
 // A sample of bit depth BD as the planes hold it: a byte at 8 bits, a
-// 16-bit word at 10 (yuv420p10le); K2's cells are PackedCell<PackedSample<BD>>.
+// 16-bit word at 10 (yuv420p10le); K2's box is PackedCell<PackedSample<BD>>.
 template <int BD>
 using PackedSample = std::conditional_t<BD == 8, uint8_t, uint16_t>;
-
-// Word q of K2's store (0 <= q < 8 * C::kRowWords): the block's 8 rows of
-// kRowWords 4-byte words (4 samples a word at 1 byte, 2 at 2 bytes) from
-// column x0 = 8 bx0 - 4 -- its own tiles exactly, which begin 4 samples
-// past a 16-byte boundary, so no tensor copy can store them -- written
-// into the plane (ph rows of pw samples, rows `row` bytes apart) where it
-// lies inside it; y0 = 8 by - 4.  pw is a multiple of a word's samples, so
-// a word lies wholly inside the plane or wholly outside.
-template <typename C>
-GVCT_HD void packed_store_word(const uint8_t* stage, uint8_t* plane, long long row, int ph,
-                               int pw, int x0, int y0, int q) {
-  constexpr int kPer = 4 / C::kSample;  // samples a word
-  const int r = q / C::kRowWords, j = q - r * C::kRowWords;
-  const int y = y0 + r, x = x0 + kPer * j;
-  if (y < 0 || y >= ph || x < 0 || x >= pw) return;
-  const uint8_t* s = stage + r * C::kRow + C::offset(0) + 4 * j;
-  uint8_t* d = plane + y * row + C::kSample * x;
-#ifdef __CUDA_ARCH__
-  *reinterpret_cast<uint32_t*>(d) = *reinterpret_cast<const uint32_t*>(s);
-#else
-  std::memcpy(d, s, 4);
-#endif
-}
 
 template <typename E = int>
 struct QuadLane {
@@ -662,6 +630,264 @@ template <typename T, int BD = 8>
 GVCT_HD void quad_hor_chroma(QuadLane<>& lane, const Thresholds& th) {
   quad_chroma_row<T, BD>(lane.cl[3], lane.cl[2], lane.cl[4], lane.cl[5], lane.bs[2], th.tc);
   quad_chroma_row<T, BD>(lane.cr[3], lane.cr[2], lane.cl[4], lane.cl[5], lane.bs[3], th.tc);
+}
+
+// -- K2: the tile in registers ---------------------------------------------------------
+//
+// K2 and K2-10 (deblock_kernel.cu, packed_quad_phases) hold a lane's
+// samples in registers from the box's read to the plane's store.  A tile's
+// four 4x4 blocks are f = 2s + h: rows 4s .. 4s + 3, columns 4h .. 4h + 3.
+// Lane r holds word f, 4 samples, of each: row r of block f (so rows r and
+// 4 + r of the tile, as the vertical phases want them), and after the
+// quad's transpose of blocks 0-2, column r of block f (so column r and
+// column 4 + r rows 0-3, as the horizontal phases want them; block 3,
+// rows 4-7 of columns 4-7, no horizontal phase reads).  The rows go to
+// and from QuadLane's arrays (packed_rows, packed_cols and their puts), so
+// the phases are K1's functions as they are.
+
+// __byte_perm(x, y, s): byte i of the result is byte (s >> 4i) & 7 of the
+// eight bytes y:x (x is bytes 0-3).
+GVCT_HD uint32_t byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+#ifdef __CUDA_ARCH__
+  return __byte_perm(x, y, s);
+#else
+  const uint64_t b = static_cast<uint64_t>(y) << 32 | x;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i) {
+    r |= static_cast<uint32_t>(b >> (8 * (s >> (4 * i) & 7)) & 0xFF) << (8 * i);
+  }
+  return r;
+#endif
+}
+
+// A lane's four words, each 4 samples packed as the plane holds them: one
+// 32-bit word at 8 bits, two at 10.
+template <int BD>
+struct PackedTile {
+  using Cell = PackedCell<PackedSample<BD>>;
+  static constexpr int kWords = Cell::kWord / 4;
+  uint32_t x[4][kWords];
+
+  // Sample c (0-3) of word f.
+  GVCT_HD int get(int f, int c) const {
+    if constexpr (BD == 8) {
+      return static_cast<int>(byte_perm(x[f][0], 0, 0x4440 | c));
+    } else {
+      const uint32_t w = x[f][c >> 1];
+      return static_cast<int>(c & 1 ? w >> 16 : w & 0xFFFF);
+    }
+  }
+  // Sample c of word f set to v, the others kept.
+  GVCT_HD void put(int f, int c, int v) {
+    const uint32_t u = static_cast<uint32_t>(v);
+    if constexpr (BD == 8) {
+      x[f][0] = byte_perm(x[f][0], u, (0x3210u & ~(0xFu << 4 * c)) | 4u << 4 * c);
+    } else {
+      x[f][c >> 1] = byte_perm(x[f][c >> 1], u, c & 1 ? 0x5410 : 0x3254);
+    }
+  }
+  // Word f made anew from v[c0 .. c0 + 3].
+  template <int N>
+  GVCT_HD void set(int f, const int (&v)[N], int c0) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) u[i] = static_cast<uint32_t>(v[c0 + i]);
+    if constexpr (BD == 8) {
+      x[f][0] = byte_perm(byte_perm(u[0], u[1], 0x0040), byte_perm(u[2], u[3], 0x0040), 0x5410);
+    } else {
+      x[f][0] = byte_perm(u[0], u[1], 0x5410);
+      x[f][1] = byte_perm(u[2], u[3], 0x5410);
+    }
+  }
+};
+
+// Read order.  A lane (t, r) reads its four words at once, but not as
+// f = 0, 1, 2, 3: with one f for the whole warp the rows collide four to a
+// bank (the note on PackedCell).  Word f = 2s + h of lane (t, r) lies in
+// bank
+//   kRowBanks (4s + r) + 2t + h + lead = (kBanks/2) s + v + h + lead,
+// v = kRowBanks r + 2t, mod kBanks.  Write v mod kBanks = (kBanks/2) w + u
+// with u < kBanks/2 (u even, w = 0 or 1): the bank is (kBanks/2) (s ^ w) +
+// u + h + lead.  At step j = 0 .. 3 the lane reads h = j & 1 and the s with
+// s ^ w = (j >> 1) ^ (r & 1): f = j ^ m, m = 2 (w ^ (r & 1)), each of its
+// words once over the four steps.  At one step h is the same over a pass,
+// so its banks are told apart by (s ^ w, u).  The lanes of a pass with one
+// u are four, one of each r (u fixes 2t mod 16 for a given r: one of a
+// warp's 8 tiles at 8 bits; 2t mod 8: one of a half-warp's 4 at 10), and
+// (j >> 1) ^ (r & 1) parts them two and two: every read is at most
+// two-way, at both bit depths.  (Conflict-free reads would need h to vary
+// by lane too, and the lane a second select a register to put its words
+// in order; timed on the card, the selects cost more than the second way.)
+// The lanes then take each word to its register with one select a
+// register, a swap of rows r and 4 + r where m is 2.  Only the lane's own
+// tile is read.
+
+// Whether lane (t, r)'s m is 2: it reads row 4 + r before row r.
+template <int BD>
+GVCT_HD bool packed_read_swaps(int t, int r) {
+  using C = typename PackedTile<BD>::Cell;
+  return (((C::kRowBanks * r + 2 * t) & C::kBanks / 2) != 0) != ((r & 1) != 0);
+}
+
+// The byte in the box of the word lane (t, r) reads at step j, its word
+// j ^ m: steps 0 and 1 read the halves of one row, steps 2 and 3 those of
+// the row 4 away.
+template <int BD>
+GVCT_HD int packed_read_at(int t, int r, int j) {
+  using C = typename PackedTile<BD>::Cell;
+  const bool swap = packed_read_swaps<BD>(t, r);
+  return (r + (swap ? 4 : 0)) * C::kRow + C::offset(t) + (j & 1) * C::kWord +
+         (j & 2 ? (swap ? -4 : 4) * C::kRow : 0);
+}
+
+template <int BD>
+GVCT_HD void packed_read(PackedTile<BD>& p, const uint8_t* stage, int t, int r) {
+  constexpr int K = PackedTile<BD>::kWords;
+  const bool swap = packed_read_swaps<BD>(t, r);
+  uint32_t v[4][K];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint8_t* s = stage + packed_read_at<BD>(t, r, j);
+#ifdef __CUDA_ARCH__
+    if constexpr (K == 1) {
+      v[j][0] = *reinterpret_cast<const uint32_t*>(s);
+    } else {
+      const uint2 w = *reinterpret_cast<const uint2*>(s);
+      v[j][0] = w.x;
+      v[j][1] = w.y;
+    }
+#else
+    std::memcpy(v[j], s, 4 * K);
+#endif
+  }
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) p.x[f][i] = swap ? v[f ^ 2][i] : v[f][i];
+  }
+}
+
+// Tile rows r and 4 + r into lane.a and lane.b: all 8 columns (luma),
+// columns 2-5 (chroma).
+template <bool CHROMA, int BD>
+GVCT_HD void packed_rows(QuadLane<>& lane, const PackedTile<BD>& p) {
+#pragma unroll
+  for (int c = CHROMA ? 2 : 0; c < (CHROMA ? 6 : 8); ++c) {
+    lane.a[c] = p.get(c >> 2, c & 3);
+    lane.b[c] = p.get(2 + (c >> 2), c & 3);
+  }
+}
+
+// The columns the vertical phases may change back into the words: 3-4
+// (chroma); luma's 1-6 as whole words, with the unchanged 0 and 7.
+template <bool CHROMA, int BD>
+GVCT_HD void packed_put_rows(const QuadLane<>& lane, PackedTile<BD>& p) {
+  if constexpr (CHROMA) {
+#pragma unroll
+    for (int c = 3; c < 5; ++c) {
+      p.put(c >> 2, c & 3, lane.a[c]);
+      p.put(2 + (c >> 2), c & 3, lane.b[c]);
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      p.set(h, lane.a, 4 * h);
+      p.set(2 + h, lane.b, 4 * h);
+    }
+  }
+}
+
+// The quad's 4x4 transpose of block f, as two exchanges of one 32-bit word
+// a lane: k = 1 with lane r ^ 1, then k = 2 with lane r ^ 2 (the caller's
+// xor-shuffles).  Exchange k transposes the 2x2 arrays of elements that
+// lanes r and r ^ k hold: elements are samples, then pairs of samples, at
+// 8 bits (one word a row: bytes, then 16-bit halves), pairs, then whole
+// words at 10 (two words a row).  packed_send is the word lane r gives its
+// partner; packed_take folds in the word it gets.  At 8 bits a lane gives
+// its whole word and keeps the half it needs (one byte_perm); at 10 it
+// gives only what the partner needs (exchange 1: the partner's column of
+// each 2x2, one byte_perm; exchange 2: one whole word, a select).
+template <int BD>
+GVCT_HD uint32_t packed_send(const PackedTile<BD>& p, int f, int k, int r) {
+  if constexpr (BD == 8) {
+    return p.x[f][0];
+  } else if (k == 1) {
+    return byte_perm(p.x[f][0], p.x[f][1], r & 1 ? 0x5410 : 0x7632);
+  } else {
+    return r & 2 ? p.x[f][0] : p.x[f][1];
+  }
+}
+
+template <int BD>
+GVCT_HD void packed_take(PackedTile<BD>& p, int f, int k, int r, uint32_t got) {
+  if constexpr (BD == 8) {
+    p.x[f][0] = k == 1 ? byte_perm(p.x[f][0], got, r & 1 ? 0x3715 : 0x6240)
+                       : byte_perm(p.x[f][0], got, r & 2 ? 0x3276 : 0x5410);
+  } else if (k == 1) {
+    p.x[f][0] = byte_perm(p.x[f][0], got, r & 1 ? 0x3254 : 0x5410);
+    p.x[f][1] = byte_perm(p.x[f][1], got, r & 1 ? 0x3276 : 0x7610);
+  } else {
+    p.x[f][0] = r & 2 ? got : p.x[f][0];
+    p.x[f][1] = r & 2 ? p.x[f][1] : got;
+  }
+}
+
+// Column r (rows 0-7 luma, 2-5 chroma: blocks 0 and 2) and column 4 + r
+// (rows 0-3 luma, 2-3 chroma: block 1), after the quad's transpose.
+template <bool CHROMA, int BD>
+GVCT_HD void packed_cols(QuadLane<>& lane, const PackedTile<BD>& p) {
+#pragma unroll
+  for (int i = CHROMA ? 2 : 0; i < (CHROMA ? 6 : 8); ++i) lane.cl[i] = p.get(2 * (i >> 2), i & 3);
+#pragma unroll
+  for (int i = CHROMA ? 2 : 0; i < 4; ++i) lane.cr[i] = p.get(1, i);
+}
+
+// The pixels the horizontal phases may change back into the words: rows
+// 3-4 of column r and row 3 of column 4 + r (chroma); luma's rows 1-6 and
+// 1-3 as whole words.
+template <bool CHROMA, int BD>
+GVCT_HD void packed_put_cols(const QuadLane<>& lane, PackedTile<BD>& p) {
+  if constexpr (CHROMA) {
+    p.put(0, 3, lane.cl[3]);
+    p.put(2, 0, lane.cl[4]);
+    p.put(1, 3, lane.cr[3]);
+  } else {
+    p.set(0, lane.cl, 0);
+    p.set(2, lane.cl, 4);
+    p.set(1, lane.cr, 0);
+  }
+}
+
+// Lane (t, r)'s rows r and 4 + r of its tile into the plane (ph rows of pw
+// samples, rows `row` bytes apart; the block's tiles from column x0 = 8 bx0
+// - 4, row y0 = 8 by - 4): a word of 4 samples a store, 4 or 8 bytes at a
+// multiple of its size (x0 + 8t + 4h is 4 mod 8 samples).  pw is a multiple
+// of 4, so a word lies wholly inside the plane or wholly outside; words
+// outside it, and tiles past the grid's n (which lie outside it too), are
+// not stored.  A block whose 8 rows and 16 tiles all lie inside the plane
+// (most blocks; the same for all its lanes) stores without the checks.
+template <int BD>
+GVCT_HD void packed_store(const PackedTile<BD>& p, uint8_t* plane, long long row, int ph, int pw,
+                          int x0, int y0, int t, int r, int n) {
+  using C = typename PackedTile<BD>::Cell;
+  if (t >= n) return;
+  const bool inside = n == kPackedTiles && y0 >= 0 && y0 + 8 <= ph && x0 >= 0 &&
+                      x0 + 8 * kPackedTiles <= pw;
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    const int y = y0 + 4 * (f >> 1) + r, x = x0 + 8 * t + 4 * (f & 1);
+    if (!inside && (y < 0 || y >= ph || x < 0 || x >= pw)) continue;
+    uint8_t* d = plane + y * row + C::kSample * x;
+#ifdef __CUDA_ARCH__
+    if constexpr (PackedTile<BD>::kWords == 1) {
+      *reinterpret_cast<uint32_t*>(d) = p.x[f][0];
+    } else {
+      *reinterpret_cast<uint2*>(d) = make_uint2(p.x[f][0], p.x[f][1]);
+    }
+#else
+    std::memcpy(d, p.x[f], C::kWord);
+#endif
+  }
 }
 
 }  // namespace gvct

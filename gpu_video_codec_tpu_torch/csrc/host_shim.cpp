@@ -22,29 +22,61 @@ uint32_t quad_sum(const std::vector<uint32_t>& w, int tid, int stride, int i) {
          w[stride * (q + 3) + i];
 }
 
+// How a block's lanes get their samples and give them back, between the
+// kernel's exchange points: a shared stage of layout C that `in(stage)`
+// fills as the kernel's staging does and `out(stage)` drains (K1, K1c, T5),
+// or K2's tile in registers (PackedSamples below).  fill runs before the
+// lanes' first read, turn between the vertical and the horizontal phases
+// (the stage's __syncwarp), drain after the last write.
+template <bool CHROMA, typename C, typename In, typename Out>
+struct StagedSamples {
+  In in;
+  Out out;
+  // either layout's size
+  std::vector<uint8_t> stage = std::vector<uint8_t>(2 * gvct::RowsTmaCell::kBoxBytes);
+  void fill() { in(stage.data()); }
+  void rows(int, gvct::QuadLane<>& lane) {
+    gvct::quad_read_rows<CHROMA, int, C>(lane, stage.data());
+  }
+  void put_rows(int, const gvct::QuadLane<>& lane) {
+    gvct::quad_write_rows<CHROMA, int, C>(lane, stage.data());
+  }
+  void turn() {}
+  void cols(int, gvct::QuadLane<>& lane) {
+    gvct::quad_read_cols<CHROMA, int, C>(lane, stage.data());
+  }
+  void put_cols(int, const gvct::QuadLane<>& lane) {
+    gvct::quad_write_cols<CHROMA, int, C>(lane, stage.data());
+  }
+  void drain() { out(stage.data()); }
+};
+
+template <bool CHROMA, typename C, typename In, typename Out>
+StagedSamples<CHROMA, C, In, Out> staged(In in, Out out) {
+  return {in, out};
+}
+
 // One block of deblock_kernel.cu's quad kernel at compute type T and bit
-// depth BD over a stage of layout C: `stage_in(stage)` fills the stage as the kernel's
-// staging does and `stage_out(stage)` drains it; its 4 * tb threads run
-// one after another between the kernel's exchange points; `wv`, `wl` and
-// `wr` stand in for the shuffles: every thread publishes its words there,
-// and each lane of a quad takes the sum of its quad's four.  `map` is the
-// block's first tile in each BS map, n its tiles inside the grid.
-template <bool CHROMA, typename T, typename C, int BD = 8, typename In, typename Out>
-void host_quad_block(In stage_in, Out stage_out, const uint8_t* v1, const uint8_t* v2,
-                     const uint8_t* h1, const uint8_t* h2, const gvct::Thresholds& th, int tb,
-                     size_t map, int n) {
+// depth BD, its samples moved by `s` (StagedSamples or PackedSamples); its
+// 4 * tb threads run one after another between the kernel's exchange
+// points; `wv`, `wl` and `wr` stand in for the shuffles: every thread
+// publishes its words there, and each lane of a quad takes the sum of its
+// quad's four.  `map` is the block's first tile in each BS map, n its tiles
+// inside the grid.
+template <bool CHROMA, typename T, int BD = 8, typename Samples>
+void host_quad_block(Samples& s, const uint8_t* v1, const uint8_t* v2, const uint8_t* h1,
+                     const uint8_t* h2, const gvct::Thresholds& th, int tb, size_t map, int n) {
   const int nt = gvct::kQuadLanes * tb;
-  std::vector<uint8_t> stage(2 * gvct::RowsTmaCell::kBoxBytes);  // either layout's size
   std::vector<gvct::QuadLane<>> lanes(nt);
   std::vector<uint32_t> wv(2 * nt), wl(nt), wr(nt);
   for (int tid = 0; tid < nt; ++tid) {
     lanes[tid] = gvct::quad_lane(tid);
     gvct::quad_load_bs(lanes[tid], v1, v2, h1, h2, map, n);
   }
-  stage_in(stage.data());
-  // __syncthreads() (route A: the wait on the load's barrier)
+  s.fill();
+  // __syncthreads() (route A and K2: the wait on the load's barrier)
   for (int tid = 0; tid < nt; ++tid) {
-    gvct::quad_read_rows<CHROMA, int, C>(lanes[tid], stage.data());
+    s.rows(tid, lanes[tid]);
     if (!CHROMA) {
       uint32_t w[2];
       gvct::quad_vert_words<T, BD>(lanes[tid], th, w);
@@ -59,11 +91,11 @@ void host_quad_block(In stage_in, Out stage_out, const uint8_t* v1, const uint8_
       const uint32_t sum[2] = {quad_sum(wv, tid, 2, 0), quad_sum(wv, tid, 2, 1)};
       gvct::quad_vert_luma<T, BD>(lanes[tid], sum, th);
     }
-    gvct::quad_write_rows<CHROMA, int, C>(lanes[tid], stage.data());
+    s.put_rows(tid, lanes[tid]);
   }
-  // __syncwarp()
+  s.turn();
   for (int tid = 0; tid < nt; ++tid) {
-    gvct::quad_read_cols<CHROMA, int, C>(lanes[tid], stage.data());
+    s.cols(tid, lanes[tid]);
     if (CHROMA) {
       gvct::quad_hor_chroma<T, BD>(lanes[tid], th);
     } else {
@@ -79,11 +111,9 @@ void host_quad_block(In stage_in, Out stage_out, const uint8_t* v1, const uint8_
       gvct::quad_right_luma<T, BD>(lanes[tid], quad_sum(wr, tid, 1, 0), th);
     }
   }
-  for (int tid = 0; tid < nt; ++tid) {
-    gvct::quad_write_cols<CHROMA, int, C>(lanes[tid], stage.data());
-  }
-  // __syncthreads()
-  stage_out(stage.data());
+  for (int tid = 0; tid < nt; ++tid) s.put_cols(tid, lanes[tid]);
+  // __syncthreads() (K2: none; each lane stores its own words)
+  s.drain();
 }
 
 // The quad kernel's route-B staging of a block: its threads' cooperative
@@ -94,14 +124,14 @@ void host_quad_words(const uint8_t* in, uint8_t* out, const uint8_t* v1, const u
                      const uint8_t* h1, const uint8_t* h2, const gvct::Thresholds& th, int tb,
                      size_t plane, size_t map, int n) {
   const int nt = gvct::kQuadLanes * tb;
-  host_quad_block<CHROMA, T, gvct::StageCell<int>>(
+  auto s = staged<CHROMA, gvct::StageCell<int>>(
       [&](uint8_t* stage) {
         for (int tid = 0; tid < nt; ++tid) gvct::quad_stage_load<W>(in, plane, n, tb, stage, tid);
       },
       [&](const uint8_t* stage) {
         for (int tid = 0; tid < nt; ++tid) gvct::quad_stage_store<W>(stage, out, plane, n, tb, tid);
-      },
-      v1, v2, h1, h2, th, tb, map, n);
+      });
+  host_quad_block<CHROMA, T>(s, v1, v2, h1, h2, th, tb, map, n);
 }
 
 template <bool CHROMA, int W, typename T>
@@ -216,10 +246,10 @@ void host_rows(int tb, int staging, const uint8_t* in, uint8_t* out, const uint8
       const uint8_t* src = in + blk.tiles;
       uint8_t* dst = out + blk.tiles;
       if (staging == gvct::kRowsTma) {
-        host_quad_block<CHROMA, int, gvct::RowsTmaCell>(
+        auto s = staged<CHROMA, gvct::RowsTmaCell>(
             [&](uint8_t* stage) { host_tma_load(src, bx, blk.n, stage); },
-            [&](const uint8_t* stage) { host_tma_store(stage, dst, bx, blk.n); }, v1, v2, h1,
-            h2, th, tb, blk.map, blk.n);
+            [&](const uint8_t* stage) { host_tma_store(stage, dst, bx, blk.n); });
+        host_quad_block<CHROMA, int>(s, v1, v2, h1, h2, th, tb, blk.map, blk.n);
       } else if (staging == 8) {
         host_quad_words<CHROMA, 8, int>(src, dst, v1, v2, h1, h2, th, tb, bx, blk.map, blk.n);
       } else if (staging == 4) {
@@ -289,19 +319,62 @@ void host_packed_load(const HostPlane& p, int x0, int y0, uint8_t* stage) {
   }
 }
 
+// K2's lanes (deblock_kernel.cu, packed_quad_phases): fill loads the box
+// and each lane reads its words (packed_read), turn and drain run the
+// quad's transpose -- its two exchanges over every quad, each lane's word
+// published before any is taken, as the xor-shuffles do -- and drain then
+// stores each lane's words (packed_store).
+template <bool CHROMA, int BD>
+struct PackedSamples {
+  using C = gvct::PackedCell<gvct::PackedSample<BD>>;
+  static constexpr int kThreads = gvct::kQuadLanes * gvct::kPackedTiles;
+  const HostPlane& p;
+  int x0, y0, n;
+  std::vector<uint8_t> stage = std::vector<uint8_t>(C::kBytes);
+  std::vector<gvct::PackedTile<BD>> tiles = std::vector<gvct::PackedTile<BD>>(kThreads);
+  void fill() {
+    host_packed_load<C>(p, x0, y0, stage.data());
+    for (int tid = 0; tid < kThreads; ++tid) {
+      gvct::packed_read<BD>(tiles[tid], stage.data(), tid >> 2, tid & 3);
+    }
+  }
+  void rows(int tid, gvct::QuadLane<>& lane) { gvct::packed_rows<CHROMA>(lane, tiles[tid]); }
+  void put_rows(int tid, const gvct::QuadLane<>& lane) {
+    gvct::packed_put_rows<CHROMA>(lane, tiles[tid]);
+  }
+  void turn() {
+    for (int k = 1; k <= 2; k *= 2) {
+      std::vector<uint32_t> sent(3 * kThreads);
+      for (int tid = 0; tid < kThreads; ++tid) {
+        for (int f = 0; f < 3; ++f) {
+          sent[3 * tid + f] = gvct::packed_send(tiles[tid], f, k, tid & 3);
+        }
+      }
+      for (int tid = 0; tid < kThreads; ++tid) {
+        for (int f = 0; f < 3; ++f) {
+          gvct::packed_take(tiles[tid], f, k, tid & 3, sent[3 * (tid ^ k) + f]);
+        }
+      }
+    }
+  }
+  void cols(int tid, gvct::QuadLane<>& lane) { gvct::packed_cols<CHROMA>(lane, tiles[tid]); }
+  void put_cols(int tid, const gvct::QuadLane<>& lane) {
+    gvct::packed_put_cols<CHROMA>(lane, tiles[tid]);
+  }
+  void drain() {
+    turn();
+    for (int tid = 0; tid < kThreads; ++tid) {
+      gvct::packed_store(tiles[tid], p.out, p.out_row, p.ph, p.pw, x0, y0, tid >> 2, tid & 3, n);
+    }
+  }
+};
+
 template <bool CHROMA, int BD>
 void host_packed_block(const HostPlane& p, const gvct::PackedBlock& blk,
                        const uint8_t* const* maps, const gvct::Thresholds& th) {
-  using C = gvct::PackedCell<gvct::PackedSample<BD>>;
-  const int x0 = 8 * blk.bx0 - 4, y0 = 8 * blk.by - 4;
-  host_quad_block<CHROMA, int, C, BD>(
-      [&](uint8_t* stage) { host_packed_load<C>(p, x0, y0, stage); },
-      [&](const uint8_t* stage) {
-        for (int q = 0; q < 8 * C::kRowWords; ++q) {
-          gvct::packed_store_word<C>(stage, p.out, p.out_row, p.ph, p.pw, x0, y0, q);
-        }
-      },
-      maps[0], maps[1], maps[2], maps[3], th, gvct::kPackedTiles, blk.map, blk.n);
+  PackedSamples<CHROMA, BD> s{p, 8 * blk.bx0 - 4, 8 * blk.by - 4, blk.n};
+  host_quad_block<CHROMA, int, BD>(s, maps[0], maps[1], maps[2], maps[3], th, gvct::kPackedTiles,
+                                   blk.map, blk.n);
 }
 
 template <int BD>
@@ -344,6 +417,19 @@ extern "C" int gvct_host_deblock_packed(const uint8_t* y_in, uint8_t* y_out, con
   const auto run = bit_depth == 8 ? host_packed<8> : host_packed<10>;
   run(y_in, y_out, uv_in, uv_out, s, maps, th, w, h, k, luma_only);
   return 0;
+}
+
+// K2's (bit_depth 8) or K2-10's (10) box reads (deblock_quad.cuh,
+// packed_read): out[4 * tid + j] is the byte in the box that thread tid of
+// a block reads at step j, a word of the returned size (4 or 8 bytes; -1
+// for another bit depth).
+extern "C" int gvct_host_packed_reads(int bit_depth, int* out) {
+  if (bit_depth != 8 && bit_depth != 10) return -1;
+  const auto at = bit_depth == 8 ? gvct::packed_read_at<8> : gvct::packed_read_at<10>;
+  for (int tid = 0; tid < gvct::kQuadLanes * gvct::kPackedTiles; ++tid) {
+    for (int j = 0; j < 4; ++j) out[4 * tid + j] = at(tid >> 2, tid & 3, j);
+  }
+  return bit_depth == 8 ? gvct::PackedTile<8>::Cell::kWord : gvct::PackedTile<10>::Cell::kWord;
 }
 
 namespace {

@@ -197,6 +197,8 @@ def _setup_host(lib) -> None:
     lib.gvct_host_rows_staging.restype = ctypes.c_int
     lib.gvct_host_deblock_packed.argtypes = _PACKED_ARGS
     lib.gvct_host_deblock_packed.restype = ctypes.c_int
+    lib.gvct_host_packed_reads.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.gvct_host_packed_reads.restype = ctypes.c_int
 
 
 def load_host_library() -> ctypes.CDLL:
@@ -211,7 +213,9 @@ def load_host_library() -> ctypes.CDLL:
     words or as route A's TMA boxes would stage it, and
     gvct_host_rows_staging, the route rule; gvct_host_deblock_packed for K2
     and K2-10, its blocks staged as its TMA box would stage them, with
-    packed_launch_args' arguments; ops/relayout_kernel.py and
+    packed_launch_args' arguments, and gvct_host_packed_reads, the byte each
+    of a block's threads reads from the box at each of its four steps;
+    ops/relayout_kernel.py and
     ops/swar_kernel.py bind the rest)."""
     gxx = shutil.which("g++")
     if gxx is None:
@@ -511,9 +515,9 @@ def deblock_packed_cuda(y, uv, luma_maps, chroma_maps, beta, tc, *, luma_only: b
                         out=None, bit_depth: int = 8):
     """K2: the packed YV12 step of k frames in one launch, on their planes
     (csrc/deblock_kernel.cu, deblock_packed_kernel): each block's shifted
-    8x8 tiles staged by TMA straight from a plane, K1's or K1c's quad run on
-    them, stored in 4-byte words -- what T2 -> K1 -> T3 and T2 -> K1c -> T3
-    compute.
+    8x8 tiles loaded by TMA straight from a plane, K1's or K1c's quad run on
+    them in the lanes' registers, each lane storing its own rows in words
+    of 4 samples -- what T2 -> K1 -> T3 and T2 -> K1c -> T3 compute.
 
     y: (h, w) or (k, h, w) luma and uv: (.., 2, h/2, w/2) U and V planes,
     uint8 (e.g. the views of a packed (k, 3h/2, w) buffer); luma_maps: four

@@ -25,7 +25,9 @@ repeat), beside the byte bound of the step and K2's registers, occupancy
 and shared memory; and, where the tree has it, K2-10
 (deblock_packed_cuda(..., bit_depth=10)) and its plain version on 4 4K
 Main 10 frames (the 4K frames' samples times 4 plus 0..3, int16), with its
-bound (2 bytes a sample) and its launch.
+bound (2 bytes a sample) and its launch.  K2 and K2-10 also run with the
+benchmark cells' all-intra BS (BoundaryStrength.intra_default's maps:
+"all-intra").
 Prints one JSON line: per kernel the device us per launch of each repeat
 (utils.timing.device_ms: CUDA events around `iters` launches queued
 behind a spin kernel) and whether every repeat was queued ahead; the
@@ -70,6 +72,7 @@ def main(argv: list[str] | None = None) -> int:
         print("kernel_time: needs a CUDA device", file=sys.stderr)
         return 1
     import gpu_video_codec_tpu_torch as pkg
+    from gpu_video_codec_tpu_torch.models.streaming import StreamingDeblocker
     from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
     from gpu_video_codec_tpu_torch.ops import relayout_kernel as rk
     from gpu_video_codec_tpu_torch.ops import swar_kernel as sk
@@ -146,11 +149,15 @@ def main(argv: list[str] | None = None) -> int:
             rk.tiles_to_plane_cuda(t, 4, h // 2, w // 2, out=uv)
 
         fns[f"chain {shape}"] = chain
+        sd = StreamingDeblocker(w, h, 37, device=dev)  # the cells' all-intra BS maps
+        ai = (sd._lm, sd._cm)
         if k2:
             from gpu_video_codec_tpu_torch.ops.deblock import deblock_packed_plain
 
             fns[f"K2 {shape}"] = lambda y=y, uv=uv, lm=lm, cm=cm: ck.deblock_packed_cuda(
                 y, uv, lm, cm, b37, t37, out=(y, uv))
+            fns[f"K2 all-intra {shape}"] = lambda y=y, uv=uv, m=ai: ck.deblock_packed_cuda(
+                y, uv, *m, b37, t37, out=(y, uv))
             plain_fns[f"K2 plain {shape}"] = lambda y=y, uv=uv, lm=lm, cm=cm: (
                 deblock_packed_plain(y, uv, lm, cm, b37, t37))
         bounds[shape] = 2 * buf.numel() / 3.35e12 * 1e6  # read once, written once
@@ -160,6 +167,8 @@ def main(argv: list[str] | None = None) -> int:
             y10, uv10 = buf10[:, :h], buf10[:, h:].view(k, 2, h // 2, w // 2)
             fns[f"K2-10 {shape}"] = lambda y=y10, uv=uv10, lm=lm, cm=cm: ck.deblock_packed_cuda(
                 y, uv, lm, cm, b37, t37, out=(y, uv), bit_depth=10)
+            fns[f"K2-10 all-intra {shape}"] = lambda y=y10, uv=uv10, m=ai: ck.deblock_packed_cuda(
+                y, uv, *m, b37, t37, out=(y, uv), bit_depth=10)
             plain_fns[f"K2-10 plain {shape}"] = lambda y=y10, uv=uv10, lm=lm, cm=cm: (
                 deblock_packed_plain(y, uv, lm, cm, b37, t37, bit_depth=10))
             bounds[f"{shape} 10-bit"] = 2 * buf10.numel() * 2 / 3.35e12 * 1e6

@@ -19,10 +19,14 @@ written apart from the port, imported as it is.  On the CPU:
     and the g++ build;
   - the argument errors: bit_depth 9, a uint8 buffer at 10 bits, an int16
     buffer at 8, and K2-10's width guard.
+  - K2-10's g++ build at the edges of its lanes' register path: blocks that
+    end mid-row, the picture's borders, BS all 0 and all 2, uniform noise
+    and samples pinned at 0 and 1023, in place and into a separate output.
 Tests marked `cuda` launch K2-10 on the card (one launch a call, under its
 own counter) against the plain path at the 4K cell's shape, at 720x576
-(w % 32 == 16) and on the buffer's views, and check that a sheared 10-bit
-width raises there; they skip without a card, and nothing here imports JAX
+(w % 32 == 16), on the buffer's views and on the edge cases above (and
+against the reference), and check that a sheared 10-bit width raises
+there; they skip without a card, and nothing here imports JAX
 (`python -m pytest tests/test_torch_main10.py -m cuda`)."""
 
 import functools
@@ -149,6 +153,60 @@ def test_k2_10_paths_match_reference(qp, kind, w, h, path):
     frames, bs, want = _case(qp, kind, w, h)
     step = _plain_step if path == "plain" else _host_step
     assert torch.equal(step(frames, bs, qp, w, h), want)
+
+
+# -- K2-10's registers at the edges --------------------------------------------------------
+
+EDGE_GEOMS = [(64, 48), (352, 288)]  # one block a row (n = 9, 5) and CIF's tails (13, 7)
+EDGE_IDS = ["64x48", "cif-352x288"]
+EDGE_QP = 37
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_case(content, fill, w, h):
+    """Two 10-bit frames and a BS: uniform noise (the filters switch on and
+    off tile by tile), or samples pinned at 0 and 1023 -- 16x16 regions near
+    one end of the range, 4x4 cells 0..11 from it, small noise, clipped, so
+    filtered edges sit at the clip -- with every BS 0, every BS 2, or BS
+    uniform in 0..2; and the reference's output (read-only)."""
+    rng = np.random.default_rng([w, h, len(content), len(fill)])
+    n, rows = 2, 3 * h // 2
+
+    def up(a, k):
+        return np.repeat(np.repeat(a, k, 1), k, 2)[:, :rows, :w]
+
+    if content == "noise":
+        f = rng.integers(0, TOP + 1, (n, rows, w))
+    else:
+        high = up(rng.random((n, rows // 16 + 1, w // 16 + 1)) < 0.5, 16)
+        base = up(rng.integers(0, 12, (n, rows // 4 + 1, w // 4 + 1)), 4)
+        f = np.where(high, TOP - base, base) + rng.integers(-3, 4, (n, rows, w))
+    frames = torch.from_numpy(np.clip(f, 0, TOP).astype(np.int16))
+    bs = _bs("random", w, h, EDGE_QP)
+    if fill != "random":
+        bs = {k: np.full_like(v, 0 if fill == "zero" else 2) for k, v in bs.items()}
+    return frames, bs, ref.deblock_packed(frames, w, h, EDGE_QP, bs, bit_depth=10)
+
+
+@pytest.mark.parametrize("fill", ["random", "zero", "two"])
+@pytest.mark.parametrize("content", ["noise", "pinned"])
+@pytest.mark.parametrize("w,h", EDGE_GEOMS, ids=EDGE_IDS)
+def test_k2_10_host_build_edges(w, h, content, fill):
+    """K2-10's g++ build == the reference on blocks that end mid-row, the
+    picture's borders, BS all 0 and all 2, uniform noise and samples pinned
+    at 0 and 1023; in place == into a separate output."""
+    frames, bs, want = _edge_case(content, fill, w, h)
+    lm, cm = _maps(bs, w, h)
+    lib = ck.load_host_library()
+    out, inplace = torch.full_like(frames, 7), frames.clone()
+    for src, dst in ((frames, out), (inplace, inplace)):
+        assert lib.gvct_host_deblock_packed(*ck.packed_launch_args(
+            *_planes(src, h), *_planes(dst, h), lm, cm, get_beta(EDGE_QP), get_tc(EDGE_QP),
+            False, 10)) == 0
+    assert torch.equal(out, want) and torch.equal(inplace, want)
+    assert torch.equal(want, frames) is (fill == "zero")
+    if content == "pinned":
+        assert int((frames == 0).sum()) > 100 and int((frames == TOP).sum()) > 100
 
 
 # -- hand-built frames that catch the likely faults ----------------------------------------
@@ -373,6 +431,29 @@ def test_k2_10_matches_plain_on_card(cuda_device, k, w, h):
     if w <= 720:
         assert torch.equal(want.cpu(), ref.deblock_packed(frames.cpu(), w, h, qp, bs,
                                                           bit_depth=10))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["random", "zero", "two"])
+@pytest.mark.parametrize("content", ["noise", "pinned"])
+@pytest.mark.parametrize("w,h", EDGE_GEOMS, ids=EDGE_IDS)
+def test_k2_10_edges_on_card(cuda_device, w, h, content, fill):
+    """K2-10 on test_k2_10_host_build_edges' cases == the reference and the
+    plain path, in place == into a separate output, one K2-10 launch each."""
+    frames, bs, want = _edge_case(content, fill, w, h)
+    lm, cm = _maps(bs, w, h, cuda_device)
+    src = frames.to(cuda_device)
+    out, inplace = torch.full_like(src, 7), src.clone()
+    before = _launches()
+    for s, d in ((src, out), (inplace, inplace)):
+        ck.deblock_packed_cuda(*_planes(s, h), lm, cm, get_beta(EDGE_QP), get_tc(EDGE_QP),
+                               out=_planes(d, h), bit_depth=10)
+    torch.cuda.synchronize()
+    assert {n: v - before[n] for n, v in _launches().items()} == {
+        "packed": 0, "packed10": 2, "luma": 0, "chroma": 0}
+    assert torch.equal(out, inplace)
+    assert torch.equal(out.cpu(), want)
+    assert torch.equal(out, _plain_step(src, bs, EDGE_QP, w, h))
 
 
 @pytest.mark.cuda

@@ -17,13 +17,21 @@ before.  Here on the CPU:
     plain version on the same cases;
   - the guard's decision over a table of geometries and alignments, and the
     wrapper's operand checks.
+  - the lanes' reads of the box: each reads its own words, and no read of a
+    warp is more than two-way in a bank (gvct_host_packed_reads); and the host
+    build == the plain version on blocks that end mid-row, at the picture's
+    borders, with BS all 0 and all 2 and on uniform noise, in place and
+    into a separate output.
 Tests marked `cuda` launch the kernel on the card, against the chain it
-replaces, at both benchmark cells' shapes, through a graph replay and the
-mesh, and skip without a card; nothing here imports JAX, so they run on the
+replaces, at both benchmark cells' shapes, on those edge cases (and against
+the plain version), through a graph replay and the mesh, and skip without
+a card; nothing here imports JAX, so they run on the
 card (`python -m pytest tests/test_torch_packed_kernel.py -m cuda`).  Every
 comparison is byte-equal."""
 
+import ctypes
 import functools
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -177,6 +185,97 @@ def test_packed_cif_case_filters_and_ends_in_tail_blocks():
     assert (want_y != y).sum() > 1000 and (want_uv != uv).sum() > 100
     (by, bx), (cby, cbx) = ck.packed_grids(w, h)
     assert bx % ck.PACKED_TILES and cbx % ck.PACKED_TILES
+
+
+# -- the lanes' registers: the box's reads and the edge cases -----------------------------
+
+def _box_geometry(bit_depth):
+    """K2's box (csrc/deblock_quad.cuh, PackedCell): bytes a sample, before
+    tile 0 and a row."""
+    size = 1 if bit_depth == 8 else 2
+    lead = 16 - 4 * size
+    return size, lead, lead + size * (8 * ck.PACKED_TILES + 4)
+
+
+def _worst_conflict(reads, word):
+    """The most words of one read of a block's threads (reads[tid][j]: the
+    byte read at step j) that share a bank: 4-byte reads over a warp's 32
+    banks, 8-byte reads over a half-warp's 16 pairs of banks."""
+    group = banks = 128 // word
+    return max(max(Counter(o // word % banks for o in reads[g:g + group, j]).values())
+               for j in range(4) for g in range(0, len(reads), group))
+
+
+@pytest.mark.parametrize("bit_depth", [8, 10])
+def test_packed_box_reads_are_conflict_free(bit_depth):
+    """K2's lanes (packed_read, through gvct_host_packed_reads) read each of
+    their four words once -- rows r and 4 + r of their own tile, 4 samples a
+    word -- and no read of a warp is more than two-way in a bank; in the
+    order f = 0..3 for every lane the same reads fall four to a bank."""
+    lib = ck.load_host_library()
+    threads = 4 * ck.PACKED_TILES
+    out = (ctypes.c_int * (4 * threads))()
+    word = lib.gvct_host_packed_reads(bit_depth, out)
+    size, lead, row = _box_geometry(bit_depth)
+    assert word == 4 * size
+    reads = np.array(out).reshape(threads, 4)
+
+    def at(t, r, f):
+        return (4 * (f >> 1) + r) * row + lead + 2 * word * t + (f & 1) * word
+
+    lanes = [divmod(tid, 4) for tid in range(threads)]
+    for (t, r), got in zip(lanes, reads):
+        assert sorted(got) == sorted(at(t, r, f) for f in range(4))
+    assert _worst_conflict(reads, word) == 2
+    assert _worst_conflict(np.array([[at(t, r, f) for f in range(4)] for t, r in lanes]),
+                           word) == 4
+    assert lib.gvct_host_packed_reads(9, out) == -1
+
+
+EDGE_GEOMS = [(64, 48), (352, 288)]  # one block a row (n = 9, 5) and CIF's tails (13, 7)
+EDGE_IDS = ["64x48", "cif-352x288"]
+CONTENTS = ["blocky", "noise"]
+BS_FILLS = ["random", "zero", "two"]
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_case(w, h, content, fill):
+    """Two frames of `content` (blocky, or uniform noise: the filters switch
+    on and off tile by tile) and a BS of every edge 0, every edge 2, or
+    uniform in 0..2."""
+    rng = np.random.default_rng([w, h, len(content), len(fill)])
+    frames = (_blocky(rng, 2, w, h) if content == "blocky"
+              else rng.integers(0, 256, (2, 3 * h // 2, w), dtype=np.uint8))
+    if fill == "random":
+        return frames, _random_bs(rng, w, h)
+    bs = BoundaryStrength.intra_default(w, h)
+    v = 0 if fill == "zero" else 2
+    bs.set_luma(np.full(bs.vert.size, v, np.uint8), np.full(bs.hor.size, v, np.uint8))
+    bs.set_chroma(np.full(bs.chroma_vert.size, v, np.uint8),
+                  np.full(bs.chroma_hor.size, v, np.uint8))
+    return frames, bs
+
+
+@pytest.mark.parametrize("fill", BS_FILLS)
+@pytest.mark.parametrize("content", CONTENTS)
+@pytest.mark.parametrize("w,h", EDGE_GEOMS, ids=EDGE_IDS)
+def test_packed_host_build_edges(w, h, content, fill):
+    """gvct_host_deblock_packed == deblock_packed_plain where the lanes'
+    registers meet the edge cases: blocks that end mid-row, the picture's
+    borders (the box's zero fill), BS all 0 and all 2, uniform noise; in
+    place == into a separate output."""
+    lib = ck.load_host_library()
+    frames, bs = _edge_case(w, h, content, fill)
+    sd = StreamingDeblocker(w, h, QP, bs=bs, device="cpu")
+    buf = torch.from_numpy(frames.copy())
+    want_y, want_uv = deblock_packed_plain(*_planes(buf, h), *_args(sd), False)
+    want = torch.cat([want_y, want_uv.reshape(2, h // 2, w)], dim=-2)
+    out, inplace = torch.full_like(buf, 7), buf.clone()
+    for src, dst in ((buf, out), (inplace, inplace)):
+        assert lib.gvct_host_deblock_packed(*ck.packed_launch_args(
+            *_planes(src, h), *_planes(dst, h), *_args(sd), False)) == 0
+    assert torch.equal(out, want) and torch.equal(inplace, want)
+    assert torch.equal(want, buf) is (fill == "zero")
 
 
 # -- the guard -----------------------------------------------------------------------
@@ -370,6 +469,31 @@ def test_packed_kernel_through_the_mesh_on_card(rng, cuda_device, k, w, h, slots
         assert _delta(before) == {"T2": 0, "T3": 0, "K1": 0, "K1c": 0, "K2": slots}
         torch.cuda.synchronize()
         assert torch.equal(x, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", BS_FILLS)
+@pytest.mark.parametrize("content", CONTENTS)
+@pytest.mark.parametrize("w,h", EDGE_GEOMS, ids=EDGE_IDS)
+def test_packed_kernel_edges_on_card(cuda_device, w, h, content, fill):
+    """K2 on test_packed_host_build_edges' cases == deblock_packed_plain and
+    the chain, in place == into a separate output, one K2 launch each."""
+    frames, bs = _edge_case(w, h, content, fill)
+    sd = StreamingDeblocker(w, h, QP, bs=bs, device=cuda_device)
+    buf = torch.from_numpy(frames.copy()).to(cuda_device)
+    cpu = StreamingDeblocker(w, h, QP, bs=bs, device="cpu")
+    want_y, want_uv = deblock_packed_plain(*_planes(buf.cpu(), h), *_args(cpu), False)
+    ref = buf.clone()
+    _chain(ref, h, sd)
+    out, inplace = torch.full_like(buf, 7), buf.clone()
+    before = _counts()
+    ck.deblock_packed_cuda(*_planes(buf, h), *_args(sd), out=_planes(out, h))
+    ck.deblock_packed_cuda(*_planes(inplace, h), *_args(sd), out=_planes(inplace, h))
+    assert _delta(before) == {"T2": 0, "T3": 0, "K1": 0, "K1c": 0, "K2": 2}
+    torch.cuda.synchronize()
+    assert torch.equal(out, inplace) and torch.equal(out, ref)
+    y, uv = _planes(out.cpu(), h)
+    assert torch.equal(y, want_y) and torch.equal(uv, want_uv)
 
 
 @pytest.mark.cuda
