@@ -2,7 +2,8 @@
 
 Every sampled output frame is compared byte for byte with the plain
 reference run on its input (references/<config's reference>.py) at the
-configuration's bit_depth.  The numbers compared, each with its limit:
+configuration's bit_depth and chroma_format ("4:2:0" where the key is
+missing).  The numbers compared, each with its limit:
 
   wrong_bytes     output bytes of the sampled frames that differ from the
                   reference's, the frames viewed as bytes (a 10-bit
@@ -22,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import spec
+from .frames import packed_rows
 
 LIMITS = {"wrong_bytes": 0, "missing_frames": 0}
 _BLOCK_BYTES = 64 << 20  # input bytes the reference takes at once
@@ -34,17 +36,20 @@ def reference_of(cfg: dict):
 def wrong_bytes(samples, cfg: dict, bs: dict, device) -> tuple[int, int, int]:
     """(bytes that differ from the reference, frames compared, frames with
     a wrong byte) over the samples, each (inputs, outputs) of shape
-    (n, 3h/2, w) of the bit depth's dtype (lib/frames.sample_dtype),
-    numpy arrays or tensors."""
+    (n, packed rows, w) (lib/frames.packed_rows) of the bit depth's dtype
+    (lib/frames.sample_dtype), numpy arrays or tensors."""
     ref = reference_of(cfg)
     w, h, qp, bd = (int(cfg[k]) for k in ("width", "height", "qp", "bit_depth"))
+    cf = cfg.get("chroma_format", "4:2:0")
+    rows = packed_rows(w, h, cf)
     wrong = frames = bad = 0
     for inputs, outputs in samples:
-        x = torch.as_tensor(inputs).to(device).reshape(-1, 3 * h // 2, w)
-        y = torch.as_tensor(outputs).to(device).reshape(-1, 3 * h // 2, w)
+        x = torch.as_tensor(inputs).to(device).reshape(-1, rows, w)
+        y = torch.as_tensor(outputs).to(device).reshape(-1, rows, w)
         per = max(1, _BLOCK_BYTES // x[0].nbytes)
         for a in range(0, x.shape[0], per):
-            expect = ref.deblock_packed(x[a : a + per], w, h, qp, bs, bit_depth=bd)
+            expect = ref.deblock_packed(x[a : a + per], w, h, qp, bs, bit_depth=bd,
+                                        chroma_format=cf)
             diff = (_bytes(expect) != _bytes(y[a : a + per])).flatten(1).sum(1)
             wrong += int(diff.sum())
             bad += int((diff > 0).sum())

@@ -14,7 +14,9 @@ self.samples holds what the program produced, drawn from the seed, as
 (input frames, output frames) pairs.  control=True puts the plain
 reference, computed with the control's broken arithmetic, in the
 program's place.  Frames are of the configuration's bit_depth
-(lib/frames.sample_dtype); self.sample_bytes is a sample's size.
+(lib/frames.sample_dtype; self.sample_bytes is a sample's size) and
+chroma_format ("4:2:0" where the key is missing; lib/frames.chroma_plane):
+self.rows packed rows of w samples, chroma planes (self.ch, self.cw).
 """
 
 from __future__ import annotations
@@ -35,11 +37,12 @@ class Record:
     """What a window did: the numbers the metric readers read."""
 
     def __init__(self, feed: str, width: int, height: int, per_batch: int, kind: str,
-                 sample_bytes: int = 1):
+                 sample_bytes: int = 1, chroma_format: str = "4:2:0"):
         self.feed, self.width, self.height = feed, width, height
         self.per_batch = per_batch  # frames a batch (one call of the program)
         self.kind = kind            # the card's name
         self.sample_bytes = sample_bytes  # bytes a sample: 1 at 8 bits, 2 at 10
+        self.chroma_format = chroma_format  # "4:2:0" or "4:2:2"
         self.setup_s = None
         self.frames = 0             # frames done in the window
         self.handed = 0             # frames handed to the program
@@ -154,18 +157,22 @@ def sync(device):
 
 
 class Feed:
-    """The base of every feed: the run's geometry, bit depth, seed, sample
-    instants, BS arrays, seeded frame pools and the control."""
+    """The base of every feed: the run's geometry, bit depth, chroma
+    format, seed, sample instants, BS arrays, seeded frame pools and the
+    control."""
 
     def __init__(self, cfg: dict, mix: dict, seed: int, device: str, control: bool):
         self.cfg, self.mix, self.seed, self.control = cfg, mix, int(seed), control
         self.w, self.h, self.qp = int(cfg["width"]), int(cfg["height"]), int(cfg["qp"])
         self.bit_depth = int(cfg["bit_depth"])
         self.sample_bytes = fr.sample_dtype(self.bit_depth).itemsize
+        self.chroma_format = cfg.get("chroma_format", "4:2:0")
+        self.ch, self.cw = fr.chroma_plane(self.w, self.h, self.chroma_format)
+        self.rows = fr.packed_rows(self.w, self.h, self.chroma_format)
         self.device = torch.device(device, 0) if device == "cuda" else torch.device(device)
         self.rng = np.random.default_rng(self.seed)
         self.fractions = sorted(self.rng.random(int(mix["samples"])))
-        self.bs = fr.bs_arrays(self.w, self.h, mix, self.seed, self.device)
+        self.bs = fr.bs_arrays(self.w, self.h, mix, self.seed, self.device, self.chroma_format)
         self.samples: list[tuple] = []  # (input frames, output frames), host or device
 
     def kind(self) -> str:
@@ -173,14 +180,15 @@ class Feed:
 
     def frame_pool(self, n: int) -> torch.Tensor:
         return fr.frame_pool(n, self.w, self.h, self.seed, self.cfg["content"], self.device,
-                             self.bit_depth)
+                             self.bit_depth, self.chroma_format)
 
     def control_deblock(self, frames: torch.Tensor) -> torch.Tensor:
         """The control: the plain reference with its broken arithmetic."""
         from .check import reference_of
 
         return reference_of(self.cfg).deblock_packed(frames, self.w, self.h, self.qp, self.bs,
-                                                     shift="trunc", bit_depth=self.bit_depth)
+                                                     shift="trunc", bit_depth=self.bit_depth,
+                                                     chroma_format=self.chroma_format)
 
     def missing(self, rec: Record) -> int | None:
         return None

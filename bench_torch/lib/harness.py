@@ -80,7 +80,7 @@ def run_cell(spec_: dict, cell: dict, cfg: dict, mix: dict, seed: int, seconds: 
         torch.cuda.synchronize(d)
         torch.cuda.reset_peak_memory_stats(d)
     rec = Record(mix["feed"], feed.w, feed.h, int(mix.get("streams", 1)), feed.kind(),
-                 feed.sample_bytes)
+                 feed.sample_bytes, feed.chroma_format)
     rec.setup_s = time.perf_counter() - t0
     tracer = Tracer(trace and cuda)
     feed.window(seconds, tracer, rec)

@@ -1,7 +1,8 @@
 """step_roofline_pct.devfed: the packed batch step's share of the card's
 bandwidth bound.  Bytes: each frame of the batch read once and written
 once at its bytes a sample (lib/roofline.deblock_bytes; 1 at 8 bits, 2 at
-10), whatever kernels do the work.  Time:
+10) and its chroma format's samples (3wh/2 at 4:2:0, 2wh at 4:2:2),
+whatever kernels do the work.  Time:
 the device time per batch of everything the traced window ran except what
 the harness launched itself (the refresh and the sample copies)."""
 
@@ -19,5 +20,6 @@ def read(rec):
     if us <= 0:
         return None
     seconds = us / 1e6 / t["batches"]
-    moved = roofline.deblock_bytes(rec.width, rec.height, rec.per_batch, rec.sample_bytes)
+    moved = roofline.deblock_bytes(rec.width, rec.height, rec.per_batch, rec.sample_bytes,
+                                   rec.chroma_format)
     return roofline.roofline_pct(moved, seconds, rec.kind)

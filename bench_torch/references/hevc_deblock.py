@@ -40,6 +40,20 @@ values.  The segment order, the column mismatch, the chroma gate by the
 luma tile counts, the sheared chroma sweep and the floor shifts are those
 above.  Output keeps the input's dtype.  At bit_depth 8 nothing changes.
 
+Chroma format.  The reference project filters 4:2:0 frames only.  At
+`chroma_format` "4:2:2" (HEVC's format range extensions, e.g. Main 4:2:2
+10) each chroma plane is (h, w/2), H.265's SubWidthC 2 and SubHeightC 1,
+and the packed frame (2h, w) rows: luma, then U, then V.  Each chroma plane
+is filtered exactly as a 4:2:0 plane is above: edges on the plane's own
+8x8 grid (so horizontal chroma edges fall every 8 luma rows, not 16), the
+one-sample filter where BS == 2, the flat chroma BS arrays read at the
+plane's width, the segment order, the column mismatch, the sheared sweep,
+the floor shifts, and the gate by the luma tile counts (h/8 + 1, w/8 + 1).
+Chroma tc stays the table's tc' at the frame's QP, scaled at 10 bits: at
+4:2:2 H.265 (8.7.2.5.5 since the range extensions) sets QpC = Min(qPi, 51)
+with no Table 8-10 lookup, and one QP a frame needs no mapping.  Any other
+format raises ValueError.  At "4:2:0" nothing changes.
+
 `shift="trunc"` replaces every right shift by a division that rounds
 toward zero: the control, which breaks the stated arithmetic guarantee.
 """
@@ -59,6 +73,9 @@ BETA = (0,) * 16 + (6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 20, 22, 24,
 TC = (0,) * 18 + (1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2, 3,
                   3, 3, 3, 4, 4, 4, 5, 5, 6, 6, 7, 8, 9, 10, 11, 13,
                   14, 16, 18, 20)
+
+# chroma_format -> (SubWidthC, SubHeightC), H.265 Table 6-1
+CHROMA_SUBSAMPLING = {"4:2:0": (2, 2), "4:2:2": (2, 1)}
 
 # (P, Q) sample of filter row r at edge distance j, as (tile row, tile col)
 _PHASES = (
@@ -224,22 +241,29 @@ def _chroma_plane(c, bs, luma_n, beta, tc, shift, top):
 
 
 def deblock_packed(frames, width: int, height: int, qp: int, bs: dict, shift: str = "floor",
-                   bit_depth: int = 8):
-    """Packed YV12 frames (N, 3h/2, w) -> filtered frames, new, of the
+                   bit_depth: int = 8, chroma_format: str = "4:2:0"):
+    """Packed frames (N, h + 2 ch cw / w, w) -> filtered frames, new, of the
     input's dtype: uint8 at bit_depth 8, int16 at 10 (see the module's
-    docstring for what the bit depth changes).
+    docstring for what the bit depth and the chroma format change).
 
-    Rows [0, h) are luma; rows [h, 3h/2) hold the two chroma planes one
-    after the other, each (h/2, w/2).  bs: the flat arrays "vert", "hor",
-    "chroma_vert", "chroma_hor" that every frame of the batch shares."""
+    Rows [0, h) are luma; the rows after them hold the two chroma planes
+    one after the other, each (ch, cw): (h/2, w/2) at chroma_format
+    "4:2:0" (packed YV12, 3h/2 rows), (h, w/2) at "4:2:2" (2h rows).  bs:
+    the flat arrays "vert", "hor", "chroma_vert", "chroma_hor" that every
+    frame of the batch shares."""
+    if chroma_format not in CHROMA_SUBSAMPLING:
+        raise ValueError(f"chroma_format must be one of {sorted(CHROMA_SUBSAMPLING)}, "
+                         f"got {chroma_format!r}")
     w, h = width, height
+    sub_w, sub_h = CHROMA_SUBSAMPLING[chroma_format]
+    ch, cw = h // sub_h, w // sub_w
     beta, tc = beta_tc(qp, bit_depth)
     top = max_pixel(bit_depth)
     n = frames.shape[0]
     out = torch.empty_like(frames)
     out[:, :h] = _luma_plane(frames[:, :h], bs, beta, tc, shift, top)
-    chroma = frames[:, h:].reshape(n, 2, h // 2, w // 2)
+    chroma = frames[:, h:].reshape(n, 2, ch, cw)
     luma_n = (h // B + 1, w // B + 1)
     filtered = [_chroma_plane(chroma[:, i], bs, luma_n, beta, tc, shift, top) for i in range(2)]
-    out[:, h:] = torch.stack(filtered, dim=1).reshape(n, h // 2, w)
+    out[:, h:] = torch.stack(filtered, dim=1).reshape(n, -1, w)
     return out

@@ -39,6 +39,17 @@ def test_roofline_bytes_at_10_bits():
     assert roofline.deblock_bytes(64, 48, sample_bytes=2) == 2 * roofline.deblock_bytes(64, 48)
 
 
+def test_roofline_bytes_at_4_2_2():
+    # two (h, w/2) chroma planes: 2wh samples a frame, 4/3 of 4:2:0's; 4 Main 4:2:2 10
+    # frames at 2160p move 265.4 MB
+    assert roofline.frame_bytes(3840, 2160, 2, "4:2:2") == 33_177_600
+    assert roofline.deblock_bytes(3840, 2160, 4, 2, "4:2:2") == 265_420_800
+    for w, h in ((1920, 1080), (64, 48), (72, 40)):
+        assert roofline.frame_bytes(w, h, chroma_format="4:2:2") == 2 * w * h
+        four_two_two = roofline.deblock_bytes(w, h, 16, 2, "4:2:2")
+        assert 3 * four_two_two == 4 * roofline.deblock_bytes(w, h, 16, 2)
+
+
 def test_roofline_share_against_the_peak():
     # 8 1080p frames moved at exactly the peak take 14.855 us
     t = roofline.deblock_bytes(1920, 1080, 8) / 3.35e12
@@ -49,18 +60,21 @@ def test_roofline_share_against_the_peak():
 
 
 @pytest.mark.parametrize("w, h", [(1920, 1080), (3840, 2160), (64, 48)])
-def test_bs_sizes_are_the_reference_flat_sizes(w, h):
-    sizes = fr.bs_sizes(w, h)
+@pytest.mark.parametrize("chroma_format, sub_h", [("4:2:0", 2), ("4:2:2", 1)])
+def test_bs_sizes_are_the_reference_flat_sizes(w, h, chroma_format, sub_h):
+    sizes = fr.bs_sizes(w, h, chroma_format)
     assert sizes["vert"] == ((w // 8 + 1) * h // 8, w // 8 + 1)
     assert sizes["hor"] == ((h // 8 + 1) * w // 8, h // 8 + 1)
-    cw, ch = w // 2, h // 2
+    cw, ch = w // 2, h // sub_h
+    assert fr.chroma_plane(w, h, chroma_format) == (ch, cw)
     assert sizes["chroma_vert"] == (((cw // 8 + 1) * ch) // 8, cw // 8 + 1)
     assert sizes["chroma_hor"] == (((ch // 8 + 1) * cw) // 8, ch // 8 + 1)
 
 
-def test_ai_bs_is_the_reference_default():
-    bs = fr.bs_arrays(64, 48, {"bs": "ai"}, 5, "cpu")
-    for name, (size, stripe) in fr.bs_sizes(64, 48).items():
+@pytest.mark.parametrize("chroma_format", ["4:2:0", "4:2:2"])
+def test_ai_bs_is_the_reference_default(chroma_format):
+    bs = fr.bs_arrays(64, 48, {"bs": "ai"}, 5, "cpu", chroma_format)
+    for name, (size, stripe) in fr.bs_sizes(64, 48, chroma_format).items():
         a = bs[name]
         assert a.size == size and a.dtype == np.uint8
         assert (a[::stripe] == 0).all()
@@ -116,6 +130,114 @@ def test_10_bit_pool():
 def test_other_bit_depths_are_refused(bit_depth):
     with pytest.raises(ValueError, match="bit_depth"):
         fr.frame_pool(1, 64, 48, 1, {"luma_dc": 24, "chroma_dc": 12}, "cpu", bit_depth)
+
+
+def test_4_2_2_pool():
+    # (n, 2h, w): luma, then U and V (h, w/2); at 10 bits a yuv422p10le frame.  The
+    # generator's calls are 4:2:0's in the same order, so luma is 4:2:0's
+    content = {"luma_dc": 96, "chroma_dc": 48}
+    a = fr.frame_pool(3, 64, 48, 2**33 + 1, content, "cpu", 10, "4:2:2")
+    assert a.shape == (3, 96, 64) and a.dtype == torch.int16
+    assert fr.packed_rows(64, 48, "4:2:2") == 96 and fr.packed_rows(64, 48) == 72
+    assert torch.equal(a, fr.frame_pool(3, 64, 48, 2**33 + 1, content, "cpu", 10, "4:2:2"))
+    assert not torch.equal(a, fr.frame_pool(3, 64, 48, 2**33 + 2, content, "cpu", 10, "4:2:2"))
+    b = fr.frame_pool(3, 64, 48, 2**33 + 1, content, "cpu", 10)
+    assert torch.equal(a[:, :48], b[:, :48])
+    u, v = a[:, 48:].reshape(3, 2, 48, 32).unbind(1)
+    for plane in (u, v):
+        assert int(plane.min()) >= 0 and int(plane.max()) <= 1023
+        # each chroma plane holds its own blocky content down to its last row
+        assert (plane[:, 24:].float().std() > 4) and not torch.equal(plane[:, :24], plane[:, 24:])
+    assert not torch.equal(u, v)
+
+
+@pytest.mark.parametrize("chroma_format", ["4:4:4", "4:0:0", "420", "", None])
+def test_other_chroma_formats_are_refused(chroma_format):
+    from bench_torch.references import hevc_deblock as ref
+
+    content = {"luma_dc": 24, "chroma_dc": 12}
+    calls = [
+        lambda: fr.chroma_plane(64, 48, chroma_format),
+        lambda: fr.packed_rows(64, 48, chroma_format),
+        lambda: fr.frame_pool(1, 64, 48, 1, content, "cpu", 8, chroma_format),
+        lambda: fr.bs_sizes(64, 48, chroma_format),
+        lambda: fr.bs_arrays(64, 48, {"bs": "ai"}, 1, "cpu", chroma_format),
+        lambda: roofline.frame_bytes(64, 48, 1, chroma_format),
+        lambda: ref.deblock_packed(torch.zeros((1, 96, 64), dtype=torch.uint8), 64, 48, 37,
+                                   fr.bs_arrays(64, 48, {"bs": "ai"}, 1, "cpu"),
+                                   chroma_format=chroma_format),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="chroma_format"):
+            call()
+
+
+# -- the 4:2:0 configurations read what they read before the harness took a chroma
+# format: sha256 of their pools (64x48 and 72x40), BS arrays (the configuration's
+# size; ai and ra), reference and control outputs, and the check's counts of the
+# control's wrong bytes, all taken before the harness took a chroma format
+
+DIGEST_SEED = 2**31 + 4242
+DIGEST_MIXES = [{"bs": "ai"}, {"bs": "ra", "bs_shares": [0.2, 0.3, 0.5]}]
+DIGESTS = {
+    "hevc_ctc_b_1080p_qp37": {
+        "pool": "b38ed2c099d5f3c8392540ef52685391089e3c31824fbf787663afbf7652d33d",
+        "bs": "f83a3bb90c974b7d72508145b2e7c4d476bb95361a6e83b7ccc11728e3a9a1cf",
+        "ref": "ec1e3a6a259682e40612b13d00bafa7ff8ac28ad743c5a3ca00e0f1d6b855d87",
+        "wrong": [[1007, 2, 2], [780, 2, 2], [974, 2, 2], [785, 2, 2]],
+    },
+    "hevc_l51_2160p_qp32": {
+        "pool": "b38ed2c099d5f3c8392540ef52685391089e3c31824fbf787663afbf7652d33d",
+        "bs": "b8fee9212599dd60f9468a110a517454c9de56c2e0d915cd723d8a9a59d11700",
+        "ref": "4670ef5e6f64ae93dc23ce1495c4e6edf200f31b7a2cf009118625438ee55b4a",
+        "wrong": [[688, 2, 2], [509, 2, 2], [740, 2, 2], [579, 2, 2]],
+    },
+    "hevc_main10_l51_2160p_qp32": {
+        "pool": "ef4c8583347fa62935e1f6e78657b42333b90dbe2a01b58e52709d8b6c123917",
+        "bs": "b8fee9212599dd60f9468a110a517454c9de56c2e0d915cd723d8a9a59d11700",
+        "ref": "fbbff401410ac8e957a44a8c53ba5461d992547f47444ea1b26c31f6817fa06d",
+        "wrong": [[966, 2, 2], [754, 2, 2], [892, 2, 2], [745, 2, 2]],
+    },
+}
+
+
+def _digest(tensors):
+    d = hashlib.sha256()
+    for t in tensors:
+        d.update(t.numpy().tobytes() if isinstance(t, torch.Tensor) else t.tobytes())
+    return d.hexdigest()
+
+
+def _inputs_and_outputs(cfg):
+    """What the harness reads of a configuration at small sizes, through the
+    chroma format its file states."""
+    from bench_torch.lib import check
+    from bench_torch.references import hevc_deblock as ref
+
+    bd, qp, cf = cfg["bit_depth"], cfg["qp"], cfg["chroma_format"]
+    bs = [a for m in DIGEST_MIXES
+          for a in fr.bs_arrays(cfg["width"], cfg["height"], m, DIGEST_SEED, "cpu", cf).values()]
+    pools, outs, wrong = [], [], []
+    for w, h in ((64, 48), (72, 40)):
+        pool = fr.frame_pool(2, w, h, DIGEST_SEED, cfg["content"], "cpu", bd, cf)
+        pools.append(pool)
+        for m in DIGEST_MIXES:
+            small_bs = fr.bs_arrays(w, h, m, DIGEST_SEED, "cpu", cf)
+            out = ref.deblock_packed(pool, w, h, qp, small_bs, bit_depth=bd, chroma_format=cf)
+            control = ref.deblock_packed(pool, w, h, qp, small_bs, shift="trunc", bit_depth=bd,
+                                         chroma_format=cf)
+            outs += [out, control]
+            small = dict(cfg, width=w, height=h)
+            wrong.append(list(check.wrong_bytes([(pool, control)], small, small_bs, "cpu")))
+    return {"pool": _digest(pools), "bs": _digest(bs), "ref": _digest(outs), "wrong": wrong}
+
+
+@pytest.mark.parametrize("name", sorted(DIGESTS))
+def test_4_2_0_configurations_read_what_they_read_before(name):
+    cfg = spec.load_json(spec.ROOT / next(c["file"] for c in spec.load_spec()["configs"]
+                                          if c["name"] == name))
+    assert cfg["chroma_format"] == "4:2:0"
+    assert _inputs_and_outputs(cfg) == DIGESTS[name]
 
 
 def test_frame_pool_is_the_seed_s():
@@ -194,6 +316,9 @@ def test_step_roofline_leaves_out_the_harness_copy(tmp_path):
     assert spec.reader("step_roofline_pct.devfed")(Record("device", 1, 1, 1, H100)) is None
     rec.sample_bytes = 2  # 10-bit frames: twice the bytes in the same time
     assert spec.reader("step_roofline_pct.devfed")(rec) == pytest.approx(2 * got)
+    assert rec.chroma_format == "4:2:0"
+    rec.sample_bytes, rec.chroma_format = 1, "4:2:2"  # 2wh samples a frame, not 3wh/2
+    assert spec.reader("step_roofline_pct.devfed")(rec) == pytest.approx(4 / 3 * got)
 
 
 def test_idle_share_is_the_traced_stretch_s_own(tmp_path):

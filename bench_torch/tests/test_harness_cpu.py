@@ -98,11 +98,11 @@ def test_device_fed_faults_are_caught(traffic, fault, monkeypatch):
 MAIN10 = {"bit_depth": 10, "content": {"luma_dc": 96, "chroma_dc": 48}}
 
 
-def _main10_program(mp, traffic, fault=None):
+def _main10_program(mp, traffic, fault=None, chroma_format="4:2:0"):
     """Put a stand-in program in place of deblock_packed_batch_sharded_jit:
     a copy of the plain reference (its own module, so a fault planted in it
-    leaves the check's reference whole) at the feed's bit depth, with the
-    fault planted."""
+    leaves the check's reference whole) at 10 bits and the feed's chroma
+    format, with the fault planted."""
     from gpu_video_codec_tpu_torch.parallel import mesh as pm
 
     from bench_torch.lib import frames as fr
@@ -111,24 +111,50 @@ def _main10_program(mp, traffic, fault=None):
     ref = spec._module(spec.BENCH / "references" / "hevc_deblock.py", "standin_hevc_deblock")
     cell = next(w for w in SPEC["workloads"] if w["traffic"] == traffic)
     qp = int(spec.config(SPEC, cell)["qp"])
-    bs = fr.bs_arrays(64, 48, _mix(traffic), SEED, "cpu")
+    bs = fr.bs_arrays(64, 48, _mix(traffic), SEED, "cpu", chroma_format)
     if fault == "clip_255":
         ref.max_pixel = lambda bit_depth=8: 255
     if fault == "unscaled":
         ref.beta_tc = lambda qp, bit_depth=8: tables.beta_tc(qp)
+    if fault == "hor_every_16":  # chroma tile rows hold the edges at chroma rows 8 by
+        gates = ref.gates
 
-    def program(mesh, buf, lm, cm, beta, tc, *, w, h, bit_depth=8):
-        # the feed's contract: the int16 batch, the tables' beta' and tc', bit_depth=10
-        assert (buf.dtype, bit_depth, (beta, tc)) == (torch.int16, 10, tables.beta_tc(qp))
+        def every_16(*args):
+            g = gates(*args)
+            if args[7]:  # chroma
+                g[2:, 1::2] = False
+            return g
+        ref.gates = every_16
+
+    def program(mesh, buf, lm, cm, beta, tc, *, w, h, bit_depth=8, chroma_format="4:2:0"):
+        # the feed's contract: the int16 (k, rows, w) batch, the tables' beta' and tc',
+        # bit_depth=10, chroma_format="4:2:2" at 4:2:2 alone
+        rows = fr.packed_rows(w, h, chroma_format)
+        assert (buf.dtype, buf.shape[1:], bit_depth, (beta, tc)) == \
+            (torch.int16, (rows, w), 10, tables.beta_tc(qp))
+        cf = chroma_format
         if fault == "unchanged":
             return buf
         if fault == "shifted_8bit":
-            eight = ref.deblock_packed((buf >> 2).to(torch.uint8), w, h, qp, bs)
+            eight = ref.deblock_packed((buf >> 2).to(torch.uint8), w, h, qp, bs, chroma_format=cf)
             return buf.copy_(eight.to(torch.int16) << 2)
+        if fault == "halves_as_420":
+            # each (h, w/2) chroma plane filtered as two (h/2, w/2) planes: the 4:2:0
+            # chroma of two frames of height h, U's and V's, with 4:2:0's BS arrays
+            planes = buf[:, h:].reshape(-1, h // 2, w)
+            frames = torch.cat([buf[:, :h].repeat_interleave(2, 0), planes], dim=1)
+            done = ref.deblock_packed(frames, w, h, qp, fr.bs_arrays(w, h, _mix(traffic), SEED,
+                                                                     "cpu"), bit_depth=bit_depth)
+            buf[:, :h] = done[0::2, :h]
+            buf[:, h:] = done[:, h:].reshape(buf.shape[0], h, w)
+            return buf
+        before = buf.clone()
         part = buf[: buf.shape[0] // 2] if fault == "half_batch" else buf
-        part.copy_(ref.deblock_packed(part, w, h, qp, bs, bit_depth=bit_depth))
+        part.copy_(ref.deblock_packed(part, w, h, qp, bs, bit_depth=bit_depth, chroma_format=cf))
         if fault == "altered":
             buf[-1, 5, 7] ^= 1  # one byte altered where it is produced
+        if fault == "v_unfiltered":  # V is the last (rows - h) / 2 rows
+            buf[:, (rows + h) // 2 :] = before[:, (rows + h) // 2 :]
         return buf
     mp.setattr(pm, "deblock_packed_batch_sharded_jit", program)
 
@@ -159,19 +185,108 @@ def test_main10_faults_are_caught(traffic, fault, monkeypatch):
 
 
 @pytest.mark.parametrize("bit_depth, flip, wrong", [(8, 0x01, 1), (10, 0x0001, 1), (10, 0x0101, 2)])
-def test_wrong_bytes_counts_bytes(bit_depth, flip, wrong):
+@pytest.mark.parametrize("chroma_format, row", [("4:2:0", 50), ("4:2:2", 50), ("4:2:2", 90)])
+def test_wrong_bytes_counts_bytes(bit_depth, flip, wrong, chroma_format, row):
     from bench_torch.lib import check
     from bench_torch.lib import frames as fr
 
     cfg = dict(spec.config(SPEC, SPEC["workloads"][0]), width=64, height=48, **MAIN10)
-    cfg["bit_depth"] = bit_depth
-    frames = fr.frame_pool(2, 64, 48, 5, cfg["content"], "cpu", bit_depth)
-    bs = fr.bs_arrays(64, 48, {"bs": "ai"}, 5, "cpu")
+    cfg["bit_depth"], cfg["chroma_format"] = bit_depth, chroma_format
+    frames = fr.frame_pool(2, 64, 48, 5, cfg["content"], "cpu", bit_depth, chroma_format)
+    bs = fr.bs_arrays(64, 48, {"bs": "ai"}, 5, "cpu", chroma_format)
     out = check.reference_of(cfg).deblock_packed(frames, 64, 48, int(cfg["qp"]), bs,
-                                                 bit_depth=bit_depth)
+                                                 bit_depth=bit_depth, chroma_format=chroma_format)
     assert check.wrong_bytes([(frames, out)], cfg, bs, "cpu") == (0, 2, 0)
-    out[1, 50, 9] ^= flip
+    out[1, row, 9] ^= flip  # row 90 of 96: the V plane of a 4:2:2 frame, past 4:2:0's 72 rows
     assert check.wrong_bytes([(frames, out)], cfg, bs, "cpu") == (wrong, 2, 1)
+
+
+# -- 4:2:2 (HEVC Main 4:2:2 10): the program called with chroma_format="4:2:2" on a
+# (k, 2h, w) batch; a program that filters the chroma planes with 4:2:0's geometry fails
+
+MAIN422 = dict(MAIN10, chroma_format="4:2:2")
+
+
+@pytest.mark.parametrize("traffic", DEVICE_MIXES)
+def test_main422_sound_program_is_correct(traffic, monkeypatch):
+    _main10_program(monkeypatch, traffic, chroma_format="4:2:2")
+    result, compared = small_run(traffic, **MAIN422)
+    assert result["correct"] is True
+    assert compared["wrong_bytes"] == 0 and compared["frames_compared"] > 0
+
+
+@pytest.mark.parametrize("traffic", DEVICE_MIXES)
+def test_main422_control_is_not_correct(traffic):
+    result, compared = small_run(traffic, control=True, **MAIN422)
+    assert result["correct"] is False and compared["wrong_bytes"] > 0
+
+
+@pytest.mark.parametrize("traffic", DEVICE_MIXES)
+@pytest.mark.parametrize("fault", ["unchanged", "half_batch", "altered", "halves_as_420",
+                                   "hor_every_16", "v_unfiltered"])
+def test_main422_faults_are_caught(traffic, fault, monkeypatch):
+    _main10_program(monkeypatch, traffic, fault, chroma_format="4:2:2")
+    result, compared = small_run(traffic, **MAIN422)
+    assert result["correct"] is False and compared["wrong_bytes"] > 0
+
+
+@pytest.mark.parametrize("bit_depth, chroma_format, extra", [
+    (8, "4:2:0", {}),
+    (10, "4:2:0", {"bit_depth": 10}),
+    (8, "4:2:2", {"chroma_format": "4:2:2"}),
+    (10, "4:2:2", {"bit_depth": 10, "chroma_format": "4:2:2"}),
+])
+def test_device_feed_calls_the_program_as_its_docstring_says(bit_depth, chroma_format, extra,
+                                                             monkeypatch):
+    """At 4:2:0 the call as it was before the harness took a chroma format,
+    8-bit or 10-bit; at 4:2:2 the same call with chroma_format="4:2:2", a
+    (k, 2h, w) batch and chroma maps of the (h, w/2) planes, gated by the
+    luma tile counts."""
+    from gpu_video_codec_tpu_torch.parallel import mesh as pm
+
+    from bench_torch.lib import frames as fr
+    from bench_torch.references import hevc_deblock as ref
+
+    calls = []
+
+    def program(mesh, buf, lm, cm, beta, tc, **kw):
+        calls.append((buf.shape, buf.dtype, cm, kw))
+        return buf
+    monkeypatch.setattr(pm, "deblock_packed_batch_sharded_jit", program)
+    traffic = DEVICE_MIXES[0]
+    content = MAIN10["content"] if bit_depth == 10 else {"luma_dc": 24, "chroma_dc": 12}
+    small_run(traffic, bit_depth=bit_depth, chroma_format=chroma_format, content=content)
+    shape, dtype, cm, kw = calls[0]
+    rows = {"4:2:0": 72, "4:2:2": 96}[chroma_format]
+    assert shape == (_mix(traffic)["streams"], rows, 64)
+    assert dtype == (torch.int16 if bit_depth == 10 else torch.uint8)
+    assert kw == {"w": 64, "h": 48, **extra}
+    ch = 48 if chroma_format == "4:2:2" else 24
+    bs = fr.bs_arrays(64, 48, _mix(traffic), SEED, "cpu", chroma_format)
+    gates = ref.gates(bs["chroma_vert"], bs["chroma_hor"], 32, ch // 8 + 1, 5, 7, 9, True, "cpu")
+    assert torch.equal(torch.stack([m.to(torch.int32) for m in cm]) == 2, gates)
+
+
+def test_main422_on_the_port_raises_and_nothing_falls_back():
+    # the port does not take chroma_format yet: set-up's first call raises
+    with pytest.raises(TypeError, match="chroma_format"):
+        small_run(DEVICE_MIXES[0], **MAIN422)
+
+
+@pytest.mark.parametrize("chroma_format", ["4:4:4", "4:0:0"])
+def test_other_chroma_formats_give_no_run(chroma_format):
+    with pytest.raises(ValueError, match="chroma_format"):
+        small_run(DEVICE_MIXES[0], chroma_format=chroma_format)
+
+
+def test_a_configuration_without_chroma_format_is_4_2_0():
+    cell = next(w for w in SPEC["workloads"] if _mix(w["traffic"])["feed"] == "device")
+    cfg = dict(spec.config(SPEC, cell), width=64, height=48)
+    del cfg["chroma_format"]
+    mix = dict(_mix(cell["traffic"]), warmup_batches=2)
+    result, compared = harness.run_cell(SPEC, cell, cfg, mix, SEED, 0.3, False, False,
+                                        time.perf_counter(), device="cpu")
+    assert result["correct"] is True and compared["frames_compared"] > 0
 
 
 def test_no_card_exits_nonzero_without_a_result():

@@ -2,7 +2,9 @@
 (a scalar per-tile oracle), byte for byte, at small sizes: both BS mixes,
 heights with h % 16 == 8 (chroma gates past the BS arrays) and chroma
 widths that shear the chroma sweep; the control (right shifts rounding
-toward zero) differs.
+toward zero) differs.  At 4:2:2 the golden model's 4:2:0 chroma of a frame
+twice as tall is the witness, beside hand-derived edges; at 10 bits
+hand-derived luma edges.
 
     python -m pytest bench_torch/tests -q
 """
@@ -169,3 +171,116 @@ def test_main10_clips_at_1023():
     assert _filtered_edge(p, q) == (1023, 1023, 1023, 1007, 970, 933)
     # a clip at 255, as at 8 bits, would put every filtered sample at 255
     assert _filtered_edge(p, q, bit_depth=8)[1:5] == (1023, 255, 255, 255)
+
+
+# -- 4:2:2 (HEVC format range extensions): each chroma plane is (h, w/2) --------------
+#
+# A 4:2:2 chroma plane is a 4:2:0 chroma plane of a frame twice as tall: the same
+# plane shape, the same flat chroma BS arrays, the same lookup width, and the gate
+# by the luma tile counts changes nothing (the chroma tile rows are the luma ones,
+# and a lower vertical segment of the last tile row reads past the array, 0).  So the
+# golden model, which knows 4:2:0 alone, is a witness of the 4:2:2 reading.
+
+@pytest.mark.parametrize("w, h, qp", [(64, 48, 37), (72, 40, 32), (40, 24, 51), (136, 88, 37)])
+@pytest.mark.parametrize("mix", [{"bs": "ai"}, {"bs": "ra", "bs_shares": [0.2, 0.3, 0.5]}])
+def test_4_2_2_chroma_is_the_golden_4_2_0_chroma_of_a_frame_twice_as_tall(w, h, qp, mix):
+    seed = 2**31 + 3 * w * h + qp
+    frames = fr.frame_pool(2, w, h, seed, CONTENT, "cpu", chroma_format="4:2:2")
+    assert frames.shape == (2, 2 * h, w)
+    bs = fr.bs_arrays(w, h, mix, seed, "cpu", "4:2:2")
+    out = ref.deblock_packed(frames, w, h, qp, bs, chroma_format="4:2:2")
+    # luma is 4:2:0's, whatever the chroma planes hold
+    assert torch.equal(out[:, :h], ref.deblock_packed(frames[:, : 3 * h // 2], w, h, qp, bs)[:, :h])
+    tall_bs = fr.bs_arrays(w, 2 * h, mix, seed, "cpu")
+    assert all(tall_bs[k].size == bs[k].size for k in ("chroma_vert", "chroma_hor"))
+    tall_bs.update(chroma_vert=bs["chroma_vert"], chroma_hor=bs["chroma_hor"])
+    changed = 0
+    for f in range(2):
+        tall = np.concatenate([np.zeros(2 * h * w, np.uint8), frames[f, h:].numpy().reshape(-1)])
+        gold = golden(tall, w, 2 * h, qp, tall_bs)[2 * h * w :]
+        assert np.array_equal(out[f, h:].numpy().reshape(-1), gold)
+        changed += int((gold != tall[2 * h * w :]).sum())
+    assert changed > 0
+
+
+# Hand-derived from the reference's chroma filter (cpu.h:1431-1488, as the golden
+# model has it), one sample a side where BS == 2:
+#   dp = Clip3(-tc, tc, ((p0 - q0) * 4 + p1 - q1 + 4) >> 3), p0' = Clip1(p0 + dp)
+#   dq = Clip3(-tc, tc, ((q0 - p0) * 4 + q1 - p1 + 4) >> 3), q0' = Clip1(q0 - dq)
+# A 64x32 4:2:2 frame, (64, 64) rows: U and V (32, 32), each row of a plane alike,
+# luma flat; BS 0 everywhere but chroma_hor, all 2, so only horizontal chroma edges
+# filter: every 8 chroma rows, 8 .. 24 inside the plane.  A 4:2:0 frame of h = 32
+# has chroma rows 0-15 alone: rows 16 and 24 are edges only at 4:2:2.  Each plane
+# steps at rows 16 and 24 and is flat across row 8, which stays.  The four segment
+# phases run in order over every tile; a tile covers chroma columns 8 bx - 4 ..
+# 8 bx + 3.  The left horizontal phase filters P and Q at columns 8 bx - 4 .. 8 bx - 1;
+# the right one P at 8 bx .. 8 bx + 3 against Q at 8 bx - 4 .. 8 bx - 1 (the column
+# mismatch), reading and rewriting the Q that the left phase wrote.  So on columns
+# 8 bx - 4 .. 8 bx - 1 ("b") q0 is filtered twice, and on 8 bx .. 8 bx + 3 ("a") it
+# is never filtered; p0 is filtered once on both.  Columns 8-23 (tiles 1-3) are away
+# from the borders, where the zero padding takes part.
+
+def _422_edges(rows_u, rows_v, fill, bit_depth):
+    """The reference's U and V (32, 32) planes of the 64x32 frame whose planes'
+    rows 0-15, 16-23 and 24-31 hold rows_u (rows_v); luma `fill`."""
+    w, h = 64, 32
+    frame = torch.full((1, 2 * h, w), fill, dtype=torch.int16 if bit_depth == 10 else torch.uint8)
+    planes = frame[0, h:].view(2, h, w // 2)
+    for plane, (a, b, c) in zip(planes, (rows_u, rows_v)):
+        plane[:16], plane[16:24], plane[24:] = a, b, c
+    bs = fr.bs_arrays(w, h, {"bs": "ai"}, 0, "cpu", "4:2:2")
+    bs = {k: np.full_like(v, 2 if k == "chroma_hor" else 0) for k, v in bs.items()}
+    out = ref.deblock_packed(frame, w, h, 37, bs, bit_depth=bit_depth, chroma_format="4:2:2")
+    assert torch.equal(out[0, :h], frame[0, :h])
+    return frame[0, h:].view(2, h, w // 2), out[0, h:].view(2, h, w // 2)
+
+
+def _expect(before, row_values):
+    """before's columns 8-23 with row r's "a" and "b" columns set to row_values[r]."""
+    expect = before[:, 8:24].clone()
+    for r, (a, b) in row_values.items():
+        expect[r, [0, 1, 2, 3, 8, 9, 10, 11]] = a  # columns 8-11, 16-19
+        expect[r, [4, 5, 6, 7, 12, 13, 14, 15]] = b  # columns 12-15, 20-23
+    return expect
+
+
+def test_4_2_2_chroma_edges_at_rows_16_and_24():
+    # tc' = 4 at QP 37.  U: 100 | 110 | 120.  Edge 16, left phase: p0 = 100, q0 = 110,
+    #   dp = (-40 - 10 + 4) >> 3 = -6 -> -4: p0' = 96; dq = (40 + 10 + 4) >> 3 = 6 -> 4:
+    #   q0' = 106.  Right phase, q0 = 106 (b), q1 = 110, p0 = p1 = 100 (a):
+    #   dq = (24 + 10 + 4) >> 3 = 4: q0'' = 102 (b); dp = (-24 - 10 + 4) >> 3 = -4: p0' = 96 (a).
+    #   Edge 24 alike, 10 up: row 23 106, row 24 112 (b) and 120 (a).
+    # V: 60 | 50 | 40, the mirror: row 15 64, row 16 58 (b) and 50 (a); row 23 54,
+    #   row 24 48 (b) and 40 (a).
+    before, out = _422_edges((100, 110, 120), (60, 50, 40), 128, 8)
+    assert torch.equal(out[0, 1:31, 8:24],
+                       _expect(before[0], {15: (96, 96), 16: (110, 102),
+                                           23: (106, 106), 24: (120, 112)})[1:31])
+    assert torch.equal(out[1, 1:31, 8:24],
+                       _expect(before[1], {15: (64, 64), 16: (50, 58),
+                                           23: (54, 54), 24: (40, 48)})[1:31])
+
+
+def test_4_2_2_chroma_edges_at_10_bits_clip_at_1023():
+    # tc = 4 * 4 = 16.  U: 1020 | 980 | 1023.  Edge 16, left: dp = (160 + 40 + 4) >> 3 = 25
+    #   -> 16: p0' = Clip1(1036) = 1023; dq = (-160 - 40 + 4) >> 3 = -25 -> -16: q0' = 996.
+    #   Right: q0 = 996 (b), q1 = 980, p0 = p1 = 1020 (a): dq = (-96 - 40 + 4) >> 3 = -17
+    #   -> -16: q0'' = 1012 (b); dp = (96 + 40 + 4) >> 3 = 17 -> 16: p0' = Clip1(1036) = 1023.
+    #   Edge 24, left: p0 = 980, q0 = 1023: dp = (-172 - 43 + 4) >> 3 = -27 -> -16: 964;
+    #   dq = (172 + 43 + 4) >> 3 = 27 -> 16: 1007.  Right: q0 = 1007 (b), q1 = 1023, p0 =
+    #   p1 = 980: dq = (108 + 43 + 4) >> 3 = 19 -> 16: 991 (b); dp = (-108 - 43 + 4) >> 3
+    #   = -19 -> -16: 964 (a).
+    # V: 40 | 80 | 0, near the other end of the range.  Edge 16, left: dp = (-160 - 40
+    #   + 4) >> 3 = -25 -> -16: 24; dq = 25 -> 16: 64.  Right: q0 = 64, q1 = 80, p0 = p1 =
+    #   40: dq = (96 + 40 + 4) >> 3 = 17 -> 16: 48 (b); dp = (-96 - 40 + 4) >> 3 = -17 ->
+    #   -16: 24 (a).  Edge 24, left: p0 = 80, q0 = 0: dp = (320 + 80 + 4) >> 3 = 50 -> 16:
+    #   96; dq = (-320 - 80 + 4) >> 3 = -50 -> -16: 16.  Right: q0 = 16 (b), q1 = 0, p0 =
+    #   p1 = 80: dq = (-256 - 80 + 4) >> 3 = -42 -> -16: 32 (b); dp = (256 + 80 + 4) >> 3
+    #   = 42 -> 16: 96 (a).
+    before, out = _422_edges((1020, 980, 1023), (40, 80, 0), 512, 10)
+    assert torch.equal(out[0, 1:31, 8:24],
+                       _expect(before[0], {15: (1023, 1023), 16: (980, 1012),
+                                           23: (964, 964), 24: (1023, 991)})[1:31])
+    assert torch.equal(out[1, 1:31, 8:24],
+                       _expect(before[1], {15: (24, 24), 16: (80, 48),
+                                           23: (96, 96), 24: (0, 32)})[1:31])
