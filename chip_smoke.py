@@ -199,7 +199,7 @@ QUAD_INT_COUNTS = {(False, 8): (47, 960), (False, 1): (46, 1032), (False, 4): (5
 # deblock_packed_kernel<BD> with the lanes' tile in registers, BD -> (ptxas
 # registers, static SASS count) with CUDA 12.8's nvcc for sm_90a; a change
 # that moves them is a change to K2 or K2-10 to measure
-K2_COUNTS = {8: (40, 1384), 10: (39, 1504)}
+K2_COUNTS = {8: (38, 1384), 10: (39, 1504)}
 
 
 def check(cond: bool, what: str) -> None:
@@ -207,16 +207,18 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {what}")
 
 
-def blocky_frame(rng, w, h):
+def blocky_frame(rng, w, h, ch=None):
     """Packed YV12 frame: piecewise-flat 8x8 blocks with noise, so every
-    filter branch runs."""
+    filter branch runs; chroma planes of ch rows (default h/2; h for a
+    4:2:2 frame)."""
+    ch = h // 2 if ch is None else ch
     def plane(hh, ww):
         steps = rng.integers(-14, 15, (hh // 8 + 1, ww // 8 + 1))
         means = 128 + np.cumsum(steps, axis=1) // 2 + np.cumsum(steps, axis=0) // 3
         img = np.kron(means, np.ones((8, 8), np.int64))[:hh, :ww]
         return np.clip(img + rng.integers(-2, 3, img.shape), 0, 255).astype(np.uint8)
-    return np.concatenate([plane(h, w).ravel(), plane(h // 2, w // 2).ravel(),
-                           plane(h // 2, w // 2).ravel()])
+    return np.concatenate([plane(h, w).ravel(), plane(ch, w // 2).ravel(),
+                           plane(ch, w // 2).ravel()])
 
 
 def golden_packed(args) -> bytes:
@@ -421,7 +423,8 @@ def main() -> int:
                 "T4": rk.LAUNCHES["pack"], "K1-i16": ck.LAUNCHES["luma_i16"],
                 "K1-i16c": ck.LAUNCHES["chroma_i16"], "T5": ck.LAUNCHES["rows"],
                 "T1": sk.LAUNCHES["swar"], "K2": ck.LAUNCHES["packed"],
-                "K2-10": ck.LAUNCHES["packed10"]}
+                "K2-10": ck.LAUNCHES["packed10"], "K2 4:2:2": ck.LAUNCHES["packed_422"],
+                "K2-10 4:2:2": ck.LAUNCHES["packed10_422"]}
 
     def reset() -> None:
         for d in (ck.LAUNCHES, rk.LAUNCHES, sk.LAUNCHES):
@@ -1332,6 +1335,38 @@ def main() -> int:
           f"(1, 1), random BS, two calls each: in place == the plain version sample for "
           f"sample; K2-10 1 launch a call, no other kernel ({mesh_launches['K2-10']} in all)")
     del src10, want10, buf10m, lm10, cm10
+
+    # one Main 4:2:2 10 call, as the 4:2:2 cell makes it: an int16 (4, 2h, w)
+    # batch of chroma planes (h, w/2), random BS on the chroma plane's grid
+    bs422 = BoundaryStrength.intra_default(w10, h10, "4:2:2")
+    bs422.set_luma(rng.integers(0, 3, bs422.vert.size, dtype=np.uint8),
+                   rng.integers(0, 3, bs422.hor.size, dtype=np.uint8))
+    bs422.set_chroma(rng.integers(0, 3, bs422.chroma_vert.size, dtype=np.uint8),
+                     rng.integers(0, 3, bs422.chroma_hor.size, dtype=np.uint8))
+    lm422 = [torch.from_numpy(m).to(dev) for m in luma_segment_maps(bs422)]
+    cm422 = [torch.from_numpy(m).to(dev) for m in chroma_segment_maps(bs422)]
+    src422 = torch.from_numpy(
+        np.stack([blocky_frame(rng, w10, h10, h10) for _ in range(4)]).astype(np.int16) * 4
+        + rng.integers(0, 4, (4, 2 * h10 * w10), dtype=np.int16)
+    ).reshape(4, 2 * h10, w10).to(dev)
+    want422 = deblock_packed_plain(src422[:, :h10], src422[:, h10:].view(4, 2, h10, w10 // 2),
+                                   lm422, cm422, beta35, tc35, bit_depth=10)
+    want422 = torch.cat([want422[0], want422[1].reshape(4, h10, w10)], dim=1)
+    check(int((want422[:, h10:] != src422[:, h10:]).sum()) > 0,
+          "the Main 4:2:2 10 step's plain version changed no chroma sample")
+    buf422 = src422.clone()
+    out422 = mesh_run("deblock_packed_batch_sharded_jit Main 4:2:2 10 (4, 4320, 3840)",
+                      lambda: pmesh.deblock_packed_batch_sharded_jit(
+                          mesh11, buf422, lm422, cm422, beta35, tc35, w=w10, h=h10,
+                          bit_depth=10, chroma_format="4:2:2"),
+                      {"K2-10 4:2:2": 1})
+    check(out422 is buf422 and torch.equal(buf422, want422),
+          f"deblock_packed_batch_sharded_jit Main 4:2:2 10 != its plain version: "
+          f"{int((buf422 != want422).sum())} samples differ")
+    print("mesh: deblock_packed_batch_sharded_jit, Main 4:2:2 10 (4, 4320, 3840) int16 on "
+          "(1, 1), random BS: in place == the plain version sample for sample; K2-10 1 "
+          "launch, under packed10_422, no other kernel")
+    del src422, want422, buf422, lm422, cm422
 
     new_paths = {"pipeline": pipe_launches, "compat": compat_launches,
                  "sheared": sheared_launches, "mesh": mesh_launches}

@@ -230,6 +230,14 @@
 // us at 3.35 TB/s.  Its guard is w % 16 == 0 (the chroma rows, w/2 samples
 // of 2 bytes, are 16-byte multiples) with K2's address and stride rules
 // (ops/cuda_kernel.packed_fits); a 10-bit batch outside it raises.
+//
+// 4:2:2 (HEVC's format range extensions, e.g. Main 4:2:2 10) changes only
+// the chroma planes' height: (h, w/2) where 4:2:0 has (h/2, w/2).  Every
+// plane's edges lie on its own 8x8 grid, so the chroma quad, its tiles and
+// its BS maps are 4:2:0's, on (h + 8) / 8 chroma tile rows.  The height is
+// a runtime field of the grid (gvct::PackedGrid::ch), read by the chroma
+// tensor map's extent and the stores' row limit, so K2 and K2-10 serve both
+// formats with one instance each.
 
 #include <cuda.h>  // CUtensorMap and the encode's types; nothing of libcuda is linked
 #include <cuda_runtime.h>
@@ -567,7 +575,7 @@ __global__ void __launch_bounds__(kPackedThreads, 16)
     packed_quad_phases<false>(lane, p, th);
   }
   uint8_t* plane = chroma ? out.uv + f * out.uv_frame + z * out.uv_plane : out.y + f * out.y_frame;
-  gvct::packed_store(p, plane, chroma ? out.uv_row : out.y_row, chroma ? g.h / 2 : g.h,
+  gvct::packed_store(p, plane, chroma ? out.uv_row : out.y_row, chroma ? g.ch : g.h,
                      chroma ? g.w / 2 : g.w, x0, y0, lane.t, lane.r, blk.n);
 }
 
@@ -766,14 +774,14 @@ int packed_tensor_map(const void* ptr, int w, int h, int planes, int k, long lon
 template <int BD>
 int packed_launch(const void* y_in, void* y_out, const void* uv_in, void* uv_out,
                   const long long* s, const void* const* maps, const gvct::Thresholds& th,
-                  int w, int h, int k, int luma_only, cudaStream_t stream) {
-  const gvct::PackedGrid g = gvct::packed_grid(w, h, luma_only);
+                  int w, int h, int ch, int k, int luma_only, cudaStream_t stream) {
+  const gvct::PackedGrid g = gvct::packed_grid(w, h, ch, luma_only);
   CUtensorMap tm[2] = {};
   if (const int e = packed_tensor_map<BD>(y_in, w, h, 1, k, s[1], h * s[1], s[0], &tm[0])) {
     return e;
   }
   if (!luma_only) {
-    if (const int e = packed_tensor_map<BD>(uv_in, w / 2, h / 2, 2, k, s[6], s[5], s[4],
+    if (const int e = packed_tensor_map<BD>(uv_in, w / 2, ch, 2, k, s[6], s[5], s[4],
                                             &tm[1])) {
       return e;
     }
@@ -886,7 +894,8 @@ extern "C" int gvct_deblock_rows_occupancy(int chroma, int block_bx, int by, int
 }
 
 // K2, the packed step of k frames: luma planes (k, h, w) and U and V
-// planes (k, 2, h/2, w/2) of bit_depth-bit samples, uint8 at 8 (K2) and
+// planes (k, 2, ch, w/2) of bit_depth-bit samples -- ch = h/2 at 4:2:0, h
+// at 4:2:2, the one difference between the formats -- uint8 at 8 (K2) and
 // 16-bit words at 10 (K2-10), read at y_in and uv_in and written at y_out
 // and uv_out (which may be the inputs: in place).  strides, in bytes:
 // [0..1] the luma input's frame and row strides, [2..3] the luma output's,
@@ -895,23 +904,23 @@ extern "C" int gvct_deblock_rows_occupancy(int chroma, int block_bx, int by, int
 // map's demand), the output's of the lanes' stores, 4 bytes at 8 bits and
 // 8 at 10 (ops/cuda_kernel.packed_fits asks 16 of both).  maps: the four
 // (By, Bx) luma and the four (cBy, cBx) chroma BS maps, shared by the
-// frames.  beta and tc: the tables' beta' and tc' at the QP, scaled here
-// by 2^(bit_depth - 8) (H.265 8.7.2.5).  luma_only !=
-// 0: no chroma blocks (the chroma pointers unused).  Launch on `stream`
+// frames.  ch: the chroma planes' rows.  beta and tc: the tables' beta'
+// and tc' at the QP, scaled here by 2^(bit_depth - 8) (H.265 8.7.2.5).
+// luma_only != 0: no chroma blocks (the chroma pointers unused).  Launch on `stream`
 // without synchronizing; returns cudaGetLastError() after the launch, or
 // the error of a tensor-map encode that failed, or cudaErrorInvalidValue
 // for a bit depth other than 8 and 10 (0 = ok).
 extern "C" int gvct_deblock_packed(const void* y_in, void* y_out, const void* uv_in, void* uv_out,
                                    const long long* strides, const void* const* maps, int beta,
-                                   int tc, int w, int h, int k, int luma_only, int bit_depth,
-                                   int device, void* stream) {
+                                   int tc, int w, int h, int ch, int k, int luma_only,
+                                   int bit_depth, int device, void* stream) {
   if (bit_depth != 8 && bit_depth != 10) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int up = bit_depth - 8;
   const gvct::Thresholds th = gvct::make_thresholds(beta << up, tc << up);
   const auto launch = bit_depth == 8 ? packed_launch<8> : packed_launch<10>;
-  return launch(y_in, y_out, uv_in, uv_out, strides, maps, th, w, h, k, luma_only,
+  return launch(y_in, y_out, uv_in, uv_out, strides, maps, th, w, h, ch, k, luma_only,
                 static_cast<cudaStream_t>(stream));
 }
 

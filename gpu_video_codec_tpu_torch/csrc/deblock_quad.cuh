@@ -232,26 +232,29 @@ struct RowsTmaCell : StageCell<int> {
 // by + y is chroma tile row y of U (blocks x < cx) and of V (blocks cx <=
 // x < 2 cx); blocks past their row's end own nothing (and chroma rows are
 // none under luma_only).  The tile grids are the chain's, (h + 8) / 8 x
-// (w + 8) / 8 and (h/2 + 8) / 8 x (w/2 + 8) / 8
-// (utils/tiles.interior_to_tiles): tile (by, bx) covers the plane's rows
+// (w + 8) / 8 and (ch + 8) / 8 x (w/2 + 8) / 8, ch the chroma planes' rows
+// -- h/2 at 4:2:0, h at 4:2:2 (H.265's SubHeightC 2 or 1), a runtime field
+// so that one instance serves both formats (utils/tiles.interior_to_tiles;
+// every plane's edges on its own 8x8 grid): tile (by, bx) covers the plane's rows
 // 8 by - 4 .. 8 by + 3 and columns 8 bx - 4 .. 8 bx + 3, zero outside it
 // (Q6).
 constexpr int kPackedTiles = 16;  // 64 threads: two whole warps
 
 struct PackedGrid {
-  int w, h;              // the luma plane; the chroma planes are w/2 x h/2
+  int w, h, ch;          // the luma plane; the chroma planes are w/2 x ch
   int by, bx, cby, cbx;  // the luma and the chroma tile grids
   int lx, cx;            // blocks per luma and per chroma tile row
   int gx, rows;          // the grid's x and y extents
 };
 
-GVCT_HD PackedGrid packed_grid(int w, int h, int luma_only) {
+GVCT_HD PackedGrid packed_grid(int w, int h, int ch, int luma_only) {
   PackedGrid g;
   g.w = w;
   g.h = h;
+  g.ch = ch;
   g.by = (h + 8) / 8;
   g.bx = (w + 8) / 8;
-  g.cby = (h / 2 + 8) / 8;
+  g.cby = (ch + 8) / 8;
   g.cbx = (w / 2 + 8) / 8;
   g.lx = (g.bx + kPackedTiles - 1) / kPackedTiles;
   g.cx = (g.cbx + kPackedTiles - 1) / kPackedTiles;

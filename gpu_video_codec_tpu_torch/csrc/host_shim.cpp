@@ -380,8 +380,8 @@ void host_packed_block(const HostPlane& p, const gvct::PackedBlock& blk,
 template <int BD>
 void host_packed(const uint8_t* y_in, uint8_t* y_out, const uint8_t* uv_in, uint8_t* uv_out,
                  const long long* s, const uint8_t* const* maps, const gvct::Thresholds& th,
-                 int w, int h, int k, int luma_only) {
-  const gvct::PackedGrid g = gvct::packed_grid(w, h, luma_only);
+                 int w, int h, int ch, int k, int luma_only) {
+  const gvct::PackedGrid g = gvct::packed_grid(w, h, ch, luma_only);
   for (int f = 0; f < k; ++f) {
     for (int b = 0; b < g.rows * g.gx; ++b) {
       const gvct::PackedBlock blk = gvct::packed_block(g, b % g.gx, b / g.gx);
@@ -392,7 +392,7 @@ void host_packed(const uint8_t* y_in, uint8_t* y_out, const uint8_t* uv_in, uint
       } else {
         const long long z = blk.plane - 1;
         const HostPlane p{uv_in + f * s[4] + z * s[5], s[6], uv_out + f * s[7] + z * s[8], s[9],
-                          h / 2, w / 2};
+                          ch, w / 2};
         host_packed_block<true, BD>(p, blk, maps + 4, th);
       }
     }
@@ -410,12 +410,13 @@ void host_packed(const uint8_t* y_in, uint8_t* y_out, const uint8_t* uv_in, uint
 extern "C" int gvct_host_deblock_packed(const uint8_t* y_in, uint8_t* y_out, const uint8_t* uv_in,
                                         uint8_t* uv_out, const long long* s,
                                         const uint8_t* const* maps, int beta, int tc, int w,
-                                        int h, int k, int luma_only, int bit_depth) {
+                                        int h, int ch, int k, int luma_only,
+                                        int bit_depth) {
   if (bit_depth != 8 && bit_depth != 10) return -1;
   const int up = bit_depth - 8;
   const gvct::Thresholds th = gvct::make_thresholds(beta << up, tc << up);
   const auto run = bit_depth == 8 ? host_packed<8> : host_packed<10>;
-  run(y_in, y_out, uv_in, uv_out, s, maps, th, w, h, k, luma_only);
+  run(y_in, y_out, uv_in, uv_out, s, maps, th, w, h, ch, k, luma_only);
   return 0;
 }
 

@@ -45,7 +45,7 @@ from ..ops.cuda_kernel import (
     BLOCK_BX, CHROMA_BLOCK_BX, deblock_packed_cuda, packed_fits, packed_limit,
 )
 from ..ops.deblock import deblock_frame
-from ..ops.tables import HALF_BLOCK, SAMPLE_BLOCK_SIZE, get_beta, get_tc
+from ..ops.tables import HALF_BLOCK, SAMPLE_BLOCK_SIZE, chroma_height, get_beta, get_tc
 from ..utils.bs import BoundaryStrength, segment_bs_maps_device
 from ..utils.graphs import CapturedStep, GraphCache, graphed, tensor_key
 from ..utils.tracing import profiled_device_us
@@ -71,7 +71,7 @@ def _pack_out(buf, parts_at, inplace: bool):
 
 def _deblock_planes_impl(y, uv, lm, cm, beta, tc, w, h, luma_only, backend,
                          luma_block=BLOCK_BX, chroma_block=CHROMA_BLOCK_BX, out=None,
-                         bit_depth=8):
+                         bit_depth=8, chroma_format="4:2:0"):
     """PLANES contract: y (.., h, w) + uv (.., 2, h/2, w/2) uint8 -> (filtered
     y, filtered uv), same shapes, new tensors (uv itself under luma_only).
     At most one leading frame axis: a batch of frames shares one BS map.
@@ -89,16 +89,20 @@ def _deblock_planes_impl(y, uv, lm, cm, beta, tc, w, h, luma_only, backend,
     bit_depth=10: int16 planes of Main 10 samples, beta and tc the tables'
     (scaled by the filter); the cuda backend runs K2-10 where packed_fits
     holds and raises ValueError where it does not (there is no 10-bit
-    chain)."""
+    chain).  chroma_format="4:2:2": uv (.., 2, h, w/2), filtered the same
+    way, by K2 or K2-10 alone on the cuda backend (there is no 4:2:2
+    chain either)."""
     p = HALF_BLOCK
-    cw, ch = w // 2, h // 2
+    cw, ch = w // 2, chroma_height(h, chroma_format)
     pads = (p, p, p, p)
     if backend == "cuda":
         if packed_fits(w, y, uv, *(out or ()), bit_depth=bit_depth):
             return deblock_packed_cuda(y, uv, lm, cm, beta, tc, luma_only=luma_only, out=out,
-                                       bit_depth=bit_depth)
+                                       bit_depth=bit_depth, chroma_format=chroma_format)
         if bit_depth != 8:
             raise ValueError(f"no {bit_depth}-bit chain: {packed_limit(w, bit_depth)}")
+        if chroma_format != "4:2:0":
+            raise ValueError(f"no {chroma_format} chain: {packed_limit(w, bit_depth)}")
         y_dst, uv_dst = out or (None, None)
         (y_int,) = tile_chain([y], lm, beta, tc, pad=p, chroma=False, out=[y_dst],
                               block_bx=luma_block)
@@ -118,26 +122,30 @@ def _deblock_planes_impl(y, uv, lm, cm, beta, tc, w, h, luma_only, backend,
 
 def _deblock_yv12_packed_impl(buf, lm, cm, beta, tc, w, h, luma_only, backend,
                               luma_block=BLOCK_BX, chroma_block=CHROMA_BLOCK_BX,
-                              inplace=False, bit_depth=8):
+                              inplace=False, bit_depth=8, chroma_format="4:2:0"):
     """Packed YV12 uint8 (.., 3h/2, w) -> filtered packed YV12; a leading
     axis is a batch of frames (the multi-stream step, parallel/mesh.py),
     which the cuda backend runs through the same launches as one frame.
     bit_depth=10: an int16 buffer of Main 10 samples (_deblock_planes_impl);
-    on the CPU it takes backend "torch"'s plain version at every width.
+    chroma_format="4:2:2": a (.., 2h, w) buffer of 4:2:2 frames; either, on
+    the CPU, takes backend "torch"'s plain version at every width.
 
     Luma is the leading h rows; the chroma rows are U then V, viewed as
-    (2, h/2, w/2).  The filter is the planes contract; inplace=True writes
+    (2, ch, w/2), ch = h/2 at 4:2:0 and h at 4:2:2.  The filter is the
+    planes contract; inplace=True writes
     the result back into `buf` and returns it, inplace=False returns a new
     buffer and leaves `buf` untouched.  The cuda backend's T3 writes the
     filtered planes straight into the destination buffer; rows it does not
     filter (chroma under luma_only) keep their input bytes."""
     lead = tuple(buf.shape[:-2])
+    ch = chroma_height(h, chroma_format)
 
     def planes(b):  # (y, uv) views of a packed buffer
-        return b[..., :h, :], b[..., h:, :].view(*lead, 2, h // 2, w // 2)
+        return b[..., :h, :], b[..., h:, :].view(*lead, 2, ch, w // 2)
 
-    if backend == "cuda" and bit_depth != 8 and buf.device.type == "cpu":
-        backend = "torch"  # no 10-bit chain to model on the CPU
+    if (backend == "cuda" and (bit_depth != 8 or chroma_format != "4:2:0")
+            and buf.device.type == "cpu"):
+        backend = "torch"  # no 10-bit or 4:2:2 chain to model on the CPU
     if backend == "cuda":
         dst = buf if inplace else torch.empty_like(buf)
         if luma_only and not inplace:
@@ -145,25 +153,25 @@ def _deblock_yv12_packed_impl(buf, lm, cm, beta, tc, w, h, luma_only, backend,
         src = planes(buf)
         _deblock_planes_impl(*src, lm, cm, beta, tc, w, h, luma_only, backend, luma_block,
                              chroma_block, out=src if inplace else planes(dst),
-                             bit_depth=bit_depth)
+                             bit_depth=bit_depth, chroma_format=chroma_format)
         return dst
     y_int, uv_int = _deblock_planes_impl(*planes(buf), lm, cm, beta, tc, w, h, luma_only,
                                          backend, luma_block, chroma_block,
-                                         bit_depth=bit_depth)
+                                         bit_depth=bit_depth, chroma_format=chroma_format)
     parts = [(0, y_int)]
     if not luma_only:
-        parts.append((h, uv_int.reshape(*lead, h // 2, w)))
+        parts.append((h, uv_int.reshape(*lead, -1, w)))
     return _pack_out(buf, parts, inplace)
 
 
 def _packed_steps(n, beta, tc, w, h, luma_only, backend, luma_block, chroma_block,
-                  bit_depth=8):
+                  bit_depth=8, chroma_format="4:2:0"):
     """fn(buf, *lm, *cm): n in-place packed steps on buf (returns None)."""
     def steps(buf, *maps):
         for _ in range(n):
             _deblock_yv12_packed_impl(buf, maps[:4], maps[4:], beta, tc, w, h, luma_only,
                                       backend, luma_block, chroma_block, inplace=True,
-                                      bit_depth=bit_depth)
+                                      bit_depth=bit_depth, chroma_format=chroma_format)
     return steps
 
 

@@ -17,7 +17,9 @@ each block's shifted tiles staged by TMA straight from the picture, in
 place of T2 -> K1 -> T3 and T2 -> K1c -> T3 wherever its guard
 (packed_fits) takes the geometry and the buffers; and K2-10, its instance
 on HEVC Main 10's 16-bit samples (deblock_packed_cuda(..., bit_depth=10)),
-which has no chain to fall back to.
+which has no chain to fall back to.  Both take 4:2:2 frames as well
+(chroma_format="4:2:2": chroma planes (h, w/2)), the chroma planes' height
+a runtime argument of one instance each.
 
 The library is built at first use with nvcc, from csrc/ only, into
 build/torch_kernels/ beside the package, under a name keyed on a hash of
@@ -45,7 +47,7 @@ import torch
 
 from ..utils.tracing import RECORDER
 from .deblock import deblock_packed_plain, deblock_rows_plain, deblock_tiles_plain
-from .tables import check_bit_depth
+from .tables import check_bit_depth, chroma_height
 
 # Tiles per block of the quad kernel (K1, K1c, K1-i16, K1-i16c): consecutive
 # tiles of the flattened (By, Bx) grid, QUAD threads each, at most
@@ -75,9 +77,13 @@ SAMPLE_DTYPES = {8: torch.uint8, 10: torch.int16}
 PACKED_WIDTHS = {bd: 2 * _TMA_ALIGN // t.itemsize for bd, t in SAMPLE_DTYPES.items()}
 
 # Kernel launches per variant since import (or since a caller reset them):
-# K1, K1c, K1-i16 luma and chroma, T5 (luma and chroma), K2, K2-10.
+# K1, K1c, K1-i16 luma and chroma, T5 (luma and chroma), K2, K2-10, and K2
+# and K2-10 on 4:2:2 frames.
 LAUNCHES = {"luma": 0, "chroma": 0, "luma_i16": 0, "chroma_i16": 0, "rows": 0, "packed": 0,
-            "packed10": 0}
+            "packed10": 0, "packed_422": 0, "packed10_422": 0}
+# deblock_packed_cuda's LAUNCHES key by (bit depth, chroma format)
+PACKED_LAUNCHES = {(8, "4:2:0"): "packed", (10, "4:2:0"): "packed10",
+                   (8, "4:2:2"): "packed_422", (10, "4:2:2"): "packed10_422"}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
@@ -159,10 +165,10 @@ _TILE_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong, ct
 # in, out, four maps, beta, tc, By, Bx, chroma: T5's and T1's arguments
 GRID_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
 _LAUNCH_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # threads, device, stream
-# y_in, y_out, uv_in, uv_out, 10 strides, 8 maps, beta, tc, w, h, k, luma_only,
-# bit_depth
+# y_in, y_out, uv_in, uv_out, 10 strides, 8 maps, beta, tc, w, h, ch, k,
+# luma_only, bit_depth
 _PACKED_ARGS = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong),
-                                        ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 7
+                                        ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 8
 
 
 def _setup_cuda(lib) -> None:
@@ -435,14 +441,18 @@ def packed_fits(w: int, *tensors, bit_depth: int = 8) -> bool:
         for t in tensors if t is not None)
 
 
-def packed_grids(w: int, h: int) -> tuple[tuple[int, int], tuple[int, int]]:
+def packed_grids(w: int, h: int,
+                 chroma_format: str = "4:2:0") -> tuple[tuple[int, int], tuple[int, int]]:
     """The luma and the chroma tile grids of a w x h frame's packed step,
     (By, Bx) and (cBy, cBx): the chain's (utils/tiles.interior_to_tiles
-    with pad 4), and its BS maps' shapes."""
-    return ((h + 8) // 8, (w + 8) // 8), ((h // 2 + 8) // 8, (w // 2 + 8) // 8)
+    with pad 4) on the luma plane and on a chroma plane, (h/2, w/2) at
+    4:2:0 and (h, w/2) at 4:2:2, and its BS maps' shapes."""
+    ch = chroma_height(h, chroma_format)
+    return ((h + 8) // 8, (w + 8) // 8), ((ch + 8) // 8, (w // 2 + 8) // 8)
 
 
-def _check_packed(y, uv, luma_maps, chroma_maps, beta, tc, out, bit_depth) -> None:
+def _check_packed(y, uv, luma_maps, chroma_maps, beta, tc, out, bit_depth,
+                  chroma_format) -> None:
     """deblock_packed_cuda's operand checks; raises ValueError."""
     dtype = SAMPLE_DTYPES[check_bit_depth(bit_depth)]
     for name, t in (("y", y), ("uv", uv)):
@@ -450,17 +460,18 @@ def _check_packed(y, uv, luma_maps, chroma_maps, beta, tc, out, bit_depth) -> No
             raise ValueError(f"{name} must be a {dtype} tensor at bit_depth {bit_depth}, got "
                              f"{getattr(t, 'dtype', type(t).__name__)}")
     if y.dim() not in (2, 3) or uv.dim() != y.dim() + 1:
-        raise ValueError(f"y must be (h, w) or (k, h, w) and uv (.., 2, h/2, w/2) with the same "
+        raise ValueError(f"y must be (h, w) or (k, h, w) and uv (.., 2, ch, w/2) with the same "
                          f"leading axis, got {tuple(y.shape)} and {tuple(uv.shape)}")
     h, w = y.shape[-2:]
     if h <= 0 or w <= 0 or h % 8 or w % 8:
         raise ValueError(f"frame dims must be positive multiples of 8, got {w}x{h}")
-    if tuple(uv.shape) != (*y.shape[:-2], 2, h // 2, w // 2) or uv.device != y.device:
-        raise ValueError(f"uv must be {(*y.shape[:-2], 2, h // 2, w // 2)} on {y.device}, got "
-                         f"{tuple(uv.shape)} on {uv.device}")
+    want = (*y.shape[:-2], 2, chroma_height(h, chroma_format), w // 2)
+    if tuple(uv.shape) != want or uv.device != y.device:
+        raise ValueError(f"uv must be {want} on {y.device} at chroma_format {chroma_format}, "
+                         f"got {tuple(uv.shape)} on {uv.device}")
     if beta < 0 or tc < 0:
         raise ValueError(f"beta and tc must be non-negative, got {beta}, {tc}")
-    grid, cgrid = packed_grids(w, h)
+    grid, cgrid = packed_grids(w, h, chroma_format)
     check_grid_maps(y, luma_maps, *grid)
     check_grid_maps(y, chroma_maps, *cgrid)
     if out is not None:
@@ -491,7 +502,8 @@ def packed_launch_args(y, uv, y_out, uv_out, luma_maps, chroma_maps, beta, tc,
     gvct_host_deblock_packed's, all of them): the planes' addresses, their
     frame, plane and row strides in bytes, the eight maps, the thresholds
     (the tables', which the entries scale to the bit depth), the geometry
-    and the bit depth (csrc/deblock_kernel.cu)."""
+    -- w and h from y, the chroma planes' rows (h/2 at 4:2:0, h at 4:2:2)
+    from uv -- and the bit depth (csrc/deblock_kernel.cu)."""
     h, w = y.shape[-2:]
     size = y.element_size()
 
@@ -507,12 +519,12 @@ def packed_launch_args(y, uv, y_out, uv_out, luma_maps, chroma_maps, beta, tc,
     maps = (ctypes.c_void_p * 8)(*(m.data_ptr() for m in (*luma_maps, *chroma_maps)))
     chroma = (None, None) if luma_only else (uv.data_ptr(), uv_out.data_ptr())
     return (y.data_ptr(), y_out.data_ptr(), chroma[0], chroma[1],
-            (ctypes.c_longlong * 10)(*strides), maps, int(beta), int(tc), w, h,
+            (ctypes.c_longlong * 10)(*strides), maps, int(beta), int(tc), w, h, uv.shape[-2],
             y.shape[0] if y.dim() == 3 else 1, int(luma_only), int(bit_depth))
 
 
 def deblock_packed_cuda(y, uv, luma_maps, chroma_maps, beta, tc, *, luma_only: bool = False,
-                        out=None, bit_depth: int = 8):
+                        out=None, bit_depth: int = 8, chroma_format: str = "4:2:0"):
     """K2: the packed YV12 step of k frames in one launch, on their planes
     (csrc/deblock_kernel.cu, deblock_packed_kernel): each block's shifted
     8x8 tiles loaded by TMA straight from a plane, K1's or K1c's quad run on
@@ -527,6 +539,10 @@ def deblock_packed_cuda(y, uv, luma_maps, chroma_maps, beta, tc, *, luma_only: b
     samples in [0, 1023], filtered by K2-10 with beta and tc scaled by 4
     and every filtered sample clipped to [0, 1023]
     (LAUNCHES["packed10"]).
+    chroma_format="4:2:2": uv (.., 2, h, w/2), the chroma planes of 4:2:2
+    frames (e.g. the views of a packed (k, 2h, w) buffer), and chroma_maps
+    their (cBy, cBx) = ((h + 8) / 8, (w/2 + 8) / 8) maps, by the same K2 or
+    K2-10 (LAUNCHES["packed_422"], LAUNCHES["packed10_422"]).
     out: optional (y, uv) destinations of the planes' shapes -- the planes
     themselves for in place.  Returns out, or new contiguous (y, uv); under
     luma_only the chroma is not filtered and uv itself comes back.
@@ -536,7 +552,7 @@ def deblock_packed_cuda(y, uv, luma_maps, chroma_maps, beta, tc, *, luma_only: b
     stream and does not synchronize.  CPU tensors take the plain version
     (ops/deblock.deblock_packed_plain)."""
     beta, tc = int(beta), int(tc)
-    _check_packed(y, uv, luma_maps, chroma_maps, beta, tc, out, bit_depth)
+    _check_packed(y, uv, luma_maps, chroma_maps, beta, tc, out, bit_depth, chroma_format)
     if y.device.type == "cpu":
         y_new, uv_new = deblock_packed_plain(y, uv, luma_maps, chroma_maps, beta, tc,
                                              luma_only, bit_depth)
@@ -558,7 +574,7 @@ def deblock_packed_cuda(y, uv, luma_maps, chroma_maps, beta, tc, *, luma_only: b
         *packed_launch_args(y, uv, *out, luma_maps, chroma_maps, beta, tc, luma_only, bit_depth),
         y.device.index, torch.cuda.current_stream(y.device).cuda_stream)
     raise_on_launch(err, lib, "deblock_packed")
-    LAUNCHES["packed" if bit_depth == 8 else "packed10"] += 1
+    LAUNCHES[PACKED_LAUNCHES[bit_depth, chroma_format]] += 1
     return out[0], uv if luma_only else out[1]
 
 

@@ -50,6 +50,31 @@ def check_bit_depth(bit_depth) -> int:
     return int(bit_depth)
 
 
+# The chroma formats the port filters, each with its SubHeightC (H.265
+# Table 6-1; SubWidthC is 2 in both): "4:2:0", chroma planes (h/2, w/2) and
+# a packed frame of 3h/2 rows (luma, U, V), and "4:2:2" (the format range
+# extensions, e.g. Main 4:2:2 10), chroma planes (h, w/2) and 2h rows.  Each
+# chroma plane is filtered on its own 8x8 grid with the one-sample filter,
+# its BS maps looked up at the chroma width and gated by the luma tile
+# counts (Q2), and chroma tc is the table's at the frame's QP in both
+# (at 4:2:2 H.265 sets QpC = Min(qPi, 51), no Table 8-10 lookup).
+CHROMA_FORMATS = {"4:2:0": 2, "4:2:2": 1}
+
+
+def check_chroma_format(chroma_format) -> str:
+    """chroma_format itself; raises ValueError outside CHROMA_FORMATS."""
+    if chroma_format not in CHROMA_FORMATS:
+        raise ValueError(f"chroma_format must be one of {tuple(CHROMA_FORMATS)}, "
+                         f"got {chroma_format!r}")
+    return chroma_format
+
+
+def chroma_height(h: int, chroma_format: str = "4:2:0") -> int:
+    """A chroma plane's rows for a frame of h luma rows: h/2 at 4:2:0, h at
+    4:2:2 (its columns are w/2 in both)."""
+    return h // CHROMA_FORMATS[check_chroma_format(chroma_format)]
+
+
 def max_pixel(bit_depth: int = 8) -> int:
     """The largest sample value, 2^bit_depth - 1 (the clip of every filtered
     sample)."""

@@ -28,6 +28,7 @@ same bytes.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import numpy as np
@@ -35,9 +36,9 @@ import torch
 
 from ..models.streaming import _packed_steps
 from ..ops.chain import tile_chain
-from ..ops.cuda_kernel import BLOCK_BX, CHROMA_BLOCK_BX, SAMPLE_DTYPES
+from ..ops.cuda_kernel import BLOCK_BX, CHROMA_BLOCK_BX, SAMPLE_DTYPES, packed_grids
 from ..ops.tables import SAMPLE_BLOCK_SIZE as _B
-from ..ops.tables import check_bit_depth
+from ..ops.tables import check_bit_depth, chroma_height
 from ..utils.graphs import CapturedStep, GraphCache, graphed, tensor_key
 from ..utils.tiles import split_covered_data
 from ..utils.tracing import RECORDER, stamp
@@ -293,17 +294,28 @@ def deblock_batch_sharded_jit(mesh: Mesh, *args, luma_only: bool = False,
 
 # -- packed YV12 batches: whole frames over every slot ----------------------------
 
+@functools.lru_cache(maxsize=64)
+def _frame_tiles(w: int, h: int, chroma_format: str, luma_only: bool) -> tuple[int, int]:
+    """The luma and the chroma (U and V) tiles of one frame's packed step."""
+    (by, bx), (cby, cbx) = packed_grids(w, h, chroma_format)
+    return by * bx, 0 if luma_only else 2 * cby * cbx
+
+
 def _packed_sharded(mesh, buf, luma_maps, chroma_maps, beta, tc, w, h, luma_only, backend,
-                    luma_block, chroma_block, graphs: bool, bit_depth):
+                    luma_block, chroma_block, graphs: bool, bit_depth, chroma_format):
     stamps = RECORDER.start_call()  # the call's stamps where it is recorded, else None
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    if (buf.dim() != 3 or tuple(buf.shape[1:]) != (3 * h // 2, w)
+    rows = h + chroma_height(h, chroma_format)  # U and V of w/2; raises outside the formats
+    if (buf.dim() != 3 or tuple(buf.shape[1:]) != (rows, w)
             or buf.dtype != SAMPLE_DTYPES.get(bit_depth)):
         dtype = SAMPLE_DTYPES[check_bit_depth(bit_depth)]  # raises outside (8, 10)
-        raise ValueError(f"buf must be a {dtype} (N, {3 * h // 2}, {w}) packed batch at "
-                         f"bit_depth {bit_depth}, got {tuple(buf.shape)} {buf.dtype}")
+        raise ValueError(f"buf must be a {dtype} (N, {rows}, {w}) packed batch at "
+                         f"bit_depth {bit_depth} and chroma_format {chroma_format}, got "
+                         f"{tuple(buf.shape)} {buf.dtype}")
     beta, tc = int(beta), int(tc)
+    luma, chroma = _frame_tiles(w, h, chroma_format, bool(luma_only))
+    RECORDER.add_tiles(buf.shape[0] * luma, buf.shape[0] * chroma)
     # the graph key holds the bit depth through the buffer's dtype (tensor_key)
     static = (beta, tc, w, h, bool(luma_only), backend, int(luma_block), int(chroma_block))
     for index, (lo, hi) in enumerate(packed_batch_sharding(mesh, buf.shape[0])):
@@ -315,8 +327,8 @@ def _packed_sharded(mesh, buf, luma_maps, chroma_maps, beta, tc, w, h, luma_only
         lm, cm = _placed(luma_maps, dev), _placed(chroma_maps, dev)
         on_card = (graphs and graphed(backend, dev) and local is view
                    and all(p is m for p, m in zip((*lm, *cm), (*luma_maps, *chroma_maps))))
-        _run(mesh, index, _packed_steps(1, *static, bit_depth), (local, *lm, *cm),
-             ("packed", *static), on_card, stamps)
+        _run(mesh, index, _packed_steps(1, *static, bit_depth, chroma_format),
+             (local, *lm, *cm), ("packed", *static, chroma_format), on_card, stamps)
         _home(view, local)
     if stamps is not None:
         RECORDER.end_call(stamps)
@@ -325,7 +337,8 @@ def _packed_sharded(mesh, buf, luma_maps, chroma_maps, beta, tc, w, h, luma_only
 
 def deblock_packed_batch_sharded(mesh: Mesh, buf, luma_maps, chroma_maps, beta, tc, *, w, h,
                                  luma_only=False, backend="cuda", luma_block=BLOCK_BX,
-                                 chroma_block=CHROMA_BLOCK_BX, bit_depth=8):
+                                 chroma_block=CHROMA_BLOCK_BX, bit_depth=8,
+                                 chroma_format="4:2:0"):
     """Filter a packed YV12 batch (N, 3h/2, w) uint8 IN PLACE; returns buf.
 
     Frames go over all slots in contiguous chunks (packed_batch_sharding).
@@ -349,23 +362,37 @@ def deblock_packed_batch_sharded(mesh: Mesh, buf, luma_maps, chroma_maps, beta, 
     holds (w % 16 == 0 and 16-byte aligned frames); elsewhere it raises
     ValueError (there is no 10-bit chain).  A CPU slot takes the plain
     version at any width.  A buffer of the other bit depth's dtype, or a
-    bit_depth outside (8, 10), raises ValueError."""
+    bit_depth outside (8, 10), raises ValueError.
+    chroma_format: "4:2:0" (the default), or "4:2:2" (HEVC's format range
+    extensions, e.g. Main 4:2:2 10): buf (N, 2h, w), luma then U and V of
+    (h, w/2) each, chroma_maps the (h/8 + 1, w/16 + 1) maps of those
+    planes (looked up at the chroma width w/2 and gated by the luma tile
+    counts, as at 4:2:0).  On a CUDA slot a 4:2:2 chunk runs K2 or K2-10,
+    one launch, where packed_fits holds, and raises ValueError elsewhere
+    (there is no 4:2:2 chain); a CPU slot takes the plain version at any
+    width.  Any other format, or a buffer of the other format's rows,
+    raises ValueError.
+    Each call adds its frames' tiles to the counters packed.luma_tiles and
+    packed.chroma_tiles (utils/tracing.RECORDER)."""
     return _packed_sharded(mesh, buf, luma_maps, chroma_maps, beta, tc, w, h, luma_only,
-                           backend, luma_block, chroma_block, graphs=False, bit_depth=bit_depth)
+                           backend, luma_block, chroma_block, graphs=False, bit_depth=bit_depth,
+                           chroma_format=chroma_format)
 
 
 def deblock_packed_batch_sharded_jit(mesh: Mesh, buf, luma_maps, chroma_maps, beta, tc, *,
                                      w, h, luma_only=False, backend="cuda",
                                      luma_block=BLOCK_BX, chroma_block=CHROMA_BLOCK_BX,
-                                     bit_depth=8):
+                                     bit_depth=8, chroma_format="4:2:0"):
     """deblock_packed_batch_sharded with each slot's batched step as ONE
     CUDA graph replay on the caller's current stream of the slot's device
     (_run), captured at the first call on the same buffer and maps (cuda
     backend, a CUDA slot that holds the buffer, the maps as tensors on its
     device); elsewhere eager.  At bit_depth 10 the replay is one K2-10
-    launch (LAUNCHES["packed10"])."""
+    launch (LAUNCHES["packed10"]; "packed10_422" at chroma_format
+    "4:2:2", which is part of the graph's key)."""
     return _packed_sharded(mesh, buf, luma_maps, chroma_maps, beta, tc, w, h, luma_only,
-                           backend, luma_block, chroma_block, graphs=True, bit_depth=bit_depth)
+                           backend, luma_block, chroma_block, graphs=True, bit_depth=bit_depth,
+                           chroma_format=chroma_format)
 
 
 __all__ = [

@@ -2,7 +2,7 @@
 comparing two trees of the port in one run on one card.
 
     python gpu_video_codec_tpu_torch/tools/kernel_time.py [--tree DIR] \\
-        [--iters 200] [--repeats 3]
+        [--iters 200] [--repeats 3] [--chroma-format 4:2:0|4:2:2]
 
 --tree: the checkout whose gpu_video_codec_tpu_torch is imported (default:
 the one this file lies in), e.g. a `git archive` of another commit; run
@@ -33,6 +33,15 @@ Prints one JSON line: per kernel the device us per launch of each repeat
 behind a spin kernel) and whether every repeat was queued ahead; the
 packed step's bounds in us ("bound_us") and K2's and K2-10's launches
 ("k2", "k2_10", null in a tree without them).  Exits non-zero without a CUDA device.
+
+--chroma-format 4:2:2 times the packed step of 4:2:2 frames instead, and
+nothing else: K2-10 (deblock_packed_cuda(..., bit_depth=10,
+chroma_format="4:2:2")) in place on 4 4K Main 4:2:2 10 frames, an int16
+(4, 4320, 3840) buffer of the same blocky content, with BS maps uniform in
+0..2 and with the all-intra maps (BoundaryStrength.intra_default(...,
+"4:2:2")), its plain version, and K2 on the 8-bit frames; beside the
+bounds (2 x 2wh samples a frame) and K2-10's launch.  A tree without
+4:2:2 exits non-zero.
 """
 
 from __future__ import annotations
@@ -63,6 +72,7 @@ def main(argv: list[str] | None = None) -> int:
         os.path.abspath(__file__)))), help="checkout to import the port from")
     p.add_argument("--iters", type=int, default=200)
     p.add_argument("--repeats", type=int, default=3)
+    p.add_argument("--chroma-format", choices=("4:2:0", "4:2:2"), default="4:2:0")
     args = p.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import numpy as np
@@ -84,6 +94,11 @@ def main(argv: list[str] | None = None) -> int:
                           "-i", "0"], capture_output=True, text=True).stdout.strip()
     rng = np.random.default_rng(11)
     beta, tc = get_beta(35), get_tc(35)
+    if args.chroma_format == "4:2:2":
+        if "packed10_422" not in ck.LAUNCHES:
+            print("kernel_time: this tree has no 4:2:2 packed step", file=sys.stderr)
+            return 1
+        return _time_422(args, pkg, ck, dev, smi, rng)
 
     def operands(shape, mshape, noise=False):
         tiles = (rng.integers(0, 256, shape, dtype=np.uint8) if noise
@@ -182,6 +197,63 @@ def main(argv: list[str] | None = None) -> int:
         "queued_ahead": all(ok for r in runs.values() for _, ok in r),
         "bound_us": bounds, "k2": ck.deblock_packed_info(dev) if k2 else None,
         "k2_10": ck.deblock_packed_info(dev, bit_depth=10) if k2_10 else None}))
+    return 0
+
+
+def _time_422(args, pkg, ck, dev, smi, rng) -> int:
+    """--chroma-format 4:2:2: K2-10 and K2 on 4 4K 4:2:2 frames."""
+    import numpy as np
+    import torch
+
+    from gpu_video_codec_tpu_torch.ops.deblock import deblock_packed_plain
+    from gpu_video_codec_tpu_torch.ops.tables import get_beta, get_tc
+    from gpu_video_codec_tpu_torch.utils.bs import BoundaryStrength, segment_bs_maps_device
+    from gpu_video_codec_tpu_torch.utils.timing import device_ms
+
+    k, w, h = 4, 3840, 2160
+    b37, t37 = get_beta(37), get_tc(37)
+    shape = f"({k}, {2 * h}, {w})"
+    blocks = blocky_tiles(rng, (k, 8, 8, 2 * h // 8, w // 8)).transpose(0, 3, 1, 4, 2)
+    buf = torch.from_numpy(np.ascontiguousarray(blocks.reshape(k, 2 * h, w))).to(dev)
+    buf10 = (buf.to(torch.int16) << 2) + torch.from_numpy(
+        rng.integers(0, 4, tuple(buf.shape), dtype=np.int16)).to(dev)
+    (by, bx), (cby, cbx) = ck.packed_grids(w, h, "4:2:2")
+    lm = [torch.from_numpy(rng.integers(0, 3, (by, bx), dtype=np.uint8)).to(dev)
+          for _ in range(4)]
+    cm = [torch.from_numpy(rng.integers(0, 3, (cby, cbx), dtype=np.uint8)).to(dev)
+          for _ in range(4)]
+    bs = BoundaryStrength.intra_default(w, h, "4:2:2")
+    ny, nx = h // 8 + 1, w // 8 + 1
+    ai = (segment_bs_maps_device(bs.vert, bs.hor, w, ny, nx, ny, nx, device=dev),
+          segment_bs_maps_device(bs.chroma_vert, bs.chroma_hor, w // 2, cby, cbx, ny, nx,
+                                 device=dev))
+
+    def planes(b):
+        return b[:, :h], b[:, h:].view(k, 2, h, w // 2)
+
+    def k2(b, maps, bd):
+        y, uv = planes(b)
+        return lambda: ck.deblock_packed_cuda(y, uv, *maps, b37, t37, out=(y, uv), bit_depth=bd,
+                                              chroma_format="4:2:2")
+
+    fns = {f"K2-10 4:2:2 {shape}": k2(buf10, (lm, cm), 10),
+           f"K2-10 4:2:2 all-intra {shape}": k2(buf10, ai, 10),
+           f"K2 4:2:2 {shape}": k2(buf, (lm, cm), 8),
+           f"K2 4:2:2 all-intra {shape}": k2(buf, ai, 8)}
+    runs = {name: [device_ms(fn, args.iters) for _ in range(args.repeats)]
+            for name, fn in fns.items()}
+    y10, uv10 = planes(buf10)
+    runs[f"K2-10 4:2:2 plain {shape}"] = [device_ms(
+        lambda: deblock_packed_plain(y10, uv10, lm, cm, b37, t37, bit_depth=10), 3)
+        for _ in range(args.repeats)]
+    print(json.dumps({
+        "tree": os.path.relpath(os.path.dirname(os.path.dirname(pkg.__file__))), "card": smi,
+        "us": {name: [ms * 1e3 for ms, _ in r] for name, r in runs.items()},
+        "queued_ahead": all(ok for r in runs.values() for _, ok in r),
+        "bound_us": {shape: 2 * buf.numel() / 3.35e12 * 1e6,
+                     f"{shape} 10-bit": 2 * buf10.numel() * 2 / 3.35e12 * 1e6},
+        "tiles_per_frame": {"luma": by * bx, "chroma": 2 * cby * cbx},
+        "k2_10": ck.deblock_packed_info(dev, bit_depth=10)}))
     return 0
 
 

@@ -38,6 +38,10 @@ and its counter:
 
   counter mesh.calls: every packed batch call; the kernels' launches stay
   in utils/graphs.COUNTERS.
+  counters packed.luma_tiles, packed.chroma_tiles: parallel/mesh.
+  _packed_sharded, the luma and the chroma (U and V) tiles of the frames
+  that each packed batch call hands to its step (ops/cuda_kernel.
+  packed_grids times the frames), two integer adds a call.
 
 The profiled stretch's timeline also splits the rest of a call: mesh.place
 (the checks and the first slot's operands, up to its fork) and
@@ -279,8 +283,8 @@ class Recorder:
     out the list that the call's layers append their stamps to; end_call()
     turns them into spans.  The other calls pay the count alone."""
 
-    __slots__ = ("bound", "every", "calls", "dropped", "_hot", "_cold", "_timeline",
-                 "_open", "_ids", "_setup")
+    __slots__ = ("bound", "every", "calls", "luma_tiles", "chroma_tiles", "dropped", "_hot",
+                 "_cold", "_timeline", "_open", "_ids", "_setup")
 
     def __init__(self, bound: int = TIMELINE_BOUND, every: int = EVERY):
         self.bound = bound
@@ -290,6 +294,7 @@ class Recorder:
     def reset(self) -> None:
         """Drop every total, counter and kept span."""
         self.calls = 0  # the counter mesh.calls
+        self.luma_tiles = self.chroma_tiles = 0  # packed.luma_tiles, packed.chroma_tiles
         self.dropped = 0  # spans closed in a session after the timeline was full
         # recorded unprofiled calls, their replays, and the ns of mesh.packed,
         # mesh.fork, graphs.launch and mesh.join
@@ -317,7 +322,11 @@ class Recorder:
         return out
 
     def counters(self) -> dict[str, int]:
-        return {"mesh.calls": self.calls} if self.calls else {}
+        """The counters that have counted: mesh.calls, packed.luma_tiles and
+        packed.chroma_tiles."""
+        return {name: n for name, n in (("mesh.calls", self.calls),
+                                         ("packed.luma_tiles", self.luma_tiles),
+                                         ("packed.chroma_tiles", self.chroma_tiles)) if n}
 
     def timeline(self) -> list[Span]:
         """The spans closed inside profiler sessions, in closing order."""
@@ -344,6 +353,11 @@ class Recorder:
         if self.calls % self.every and not _autograd_profiler._is_profiler_enabled:
             return None
         return [stamp()]
+
+    def add_tiles(self, luma: int, chroma: int) -> None:
+        """Count the tiles a packed batch call hands to its step."""
+        self.luma_tiles += luma
+        self.chroma_tiles += chroma
 
     def end_call(self, stamps: list[int]) -> None:
         """Close a packed batch call from start_call's list: its start, then

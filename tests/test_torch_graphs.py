@@ -207,6 +207,14 @@ def _packed_call(rng, mesh, w=64, h=48, n=2, backend="cuda"):
                                                        get_tc(35), w=w, h=h, backend=backend)
 
 
+def _counted(calls, n=2, w=64, h=48):
+    """RECORDER.counters() after `calls` of _packed_call's calls: mesh.calls
+    and the tiles of their frames' packed steps."""
+    (by, bx), (cby, cbx) = ck.packed_grids(w, h)
+    return {"mesh.calls": calls, "packed.luma_tiles": calls * n * by * bx,
+            "packed.chroma_tiles": calls * n * 2 * cby * cbx}
+
+
 def _profiled():
     from torch.profiler import ProfilerActivity, profile
 
@@ -230,14 +238,14 @@ def test_packed_call_on_cpu_slots_records_packed_and_place(rng, slots, every_cal
     tot = RECORDER.totals()
     assert set(tot) == {"mesh.packed"}
     assert tot["mesh.packed"].count == 1 and tot["mesh.packed"].self_ns == tot["mesh.packed"].ns > 0
-    assert RECORDER.counters() == {"mesh.calls": 1}
+    assert RECORDER.counters() == _counted(1)
     with _profiled():
         call()
     spans = RECORDER.timeline()
     root, place = sorted(spans, key=lambda s: s.name)
     assert (root.name, root.parent, place.name, place.parent) == (
         "mesh.packed", None, "mesh.place", root.id)
-    assert root.call == place.call == 2 and RECORDER.counters() == {"mesh.calls": 2}
+    assert root.call == place.call == 2 and RECORDER.counters() == _counted(2)
     assert root.start_ns == place.start_ns < place.end_ns == root.end_ns
     assert RECORDER.totals() == tot
 
@@ -294,7 +302,7 @@ def test_graph_path_span_order(rng, graph_path):
     lookup = next(s for s in spans if s.name == "graphs.lookup" and s.call == 1)
     assert lookup.start_ns <= captures[0].start_ns <= captures[0].end_ns <= lookup.end_ns
     assert [r.call for r in roots] == [1, 2]
-    assert RECORDER.counters() == {"mesh.calls": 2}
+    assert RECORDER.counters() == _counted(2)
     assert RECORDER.totals() == {}
 
 
@@ -331,7 +339,7 @@ def test_graph_path_totals(rng, graph_path, every_call):
     assert tot["graphs.capture"].count == 1
     parts = sum(tot[k].ns for k in ("mesh.fork", "graphs.launch", "mesh.join"))
     assert 0 < tot["mesh.packed"].self_ns == tot["mesh.packed"].ns - parts
-    assert RECORDER.counters() == {"mesh.calls": 3}
+    assert RECORDER.counters() == _counted(3)
     assert RECORDER.timeline() == []
 
 

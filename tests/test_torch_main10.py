@@ -22,11 +22,22 @@ written apart from the port, imported as it is.  On the CPU:
   - K2-10's g++ build at the edges of its lanes' register path: blocks that
     end mid-row, the picture's borders, BS all 0 and all 2, uniform noise
     and samples pinned at 0 and 1023, in place and into a separate output.
+HEVC Main 4:2:2 10 (chroma_format="4:2:2": (N, 2h, w) batches, chroma
+planes (h, w/2)) through the same entries, held to the reference at
+chroma_format="4:2:2": seeded random 10-bit frames at QPs 22, 32 and 51,
+all-intra and random BS, at 64x48 and 96x64 (and a sheared 72x40 on the
+mesh), an 8-bit 4:2:2 case on every path, the g++ build on blocks that
+end mid-row and the picture's last chroma tile row, the argument errors
+(4:4:4, a 4:2:0 buffer at 4:2:2 and the reverse), the tile counters, the
+graph key and the BS arrays' sizes, parametrised over the chroma format
+where both apply.
 Tests marked `cuda` launch K2-10 on the card (one launch a call, under its
 own counter) against the plain path at the 4K cell's shape, at 720x576
 (w % 32 == 16), on the buffer's views and on the edge cases above (and
 against the reference), and check that a sheared 10-bit width raises
-there; they skip without a card, and nothing here imports JAX
+there; the same at 4:2:2 (the 4:2:2 cell's (4, 4320, 3840), 720x576 and
+an 8-bit 64x48), with a misaligned 4:2:2 view raising; they skip without
+a card, and nothing here imports JAX
 (`python -m pytest tests/test_torch_main10.py -m cuda`)."""
 
 import functools
@@ -38,7 +49,7 @@ import torch
 from bench_torch.references import hevc_deblock as ref
 from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
 from gpu_video_codec_tpu_torch.ops.deblock import deblock_packed_plain
-from gpu_video_codec_tpu_torch.ops.tables import get_beta, get_tc
+from gpu_video_codec_tpu_torch.ops.tables import chroma_height, get_beta, get_tc
 from gpu_video_codec_tpu_torch.parallel import mesh as pm
 from gpu_video_codec_tpu_torch.utils.bs import BoundaryStrength, segment_bs_maps_device
 
@@ -48,9 +59,10 @@ ENTRIES = {"eager": pm.deblock_packed_batch_sharded, "jit": pm.deblock_packed_ba
 TOP = 1023
 
 
-def _bs(kind, w, h, seed=0):
-    """The reference's flat BS arrays: all-intra, or uniform in 0..2."""
-    ai = BoundaryStrength.intra_default(w, h)
+def _bs(kind, w, h, seed=0, fmt="4:2:0"):
+    """The reference's flat BS arrays of a chroma format: all-intra, or
+    uniform in 0..2."""
+    ai = BoundaryStrength.intra_default(w, h, fmt)
     bs = {k: getattr(ai, k) for k in ("vert", "hor", "chroma_vert", "chroma_hor")}
     if kind == "random":
         rng = np.random.default_rng([w, h, seed, 7])
@@ -58,23 +70,25 @@ def _bs(kind, w, h, seed=0):
     return bs
 
 
-def _maps(bs, w, h, device="cpu"):
+def _maps(bs, w, h, device="cpu", fmt="4:2:0"):
     """The port's luma and chroma gate maps, built as the benchmark's feed
-    builds them."""
+    builds them: the chroma maps on the chroma plane's tiles, looked up at
+    its width and gated by the luma tile counts."""
     b = 8
     ny, nx = h // b + 1, w // b + 1
     lm = segment_bs_maps_device(bs["vert"], bs["hor"], w, ny, nx, ny, nx, device=device)
-    cm = segment_bs_maps_device(bs["chroma_vert"], bs["chroma_hor"], w // 2, (h // 2) // b + 1,
-                                (w // 2) // b + 1, ny, nx, device=device)
+    cm = segment_bs_maps_device(bs["chroma_vert"], bs["chroma_hor"], w // 2,
+                                chroma_height(h, fmt) // b + 1, (w // 2) // b + 1, ny, nx,
+                                device=device)
     return lm, cm
 
 
-def _frames(seed, n, w, h):
-    """n packed 10-bit frames (int16, (n, 3h/2, w)): flat 4x4 cells with
-    small noise (both filters fire), a tenth of the cells at the ends of
-    the range, a quarter uniform noise."""
+def _frames(seed, n, w, h, fmt="4:2:0"):
+    """n packed 10-bit frames (int16, (n, 3h/2, w), or (n, 2h, w) at
+    4:2:2): flat 4x4 cells with small noise (both filters fire), a tenth of
+    the cells at the ends of the range, a quarter uniform noise."""
     rng = np.random.default_rng(seed)
-    rows = 3 * h // 2
+    rows = h + chroma_height(h, fmt)
     cell = (n, rows // 4 + 1, w // 4 + 1)
 
     def up(a):
@@ -89,9 +103,10 @@ def _frames(seed, n, w, h):
     return torch.from_numpy(np.clip(f, 0, TOP).astype(np.int16))
 
 
-def _planes(buf, h):
+def _planes(buf, h, fmt="4:2:0"):
     lead = tuple(buf.shape[:-2])
-    return buf[..., :h, :], buf[..., h:, :].view(*lead, 2, h // 2, buf.shape[-1] // 2)
+    return buf[..., :h, :], buf[..., h:, :].view(*lead, 2, chroma_height(h, fmt),
+                                                 buf.shape[-1] // 2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -385,6 +400,240 @@ def test_packed_guard_main10_counts_bytes():
         assert ck.packed_fits(W, *_planes(buf, H), bit_depth=10) is fits
 
 
+# -- HEVC Main 4:2:2 10: chroma planes (h, w/2) in a (N, 2h, w) buffer --------------------
+
+FORMATS = ["4:2:0", "4:2:2"]
+QPS_422 = [22, 32, 51]
+
+
+@functools.lru_cache(maxsize=None)
+def _case_422(qp, kind, w, h, bit_depth=10):
+    """Three 4:2:2 frames (10-bit, or the same shifted to 8 bits), their
+    BS and the reference's output at chroma_format "4:2:2" (read-only)."""
+    frames = _frames([qp, w, h, len(kind), 422], 3, w, h, "4:2:2")
+    if bit_depth == 8:
+        frames = (frames >> 2).to(torch.uint8)
+    bs = _bs(kind, w, h, qp, "4:2:2")
+    return frames, bs, ref.deblock_packed(frames, w, h, qp, bs, bit_depth=bit_depth,
+                                          chroma_format="4:2:2")
+
+
+def _step_422(path, frames, bs, qp, w, h, bit_depth):
+    """One 4:2:2 packed step by `path`: the mesh's eager or _jit entry on
+    two CPU slots, K2's plain version, or its g++ build in place."""
+    lm, cm = _maps(bs, w, h, frames.device, "4:2:2")
+    if path in ENTRIES:
+        buf = frames.clone()
+        mesh = pm.make_mesh(1, 2, devices=["cpu"] * 2)
+        out = ENTRIES[path](mesh, buf, lm, cm, get_beta(qp), get_tc(qp), w=w, h=h,
+                            bit_depth=bit_depth, chroma_format="4:2:2")
+        assert out is buf
+        return buf
+    if path == "plain":
+        y, uv = deblock_packed_plain(*_planes(frames, h, "4:2:2"), lm, cm, get_beta(qp),
+                                     get_tc(qp), bit_depth=bit_depth)
+        return torch.cat([y, uv.reshape(*frames.shape[:-2], h, w)], dim=-2)
+    buf = frames.clone()
+    y, uv = _planes(buf, h, "4:2:2")
+    assert ck.load_host_library().gvct_host_deblock_packed(*ck.packed_launch_args(
+        y, uv, y, uv, lm, cm, get_beta(qp), get_tc(qp), False, bit_depth)) == 0
+    return buf
+
+
+@pytest.mark.parametrize("entry", list(ENTRIES))
+@pytest.mark.parametrize("w,h", [(64, 48), (96, 64), (72, 40)], ids=["64x48", "96x64",
+                                                                    "72x40-sheared"])
+@pytest.mark.parametrize("kind", BS_KINDS)
+@pytest.mark.parametrize("qp", QPS_422)
+def test_mesh_main422_10_matches_reference(qp, kind, w, h, entry):
+    """The mesh's packed entries at chroma_format="4:2:2" on two CPU slots
+    (3 frames: 2 and 1) == the reference at 4:2:2, byte for byte; the
+    chroma planes, half the samples, are filtered."""
+    frames, bs, want = _case_422(qp, kind, w, h)
+    got = _step_422(entry, frames, bs, qp, w, h, 10)
+    assert torch.equal(got, want)
+    if qp > 30:
+        assert (want[:, h:] != frames[:, h:]).sum() > 50  # chroma filtered too
+
+
+@pytest.mark.parametrize("path", ["plain", "host"])
+@pytest.mark.parametrize("w,h", [(64, 48), (96, 64)], ids=["64x48", "96x64"])
+@pytest.mark.parametrize("kind", BS_KINDS)
+@pytest.mark.parametrize("qp", QPS_422)
+def test_k2_10_422_paths_match_reference(qp, kind, w, h, path):
+    """K2-10's plain version and its g++ build on 4:2:2 planes (h, w/2)."""
+    frames, bs, want = _case_422(qp, kind, w, h)
+    assert torch.equal(_step_422(path, frames, bs, qp, w, h, 10), want)
+
+
+@pytest.mark.parametrize("path", [*ENTRIES, "plain", "host"])
+def test_k2_422_8bit_matches_reference(path):
+    """8-bit 4:2:2 (K2's instance on the shared grid) == the reference."""
+    w, h, qp = 96, 64, 37
+    frames, bs, want = _case_422(qp, "random", w, h, bit_depth=8)
+    assert frames.dtype == torch.uint8
+    assert torch.equal(_step_422(path, frames, bs, qp, w, h, 8), want)
+    assert (want[:, h:] != frames[:, h:]).sum() > 50
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_case_422(fill, w, h):
+    """Two 4:2:2 10-bit frames of uniform noise with BS all 0, all 2 or
+    uniform, and the reference's output (read-only)."""
+    rng = np.random.default_rng([w, h, len(fill), 422])
+    frames = torch.from_numpy(rng.integers(0, TOP + 1, (2, 2 * h, w)).astype(np.int16))
+    bs = _bs("random", w, h, EDGE_QP, "4:2:2")
+    if fill != "random":
+        bs = {k: np.full_like(v, 0 if fill == "zero" else 2) for k, v in bs.items()}
+    return frames, bs, ref.deblock_packed(frames, w, h, EDGE_QP, bs, bit_depth=10,
+                                          chroma_format="4:2:2")
+
+
+@pytest.mark.parametrize("fill", ["random", "zero", "two"])
+@pytest.mark.parametrize("w,h", EDGE_GEOMS, ids=EDGE_IDS)
+def test_k2_10_422_host_build_edges(w, h, fill):
+    """K2-10's g++ build at 4:2:2 == the reference on blocks that end
+    mid-row (cBx 5 and 23: one short block, and 16 + 7) and on the
+    picture's last chroma tile row ((h + 8) / 8 rows, its lower half
+    outside the plane), BS all 0, all 2 and uniform; in place == into a
+    separate output."""
+    frames, bs, want = _edge_case_422(fill, w, h)
+    lm, cm = _maps(bs, w, h, fmt="4:2:2")
+    (_, _), (cby, cbx) = ck.packed_grids(w, h, "4:2:2")
+    assert cby == h // 8 + 1 and cbx % ck.PACKED_TILES != 0
+    lib = ck.load_host_library()
+    out, inplace = torch.full_like(frames, 7), frames.clone()
+    for src, dst in ((frames, out), (inplace, inplace)):
+        assert lib.gvct_host_deblock_packed(*ck.packed_launch_args(
+            *_planes(src, h, "4:2:2"), *_planes(dst, h, "4:2:2"), lm, cm, get_beta(EDGE_QP),
+            get_tc(EDGE_QP), False, 10)) == 0
+    assert torch.equal(out, want) and torch.equal(inplace, want)
+    assert torch.equal(want, frames) is (fill == "zero")
+    if fill == "two":  # the last chroma tile row's edge (chroma rows h - 4 .. h - 1) filters
+        last = slice(h + h - 4, 2 * h)
+        assert not torch.equal(want[:, last], frames[:, last])
+
+
+@pytest.mark.parametrize("entry", list(ENTRIES))
+@pytest.mark.parametrize("fmt,rows,match", [
+    ("4:4:4", 3 * H, "chroma_format"),
+    ("4:2:2", 3 * H // 2, r"\(N, 96, 64\)"),
+    ("4:2:0", 2 * H, r"\(N, 72, 64\)"),
+], ids=["444", "420-buffer-at-422", "422-buffer-at-420"])
+def test_mesh_chroma_format_argument_errors(entry, fmt, rows, match):
+    """A format the port does not take, and a buffer of the other format's
+    rows, raise ValueError and leave the buffer as it was."""
+    buf = torch.zeros((2, rows, W), dtype=torch.int16)
+    lm, cm = _maps(_bs("ai", W, H), W, H)
+    mesh = pm.make_mesh(1, 1, devices=["cpu"])
+    with pytest.raises(ValueError, match=match):
+        ENTRIES[entry](mesh, buf, lm, cm, get_beta(32), get_tc(32), w=W, h=H, bit_depth=10,
+                       chroma_format=fmt)
+    assert not buf.any()
+
+
+def test_packed_wrapper_chroma_format_argument_errors():
+    """K2's wrapper takes 4:2:2 planes only at chroma_format "4:2:2" and
+    its (cBy, cBx) maps only; 4:4:4 raises."""
+    buf = _frames(5, 1, W, H, "4:2:2")
+    bs = _bs("ai", W, H, 0, "4:2:2")
+    lm, cm = _maps(bs, W, H, fmt="4:2:2")
+    y, uv = _planes(buf, H, "4:2:2")
+    with pytest.raises(ValueError, match="chroma_format"):
+        ck.deblock_packed_cuda(y, uv, lm, cm, 26, 3, bit_depth=10, chroma_format="4:4:4")
+    with pytest.raises(ValueError, match=r"uv must be \(1, 2, 24, 32\)"):
+        ck.deblock_packed_cuda(y, uv, lm, cm, 26, 3, bit_depth=10)
+    with pytest.raises(ValueError, match="bs_ver1 has shape"):
+        ck.deblock_packed_cuda(y, uv, lm, _maps(_bs("ai", W, H), W, H)[1], 26, 3, bit_depth=10,
+                               chroma_format="4:2:2")
+    new_y, new_uv = ck.deblock_packed_cuda(y, uv, lm, cm, get_beta(32), get_tc(32),
+                                           bit_depth=10, chroma_format="4:2:2")
+    want = ref.deblock_packed(buf, W, H, 32, bs, bit_depth=10, chroma_format="4:2:2")
+    assert torch.equal(torch.cat([new_y, new_uv.reshape(1, H, W)], dim=-2), want)
+
+
+@pytest.mark.parametrize("luma_only", [False, True], ids=["luma-chroma", "luma-only"])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_packed_tile_counters(fmt, luma_only):
+    """packed.luma_tiles and packed.chroma_tiles count the packed_grids
+    tiles of every frame a packed call hands over (U and V both; none
+    under luma_only), beside mesh.calls, over the slots of the mesh."""
+    from gpu_video_codec_tpu_torch.utils.tracing import RECORDER
+
+    w, h, n = 64, 48, 3
+    bs = _bs("ai", w, h, 0, fmt)
+    lm, cm = _maps(bs, w, h, fmt=fmt)
+    buf = _frames(9, n, w, h, fmt)
+    mesh = pm.make_mesh(1, 2, devices=["cpu"] * 2)
+    (by, bx), (cby, cbx) = ck.packed_grids(w, h, fmt)
+    assert (by, bx) == (7, 9) and (cby, cbx) == ((7, 5) if fmt == "4:2:2" else (4, 5))
+    RECORDER.reset()
+    for i in range(1, 3):
+        pm.deblock_packed_batch_sharded_jit(mesh, buf, lm, cm, 26, 3, w=w, h=h, bit_depth=10,
+                                            chroma_format=fmt, luma_only=luma_only)
+        want = {"mesh.calls": i, "packed.luma_tiles": i * n * by * bx,
+                "packed.chroma_tiles": 0 if luma_only else i * n * 2 * cby * cbx}
+        assert RECORDER.counters() == {k: v for k, v in want.items() if v}
+    RECORDER.reset()
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_chroma_format_is_part_of_the_graph_key(fmt, monkeypatch):
+    """The mesh hands _run a static key that names the chroma format, so
+    that a graph captured for one format is never replayed for the other."""
+    keys = []
+    real = pm._run
+
+    def spy(mesh, index, fn, operands, static, graph, stamps=None):
+        keys.append(static)
+        return real(mesh, index, fn, operands, static, graph, stamps)
+
+    monkeypatch.setattr(pm, "_run", spy)
+    bs = _bs("ai", W, H, 0, fmt)
+    lm, cm = _maps(bs, W, H, fmt=fmt)
+    mesh = pm.make_mesh(1, 1, devices=["cpu"])
+    buf = _frames(2, 1, W, H, fmt)
+    pm.deblock_packed_batch_sharded_jit(mesh, buf, lm, cm, 26, 3, w=W, h=H, bit_depth=10,
+                                        chroma_format=fmt)
+    (key,) = keys
+    assert key[0] == "packed" and key[-1] == fmt
+    assert torch.equal(buf, ref.deblock_packed(_frames(2, 1, W, H, fmt), W, H, 32, bs,
+                                               bit_depth=10, chroma_format=fmt))
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_intra_default_sizes_follow_the_chroma_format(fmt):
+    """BoundaryStrength.intra_default's chroma arrays are the benchmark's
+    all-intra arrays of the format (sizes at the chroma plane (ch, w/2),
+    zero stripes), and its maps are the chroma plane's."""
+    from bench_torch.lib import frames as fr
+
+    w, h = 96, 64
+    ai = BoundaryStrength.intra_default(w, h, fmt)
+    bench = fr.bs_arrays(w, h, {"bs": "ai"}, 1, "cpu", fmt)
+    for k in ("vert", "hor", "chroma_vert", "chroma_hor"):
+        assert np.array_equal(getattr(ai, k), bench[k]), k
+    from gpu_video_codec_tpu_torch.utils.bs import chroma_segment_maps
+
+    cm = chroma_segment_maps(ai)
+    assert all(np.array_equal(a, b.numpy()) for a, b in zip(cm, _maps(bench, w, h, fmt=fmt)[1]))
+    assert cm[0].shape == ck.packed_grids(w, h, fmt)[1]
+    with pytest.raises(ValueError, match="chroma_format"):
+        BoundaryStrength.intra_default(w, h, "4:4:4")
+
+
+@pytest.mark.parametrize("w,takes10,takes8", [(64, True, True), (720, True, False),
+                                              (72, False, False)],
+                         ids=["64", "720", "72-sheared"])
+def test_packed_guard_422(w, takes10, takes8):
+    """The guard reads the width and the planes alone, so 4:2:2 planes
+    (h, w/2) of a 16-byte aligned (1, 2h, w) batch fit where 4:2:0's do."""
+    h = 48
+    buf = torch.zeros((1, 2 * h, w), dtype=torch.int16)
+    assert ck.packed_fits(w, *_planes(buf, h, "4:2:2"), bit_depth=10) is takes10
+    assert ck.packed_fits(w, *_planes(buf.to(torch.uint8), h, "4:2:2")) is takes8
+
+
 # -- the card ---------------------------------------------------------------------------------
 
 @pytest.fixture
@@ -487,3 +736,94 @@ def test_k2_10_info_on_card(cuda_device):
     info = ck.deblock_packed_info(cuda_device, bit_depth=10)
     assert info["threads"] == 4 * ck.PACKED_TILES and info["registers"] <= 64
     assert info["blocks_per_sm"] >= 8 and info["smem_bytes"] >= 8 * 272
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,w,h,bit_depth", [(4, 3840, 2160, 10), (2, 720, 576, 10),
+                                             (3, 64, 48, 8)],
+                         ids=["k4-2160p", "k2-720x576", "k3-64x48-8bit"])
+def test_k2_422_matches_plain_on_card(cuda_device, k, w, h, bit_depth):
+    """K2-10 (and K2 at 8 bits) at 4:2:2 through the mesh's graph replay ==
+    the plain path on the card, one launch a call under "packed10_422" (or
+    "packed_422"); through the wrapper on the buffer's views; and == the
+    reference below 4K.  The 4K case is the benchmark cell's shape: an
+    int16 (4, 4320, 3840) buffer."""
+    qp = 32
+    frames = _frames([k, w, h, 422], k, w, h, "4:2:2").to(cuda_device)
+    if bit_depth == 8:
+        frames = (frames >> 2).to(torch.uint8)
+    bs = _bs("random", w, h, k, "4:2:2")
+    lm, cm = _maps(bs, w, h, cuda_device, "4:2:2")
+    y, uv = _planes(frames, h, "4:2:2")
+    want_y, want_uv = deblock_packed_plain(y, uv, lm, cm, get_beta(qp), get_tc(qp),
+                                           bit_depth=bit_depth)
+    want = torch.cat([want_y, want_uv.reshape(k, h, w)], dim=-2)
+    key = "packed10_422" if bit_depth == 10 else "packed_422"
+    mesh = pm.make_mesh(1, 1, devices=[cuda_device])
+    for _ in range(2):  # the call that captures, then a replay
+        buf = frames.clone()
+        before = dict(ck.LAUNCHES)
+        pm.deblock_packed_batch_sharded_jit(mesh, buf, lm, cm, get_beta(qp), get_tc(qp), w=w,
+                                            h=h, bit_depth=bit_depth, chroma_format="4:2:2")
+        torch.cuda.synchronize()
+        assert {n: v - before[n] for n, v in ck.LAUNCHES.items() if v != before[n]} == {key: 1}
+        assert torch.equal(buf, want)
+    new_y, new_uv = ck.deblock_packed_cuda(y, uv, lm, cm, get_beta(qp), get_tc(qp),
+                                           bit_depth=bit_depth, chroma_format="4:2:2")
+    assert torch.equal(torch.cat([new_y, new_uv.reshape(k, h, w)], dim=-2), want)
+    if w <= 720:
+        assert torch.equal(want.cpu(), ref.deblock_packed(frames.cpu(), w, h, qp, bs,
+                                                          bit_depth=bit_depth,
+                                                          chroma_format="4:2:2"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["random", "zero", "two"])
+@pytest.mark.parametrize("w,h", EDGE_GEOMS, ids=EDGE_IDS)
+def test_k2_10_422_edges_on_card(cuda_device, w, h, fill):
+    """K2-10 at 4:2:2 on test_k2_10_422_host_build_edges' cases == the
+    reference, in place == into a separate output, one launch each."""
+    frames, bs, want = _edge_case_422(fill, w, h)
+    lm, cm = _maps(bs, w, h, cuda_device, "4:2:2")
+    src = frames.to(cuda_device)
+    out, inplace = torch.full_like(src, 7), src.clone()
+    before = ck.LAUNCHES["packed10_422"]
+    for s_, d in ((src, out), (inplace, inplace)):
+        ck.deblock_packed_cuda(*_planes(s_, h, "4:2:2"), lm, cm, get_beta(EDGE_QP),
+                               get_tc(EDGE_QP), out=_planes(d, h, "4:2:2"), bit_depth=10,
+                               chroma_format="4:2:2")
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["packed10_422"] == before + 2
+    assert torch.equal(out, inplace) and torch.equal(out.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", list(ENTRIES))
+def test_k2_10_422_misaligned_raises_on_card(cuda_device, entry):
+    """A 4:2:2 view off 16 bytes, or a sheared width, raises ValueError on
+    the card (no 4:2:2 chain) and leaves the buffer as it was; the aligned
+    buffer then filters as the reference does."""
+    mesh = pm.make_mesh(1, 1, devices=[cuda_device])
+    bs = _bs("ai", W, H, 0, "4:2:2")
+    lm, cm = _maps(bs, W, H, cuda_device, "4:2:2")
+    n = 2 * H * W
+    raw = torch.zeros(n + 8, dtype=torch.int16, device=cuda_device)
+    buf = raw[4 : 4 + n].view(1, 2 * H, W)  # 8 bytes off
+    buf.copy_(_frames(3, 1, W, H, "4:2:2"))
+    with pytest.raises(ValueError, match="K2-10"):
+        ENTRIES[entry](mesh, buf, lm, cm, get_beta(32), get_tc(32), w=W, h=H, bit_depth=10,
+                       chroma_format="4:2:2")
+    sw, sh = 360, 288
+    sheared = _frames(4, 1, sw, sh, "4:2:2").to(cuda_device)
+    slm, scm = _maps(_bs("ai", sw, sh, 0, "4:2:2"), sw, sh, cuda_device, "4:2:2")
+    with pytest.raises(ValueError, match="K2-10 takes w % 16 == 0"):
+        ENTRIES[entry](mesh, sheared, slm, scm, get_beta(32), get_tc(32), w=sw, h=sh,
+                       bit_depth=10, chroma_format="4:2:2")
+    torch.cuda.synchronize()
+    assert torch.equal(buf.cpu(), _frames(3, 1, W, H, "4:2:2"))
+    assert torch.equal(sheared.cpu(), _frames(4, 1, sw, sh, "4:2:2"))
+    good = buf.clone()
+    ENTRIES[entry](mesh, good, lm, cm, get_beta(32), get_tc(32), w=W, h=H, bit_depth=10,
+                   chroma_format="4:2:2")
+    assert torch.equal(good.cpu(), ref.deblock_packed(buf.cpu(), W, H, 32, bs, bit_depth=10,
+                                                      chroma_format="4:2:2"))
