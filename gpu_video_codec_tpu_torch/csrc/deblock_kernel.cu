@@ -684,23 +684,26 @@ int encode_entry(EncodeTiled* fn) {
 
 // A tensor map of the tensor of `type` elements (UINT8 or UINT16) at
 // `ptr`: `rank` dims innermost first, the byte strides of dims 1.., box
-// `box` (elements), no swizzle, zero fill outside the tensor.  Encoded maps
+// `box` (elements), the L2 promotion `l2` (how much of a line one L2 miss
+// fetches), no swizzle, zero fill outside the tensor.  Encoded maps
 // are cached by all of these, a map's only inputs, so a cached map is the
 // map the encode would give; 32 entries, replaced in turn.
 constexpr int kMaxRank = 4;
 
 int tensor_map(CUtensorMapDataType type, const void* ptr, int rank, const cuuint64_t* dims,
-               const cuuint64_t* strides, const cuuint32_t* box, CUtensorMap* map) {
+               const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapL2promotion l2,
+               CUtensorMap* map) {
   struct Entry {
     CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_UINT8;
     const void* ptr = nullptr;
     int rank = 0;
     cuuint64_t dims[kMaxRank] = {}, strides[kMaxRank - 1] = {};
     cuuint32_t box[kMaxRank] = {};
+    CUtensorMapL2promotion l2 = CU_TENSOR_MAP_L2_PROMOTION_NONE;
     CUtensorMap map;
     bool same(CUtensorMapDataType t, const void* p, int n, const cuuint64_t* d,
-              const cuuint64_t* s, const cuuint32_t* b) const {
-      if (t != type || p != ptr || n != rank) return false;
+              const cuuint64_t* s, const cuuint32_t* b, CUtensorMapL2promotion q) const {
+      if (t != type || p != ptr || n != rank || q != l2) return false;
       for (int i = 0; i < n; ++i) {
         if (d[i] != dims[i] || b[i] != box[i] || (i + 1 < n && s[i] != strides[i])) return false;
       }
@@ -713,7 +716,7 @@ int tensor_map(CUtensorMapDataType type, const void* ptr, int rank, const cuuint
   {
     std::lock_guard<std::mutex> g(lock);
     for (const Entry& e : cache) {
-      if (e.same(type, ptr, rank, dims, strides, box)) {
+      if (e.same(type, ptr, rank, dims, strides, box, l2)) {
         *map = e.map;
         return 0;
       }
@@ -723,14 +726,15 @@ int tensor_map(CUtensorMapDataType type, const void* ptr, int rank, const cuuint
   if (const int err = encode_entry(&encode)) return err;
   const cuuint32_t unit[kMaxRank] = {1, 1, 1, 1};
   if (encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, l2,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
     return kEncodeRefused;
   }
   Entry e;
   e.type = type;
   e.ptr = ptr;
   e.rank = rank;
+  e.l2 = l2;
   for (int i = 0; i < rank; ++i) {
     e.dims[i] = dims[i];
     e.box[i] = box[i];
@@ -751,12 +755,27 @@ int rows_tensor_map(const void* ptr, int by, int bx, CUtensorMap* map) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(bx), 8, 8ull * by};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(bx), 8ull * bx};  // bytes, dims 1-2
   const cuuint32_t box[3] = {C::kBoxTiles, C::kBoxC, 8};
-  return tensor_map(CU_TENSOR_MAP_DATA_TYPE_UINT8, ptr, 3, dims, strides, box, map);
+  return tensor_map(CU_TENSOR_MAP_DATA_TYPE_UINT8, ptr, 3, dims, strides, box,
+                    CU_TENSOR_MAP_L2_PROMOTION_NONE, map);
 }
+
+// The L2 promotion of K2's (BD 8) and K2-10's (BD 10) box loads: how much
+// of a 256-byte L2 line one L2 miss of a box row fetches from DRAM.  A box
+// row is 144 bytes at 8 bits and 272 at 10, 16 of them before its first
+// tile (gvct::PackedCell's lead, a sector that the block to the left reads
+// too).  Without promotion L2 fetches the row sector by sector, 32 bytes a
+// request.  Chosen by bit depth from a sweep of NONE, 64, 128 and 256 B
+// with tools/kernel_time.py (PERF.md §6): 256 B at 8 bits (128 B within
+// 0.5 us of it), 128 B at 10 bits (256 B 0.15-0.75 us slower); NONE and
+// 64 B 1-10 us slower, alike.  An evict-first or evict-normal cache hint
+// on the load was slower still.
+template <int BD>
+constexpr CUtensorMapL2promotion kPackedL2 =
+    BD == 8 ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B : CU_TENSOR_MAP_L2_PROMOTION_L2_128B;
 
 // K2's tensor map of k frames' planes of BD-bit samples at `ptr`: dims (w,
 // h, planes, k) innermost first, in samples, strides row, plane and frame
-// (bytes), box (the stage's row, 8, 1, 1).
+// (bytes), box (the stage's row, 8, 1, 1), promotion kPackedL2<BD>.
 template <int BD>
 int packed_tensor_map(const void* ptr, int w, int h, int planes, int k, long long row,
                       long long plane, long long frame, CUtensorMap* map) {
@@ -767,7 +786,7 @@ int packed_tensor_map(const void* ptr, int w, int h, int planes, int k, long lon
                                  static_cast<cuuint64_t>(frame)};
   const cuuint32_t box[4] = {C::kWidth, 8, 1, 1};
   return tensor_map(BD == 8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_UINT16,
-                    ptr, 4, dims, strides, box, map);
+                    ptr, 4, dims, strides, box, kPackedL2<BD>, map);
 }
 
 // K2 (BD 8) or K2-10 (BD 10): the maps, then the launch.

@@ -30,13 +30,17 @@ mesh), an 8-bit 4:2:2 case on every path, the g++ build on blocks that
 end mid-row and the picture's last chroma tile row, the argument errors
 (4:4:4, a 4:2:0 buffer at 4:2:2 and the reverse), the tile counters, the
 graph key and the BS arrays' sizes, parametrised over the chroma format
-where both apply.
+where both apply; and the g++ build at both formats on views 16 bytes
+past a 256-byte boundary with guard elements before and after them (==
+the plain version, no guard element written).
 Tests marked `cuda` launch K2-10 on the card (one launch a call, under its
 own counter) against the plain path at the 4K cell's shape, at 720x576
 (w % 32 == 16), on the buffer's views and on the edge cases above (and
 against the reference), and check that a sheared 10-bit width raises
 there; the same at 4:2:2 (the 4:2:2 cell's (4, 4320, 3840), 720x576 and
-an 8-bit 64x48), with a misaligned 4:2:2 view raising; they skip without
+an 8-bit 64x48), with a misaligned 4:2:2 view raising; and on the guarded
+views at both formats (the box loads' L2 promotion fetches whole lines
+past the planes' ends); they skip without
 a card, and nothing here imports JAX
 (`python -m pytest tests/test_torch_main10.py -m cuda`)."""
 
@@ -514,6 +518,82 @@ def test_k2_10_422_host_build_edges(w, h, fill):
         assert not torch.equal(want[:, last], frames[:, last])
 
 
+GUARD_BYTES = 1024  # of guard on each side of a guarded view: four 256-byte L2 lines
+GUARD_FILL = -21846  # 0xAAAA: no 10-bit sample
+GUARDED = [(2, 64, 48), (2, 96, 64)]
+GUARDED_IDS = ["k2-64x48", "k2-96x64"]
+
+
+def _guarded(shape, device):
+    """An int16 tensor of `shape` that starts 16 bytes past a 256-byte
+    boundary, GUARD_BYTES + 16 bytes into a larger allocation whose every
+    other element holds GUARD_FILL; and a function that is true while they
+    all still do.  An L2 line fetched whole for the view's first or last
+    rows (the box loads' promotion) takes in guard elements; no store may."""
+    n = int(np.prod(shape))
+    raw = torch.full((n + GUARD_BYTES + 256,), GUARD_FILL, dtype=torch.int16, device=device)
+    start = ((-raw.data_ptr()) % 256 + GUARD_BYTES + 16) // 2
+    view = raw[start:start + n].view(shape)
+    assert view.data_ptr() % 256 == 16
+
+    def intact():
+        return bool((raw[:start] == GUARD_FILL).all()) and bool(
+            (raw[start + n:] == GUARD_FILL).all())
+
+    return view, intact
+
+
+@functools.lru_cache(maxsize=None)
+def _guarded_case(fmt, k, w, h):
+    """k 10-bit frames of a chroma format, a random BS, its maps and
+    deblock_packed_plain's output (read-only)."""
+    frames = _frames([k, w, h, 16, len(fmt)], k, w, h, fmt)
+    bs = _bs("random", w, h, k, fmt)
+    lm, cm = _maps(bs, w, h, fmt=fmt)
+    y, uv = deblock_packed_plain(*_planes(frames, h, fmt), lm, cm, get_beta(EDGE_QP),
+                                 get_tc(EDGE_QP), bit_depth=10)
+    return frames, bs, torch.cat([y, uv.reshape(k, -1, w)], dim=-2)
+
+
+def _guarded_step(fmt, k, w, h, device, run):
+    """`run(src, dst, lm, cm)` on guarded views of _guarded_case's frames,
+    into a separate output and then in place: each == deblock_packed_plain,
+    the source of the first untouched, and every guard element as it was.
+    Returns the source view and the maps."""
+    frames, bs, want = _guarded_case(fmt, k, w, h)
+    lm, cm = _maps(bs, w, h, device, fmt)
+    src, src_intact = _guarded(frames.shape, device)
+    dst, dst_intact = _guarded(frames.shape, device)
+    src.copy_(frames)
+    dst.fill_(7)
+    assert ck.packed_fits(w, *_planes(src, h, fmt), *_planes(dst, h, fmt), bit_depth=10)
+    run(src, dst, lm, cm)
+    assert src_intact() and dst_intact()
+    assert torch.equal(dst.cpu(), want) and torch.equal(src.cpu(), frames)
+    run(src, src, lm, cm)
+    assert src_intact() and dst_intact()
+    assert torch.equal(src.cpu(), want)
+    return src, (lm, cm)
+
+
+@pytest.mark.parametrize("k,w,h", GUARDED, ids=GUARDED_IDS)
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_k2_10_host_build_keeps_guard_bytes(fmt, k, w, h):
+    """K2-10's g++ build on views 16 bytes past a 256-byte boundary with
+    guard elements before and after == deblock_packed_plain, into a
+    separate output and in place, at 4:2:0 and 4:2:2, and writes no guard
+    element: the zero fill at the border (Q6) and the stores' limits hold
+    wherever the view lies."""
+    lib = ck.load_host_library()
+
+    def run(src, dst, lm, cm):
+        assert lib.gvct_host_deblock_packed(*ck.packed_launch_args(
+            *_planes(src, h, fmt), *_planes(dst, h, fmt), lm, cm, get_beta(EDGE_QP),
+            get_tc(EDGE_QP), False, 10)) == 0
+
+    _guarded_step(fmt, k, w, h, "cpu", run)
+
+
 @pytest.mark.parametrize("entry", list(ENTRIES))
 @pytest.mark.parametrize("fmt,rows,match", [
     ("4:4:4", 3 * H, "chroma_format"),
@@ -795,6 +875,35 @@ def test_k2_10_422_edges_on_card(cuda_device, w, h, fill):
     torch.cuda.synchronize()
     assert ck.LAUNCHES["packed10_422"] == before + 2
     assert torch.equal(out, inplace) and torch.equal(out.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,w,h", GUARDED, ids=GUARDED_IDS)
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_k2_10_keeps_guard_bytes_on_card(cuda_device, fmt, k, w, h):
+    """K2-10 at 4:2:0 and 4:2:2 on views 16 bytes past a 256-byte boundary,
+    with guard elements before and after, == deblock_packed_plain into a
+    separate output, in place and into new planes, one launch each, and no
+    guard element changes: the box loads' L2 promotion fetches whole lines
+    past the planes' ends, and the zero fill at the border (Q6) and the
+    stores' limits still hold."""
+    key = ck.PACKED_LAUNCHES[(10, fmt)]
+    before = ck.LAUNCHES[key]
+
+    def run(src, dst, lm, cm):
+        ck.deblock_packed_cuda(*_planes(src, h, fmt), lm, cm, get_beta(EDGE_QP),
+                               get_tc(EDGE_QP), out=_planes(dst, h, fmt), bit_depth=10,
+                               chroma_format=fmt)
+        torch.cuda.synchronize()
+
+    src, (lm, cm) = _guarded_step(fmt, k, w, h, cuda_device, run)
+    frames, _, want = _guarded_case(fmt, k, w, h)
+    src.copy_(frames)
+    new_y, new_uv = ck.deblock_packed_cuda(*_planes(src, h, fmt), lm, cm, get_beta(EDGE_QP),
+                                           get_tc(EDGE_QP), bit_depth=10, chroma_format=fmt)
+    assert ck.LAUNCHES[key] == before + 3
+    assert torch.equal(torch.cat([new_y, new_uv.reshape(k, -1, w)], dim=-2).cpu(), want)
+    assert torch.equal(src.cpu(), frames)
 
 
 @pytest.mark.cuda

@@ -21,10 +21,15 @@ before.  Here on the CPU:
     warp is more than two-way in a bank (gvct_host_packed_reads); and the host
     build == the plain version on blocks that end mid-row, at the picture's
     borders, with BS all 0 and all 2 and on uniform noise, in place and
-    into a separate output.
+    into a separate output;
+  - the host build on views 16 bytes past a 256-byte boundary with guard
+    bytes before and after them: == the plain version, no guard byte
+    written.
 Tests marked `cuda` launch the kernel on the card, against the chain it
 replaces, at both benchmark cells' shapes, on those edge cases (and against
-the plain version), through a graph replay and the mesh, and skip without
+the plain version), on the guarded views (the box loads' L2 promotion
+fetches whole lines past the planes' ends), through a graph replay and the
+mesh, and skip without
 a card; nothing here imports JAX, so they run on the
 card (`python -m pytest tests/test_torch_packed_kernel.py -m cuda`).  Every
 comparison is byte-equal."""
@@ -278,6 +283,77 @@ def test_packed_host_build_edges(w, h, content, fill):
     assert torch.equal(want, buf) is (fill == "zero")
 
 
+GUARD_BYTES = 1024  # of guard on each side of a guarded view: four 256-byte L2 lines
+GUARD_FILL = 0xA5
+GUARDED = [(2, 64, 48), (2, 96, 64)]
+GUARDED_IDS = ["k2-64x48", "k2-96x64"]
+
+
+def _guarded(shape, dtype, device, fill):
+    """A contiguous tensor of `shape` that starts 16 bytes past a 256-byte
+    boundary, GUARD_BYTES + 16 bytes into a larger allocation whose every
+    other element holds `fill`; and a function that is true while they all
+    still do.  An L2 line fetched whole for the view's first or last rows
+    (the box loads' promotion) takes in guard bytes; no store may."""
+    size = torch.empty((), dtype=dtype).element_size()
+    n = int(np.prod(shape))
+    raw = torch.full((n + (2 * GUARD_BYTES + 512) // size,), fill, dtype=dtype, device=device)
+    start = ((-raw.data_ptr()) % 256 + GUARD_BYTES + 16) // size
+    view = raw[start:start + n].view(shape)
+    assert view.data_ptr() % 256 == 16
+
+    def intact():
+        return bool((raw[:start] == fill).all()) and bool((raw[start + n:] == fill).all())
+
+    return view, intact
+
+
+@functools.lru_cache(maxsize=None)
+def _guarded_case(k, w, h):
+    """k blocky frames, a random BS and deblock_packed_plain's output."""
+    rng = np.random.default_rng([k, w, h, 16])
+    frames = torch.from_numpy(_blocky(rng, k, w, h))
+    bs = _random_bs(rng, w, h)
+    sd = StreamingDeblocker(w, h, QP, bs=bs, device="cpu")
+    want_y, want_uv = deblock_packed_plain(*_planes(frames, h), *_args(sd), False)
+    return frames, bs, torch.cat([want_y, want_uv.reshape(k, h // 2, w)], dim=-2)
+
+
+def _guarded_step(k, w, h, device, run):
+    """`run(src, dst, sd)` on guarded views of _guarded_case's frames, into
+    a separate output and then in place: each == deblock_packed_plain, the
+    source of the first untouched, and every guard element as it was."""
+    frames, bs, want = _guarded_case(k, w, h)
+    sd = StreamingDeblocker(w, h, QP, bs=bs, device=device)
+    src, src_intact = _guarded(frames.shape, frames.dtype, device, GUARD_FILL)
+    dst, dst_intact = _guarded(frames.shape, frames.dtype, device, GUARD_FILL)
+    src.copy_(frames)
+    dst.fill_(7)
+    assert ck.packed_fits(w, *_planes(src, h), *_planes(dst, h))
+    run(src, dst, sd)
+    assert src_intact() and dst_intact()
+    assert torch.equal(dst.cpu(), want) and torch.equal(src.cpu(), frames)
+    run(src, src, sd)
+    assert src_intact() and dst_intact()
+    assert torch.equal(src.cpu(), want)
+    return src, sd
+
+
+@pytest.mark.parametrize("k,w,h", GUARDED, ids=GUARDED_IDS)
+def test_packed_host_build_keeps_guard_bytes(k, w, h):
+    """gvct_host_deblock_packed on views 16 bytes past a 256-byte boundary
+    with guard bytes before and after == deblock_packed_plain, into a
+    separate output and in place, and writes no guard byte: the zero fill
+    at the border (Q6) and the stores' limits hold wherever the view lies."""
+    lib = ck.load_host_library()
+
+    def run(src, dst, sd):
+        assert lib.gvct_host_deblock_packed(*ck.packed_launch_args(
+            *_planes(src, h), *_planes(dst, h), *_args(sd), False)) == 0
+
+    _guarded_step(k, w, h, "cpu", run)
+
+
 # -- the guard -----------------------------------------------------------------------
 
 def _views(w, h, k, offset=0, frame_pad=0):
@@ -494,6 +570,30 @@ def test_packed_kernel_edges_on_card(cuda_device, w, h, content, fill):
     assert torch.equal(out, inplace) and torch.equal(out, ref)
     y, uv = _planes(out.cpu(), h)
     assert torch.equal(y, want_y) and torch.equal(uv, want_uv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,w,h", GUARDED, ids=GUARDED_IDS)
+def test_packed_kernel_keeps_guard_bytes_on_card(cuda_device, k, w, h):
+    """K2 on views 16 bytes past a 256-byte boundary, with guard bytes
+    before and after, == deblock_packed_plain into a separate output, in
+    place and into new planes, one K2 launch each, and no guard byte
+    changes: the box loads' L2 promotion fetches whole lines past the
+    planes' ends, and the zero fill at the border (Q6) and the stores'
+    limits still hold."""
+    before = _counts()
+
+    def run(src, dst, sd):
+        ck.deblock_packed_cuda(*_planes(src, h), *_args(sd), out=_planes(dst, h))
+        torch.cuda.synchronize()
+
+    src, sd = _guarded_step(k, w, h, cuda_device, run)
+    frames, _, want = _guarded_case(k, w, h)
+    src.copy_(frames)
+    new_y, new_uv = ck.deblock_packed_cuda(*_planes(src, h), *_args(sd))
+    assert _delta(before) == {"T2": 0, "T3": 0, "K1": 0, "K1c": 0, "K2": 3}
+    assert torch.equal(torch.cat([new_y, new_uv.reshape(k, h // 2, w)], dim=-2).cpu(), want)
+    assert torch.equal(src.cpu(), frames)
 
 
 @pytest.mark.cuda
