@@ -16,8 +16,8 @@ read after that wait.
 
 The frames are of the configuration's bit_depth and chroma_format
 (lib/frames.frame_pool), and so are the batch buffer and the captures:
-rows = 3h/2 at 4:2:0, 2h at 4:2:2 (lib/frames.packed_rows).  The program's
-call:
+rows = 3h/2 at 4:2:0, 2h at 4:2:2, 3h at 4:4:4 (lib/frames.packed_rows).
+The program's call:
 
   bit_depth 8   deblock_packed_batch_sharded_jit(mesh, buf, lm, cm, beta,
                 tc, w=w, h=h), buf a uint8 (k, 3h/2, w) batch;
@@ -32,7 +32,13 @@ call:
                 (h, w/2) each (at 10 bits the 16-bit words of yuv422p10le
                 planes).  cm are the chroma planes' maps, at (h/8 + 1,
                 w/16 + 1) tiles, looked up at the chroma width w/2 and gated
-                by the luma tile counts, as at 4:2:0; beta and tc as above.
+                by the luma tile counts, as at 4:2:0; beta and tc as above;
+  4:4:4         the call of the bit depth with chroma_format="4:4:4", buf a
+                (k, 3h, w) batch: luma, then U and V (h, w) each (at 10 bits
+                the 16-bit words of yuv444p10le planes).  cm are at (h/8 + 1,
+                w/8 + 1) tiles, looked up at the chroma width w and gated by
+                the luma tile counts, which are the planes' own; beta and tc
+                as above.
 
 At 4:2:0 the call has no chroma_format keyword, at 8 bits no bit_depth.
 A program that does not take one of them raises at the first call of

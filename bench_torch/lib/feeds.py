@@ -42,7 +42,7 @@ class Record:
         self.per_batch = per_batch  # frames a batch (one call of the program)
         self.kind = kind            # the card's name
         self.sample_bytes = sample_bytes  # bytes a sample: 1 at 8 bits, 2 at 10
-        self.chroma_format = chroma_format  # "4:2:0" or "4:2:2"
+        self.chroma_format = chroma_format  # "4:2:0", "4:2:2" or "4:4:4"
         self.setup_s = None
         self.frames = 0             # frames done in the window
         self.handed = 0             # frames handed to the program

@@ -7,10 +7,13 @@ seed gives the same inputs and set-up does not depend on the host.
 Frames are packed planar YUV, (packed_rows, w): luma, then the two chroma
 planes (ch, cw) one after the other, their size set by the configuration's
 chroma_format (chroma_plane): (h/2, w/2) at 4:2:0, packed YV12, 3h/2 rows;
-(h, w/2) at 4:2:2 (HEVC's format range extensions), 2h rows.  At a bit
-depth of 8 (HEVC Main) a sample is one uint8; at 10 (Main 10, Main 4:2:2
-10) one int16 in [0, 1023], each row the little-endian 16-bit words of a
-yuv420p10le (yuv422p10le) plane.  Each plane is a
+(h, w/2) at 4:2:2 and (h, w) at 4:4:4 (HEVC's format range extensions),
+2h and 3h rows.  At a bit depth of 8 (HEVC Main, Main 4:4:4) a sample is
+one uint8; at 10 (Main 10, Main 4:2:2 10, Main 4:4:4 10) one int16 in
+[0, 1023], each row the little-endian 16-bit words of a yuv420p10le
+(yuv422p10le, yuv444p10le) plane.  Chroma is drawn by the same generator
+calls in the same order at every format, so a pool's luma is the same
+whatever its chroma_format.  Each plane is a
 gradient with a per-frame phase, a DC offset per 8x8 block and, per
 block, noise: steps between blocks of a few levels take the strong luma
 filter, larger ones the normal filter, the largest skip it.  The gradient
@@ -37,7 +40,7 @@ import torch
 B = 8
 _MASK63 = (1 << 63) - 1
 # chroma_format -> (SubWidthC, SubHeightC), H.265 Table 6-1
-CHROMA_SUBSAMPLING = {"4:2:0": (2, 2), "4:2:2": (2, 1)}
+CHROMA_SUBSAMPLING = {"4:2:0": (2, 2), "4:2:2": (2, 1), "4:4:4": (1, 1)}
 
 
 def generator(seed: int, stream: int, device) -> torch.Generator:
@@ -58,7 +61,7 @@ def sample_dtype(bit_depth: int) -> torch.dtype:
 
 def chroma_plane(width: int, height: int, chroma_format: str = "4:2:0") -> tuple[int, int]:
     """(ch, cw), one chroma plane's rows and columns: (h/2, w/2) at 4:2:0,
-    (h, w/2) at 4:2:2; ValueError at any other format."""
+    (h, w/2) at 4:2:2, (h, w) at 4:4:4; ValueError at any other format."""
     if chroma_format not in CHROMA_SUBSAMPLING:
         raise ValueError(f"chroma_format must be one of {sorted(CHROMA_SUBSAMPLING)}, "
                          f"got {chroma_format!r}")
@@ -68,7 +71,7 @@ def chroma_plane(width: int, height: int, chroma_format: str = "4:2:0") -> tuple
 
 def packed_rows(width: int, height: int, chroma_format: str = "4:2:0") -> int:
     """Rows of w samples a packed frame holds: h + 2 ch cw / w (3h/2 at
-    4:2:0, 2h at 4:2:2)."""
+    4:2:0, 2h at 4:2:2, 3h at 4:4:4)."""
     ch, cw = chroma_plane(width, height, chroma_format)
     return height + 2 * ch * cw // width
 

@@ -2,9 +2,9 @@
 
 Deblocking a packed frame reads each of its samples once and writes each
 once, whatever kernels implement it (a fused kernel, a relayout on either
-side, several launches): 2 x (wh + 2 ch cw) samples a frame, 3wh/2 at
-4:2:0 and 2wh at 4:2:2 (lib/frames.chroma_plane), of 1 byte at 8 bits and
-2 (an int16) at 10.
+side, several launches): 2 x (wh + 2 ch cw) samples a frame (wh + 2 ch cw
+is 3wh/2 at 4:2:0, 2wh at 4:2:2 and 3wh at 4:4:4; lib/frames.chroma_plane),
+of 1 byte at 8 bits and 2 (an int16) at 10.
 There is no operation bound (no integer rate in the data sheet's table),
 so the bound is bytes over the memory bandwidth.
 """

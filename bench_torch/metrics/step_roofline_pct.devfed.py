@@ -1,8 +1,8 @@
 """step_roofline_pct.devfed: the packed batch step's share of the card's
 bandwidth bound.  Bytes: each frame of the batch read once and written
 once at its bytes a sample (lib/roofline.deblock_bytes; 1 at 8 bits, 2 at
-10) and its chroma format's samples (3wh/2 at 4:2:0, 2wh at 4:2:2),
-whatever kernels do the work.  Time:
+10) and its chroma format's samples (3wh/2 at 4:2:0, 2wh at 4:2:2, 3wh at
+4:4:4), whatever kernels do the work.  Time:
 the device time per batch of everything the traced window ran except what
 the harness launched itself (the refresh and the sample copies)."""
 

@@ -43,16 +43,21 @@ above.  Output keeps the input's dtype.  At bit_depth 8 nothing changes.
 Chroma format.  The reference project filters 4:2:0 frames only.  At
 `chroma_format` "4:2:2" (HEVC's format range extensions, e.g. Main 4:2:2
 10) each chroma plane is (h, w/2), H.265's SubWidthC 2 and SubHeightC 1,
-and the packed frame (2h, w) rows: luma, then U, then V.  Each chroma plane
-is filtered exactly as a 4:2:0 plane is above: edges on the plane's own
-8x8 grid (so horizontal chroma edges fall every 8 luma rows, not 16), the
+and the packed frame (2h, w) rows: luma, then U, then V.  At "4:4:4"
+(Main 4:4:4, Main 4:4:4 10) each chroma plane is (h, w), SubWidthC and
+SubHeightC 1, and the packed frame (3h, w) rows.  Each chroma plane of
+either is filtered exactly as a 4:2:0 plane is above: edges on the
+plane's own 8x8 grid (so horizontal chroma edges fall every 8 luma rows,
+not 16, and at 4:4:4 vertical ones every 8 luma columns too), the
 one-sample filter where BS == 2, the flat chroma BS arrays read at the
-plane's width, the segment order, the column mismatch, the sheared sweep,
-the floor shifts, and the gate by the luma tile counts (h/8 + 1, w/8 + 1).
-Chroma tc stays the table's tc' at the frame's QP, scaled at 10 bits: at
-4:2:2 H.265 (8.7.2.5.5 since the range extensions) sets QpC = Min(qPi, 51)
-with no Table 8-10 lookup, and one QP a frame needs no mapping.  Any other
-format raises ValueError.  At "4:2:0" nothing changes.
+plane's width (w/2, or w at 4:4:4), the segment order, the column
+mismatch, the sheared sweep, the floor shifts, and the gate by the luma
+tile counts (h/8 + 1, w/8 + 1), at 4:4:4 the plane's own tile counts.
+Chroma tc stays the table's tc' at the frame's QP, scaled at 10 bits: for
+ChromaArrayType other than 1 H.265 (8.7.2.5.5 since the range extensions)
+sets QpC = Min(qPi, 51) with no Table 8-10 lookup, and one QP a frame
+needs no mapping.  Any other format raises ValueError.  At "4:2:0"
+nothing changes.
 
 `shift="trunc"` replaces every right shift by a division that rounds
 toward zero: the control, which breaks the stated arithmetic guarantee.
@@ -75,7 +80,7 @@ TC = (0,) * 18 + (1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2, 3,
                   14, 16, 18, 20)
 
 # chroma_format -> (SubWidthC, SubHeightC), H.265 Table 6-1
-CHROMA_SUBSAMPLING = {"4:2:0": (2, 2), "4:2:2": (2, 1)}
+CHROMA_SUBSAMPLING = {"4:2:0": (2, 2), "4:2:2": (2, 1), "4:4:4": (1, 1)}
 
 # (P, Q) sample of filter row r at edge distance j, as (tile row, tile col)
 _PHASES = (
@@ -248,7 +253,8 @@ def deblock_packed(frames, width: int, height: int, qp: int, bs: dict, shift: st
 
     Rows [0, h) are luma; the rows after them hold the two chroma planes
     one after the other, each (ch, cw): (h/2, w/2) at chroma_format
-    "4:2:0" (packed YV12, 3h/2 rows), (h, w/2) at "4:2:2" (2h rows).  bs:
+    "4:2:0" (packed YV12, 3h/2 rows), (h, w/2) at "4:2:2" (2h rows), (h, w)
+    at "4:4:4" (3h rows).  bs:
     the flat arrays "vert", "hor", "chroma_vert", "chroma_hor" that every
     frame of the batch shares."""
     if chroma_format not in CHROMA_SUBSAMPLING:

@@ -50,6 +50,20 @@ def test_roofline_bytes_at_4_2_2():
         assert 3 * four_two_two == 4 * roofline.deblock_bytes(w, h, 16, 2)
 
 
+def test_roofline_bytes_at_4_4_4():
+    # two (h, w) chroma planes: 3wh samples a frame and 6wh moved, twice 4:2:0's; 4 Main
+    # 4:4:4 frames at 2160p move 199.1 MB, as many as 4 Main 10 frames
+    assert roofline.frame_bytes(3840, 2160, 1, "4:4:4") == 24_883_200
+    assert roofline.deblock_bytes(3840, 2160, 4, 1, "4:4:4") == 199_065_600
+    for w, h in ((1920, 1080), (64, 48), (72, 40)):
+        for sample_bytes in (1, 2):
+            assert roofline.frame_bytes(w, h, sample_bytes, "4:4:4") == 3 * w * h * sample_bytes
+            assert roofline.deblock_bytes(w, h, 1, sample_bytes, "4:4:4") == \
+                6 * w * h * sample_bytes
+        assert roofline.deblock_bytes(w, h, 16, 2, "4:4:4") == \
+            2 * roofline.deblock_bytes(w, h, 16, 2)
+
+
 def test_roofline_share_against_the_peak():
     # 8 1080p frames moved at exactly the peak take 14.855 us
     t = roofline.deblock_bytes(1920, 1080, 8) / 3.35e12
@@ -71,7 +85,20 @@ def test_bs_sizes_are_the_reference_flat_sizes(w, h, chroma_format, sub_h):
     assert sizes["chroma_hor"] == (((ch // 8 + 1) * cw) // 8, ch // 8 + 1)
 
 
-@pytest.mark.parametrize("chroma_format", ["4:2:0", "4:2:2"])
+@pytest.mark.parametrize("w, h", [(1920, 1080), (3840, 2160), (64, 48), (72, 40)])
+def test_bs_sizes_at_4_4_4_are_the_luma_sizes(w, h):
+    # chroma planes (h, w): each chroma array is as long as the luma array of its
+    # direction, with the same zero stripe
+    assert fr.chroma_plane(w, h, "4:4:4") == (h, w)
+    sizes = fr.bs_sizes(w, h, "4:4:4")
+    assert sizes["chroma_vert"] == sizes["vert"] == ((w // 8 + 1) * h // 8, w // 8 + 1)
+    assert sizes["chroma_hor"] == sizes["hor"] == ((h // 8 + 1) * w // 8, h // 8 + 1)
+    bs = fr.bs_arrays(w, h, {"bs": "ra", "bs_shares": [0.2, 0.3, 0.5]}, 2**31 + 5, "cpu",
+                      "4:4:4")
+    assert bs["chroma_vert"].size == bs["vert"].size and bs["chroma_hor"].size == bs["hor"].size
+
+
+@pytest.mark.parametrize("chroma_format", ["4:2:0", "4:2:2", "4:4:4"])
 def test_ai_bs_is_the_reference_default(chroma_format):
     bs = fr.bs_arrays(64, 48, {"bs": "ai"}, 5, "cpu", chroma_format)
     for name, (size, stripe) in fr.bs_sizes(64, 48, chroma_format).items():
@@ -151,7 +178,30 @@ def test_4_2_2_pool():
     assert not torch.equal(u, v)
 
 
-@pytest.mark.parametrize("chroma_format", ["4:4:4", "4:0:0", "420", "", None])
+@pytest.mark.parametrize("bit_depth, content", [(8, {"luma_dc": 24, "chroma_dc": 12}),
+                                                (10, {"luma_dc": 96, "chroma_dc": 48})])
+def test_4_4_4_pool(bit_depth, content):
+    # (n, 3h, w): luma, then U and V (h, w); at 10 bits a yuv444p10le frame.  The
+    # generator's calls are 4:2:0's in the same order, so luma is 4:2:0's byte for byte
+    a = fr.frame_pool(3, 64, 48, 2**33 + 1, content, "cpu", bit_depth, "4:4:4")
+    assert a.shape == (3, 144, 64) and a.dtype == fr.sample_dtype(bit_depth)
+    assert fr.packed_rows(64, 48, "4:4:4") == 144
+    assert torch.equal(a, fr.frame_pool(3, 64, 48, 2**33 + 1, content, "cpu", bit_depth, "4:4:4"))
+    assert not torch.equal(a, fr.frame_pool(3, 64, 48, 2**33 + 2, content, "cpu", bit_depth,
+                                            "4:4:4"))
+    b = fr.frame_pool(3, 64, 48, 2**33 + 1, content, "cpu", bit_depth)
+    assert a[:, :48].numpy().tobytes() == b[:, :48].numpy().tobytes()
+    u, v = a[:, 48:].reshape(3, 2, 48, 64).unbind(1)
+    for plane in (u, v):
+        assert int(plane.min()) >= 0 and int(plane.max()) <= (1 << bit_depth) - 1
+        # each chroma plane holds its own blocky content down to its last row and column
+        assert plane[:, 24:, 32:].float().std() > 1
+        assert not torch.equal(plane[:, :24], plane[:, 24:])
+        assert not torch.equal(plane[..., :32], plane[..., 32:])
+    assert not torch.equal(u, v)
+
+
+@pytest.mark.parametrize("chroma_format", ["4:0:0", "4:4:0", "420", "", None])
 def test_other_chroma_formats_are_refused(chroma_format):
     from bench_torch.references import hevc_deblock as ref
 
@@ -172,31 +222,47 @@ def test_other_chroma_formats_are_refused(chroma_format):
             call()
 
 
-# -- the 4:2:0 configurations read what they read before the harness took a chroma
-# format: sha256 of their pools (64x48 and 72x40), BS arrays (the configuration's
-# size; ai and ra), reference and control outputs, and the check's counts of the
-# control's wrong bytes, all taken before the harness took a chroma format
+# -- the configurations read what they read before: sha256 of their pools (64x48 and
+# 72x40), BS arrays (the configuration's size; ai and ra), reference and control
+# outputs, the check's counts of the control's wrong bytes, and the roofline's bytes
+# a frame at the configuration's own size.  The 4:2:0 configurations' digests were
+# taken before the harness took a chroma format; the 4:2:2 configuration's, and every
+# roofline figure, before it took 4:4:4
 
 DIGEST_SEED = 2**31 + 4242
 DIGEST_MIXES = [{"bs": "ai"}, {"bs": "ra", "bs_shares": [0.2, 0.3, 0.5]}]
 DIGESTS = {
     "hevc_ctc_b_1080p_qp37": {
+        "chroma_format": "4:2:0",
         "pool": "b38ed2c099d5f3c8392540ef52685391089e3c31824fbf787663afbf7652d33d",
         "bs": "f83a3bb90c974b7d72508145b2e7c4d476bb95361a6e83b7ccc11728e3a9a1cf",
         "ref": "ec1e3a6a259682e40612b13d00bafa7ff8ac28ad743c5a3ca00e0f1d6b855d87",
         "wrong": [[1007, 2, 2], [780, 2, 2], [974, 2, 2], [785, 2, 2]],
+        "roofline": 6_220_800,
     },
     "hevc_l51_2160p_qp32": {
+        "chroma_format": "4:2:0",
         "pool": "b38ed2c099d5f3c8392540ef52685391089e3c31824fbf787663afbf7652d33d",
         "bs": "b8fee9212599dd60f9468a110a517454c9de56c2e0d915cd723d8a9a59d11700",
         "ref": "4670ef5e6f64ae93dc23ce1495c4e6edf200f31b7a2cf009118625438ee55b4a",
         "wrong": [[688, 2, 2], [509, 2, 2], [740, 2, 2], [579, 2, 2]],
+        "roofline": 24_883_200,
     },
     "hevc_main10_l51_2160p_qp32": {
+        "chroma_format": "4:2:0",
         "pool": "ef4c8583347fa62935e1f6e78657b42333b90dbe2a01b58e52709d8b6c123917",
         "bs": "b8fee9212599dd60f9468a110a517454c9de56c2e0d915cd723d8a9a59d11700",
         "ref": "fbbff401410ac8e957a44a8c53ba5461d992547f47444ea1b26c31f6817fa06d",
         "wrong": [[966, 2, 2], [754, 2, 2], [892, 2, 2], [745, 2, 2]],
+        "roofline": 49_766_400,
+    },
+    "hevc_main422_10_l51_2160p_qp32": {
+        "chroma_format": "4:2:2",
+        "pool": "55a1a6b30b49e7644859b0a11d6a98482da39d9c5bf07a670e0c0a6fd9074229",
+        "bs": "da9a2f1ded920f37b61b562ec70b7fc7e53a9644d69322507f7bc682c8f000c1",
+        "ref": "a32bf99e73269539a1e4f40d03ed1b2e4a9323bc0b5c11476ff48d432bccc6a1",
+        "wrong": [[1134, 2, 2], [850, 2, 2], [1127, 2, 2], [892, 2, 2]],
+        "roofline": 66_355_200,
     },
 }
 
@@ -215,6 +281,8 @@ def _inputs_and_outputs(cfg):
     from bench_torch.references import hevc_deblock as ref
 
     bd, qp, cf = cfg["bit_depth"], cfg["qp"], cfg["chroma_format"]
+    moved = roofline.deblock_bytes(cfg["width"], cfg["height"], 1,
+                                   fr.sample_dtype(bd).itemsize, cf)
     bs = [a for m in DIGEST_MIXES
           for a in fr.bs_arrays(cfg["width"], cfg["height"], m, DIGEST_SEED, "cpu", cf).values()]
     pools, outs, wrong = [], [], []
@@ -229,14 +297,14 @@ def _inputs_and_outputs(cfg):
             outs += [out, control]
             small = dict(cfg, width=w, height=h)
             wrong.append(list(check.wrong_bytes([(pool, control)], small, small_bs, "cpu")))
-    return {"pool": _digest(pools), "bs": _digest(bs), "ref": _digest(outs), "wrong": wrong}
+    return {"chroma_format": cf, "pool": _digest(pools), "bs": _digest(bs), "ref": _digest(outs),
+            "wrong": wrong, "roofline": moved}
 
 
 @pytest.mark.parametrize("name", sorted(DIGESTS))
 def test_4_2_0_configurations_read_what_they_read_before(name):
     cfg = spec.load_json(spec.ROOT / next(c["file"] for c in spec.load_spec()["configs"]
                                           if c["name"] == name))
-    assert cfg["chroma_format"] == "4:2:0"
     assert _inputs_and_outputs(cfg) == DIGESTS[name]
 
 
@@ -319,6 +387,8 @@ def test_step_roofline_leaves_out_the_harness_copy(tmp_path):
     assert rec.chroma_format == "4:2:0"
     rec.sample_bytes, rec.chroma_format = 1, "4:2:2"  # 2wh samples a frame, not 3wh/2
     assert spec.reader("step_roofline_pct.devfed")(rec) == pytest.approx(4 / 3 * got)
+    rec.chroma_format = "4:4:4"  # 3wh samples a frame
+    assert spec.reader("step_roofline_pct.devfed")(rec) == pytest.approx(2 * got)
 
 
 def test_idle_share_is_the_traced_stretch_s_own(tmp_path):

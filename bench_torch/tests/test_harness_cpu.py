@@ -98,10 +98,10 @@ def test_device_fed_faults_are_caught(traffic, fault, monkeypatch):
 MAIN10 = {"bit_depth": 10, "content": {"luma_dc": 96, "chroma_dc": 48}}
 
 
-def _main10_program(mp, traffic, fault=None, chroma_format="4:2:0"):
+def _standin_program(mp, traffic, fault=None, chroma_format="4:2:0", bit_depth=10):
     """Put a stand-in program in place of deblock_packed_batch_sharded_jit:
     a copy of the plain reference (its own module, so a fault planted in it
-    leaves the check's reference whole) at 10 bits and the feed's chroma
+    leaves the check's reference whole) at the feed's bit depth and chroma
     format, with the fault planted."""
     from gpu_video_codec_tpu_torch.parallel import mesh as pm
 
@@ -116,22 +116,28 @@ def _main10_program(mp, traffic, fault=None, chroma_format="4:2:0"):
         ref.max_pixel = lambda bit_depth=8: 255
     if fault == "unscaled":
         ref.beta_tc = lambda qp, bit_depth=8: tables.beta_tc(qp)
-    if fault == "hor_every_16":  # chroma tile rows hold the edges at chroma rows 8 by
+    if fault in ("hor_every_16", "ver_every_16"):
+        # chroma tile row by (column bx) holds the edge at chroma row 8 by (column 8 bx):
+        # the horizontal (vertical) segments of odd tile rows (columns) left out
         gates = ref.gates
 
         def every_16(*args):
             g = gates(*args)
             if args[7]:  # chroma
-                g[2:, 1::2] = False
+                if fault == "hor_every_16":
+                    g[2:, 1::2] = False
+                else:
+                    g[:2, :, 1::2] = False
             return g
         ref.gates = every_16
+    expect_bd = bit_depth
 
     def program(mesh, buf, lm, cm, beta, tc, *, w, h, bit_depth=8, chroma_format="4:2:0"):
-        # the feed's contract: the int16 (k, rows, w) batch, the tables' beta' and tc',
-        # bit_depth=10, chroma_format="4:2:2" at 4:2:2 alone
+        # the feed's contract: the (k, rows, w) batch of the bit depth's dtype, the
+        # tables' beta' and tc', bit_depth=10 at 10 bits, chroma_format other than 4:2:0
         rows = fr.packed_rows(w, h, chroma_format)
         assert (buf.dtype, buf.shape[1:], bit_depth, (beta, tc)) == \
-            (torch.int16, (rows, w), 10, tables.beta_tc(qp))
+            (fr.sample_dtype(expect_bd), (rows, w), expect_bd, tables.beta_tc(qp))
         cf = chroma_format
         if fault == "unchanged":
             return buf
@@ -161,7 +167,7 @@ def _main10_program(mp, traffic, fault=None, chroma_format="4:2:0"):
 
 @pytest.mark.parametrize("traffic", DEVICE_MIXES)
 def test_main10_sound_program_is_correct(traffic, monkeypatch):
-    _main10_program(monkeypatch, traffic)
+    _standin_program(monkeypatch, traffic)
     result, compared = small_run(traffic, **MAIN10)
     assert result["correct"] is True
     assert compared["wrong_bytes"] == 0 and compared["frames_compared"] > 0
@@ -177,7 +183,7 @@ def test_main10_control_is_not_correct(traffic):
 @pytest.mark.parametrize("fault", ["unchanged", "half_batch", "altered", "clip_255",
                                    "unscaled", "shifted_8bit"])
 def test_main10_faults_are_caught(traffic, fault, monkeypatch):
-    _main10_program(monkeypatch, traffic, fault)
+    _standin_program(monkeypatch, traffic, fault)
     result, compared = small_run(traffic, **MAIN10)
     assert result["correct"] is False and compared["wrong_bytes"] > 0
     if fault == "altered":  # one byte in each batch compared
@@ -185,7 +191,8 @@ def test_main10_faults_are_caught(traffic, fault, monkeypatch):
 
 
 @pytest.mark.parametrize("bit_depth, flip, wrong", [(8, 0x01, 1), (10, 0x0001, 1), (10, 0x0101, 2)])
-@pytest.mark.parametrize("chroma_format, row", [("4:2:0", 50), ("4:2:2", 50), ("4:2:2", 90)])
+@pytest.mark.parametrize("chroma_format, row", [("4:2:0", 50), ("4:2:2", 50), ("4:2:2", 90),
+                                                 ("4:4:4", 130)])
 def test_wrong_bytes_counts_bytes(bit_depth, flip, wrong, chroma_format, row):
     from bench_torch.lib import check
     from bench_torch.lib import frames as fr
@@ -197,7 +204,9 @@ def test_wrong_bytes_counts_bytes(bit_depth, flip, wrong, chroma_format, row):
     out = check.reference_of(cfg).deblock_packed(frames, 64, 48, int(cfg["qp"]), bs,
                                                  bit_depth=bit_depth, chroma_format=chroma_format)
     assert check.wrong_bytes([(frames, out)], cfg, bs, "cpu") == (0, 2, 0)
-    out[1, row, 9] ^= flip  # row 90 of 96: the V plane of a 4:2:2 frame, past 4:2:0's 72 rows
+    # row 90 of 96: the V plane of a 4:2:2 frame, past 4:2:0's 72 rows; row 130 of 144:
+    # the V plane of a 4:4:4 frame, past 4:2:2's 96
+    out[1, row, 9] ^= flip
     assert check.wrong_bytes([(frames, out)], cfg, bs, "cpu") == (wrong, 2, 1)
 
 
@@ -209,7 +218,7 @@ MAIN422 = dict(MAIN10, chroma_format="4:2:2")
 
 @pytest.mark.parametrize("traffic", DEVICE_MIXES)
 def test_main422_sound_program_is_correct(traffic, monkeypatch):
-    _main10_program(monkeypatch, traffic, chroma_format="4:2:2")
+    _standin_program(monkeypatch, traffic, chroma_format="4:2:2")
     result, compared = small_run(traffic, **MAIN422)
     assert result["correct"] is True
     assert compared["wrong_bytes"] == 0 and compared["frames_compared"] > 0
@@ -225,8 +234,43 @@ def test_main422_control_is_not_correct(traffic):
 @pytest.mark.parametrize("fault", ["unchanged", "half_batch", "altered", "halves_as_420",
                                    "hor_every_16", "v_unfiltered"])
 def test_main422_faults_are_caught(traffic, fault, monkeypatch):
-    _main10_program(monkeypatch, traffic, fault, chroma_format="4:2:2")
+    _standin_program(monkeypatch, traffic, fault, chroma_format="4:2:2")
     result, compared = small_run(traffic, **MAIN422)
+    assert result["correct"] is False and compared["wrong_bytes"] > 0
+
+
+# -- 4:4:4 (HEVC Main 4:4:4, Main 4:4:4 10): the program called with
+# chroma_format="4:4:4" on a (k, 3h, w) batch; a program that filters the (h, w) chroma
+# planes with a subsampled format's edges, every 16 luma rows or columns, fails
+
+MAIN444 = {8: {"bit_depth": 8, "chroma_format": "4:4:4",
+               "content": {"luma_dc": 24, "chroma_dc": 12}},
+           10: dict(MAIN10, chroma_format="4:4:4")}
+
+
+@pytest.mark.parametrize("traffic", DEVICE_MIXES)
+@pytest.mark.parametrize("bit_depth", sorted(MAIN444))
+def test_main444_sound_program_is_correct(traffic, bit_depth, monkeypatch):
+    _standin_program(monkeypatch, traffic, chroma_format="4:4:4", bit_depth=bit_depth)
+    result, compared = small_run(traffic, **MAIN444[bit_depth])
+    assert result["correct"] is True
+    assert compared["wrong_bytes"] == 0 and compared["frames_compared"] > 0
+
+
+@pytest.mark.parametrize("traffic", DEVICE_MIXES)
+@pytest.mark.parametrize("bit_depth", sorted(MAIN444))
+def test_main444_control_is_not_correct(traffic, bit_depth):
+    result, compared = small_run(traffic, control=True, **MAIN444[bit_depth])
+    assert result["correct"] is False and compared["wrong_bytes"] > 0
+
+
+@pytest.mark.parametrize("traffic", DEVICE_MIXES)
+@pytest.mark.parametrize("bit_depth", sorted(MAIN444))
+@pytest.mark.parametrize("fault", ["unchanged", "half_batch", "altered", "hor_every_16",
+                                   "ver_every_16", "v_unfiltered"])
+def test_main444_faults_are_caught(traffic, bit_depth, fault, monkeypatch):
+    _standin_program(monkeypatch, traffic, fault, chroma_format="4:4:4", bit_depth=bit_depth)
+    result, compared = small_run(traffic, **MAIN444[bit_depth])
     assert result["correct"] is False and compared["wrong_bytes"] > 0
 
 
@@ -235,13 +279,16 @@ def test_main422_faults_are_caught(traffic, fault, monkeypatch):
     (10, "4:2:0", {"bit_depth": 10}),
     (8, "4:2:2", {"chroma_format": "4:2:2"}),
     (10, "4:2:2", {"bit_depth": 10, "chroma_format": "4:2:2"}),
+    (8, "4:4:4", {"chroma_format": "4:4:4"}),
+    (10, "4:4:4", {"bit_depth": 10, "chroma_format": "4:4:4"}),
 ])
 def test_device_feed_calls_the_program_as_its_docstring_says(bit_depth, chroma_format, extra,
                                                              monkeypatch):
     """At 4:2:0 the call as it was before the harness took a chroma format,
     8-bit or 10-bit; at 4:2:2 the same call with chroma_format="4:2:2", a
-    (k, 2h, w) batch and chroma maps of the (h, w/2) planes, gated by the
-    luma tile counts."""
+    (k, 2h, w) batch and chroma maps of the (h, w/2) planes, at 4:4:4 with
+    chroma_format="4:4:4", a (k, 3h, w) batch and chroma maps of the (h, w)
+    planes, each gated by the luma tile counts."""
     from gpu_video_codec_tpu_torch.parallel import mesh as pm
 
     from bench_torch.lib import frames as fr
@@ -257,23 +304,56 @@ def test_device_feed_calls_the_program_as_its_docstring_says(bit_depth, chroma_f
     content = MAIN10["content"] if bit_depth == 10 else {"luma_dc": 24, "chroma_dc": 12}
     small_run(traffic, bit_depth=bit_depth, chroma_format=chroma_format, content=content)
     shape, dtype, cm, kw = calls[0]
-    rows = {"4:2:0": 72, "4:2:2": 96}[chroma_format]
+    rows = {"4:2:0": 72, "4:2:2": 96, "4:4:4": 144}[chroma_format]
     assert shape == (_mix(traffic)["streams"], rows, 64)
     assert dtype == (torch.int16 if bit_depth == 10 else torch.uint8)
     assert kw == {"w": 64, "h": 48, **extra}
-    ch = 48 if chroma_format == "4:2:2" else 24
+    ch, cw = {"4:2:0": (24, 32), "4:2:2": (48, 32), "4:4:4": (48, 64)}[chroma_format]
+    assert all(m.shape == (ch // 8 + 1, cw // 8 + 1) for m in cm)
     bs = fr.bs_arrays(64, 48, _mix(traffic), SEED, "cpu", chroma_format)
-    gates = ref.gates(bs["chroma_vert"], bs["chroma_hor"], 32, ch // 8 + 1, 5, 7, 9, True, "cpu")
+    gates = ref.gates(bs["chroma_vert"], bs["chroma_hor"], cw, ch // 8 + 1, cw // 8 + 1, 7, 9,
+                      True, "cpu")
     assert torch.equal(torch.stack([m.to(torch.int32) for m in cm]) == 2, gates)
 
 
-def test_main422_on_the_port_raises_and_nothing_falls_back():
-    # the port does not take chroma_format yet: set-up's first call raises
-    with pytest.raises(TypeError, match="chroma_format"):
-        small_run(DEVICE_MIXES[0], **MAIN422)
+@pytest.mark.parametrize("traffic", DEVICE_MIXES)
+def test_main422_on_the_port_is_correct(traffic):
+    # the port's own packed batch step (its plain path on a CPU slot) at 4:2:2 10-bit
+    result, compared = small_run(traffic, **MAIN422)
+    assert result["correct"] is True and result["failed"] == 0
+    assert compared["wrong_bytes"] == 0 and compared["frames_compared"] > 0
 
 
-@pytest.mark.parametrize("chroma_format", ["4:4:4", "4:0:0"])
+@pytest.mark.parametrize("bit_depth", sorted(MAIN444))
+def test_main444_on_the_port_is_correct_or_refused_by_the_port(bit_depth):
+    """A 4:4:4 run through the port: where the port lists 4:4:4 among its
+    chroma formats, a correct run; where it does not, the port's own
+    ValueError naming chroma_format at set-up's first call of the program,
+    with no result and nothing in its place."""
+    from pathlib import Path
+
+    from gpu_video_codec_tpu_torch.ops import tables
+    from gpu_video_codec_tpu_torch.parallel import mesh as pm
+
+    if "4:4:4" in tables.CHROMA_FORMATS:
+        result, compared = small_run(DEVICE_MIXES[0], **MAIN444[bit_depth])
+        assert result["correct"] is True and compared["frames_compared"] > 0
+        return
+    with pytest.raises(ValueError, match="chroma_format") as info:
+        small_run(DEVICE_MIXES[0], **MAIN444[bit_depth])
+    frames = [(Path(str(e.path)).resolve(), e.name) for e in info.traceback]
+    port = Path(pm.__file__).resolve().parents[1]
+    # raised inside the port, below the feed's call of the program in set-up
+    assert frames[-1][0].is_relative_to(port)
+    at = [i for i, (path, name) in enumerate(frames)
+          if path == spec.BENCH / "feeds" / "device.py" and name == "step"]
+    assert at and frames[at[0] + 1] == (Path(pm.__file__).resolve(),
+                                        "deblock_packed_batch_sharded_jit")
+    assert any(name == "setup" for _, name in frames[: at[0]])
+    assert all(path.is_relative_to(port) for path, _ in frames[at[0] + 1 :])
+
+
+@pytest.mark.parametrize("chroma_format", ["4:0:0", "4:4:0"])
 def test_other_chroma_formats_give_no_run(chroma_format):
     with pytest.raises(ValueError, match="chroma_format"):
         small_run(DEVICE_MIXES[0], chroma_format=chroma_format)

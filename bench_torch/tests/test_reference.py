@@ -3,8 +3,9 @@
 heights with h % 16 == 8 (chroma gates past the BS arrays) and chroma
 widths that shear the chroma sweep; the control (right shifts rounding
 toward zero) differs.  At 4:2:2 the golden model's 4:2:0 chroma of a frame
-twice as tall is the witness, beside hand-derived edges; at 10 bits
-hand-derived luma edges.
+twice as tall is the witness, at 4:4:4 that of a frame twice as tall and
+twice as wide, each beside hand-derived edges; at 10 bits hand-derived
+luma edges.
 
     python -m pytest bench_torch/tests -q
 """
@@ -284,3 +285,119 @@ def test_4_2_2_chroma_edges_at_10_bits_clip_at_1023():
     assert torch.equal(out[1, 1:31, 8:24],
                        _expect(before[1], {15: (24, 24), 16: (80, 48),
                                            23: (96, 96), 24: (0, 32)})[1:31])
+
+
+# -- 4:4:4 (HEVC format range extensions): each chroma plane is (h, w) ----------------
+#
+# A 4:4:4 chroma plane is a 4:2:0 chroma plane of a frame twice as tall and twice as
+# wide: the same plane shape, the same flat chroma BS arrays and the same lookup width.
+# The gates differ in one place: the 4:4:4 plane is gated by its own tile counts, the
+# tall and wide frame's chroma by its luma tile counts, one more tile column, so there
+# the right horizontal segment of the last tile column (P in the padding) reads
+# chroma_hor[(by + 1) w/8].  With those entries 0 the gates agree, and the golden
+# model, which knows 4:2:0 alone, is a witness of the 4:4:4 reading.
+
+@pytest.mark.parametrize("w, h, qp", [(64, 48, 37), (72, 40, 32), (40, 24, 51), (136, 88, 37)])
+@pytest.mark.parametrize("mix", [{"bs": "ai"}, {"bs": "ra", "bs_shares": [0.2, 0.3, 0.5]}])
+def test_4_4_4_chroma_is_the_golden_4_2_0_chroma_of_a_frame_twice_as_tall_and_wide(w, h, qp,
+                                                                                   mix):
+    seed = 2**31 + 5 * w * h + qp
+    frames = fr.frame_pool(2, w, h, seed, CONTENT, "cpu", chroma_format="4:4:4")
+    assert frames.shape == (2, 3 * h, w)
+    bs = fr.bs_arrays(w, h, mix, seed, "cpu", "4:4:4")
+    bs["chroma_hor"][w // 8 :: w // 8] = 0
+    ny, nx = h // 8 + 1, w // 8 + 1
+    own = ref.gates(bs["chroma_vert"], bs["chroma_hor"], w, ny, nx, ny, nx, True, "cpu")
+    big_frame_s = ref.gates(bs["chroma_vert"], bs["chroma_hor"], w, ny, nx, 2 * h // 8 + 1,
+                            2 * w // 8 + 1, True, "cpu")
+    assert torch.equal(own, big_frame_s) and int(own.sum()) > 0
+    out = ref.deblock_packed(frames, w, h, qp, bs, chroma_format="4:4:4")
+    # luma is 4:2:0's, whatever the chroma planes hold
+    assert torch.equal(out[:, :h], ref.deblock_packed(frames[:, : 3 * h // 2], w, h, qp, bs)[:, :h])
+    big_bs = fr.bs_arrays(2 * w, 2 * h, mix, seed, "cpu")
+    assert all(big_bs[k].size == bs[k].size for k in ("chroma_vert", "chroma_hor"))
+    big_bs.update(chroma_vert=bs["chroma_vert"], chroma_hor=bs["chroma_hor"])
+    changed = 0
+    for f in range(2):
+        big = np.concatenate([np.zeros(4 * h * w, np.uint8), frames[f, h:].numpy().reshape(-1)])
+        gold = golden(big, 2 * w, 2 * h, qp, big_bs)[4 * h * w :]
+        assert np.array_equal(out[f, h:].numpy().reshape(-1), gold)
+        changed += int((gold != big[4 * h * w :]).sum())
+    assert changed > 0
+
+
+# Hand-derived as the 4:2:2 edges above.  A 32x32 4:4:4 frame, (96, 32) rows: U and V
+# (32, 32), luma flat.  A 4:2:0 frame of w = h = 32 has chroma planes (16, 16), whose one
+# inner edge each way lies at luma row or column 16: chroma edges at luma rows and columns
+# 8 and 24 exist only where chroma is not subsampled.
+#   Vertical: BS 0 but chroma_vert, all 2; each plane's columns 0-7, 8-23 and 24-31
+#   hold three values, every row alike, so edges 8 and 24 filter and 16, flat, stays.
+#   The two vertical phases read and write columns 3|4 of a tile, rows 0-3 and 4-7, so
+#   every row gets p0' = Clip1(p0 + dp) at column 7 (23) and q0' = Clip1(q0 - dq) at 8
+#   (24).  Columns 0 and 31 meet the zero padding.
+#   Horizontal: BS 0 but chroma_hor, all 2; rows 0-7, 8-23 and 24-31 hold three values,
+#   every column alike: the 4:2:2 case's rows 16 and 24 moved to rows 8 and 24, with the
+#   column mismatch's "a" and "b" columns.  Rows 0 and 31 meet the zero padding.
+
+def _444_edges(vertical, values_u, values_v, fill, bit_depth):
+    """The reference's U and V (32, 32) planes of the 32x32 4:4:4 frame whose planes
+    hold values_u (values_v) at rows (columns, where vertical) 0-7, 8-23 and 24-31."""
+    w = h = 32
+    frame = torch.full((1, 3 * h, w), fill, dtype=torch.int16 if bit_depth == 10 else torch.uint8)
+    planes = frame[0, h:].view(2, h, w)
+    for plane, (a, b, c) in zip(planes, (values_u, values_v)):
+        cut = plane.T if vertical else plane
+        cut[:8], cut[8:24], cut[24:] = a, b, c
+    on = "chroma_vert" if vertical else "chroma_hor"
+    bs = fr.bs_arrays(w, h, {"bs": "ai"}, 0, "cpu", "4:4:4")
+    bs = {k: np.full_like(v, 2 if k == on else 0) for k, v in bs.items()}
+    out = ref.deblock_packed(frame, w, h, 37, bs, bit_depth=bit_depth, chroma_format="4:4:4")
+    assert torch.equal(out[0, :h], frame[0, :h])
+    return frame[0, h:].view(2, h, w), out[0, h:].view(2, h, w)
+
+
+def _expect_columns(before, column_values):
+    """before's columns 1-30 with column c set to column_values[c] in every row."""
+    expect = before[:, 1:31].clone()
+    for c, v in column_values.items():
+        expect[:, c - 1] = v
+    return expect
+
+
+@pytest.mark.parametrize("bit_depth, values, fill, u_cols, v_cols", [
+    # tc' = 4 at QP 37; dp = ((p0 - q0) * 4 + p1 - q1 + 4) >> 3 = (5 (p0 - q0) + 4) >> 3
+    # with p1 = p0 and q1 = q0, dq = (5 (q0 - p0) + 4) >> 3, each clipped to [-tc, tc].
+    # U 100 | 110 | 120: edge 8, dp = -46 >> 3 = -6 -> -4: 96; dq = 54 >> 3 = 6 -> 4: 106;
+    #   edge 24, p0 = 110, q0 = 120: 106 and 116.  V 60 | 50 | 40: edge 8, dp = 54 >> 3 =
+    #   6 -> 4: 64; dq = -46 >> 3 = -6 -> -4: 54; edge 24: 54 and 44.
+    (8, ((100, 110, 120), (60, 50, 40)), 128,
+     {7: 96, 8: 106, 23: 106, 24: 116}, {7: 64, 8: 54, 23: 54, 24: 44}),
+    # tc = 4 * 4 = 16.  U 1020 | 980 | 1023: edge 8, dp = 204 >> 3 = 25 -> 16:
+    #   Clip1(1036) = 1023; dq = -196 >> 3 = -25 -> -16: 996; edge 24, p0 = 980, q0 =
+    #   1023: dp = -211 >> 3 = -27 -> -16: 964; dq = 219 >> 3 = 27 -> 16: 1007.
+    # V 40 | 80 | 0: edge 8, dp = -196 >> 3 = -25 -> -16: 24; dq = 204 >> 3 = 25 -> 16:
+    #   64; edge 24, p0 = 80, q0 = 0: dp = 404 >> 3 = 50 -> 16: 96; dq = -396 >> 3 = -50
+    #   -> -16: 16.
+    (10, ((1020, 980, 1023), (40, 80, 0)), 512,
+     {7: 1023, 8: 996, 23: 964, 24: 1007}, {7: 24, 8: 64, 23: 96, 24: 16}),
+])
+def test_4_4_4_chroma_edges_at_columns_8_and_24(bit_depth, values, fill, u_cols, v_cols):
+    before, out = _444_edges(True, *values, fill, bit_depth)
+    assert torch.equal(out[0, :, 1:31], _expect_columns(before[0], u_cols))
+    assert torch.equal(out[1, :, 1:31], _expect_columns(before[1], v_cols))
+
+
+@pytest.mark.parametrize("bit_depth, values, fill, u_rows, v_rows", [
+    # the values of test_4_2_2_chroma_edges_at_rows_16_and_24, its edge 16 now at row 8
+    (8, ((100, 110, 120), (60, 50, 40)), 128,
+     {7: (96, 96), 8: (110, 102), 23: (106, 106), 24: (120, 112)},
+     {7: (64, 64), 8: (50, 58), 23: (54, 54), 24: (40, 48)}),
+    # and of test_4_2_2_chroma_edges_at_10_bits_clip_at_1023
+    (10, ((1020, 980, 1023), (40, 80, 0)), 512,
+     {7: (1023, 1023), 8: (980, 1012), 23: (964, 964), 24: (1023, 991)},
+     {7: (24, 24), 8: (80, 48), 23: (96, 96), 24: (0, 32)}),
+])
+def test_4_4_4_chroma_edges_at_rows_8_and_24(bit_depth, values, fill, u_rows, v_rows):
+    before, out = _444_edges(False, *values, fill, bit_depth)
+    assert torch.equal(out[0, 1:31, 8:24], _expect(before[0], u_rows)[1:31])
+    assert torch.equal(out[1, 1:31, 8:24], _expect(before[1], v_rows)[1:31])
