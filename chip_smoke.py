@@ -139,7 +139,12 @@
    deblock_packed_batch_sharded and _jit on a (1, 1) mesh at (4, 3240,
    3840) int16 with random BS, twice each (the jit's capture and replay,
    then a replay alone): in place, == its plain version sample for sample,
-   one K2-10 launch a call and no other kernel.
+   one K2-10 launch a call and no other kernel.  One Main 4:2:2 10 call at
+   (4, 4320, 3840) int16 the same way.  Main 4:4:4 at (4, 6480, 3840)
+   uint8 and Main 4:4:4 10 at its int16 twin through the _jit entry, two
+   calls each: the plain version == bench_torch/references/hevc_deblock.py,
+   and in place == both, one K2 (K2-10) launch a call under packed_444
+   (packed10_444) and no other kernel.
 4d. Times the quad K1 against K1-i16 (the quad at int16_t), T5 (the quad
    on the rows layout, TMA-staged) and T1 (a quad per tile pair) in turns
    at the race grid (136, 256), on blocky tiles, on uniform noise (cond1
@@ -199,7 +204,7 @@ QUAD_INT_COUNTS = {(False, 8): (47, 960), (False, 1): (46, 1032), (False, 4): (5
 # deblock_packed_kernel<BD> with the lanes' tile in registers, BD -> (ptxas
 # registers, static SASS count) with CUDA 12.8's nvcc for sm_90a; a change
 # that moves them is a change to K2 or K2-10 to measure
-K2_COUNTS = {8: (38, 1384), 10: (39, 1504)}
+K2_COUNTS = {8: (38, 1376), 10: (39, 1496)}
 
 
 def check(cond: bool, what: str) -> None:
@@ -207,18 +212,18 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {what}")
 
 
-def blocky_frame(rng, w, h, ch=None):
+def blocky_frame(rng, w, h, ch=None, cw=None):
     """Packed YV12 frame: piecewise-flat 8x8 blocks with noise, so every
     filter branch runs; chroma planes of ch rows (default h/2; h for a
-    4:2:2 frame)."""
+    4:2:2 or 4:4:4 frame) and cw columns (default w/2; w for 4:4:4)."""
     ch = h // 2 if ch is None else ch
+    cw = w // 2 if cw is None else cw
     def plane(hh, ww):
         steps = rng.integers(-14, 15, (hh // 8 + 1, ww // 8 + 1))
         means = 128 + np.cumsum(steps, axis=1) // 2 + np.cumsum(steps, axis=0) // 3
         img = np.kron(means, np.ones((8, 8), np.int64))[:hh, :ww]
         return np.clip(img + rng.integers(-2, 3, img.shape), 0, 255).astype(np.uint8)
-    return np.concatenate([plane(h, w).ravel(), plane(ch, w // 2).ravel(),
-                           plane(ch, w // 2).ravel()])
+    return np.concatenate([plane(h, w).ravel(), plane(ch, cw).ravel(), plane(ch, cw).ravel()])
 
 
 def golden_packed(args) -> bytes:
@@ -424,7 +429,8 @@ def main() -> int:
                 "K1-i16c": ck.LAUNCHES["chroma_i16"], "T5": ck.LAUNCHES["rows"],
                 "T1": sk.LAUNCHES["swar"], "K2": ck.LAUNCHES["packed"],
                 "K2-10": ck.LAUNCHES["packed10"], "K2 4:2:2": ck.LAUNCHES["packed_422"],
-                "K2-10 4:2:2": ck.LAUNCHES["packed10_422"]}
+                "K2-10 4:2:2": ck.LAUNCHES["packed10_422"], "K2 4:4:4": ck.LAUNCHES["packed_444"],
+                "K2-10 4:4:4": ck.LAUNCHES["packed10_444"]}
 
     def reset() -> None:
         for d in (ck.LAUNCHES, rk.LAUNCHES, sk.LAUNCHES):
@@ -1367,6 +1373,53 @@ def main() -> int:
           "(1, 1), random BS: in place == the plain version sample for sample; K2-10 1 "
           "launch, under packed10_422, no other kernel")
     del src422, want422, buf422, lm422, cm422
+
+    # Main 4:4:4 and Main 4:4:4 10 calls, as the 4:4:4 cell makes them: a
+    # uint8 (4, 3h, w) batch of chroma planes (h, w), and its int16 twin,
+    # random BS on the chroma planes' grid (the luma grid), against the
+    # plain version and the benchmark's plain reference
+    from bench_torch.references import hevc_deblock as bench_ref
+
+    bs444 = BoundaryStrength.intra_default(w10, h10, "4:4:4")
+    bs444.set_luma(rng.integers(0, 3, bs444.vert.size, dtype=np.uint8),
+                   rng.integers(0, 3, bs444.hor.size, dtype=np.uint8))
+    bs444.set_chroma(rng.integers(0, 3, bs444.chroma_vert.size, dtype=np.uint8),
+                     rng.integers(0, 3, bs444.chroma_hor.size, dtype=np.uint8))
+    lm444 = [torch.from_numpy(m).to(dev) for m in luma_segment_maps(bs444)]
+    cm444 = [torch.from_numpy(m).to(dev) for m in chroma_segment_maps(bs444)]
+    flat_bs = {k: torch.from_numpy(getattr(bs444, k)).to(dev)
+               for k in ("vert", "hor", "chroma_vert", "chroma_hor")}
+    src8 = torch.from_numpy(np.stack([blocky_frame(rng, w10, h10, h10, w10)
+                                      for _ in range(4)])).reshape(4, 3 * h10, w10).to(dev)
+    for bd, name in ((8, "K2 4:4:4"), (10, "K2-10 4:4:4")):
+        src444 = src8 if bd == 8 else src8.to(torch.int16) * 4 + torch.from_numpy(
+            rng.integers(0, 4, tuple(src8.shape), dtype=np.int16)).to(dev)
+        want444 = deblock_packed_plain(src444[:, :h10], src444[:, h10:].view(4, 2, h10, w10),
+                                       lm444, cm444, beta35, tc35, bit_depth=bd)
+        want444 = torch.cat([want444[0], want444[1].reshape(4, 2 * h10, w10)], dim=1)
+        ref444 = bench_ref.deblock_packed(src444, w10, h10, 35, flat_bs, bit_depth=bd,
+                                          chroma_format="4:4:4")
+        check(torch.equal(want444, ref444),
+              f"{name}: the plain version != the benchmark's reference: "
+              f"{int((want444 != ref444).sum())} samples differ")
+        check(int((want444[:, h10:] != src444[:, h10:]).sum()) > 0,
+              f"the {name} step's plain version changed no chroma sample")
+        buf444 = src444.clone()
+        for call in ("first", "second"):  # capture and replay, then a replay
+            buf444.copy_(src444)
+            out444 = mesh_run(f"deblock_packed_batch_sharded_jit {name} (4, 6480, 3840), {call}",
+                              lambda: pmesh.deblock_packed_batch_sharded_jit(
+                                  mesh11, buf444, lm444, cm444, beta35, tc35, w=w10, h=h10,
+                                  bit_depth=bd, chroma_format="4:4:4"),
+                              {name: 1})
+            check(out444 is buf444 and torch.equal(buf444, ref444),
+                  f"deblock_packed_batch_sharded_jit {name}, {call} call != the reference: "
+                  f"{int((buf444 != ref444).sum())} samples differ")
+        print(f"mesh: deblock_packed_batch_sharded_jit, {name} (4, 6480, 3840) "
+              f"{src444.dtype} on (1, 1), random BS, two calls: in place == the plain "
+              f"version and the benchmark's reference sample for sample; 1 launch a call, "
+              f"under {ck.PACKED_LAUNCHES[bd, '4:4:4']}, no other kernel")
+    del src8, src444, want444, ref444, buf444, lm444, cm444, flat_bs
 
     new_paths = {"pipeline": pipe_launches, "compat": compat_launches,
                  "sheared": sheared_launches, "mesh": mesh_launches}

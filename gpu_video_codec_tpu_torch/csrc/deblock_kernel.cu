@@ -157,8 +157,9 @@
 //
 // Design.  The grid is (blocks of a tile row, tile rows, k): one block per
 // kPackedTiles = 16 consecutive tiles of each luma tile row, and of each U
-// and each V tile row, two chroma rows to a grid row (gvct::packed_block,
-// which finds a block's place without a division); blocks past their
+// and each V tile row, two chroma rows to a grid row at 4:2:0 and 4:2:2
+// (one at 4:4:4; gvct::packed_grid, and gvct::packed_block, which finds a
+// block's place without a division); blocks past their
 // row's end return at once.  The tile grids are the chain's, so the BS
 // maps and their Q2 chroma gate are the chain's.  The plane is
 // uniform in a block, so choosing the luma or the chroma quad does not
@@ -207,9 +208,10 @@
 // bytes the box also holds, filtered or not, are never read by its lanes
 // nor stored.
 // The tensor maps need 16-byte aligned bases and row, plane and frame
-// strides: the caller's guard (ops/cuda_kernel.packed_fits: w % 32 == 0,
-// which also leaves out the sheared Q9 widths, and 16-byte aligned
-// addresses and strides) keeps every other input on the chain.  The maps
+// strides: the caller's guard (ops/cuda_kernel.packed_fits: luma and
+// chroma rows of 16-byte multiples, w % 32 == 0 at 4:2:0, which also leaves
+// out the sheared Q9 widths, and 16-byte aligned addresses and strides)
+// keeps every other input on the chain.  The maps
 // are encoded on the host (tensor_map, cached as T5's are) when the launch
 // is made or captured into a graph, never at a graph's replay.
 //
@@ -238,6 +240,15 @@
 // a runtime field of the grid (gvct::PackedGrid::ch), read by the chroma
 // tensor map's extent and the stores' row limit, so K2 and K2-10 serve both
 // formats with one instance each.
+//
+// 4:4:4 (Main 4:4:4, Main 4:4:4 10) changes the chroma planes' width too:
+// (h, w), so chroma edges fall every 8 luma columns as well as rows, and
+// chroma is two thirds of the tiles.  The width is a runtime field beside
+// the height (gvct::PackedGrid::cw), read by the chroma tensor map's
+// extent, the stores' column limit and the grid's layout: U and V take
+// grid rows of their own, one after the other, where side by side they
+// would leave a quarter of a 4K grid's blocks past their rows' ends
+// (gvct::packed_grid).  The quad, its tiles and its BS maps are 4:2:0's.
 
 #include <cuda.h>  // CUtensorMap and the encode's types; nothing of libcuda is linked
 #include <cuda_runtime.h>
@@ -576,7 +587,7 @@ __global__ void __launch_bounds__(kPackedThreads, 16)
   }
   uint8_t* plane = chroma ? out.uv + f * out.uv_frame + z * out.uv_plane : out.y + f * out.y_frame;
   gvct::packed_store(p, plane, chroma ? out.uv_row : out.y_row, chroma ? g.ch : g.h,
-                     chroma ? g.w / 2 : g.w, x0, y0, lane.t, lane.r, blk.n);
+                     chroma ? g.cw : g.w, x0, y0, lane.t, lane.r, blk.n);
 }
 
 using TilesKernel = void (*)(const uint8_t*, uint8_t*, const uint8_t*, const uint8_t*,
@@ -793,14 +804,14 @@ int packed_tensor_map(const void* ptr, int w, int h, int planes, int k, long lon
 template <int BD>
 int packed_launch(const void* y_in, void* y_out, const void* uv_in, void* uv_out,
                   const long long* s, const void* const* maps, const gvct::Thresholds& th,
-                  int w, int h, int ch, int k, int luma_only, cudaStream_t stream) {
-  const gvct::PackedGrid g = gvct::packed_grid(w, h, ch, luma_only);
+                  int w, int h, int cw, int ch, int k, int luma_only, cudaStream_t stream) {
+  const gvct::PackedGrid g = gvct::packed_grid(w, h, cw, ch, luma_only);
   CUtensorMap tm[2] = {};
   if (const int e = packed_tensor_map<BD>(y_in, w, h, 1, k, s[1], h * s[1], s[0], &tm[0])) {
     return e;
   }
   if (!luma_only) {
-    if (const int e = packed_tensor_map<BD>(uv_in, w / 2, ch, 2, k, s[6], s[5], s[4],
+    if (const int e = packed_tensor_map<BD>(uv_in, cw, ch, 2, k, s[6], s[5], s[4],
                                             &tm[1])) {
       return e;
     }
@@ -913,8 +924,9 @@ extern "C" int gvct_deblock_rows_occupancy(int chroma, int block_bx, int by, int
 }
 
 // K2, the packed step of k frames: luma planes (k, h, w) and U and V
-// planes (k, 2, ch, w/2) of bit_depth-bit samples -- ch = h/2 at 4:2:0, h
-// at 4:2:2, the one difference between the formats -- uint8 at 8 (K2) and
+// planes (k, 2, ch, cw) of bit_depth-bit samples -- (h/2, w/2) at 4:2:0,
+// (h, w/2) at 4:2:2, (h, w) at 4:4:4, the one difference between the
+// formats -- uint8 at 8 (K2) and
 // 16-bit words at 10 (K2-10), read at y_in and uv_in and written at y_out
 // and uv_out (which may be the inputs: in place).  strides, in bytes:
 // [0..1] the luma input's frame and row strides, [2..3] the luma output's,
@@ -923,7 +935,7 @@ extern "C" int gvct_deblock_rows_occupancy(int chroma, int block_bx, int by, int
 // map's demand), the output's of the lanes' stores, 4 bytes at 8 bits and
 // 8 at 10 (ops/cuda_kernel.packed_fits asks 16 of both).  maps: the four
 // (By, Bx) luma and the four (cBy, cBx) chroma BS maps, shared by the
-// frames.  ch: the chroma planes' rows.  beta and tc: the tables' beta'
+// frames.  cw, ch: the chroma planes' columns and rows.  beta and tc: the tables' beta'
 // and tc' at the QP, scaled here by 2^(bit_depth - 8) (H.265 8.7.2.5).
 // luma_only != 0: no chroma blocks (the chroma pointers unused).  Launch on `stream`
 // without synchronizing; returns cudaGetLastError() after the launch, or
@@ -931,7 +943,7 @@ extern "C" int gvct_deblock_rows_occupancy(int chroma, int block_bx, int by, int
 // for a bit depth other than 8 and 10 (0 = ok).
 extern "C" int gvct_deblock_packed(const void* y_in, void* y_out, const void* uv_in, void* uv_out,
                                    const long long* strides, const void* const* maps, int beta,
-                                   int tc, int w, int h, int ch, int k, int luma_only,
+                                   int tc, int w, int h, int cw, int ch, int k, int luma_only,
                                    int bit_depth, int device, void* stream) {
   if (bit_depth != 8 && bit_depth != 10) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -939,7 +951,7 @@ extern "C" int gvct_deblock_packed(const void* y_in, void* y_out, const void* uv
   const int up = bit_depth - 8;
   const gvct::Thresholds th = gvct::make_thresholds(beta << up, tc << up);
   const auto launch = bit_depth == 8 ? packed_launch<8> : packed_launch<10>;
-  return launch(y_in, y_out, uv_in, uv_out, strides, maps, th, w, h, ch, k, luma_only,
+  return launch(y_in, y_out, uv_in, uv_out, strides, maps, th, w, h, cw, ch, k, luma_only,
                 static_cast<cudaStream_t>(stream));
 }
 

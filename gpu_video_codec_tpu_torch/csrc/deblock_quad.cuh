@@ -228,38 +228,52 @@ struct RowsTmaCell : StageCell<int> {
 
 // K2's grid (deblock_kernel.cu, deblock_packed_kernel): (gx, rows, k).  A
 // block owns kPackedTiles consecutive tiles of one tile row of one plane of
-// one frame: grid row y < by is luma tile row y, blocks x < lx; grid row
-// by + y is chroma tile row y of U (blocks x < cx) and of V (blocks cx <=
-// x < 2 cx); blocks past their row's end own nothing (and chroma rows are
-// none under luma_only).  The tile grids are the chain's, (h + 8) / 8 x
-// (w + 8) / 8 and (ch + 8) / 8 x (w/2 + 8) / 8, ch the chroma planes' rows
-// -- h/2 at 4:2:0, h at 4:2:2 (H.265's SubHeightC 2 or 1), a runtime field
-// so that one instance serves both formats (utils/tiles.interior_to_tiles;
-// every plane's edges on its own 8x8 grid): tile (by, bx) covers the plane's rows
+// one frame: grid row y < by is luma tile row y, blocks x < lx.  The chroma
+// rows follow, laid out by the chroma planes' width cw.  Where a chroma row
+// is half a luma row wide (4:2:0, 4:2:2: cw = w/2), grid row by + y is
+// chroma tile row y of U (blocks x < cx) and of V (blocks cx <= x < 2 cx),
+// side by side.  Where it is as wide as a luma row (4:4:4: cw = w, so cx =
+// lx), side by side would double the grid's x extent and leave a quarter of
+// its blocks past their rows' ends, so U and V each take grid rows of their
+// own: by + y is U's tile row y and by + cby + y is V's, blocks x < cx.
+// V's first block is (vx, vy) in either layout.  Blocks past their row's
+// end own nothing (at 4:4:4 none but the last of a row can be short), and
+// chroma rows are none under luma_only.  The tile grids are the chain's,
+// (h + 8) / 8 x (w + 8) / 8 and (ch + 8) / 8 x (cw + 8) / 8, (ch, cw) the
+// chroma planes' -- (h/2, w/2) at 4:2:0, (h, w/2) at 4:2:2, (h, w) at 4:4:4
+// (H.265's SubHeightC and SubWidthC) -- runtime fields, so that one
+// instance serves every format (utils/tiles.interior_to_tiles; every
+// plane's edges on its own 8x8 grid): tile (by, bx) covers the plane's rows
 // 8 by - 4 .. 8 by + 3 and columns 8 bx - 4 .. 8 bx + 3, zero outside it
 // (Q6).
 constexpr int kPackedTiles = 16;  // 64 threads: two whole warps
 
 struct PackedGrid {
-  int w, h, ch;          // the luma plane; the chroma planes are w/2 x ch
+  int w, h, cw, ch;      // the luma plane; the chroma planes are cw x ch
   int by, bx, cby, cbx;  // the luma and the chroma tile grids
   int lx, cx;            // blocks per luma and per chroma tile row
+  int vx, vy;            // V's first block: its column and its grid row
   int gx, rows;          // the grid's x and y extents
 };
 
-GVCT_HD PackedGrid packed_grid(int w, int h, int ch, int luma_only) {
+GVCT_HD PackedGrid packed_grid(int w, int h, int cw, int ch, int luma_only) {
   PackedGrid g;
   g.w = w;
   g.h = h;
+  g.cw = cw;
   g.ch = ch;
   g.by = (h + 8) / 8;
   g.bx = (w + 8) / 8;
   g.cby = (ch + 8) / 8;
-  g.cbx = (w / 2 + 8) / 8;
+  g.cbx = (cw + 8) / 8;
   g.lx = (g.bx + kPackedTiles - 1) / kPackedTiles;
   g.cx = (g.cbx + kPackedTiles - 1) / kPackedTiles;
-  g.gx = luma_only || g.lx >= 2 * g.cx ? g.lx : 2 * g.cx;
-  g.rows = g.by + (luma_only ? 0 : g.cby);
+  const bool stacked = cw == w;  // 4:4:4: U's rows, then V's
+  g.vx = stacked ? 0 : g.cx;
+  g.vy = stacked ? g.by + g.cby : g.by;
+  const int cgx = stacked ? g.cx : 2 * g.cx;
+  g.gx = luma_only || g.lx >= cgx ? g.lx : cgx;
+  g.rows = g.by + (luma_only ? 0 : (stacked ? 2 : 1) * g.cby);
   return g;
 }
 
@@ -281,10 +295,10 @@ GVCT_HD PackedBlock packed_block(const PackedGrid& g, int x, int y) {
     k.by = y;
     bx_n = g.bx;
   } else {
-    const int v = x >= g.cx;
+    const int v = x >= g.vx && y >= g.vy;
     k.plane = 1 + v;
-    k.by = y - g.by;
-    x -= v * g.cx;
+    k.by = y - (v ? g.vy : g.by);
+    x -= v ? g.vx : 0;
     bx_n = g.cbx;
   }
   k.bx0 = x * kPackedTiles;

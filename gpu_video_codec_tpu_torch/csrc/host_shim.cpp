@@ -380,8 +380,8 @@ void host_packed_block(const HostPlane& p, const gvct::PackedBlock& blk,
 template <int BD>
 void host_packed(const uint8_t* y_in, uint8_t* y_out, const uint8_t* uv_in, uint8_t* uv_out,
                  const long long* s, const uint8_t* const* maps, const gvct::Thresholds& th,
-                 int w, int h, int ch, int k, int luma_only) {
-  const gvct::PackedGrid g = gvct::packed_grid(w, h, ch, luma_only);
+                 int w, int h, int cw, int ch, int k, int luma_only) {
+  const gvct::PackedGrid g = gvct::packed_grid(w, h, cw, ch, luma_only);
   for (int f = 0; f < k; ++f) {
     for (int b = 0; b < g.rows * g.gx; ++b) {
       const gvct::PackedBlock blk = gvct::packed_block(g, b % g.gx, b / g.gx);
@@ -392,7 +392,7 @@ void host_packed(const uint8_t* y_in, uint8_t* y_out, const uint8_t* uv_in, uint
       } else {
         const long long z = blk.plane - 1;
         const HostPlane p{uv_in + f * s[4] + z * s[5], s[6], uv_out + f * s[7] + z * s[8], s[9],
-                          ch, w / 2};
+                          ch, cw};
         host_packed_block<true, BD>(p, blk, maps + 4, th);
       }
     }
@@ -410,13 +410,13 @@ void host_packed(const uint8_t* y_in, uint8_t* y_out, const uint8_t* uv_in, uint
 extern "C" int gvct_host_deblock_packed(const uint8_t* y_in, uint8_t* y_out, const uint8_t* uv_in,
                                         uint8_t* uv_out, const long long* s,
                                         const uint8_t* const* maps, int beta, int tc, int w,
-                                        int h, int ch, int k, int luma_only,
+                                        int h, int cw, int ch, int k, int luma_only,
                                         int bit_depth) {
   if (bit_depth != 8 && bit_depth != 10) return -1;
   const int up = bit_depth - 8;
   const gvct::Thresholds th = gvct::make_thresholds(beta << up, tc << up);
   const auto run = bit_depth == 8 ? host_packed<8> : host_packed<10>;
-  run(y_in, y_out, uv_in, uv_out, s, maps, th, w, h, ch, k, luma_only);
+  run(y_in, y_out, uv_in, uv_out, s, maps, th, w, h, cw, ch, k, luma_only);
   return 0;
 }
 
@@ -431,6 +431,30 @@ extern "C" int gvct_host_packed_reads(int bit_depth, int* out) {
     for (int j = 0; j < 4; ++j) out[4 * tid + j] = at(tid >> 2, tid & 3, j);
   }
   return bit_depth == 8 ? gvct::PackedTile<8>::Cell::kWord : gvct::PackedTile<10>::Cell::kWord;
+}
+
+// K2's grid for a frame (deblock_quad.cuh, packed_grid and packed_block):
+// out[0] its x extent, out[1] its rows, out[2] its blocks past their rows'
+// ends (n <= 0, which return at once), out[3] its short blocks (0 < n <
+// kPackedTiles), out[4 + p] the tiles the blocks of plane p own (0 luma, 1
+// U, 2 V).  Returns 0.
+extern "C" int gvct_host_packed_grid(int w, int h, int cw, int ch, int luma_only, int* out) {
+  const gvct::PackedGrid g = gvct::packed_grid(w, h, cw, ch, luma_only);
+  out[0] = g.gx;
+  out[1] = g.rows;
+  for (int i = 2; i < 7; ++i) out[i] = 0;
+  for (int y = 0; y < g.rows; ++y) {
+    for (int x = 0; x < g.gx; ++x) {
+      const gvct::PackedBlock blk = gvct::packed_block(g, x, y);
+      if (blk.n <= 0) {
+        ++out[2];
+        continue;
+      }
+      out[3] += blk.n < gvct::kPackedTiles;
+      out[4 + blk.plane] += blk.n;
+    }
+  }
+  return 0;
 }
 
 namespace {

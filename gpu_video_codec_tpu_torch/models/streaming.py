@@ -45,7 +45,9 @@ from ..ops.cuda_kernel import (
     BLOCK_BX, CHROMA_BLOCK_BX, deblock_packed_cuda, packed_fits, packed_limit,
 )
 from ..ops.deblock import deblock_frame
-from ..ops.tables import HALF_BLOCK, SAMPLE_BLOCK_SIZE, chroma_height, get_beta, get_tc
+from ..ops.tables import (
+    HALF_BLOCK, SAMPLE_BLOCK_SIZE, chroma_height, chroma_width, get_beta, get_tc,
+)
 from ..utils.bs import BoundaryStrength, segment_bs_maps_device
 from ..utils.graphs import CapturedStep, GraphCache, graphed, tensor_key
 from ..utils.tracing import profiled_device_us
@@ -89,20 +91,22 @@ def _deblock_planes_impl(y, uv, lm, cm, beta, tc, w, h, luma_only, backend,
     bit_depth=10: int16 planes of Main 10 samples, beta and tc the tables'
     (scaled by the filter); the cuda backend runs K2-10 where packed_fits
     holds and raises ValueError where it does not (there is no 10-bit
-    chain).  chroma_format="4:2:2": uv (.., 2, h, w/2), filtered the same
-    way, by K2 or K2-10 alone on the cuda backend (there is no 4:2:2
-    chain either)."""
+    chain).  chroma_format="4:2:2": uv (.., 2, h, w/2), and "4:4:4": uv
+    (.., 2, h, w), filtered the same way, by K2 or K2-10 alone on the cuda
+    backend (there is no 4:2:2 or 4:4:4 chain either)."""
     p = HALF_BLOCK
-    cw, ch = w // 2, chroma_height(h, chroma_format)
+    cw, ch = chroma_width(w, chroma_format), chroma_height(h, chroma_format)
     pads = (p, p, p, p)
     if backend == "cuda":
-        if packed_fits(w, y, uv, *(out or ()), bit_depth=bit_depth):
+        if packed_fits(w, y, uv, *(out or ()), bit_depth=bit_depth,
+                       chroma_format=chroma_format):
             return deblock_packed_cuda(y, uv, lm, cm, beta, tc, luma_only=luma_only, out=out,
                                        bit_depth=bit_depth, chroma_format=chroma_format)
+        limit = packed_limit(w, bit_depth, chroma_format)
         if bit_depth != 8:
-            raise ValueError(f"no {bit_depth}-bit chain: {packed_limit(w, bit_depth)}")
+            raise ValueError(f"no {bit_depth}-bit chain: {limit}")
         if chroma_format != "4:2:0":
-            raise ValueError(f"no {chroma_format} chain: {packed_limit(w, bit_depth)}")
+            raise ValueError(f"no {chroma_format} chain: {limit}")
         y_dst, uv_dst = out or (None, None)
         (y_int,) = tile_chain([y], lm, beta, tc, pad=p, chroma=False, out=[y_dst],
                               block_bx=luma_block)
@@ -127,25 +131,26 @@ def _deblock_yv12_packed_impl(buf, lm, cm, beta, tc, w, h, luma_only, backend,
     axis is a batch of frames (the multi-stream step, parallel/mesh.py),
     which the cuda backend runs through the same launches as one frame.
     bit_depth=10: an int16 buffer of Main 10 samples (_deblock_planes_impl);
-    chroma_format="4:2:2": a (.., 2h, w) buffer of 4:2:2 frames; either, on
-    the CPU, takes backend "torch"'s plain version at every width.
+    chroma_format="4:2:2": a (.., 2h, w) buffer of 4:2:2 frames, and
+    "4:4:4" a (.., 3h, w) buffer of 4:4:4 frames; each, on the CPU, takes
+    backend "torch"'s plain version at every width.
 
     Luma is the leading h rows; the chroma rows are U then V, viewed as
-    (2, ch, w/2), ch = h/2 at 4:2:0 and h at 4:2:2.  The filter is the
-    planes contract; inplace=True writes
+    (2, ch, cw): (h/2, w/2) at 4:2:0, (h, w/2) at 4:2:2, (h, w) at 4:4:4.
+    The filter is the planes contract; inplace=True writes
     the result back into `buf` and returns it, inplace=False returns a new
     buffer and leaves `buf` untouched.  The cuda backend's T3 writes the
     filtered planes straight into the destination buffer; rows it does not
     filter (chroma under luma_only) keep their input bytes."""
     lead = tuple(buf.shape[:-2])
-    ch = chroma_height(h, chroma_format)
+    ch, cw = chroma_height(h, chroma_format), chroma_width(w, chroma_format)
 
     def planes(b):  # (y, uv) views of a packed buffer
-        return b[..., :h, :], b[..., h:, :].view(*lead, 2, ch, w // 2)
+        return b[..., :h, :], b[..., h:, :].view(*lead, 2, ch, cw)
 
     if (backend == "cuda" and (bit_depth != 8 or chroma_format != "4:2:0")
             and buf.device.type == "cpu"):
-        backend = "torch"  # no 10-bit or 4:2:2 chain to model on the CPU
+        backend = "torch"  # no 10-bit, 4:2:2 or 4:4:4 chain to model on the CPU
     if backend == "cuda":
         dst = buf if inplace else torch.empty_like(buf)
         if luma_only and not inplace:

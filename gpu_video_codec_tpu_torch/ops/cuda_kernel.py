@@ -17,9 +17,9 @@ each block's shifted tiles staged by TMA straight from the picture, in
 place of T2 -> K1 -> T3 and T2 -> K1c -> T3 wherever its guard
 (packed_fits) takes the geometry and the buffers; and K2-10, its instance
 on HEVC Main 10's 16-bit samples (deblock_packed_cuda(..., bit_depth=10)),
-which has no chain to fall back to.  Both take 4:2:2 frames as well
-(chroma_format="4:2:2": chroma planes (h, w/2)), the chroma planes' height
-a runtime argument of one instance each.
+which has no chain to fall back to.  Both take 4:2:2 and 4:4:4 frames as
+well (chroma_format="4:2:2": chroma planes (h, w/2); "4:4:4": (h, w)), the
+chroma planes' width and height runtime arguments of one instance each.
 
 The library is built at first use with nvcc, from csrc/ only, into
 build/torch_kernels/ beside the package, under a name keyed on a hash of
@@ -47,7 +47,9 @@ import torch
 
 from ..utils.tracing import RECORDER
 from .deblock import deblock_packed_plain, deblock_rows_plain, deblock_tiles_plain
-from .tables import check_bit_depth, chroma_height
+from .tables import (
+    CHROMA_FORMATS, check_bit_depth, check_chroma_format, chroma_height, chroma_width,
+)
 
 # Tiles per block of the quad kernel (K1, K1c, K1-i16, K1-i16c): consecutive
 # tiles of the flattened (By, Bx) grid, QUAD threads each, at most
@@ -68,22 +70,22 @@ ROWS_BLOCK_BX = 32
 # timings at the benchmark cells' shapes (PERF.md §6).
 PACKED_TILES = 16
 # K2's guard: row, plane and frame strides and base addresses in multiples
-# of this many bytes (what a tensor map demands), and w % PACKED_WIDTHS[bit
-# depth] == 0, so that the chroma rows, w/2 samples, are 16-byte multiples too:
-# w % 32 at 8 bits, w % 16 at 10 (K2-10).
+# of this many bytes (what a tensor map demands), and luma and chroma rows
+# of 16-byte multiples too (packed_width).
 _TMA_ALIGN = 16
 # a packed step's samples by bit depth
 SAMPLE_DTYPES = {8: torch.uint8, 10: torch.int16}
-PACKED_WIDTHS = {bd: 2 * _TMA_ALIGN // t.itemsize for bd, t in SAMPLE_DTYPES.items()}
 
 # Kernel launches per variant since import (or since a caller reset them):
 # K1, K1c, K1-i16 luma and chroma, T5 (luma and chroma), K2, K2-10, and K2
-# and K2-10 on 4:2:2 frames.
+# and K2-10 on 4:2:2 and on 4:4:4 frames.
 LAUNCHES = {"luma": 0, "chroma": 0, "luma_i16": 0, "chroma_i16": 0, "rows": 0, "packed": 0,
-            "packed10": 0, "packed_422": 0, "packed10_422": 0}
+            "packed10": 0, "packed_422": 0, "packed10_422": 0, "packed_444": 0,
+            "packed10_444": 0}
 # deblock_packed_cuda's LAUNCHES key by (bit depth, chroma format)
 PACKED_LAUNCHES = {(8, "4:2:0"): "packed", (10, "4:2:0"): "packed10",
-                   (8, "4:2:2"): "packed_422", (10, "4:2:2"): "packed10_422"}
+                   (8, "4:2:2"): "packed_422", (10, "4:2:2"): "packed10_422",
+                   (8, "4:4:4"): "packed_444", (10, "4:4:4"): "packed10_444"}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
@@ -165,10 +167,10 @@ _TILE_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong, ct
 # in, out, four maps, beta, tc, By, Bx, chroma: T5's and T1's arguments
 GRID_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
 _LAUNCH_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # threads, device, stream
-# y_in, y_out, uv_in, uv_out, 10 strides, 8 maps, beta, tc, w, h, ch, k,
-# luma_only, bit_depth
+# y_in, y_out, uv_in, uv_out, 10 strides, 8 maps, beta, tc, w, h, cw, ch,
+# k, luma_only, bit_depth
 _PACKED_ARGS = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong),
-                                        ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 8
+                                        ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 9
 
 
 def _setup_cuda(lib) -> None:
@@ -205,6 +207,8 @@ def _setup_host(lib) -> None:
     lib.gvct_host_deblock_packed.restype = ctypes.c_int
     lib.gvct_host_packed_reads.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.gvct_host_packed_reads.restype = ctypes.c_int
+    lib.gvct_host_packed_grid.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.gvct_host_packed_grid.restype = ctypes.c_int
 
 
 def load_host_library() -> ctypes.CDLL:
@@ -219,8 +223,9 @@ def load_host_library() -> ctypes.CDLL:
     words or as route A's TMA boxes would stage it, and
     gvct_host_rows_staging, the route rule; gvct_host_deblock_packed for K2
     and K2-10, its blocks staged as its TMA box would stage them, with
-    packed_launch_args' arguments, and gvct_host_packed_reads, the byte each
-    of a block's threads reads from the box at each of its four steps;
+    packed_launch_args' arguments, gvct_host_packed_reads, the byte each
+    of a block's threads reads from the box at each of its four steps, and
+    gvct_host_packed_grid, its grid's extents and blocks (packed_blocks);
     ops/relayout_kernel.py and
     ops/swar_kernel.py bind the rest)."""
     gxx = shutil.which("g++")
@@ -425,17 +430,29 @@ def deblock_rows_occupancy(tiles_rows, chroma: bool = False) -> dict:
 
 # -- K2: the packed step on the frames' planes ---------------------------------------
 
-def packed_fits(w: int, *tensors, bit_depth: int = 8) -> bool:
-    """K2's guard, from the frame width, the bit depth and the tensors alone
-    (None skipped): the chroma rows, w/2 samples, are 16-byte multiples --
-    w % 32 == 0 at 8 bits, w % 16 == 0 at 10 (2 bytes a sample; K2-10) --
-    which also leaves out every sheared width (Q9, w % 16 == 8), and every
-    tensor has a contiguous last axis, a 16-byte aligned base address and
-    its other strides in 16-byte multiples (in bytes), as a tensor map
-    demands.  Where it fails, the 8-bit packed step keeps the chain T2 ->
-    K1 -> T3; a 10-bit one has no chain (models/streaming raises on a
-    CUDA device)."""
-    return w % PACKED_WIDTHS[bit_depth] == 0 and all(
+def packed_width(bit_depth: int = 8, chroma_format: str = "4:2:0") -> int:
+    """The multiple of the frame width that K2's guard asks: the one that
+    makes both the luma rows, w samples, and the chroma rows, w/2 (4:2:0,
+    4:2:2) or w (4:4:4), 16-byte multiples -- 32 at 8 bits and 16 at 10
+    (K2-10) where chroma is half as wide, 16 and 8 at 4:4:4."""
+    size = SAMPLE_DTYPES[check_bit_depth(bit_depth)].itemsize
+    return _TMA_ALIGN * CHROMA_FORMATS[check_chroma_format(chroma_format)][0] // size
+
+
+def packed_fits(w: int, *tensors, bit_depth: int = 8, chroma_format: str = "4:2:0") -> bool:
+    """K2's guard, from the frame width, the bit depth, the chroma format
+    and the tensors alone (None skipped): the luma and the chroma rows are
+    16-byte multiples, w % packed_width(bit_depth, chroma_format) == 0 --
+    w % 32 == 0 at 8 bits and w % 16 == 0 at 10 (2 bytes a sample; K2-10)
+    where chroma rows are w/2 samples (4:2:0, 4:2:2), which also leaves out
+    every sheared width (Q9, w % 16 == 8); at 4:4:4, chroma rows as wide as
+    luma's, w % 16 == 0 at 8 bits and w % 8 == 0 at 10 -- and every tensor
+    has a contiguous last axis, a 16-byte aligned base address and its
+    other strides in 16-byte multiples (in bytes), as a tensor map demands.
+    Where it fails, the 8-bit 4:2:0 packed step keeps the chain T2 -> K1 ->
+    T3; a 10-bit, 4:2:2 or 4:4:4 one has no chain (models/streaming raises
+    on a CUDA device)."""
+    return w % packed_width(bit_depth, chroma_format) == 0 and all(
         t.stride(-1) == 1 and t.data_ptr() % _TMA_ALIGN == 0
         and all(s * t.element_size() % _TMA_ALIGN == 0 for s in t.stride()[:-1])
         for t in tensors if t is not None)
@@ -446,9 +463,26 @@ def packed_grids(w: int, h: int,
     """The luma and the chroma tile grids of a w x h frame's packed step,
     (By, Bx) and (cBy, cBx): the chain's (utils/tiles.interior_to_tiles
     with pad 4) on the luma plane and on a chroma plane, (h/2, w/2) at
-    4:2:0 and (h, w/2) at 4:2:2, and its BS maps' shapes."""
-    ch = chroma_height(h, chroma_format)
-    return ((h + 8) // 8, (w + 8) // 8), ((ch + 8) // 8, (w // 2 + 8) // 8)
+    4:2:0, (h, w/2) at 4:2:2 and (h, w) at 4:4:4, and its BS maps' shapes."""
+    ch, cw = chroma_height(h, chroma_format), chroma_width(w, chroma_format)
+    return ((h + 8) // 8, (w + 8) // 8), ((ch + 8) // 8, (cw + 8) // 8)
+
+
+def packed_blocks(w: int, h: int, chroma_format: str = "4:2:0",
+                  luma_only: bool = False) -> dict:
+    """K2's launch grid for one frame, from the g++ build of its grid
+    (csrc/deblock_quad.cuh packed_grid and packed_block): {"gx", "rows"}
+    (the grid is (gx, rows, k)), "blocks" (gx x rows), "empty" (blocks past
+    their rows' ends, which return at once), "short" (blocks of fewer than
+    PACKED_TILES tiles) and "tiles" (the luma, U and V tiles the blocks
+    own)."""
+    info = (ctypes.c_int * 7)()
+    load_host_library().gvct_host_packed_grid(
+        w, h, chroma_width(w, chroma_format), chroma_height(h, chroma_format), int(luma_only),
+        info)
+    gx, rows, empty, short, *tiles = info
+    return {"gx": gx, "rows": rows, "blocks": gx * rows, "empty": empty, "short": short,
+            "tiles": tuple(tiles)}
 
 
 def _check_packed(y, uv, luma_maps, chroma_maps, beta, tc, out, bit_depth,
@@ -460,12 +494,12 @@ def _check_packed(y, uv, luma_maps, chroma_maps, beta, tc, out, bit_depth,
             raise ValueError(f"{name} must be a {dtype} tensor at bit_depth {bit_depth}, got "
                              f"{getattr(t, 'dtype', type(t).__name__)}")
     if y.dim() not in (2, 3) or uv.dim() != y.dim() + 1:
-        raise ValueError(f"y must be (h, w) or (k, h, w) and uv (.., 2, ch, w/2) with the same "
+        raise ValueError(f"y must be (h, w) or (k, h, w) and uv (.., 2, ch, cw) with the same "
                          f"leading axis, got {tuple(y.shape)} and {tuple(uv.shape)}")
     h, w = y.shape[-2:]
     if h <= 0 or w <= 0 or h % 8 or w % 8:
         raise ValueError(f"frame dims must be positive multiples of 8, got {w}x{h}")
-    want = (*y.shape[:-2], 2, chroma_height(h, chroma_format), w // 2)
+    want = (*y.shape[:-2], 2, chroma_height(h, chroma_format), chroma_width(w, chroma_format))
     if tuple(uv.shape) != want or uv.device != y.device:
         raise ValueError(f"uv must be {want} on {y.device} at chroma_format {chroma_format}, "
                          f"got {tuple(uv.shape)} on {uv.device}")
@@ -482,18 +516,19 @@ def _check_packed(y, uv, luma_maps, chroma_maps, beta, tc, out, bit_depth,
                     or t.shape != like.shape or t.device != y.device):
                 raise ValueError(f"{name} must be a {dtype} {tuple(like.shape)} tensor on "
                                  f"{y.device}")
-    if not packed_fits(w, y, uv, *(out or ()), bit_depth=bit_depth):
-        raise ValueError(packed_limit(w, bit_depth))
+    if not packed_fits(w, y, uv, *(out or ()), bit_depth=bit_depth,
+                       chroma_format=chroma_format):
+        raise ValueError(packed_limit(w, bit_depth, chroma_format))
     if y.dim() == 3 and y.shape[0] > _MAX_GRID_YZ:
         raise ValueError(f"batch of {y.shape[0]} frames is too large for one launch")
 
 
-def packed_limit(w: int, bit_depth: int) -> str:
-    """What K2 (or K2-10) takes, for an error message."""
+def packed_limit(w: int, bit_depth: int, chroma_format: str = "4:2:0") -> str:
+    """What K2 (or K2-10) takes at a chroma format, for an error message."""
     name = "K2" if bit_depth == 8 else "K2-10"
-    return (f"{name} takes w % {PACKED_WIDTHS[bit_depth]} == 0 (got {w}) and planes with a "
-            f"contiguous last axis, addresses and strides in {_TMA_ALIGN}-byte multiples "
-            f"(packed_fits)")
+    return (f"{name} takes w % {packed_width(bit_depth, chroma_format)} == 0 at chroma_format "
+            f"{chroma_format} (got {w}) and planes with a contiguous last axis, addresses and "
+            f"strides in {_TMA_ALIGN}-byte multiples (packed_fits)")
 
 
 def packed_launch_args(y, uv, y_out, uv_out, luma_maps, chroma_maps, beta, tc,
@@ -502,8 +537,9 @@ def packed_launch_args(y, uv, y_out, uv_out, luma_maps, chroma_maps, beta, tc,
     gvct_host_deblock_packed's, all of them): the planes' addresses, their
     frame, plane and row strides in bytes, the eight maps, the thresholds
     (the tables', which the entries scale to the bit depth), the geometry
-    -- w and h from y, the chroma planes' rows (h/2 at 4:2:0, h at 4:2:2)
-    from uv -- and the bit depth (csrc/deblock_kernel.cu)."""
+    -- w and h from y, the chroma planes' columns and rows from uv: (w/2,
+    h/2) at 4:2:0, (w/2, h) at 4:2:2, (w, h) at 4:4:4 -- and the bit depth
+    (csrc/deblock_kernel.cu)."""
     h, w = y.shape[-2:]
     size = y.element_size()
 
@@ -519,7 +555,8 @@ def packed_launch_args(y, uv, y_out, uv_out, luma_maps, chroma_maps, beta, tc,
     maps = (ctypes.c_void_p * 8)(*(m.data_ptr() for m in (*luma_maps, *chroma_maps)))
     chroma = (None, None) if luma_only else (uv.data_ptr(), uv_out.data_ptr())
     return (y.data_ptr(), y_out.data_ptr(), chroma[0], chroma[1],
-            (ctypes.c_longlong * 10)(*strides), maps, int(beta), int(tc), w, h, uv.shape[-2],
+            (ctypes.c_longlong * 10)(*strides), maps, int(beta), int(tc), w, h, uv.shape[-1],
+            uv.shape[-2],
             y.shape[0] if y.dim() == 3 else 1, int(luma_only), int(bit_depth))
 
 
@@ -543,6 +580,10 @@ def deblock_packed_cuda(y, uv, luma_maps, chroma_maps, beta, tc, *, luma_only: b
     frames (e.g. the views of a packed (k, 2h, w) buffer), and chroma_maps
     their (cBy, cBx) = ((h + 8) / 8, (w/2 + 8) / 8) maps, by the same K2 or
     K2-10 (LAUNCHES["packed_422"], LAUNCHES["packed10_422"]).
+    chroma_format="4:4:4": uv (.., 2, h, w), the chroma planes of 4:4:4
+    frames (e.g. the views of a packed (k, 3h, w) buffer), and chroma_maps
+    their ((h + 8) / 8, (w + 8) / 8) maps, the luma grid's, by the same K2
+    or K2-10 (LAUNCHES["packed_444"], LAUNCHES["packed10_444"]).
     out: optional (y, uv) destinations of the planes' shapes -- the planes
     themselves for in place.  Returns out, or new contiguous (y, uv); under
     luma_only the chroma is not filtered and uv itself comes back.

@@ -143,10 +143,11 @@ def deblock_packed_plain(y, uv, luma_maps, chroma_maps, beta: int, tc: int,
     the packed step's chain of plain versions on the frames' planes --
     interior -> tile-planes of the zero-extended plane (T2's), the deblock
     (K1's, K1c's), tile-planes -> interior (T3's) -- for luma, and for U and
-    V with one shared map.  y: (.., h, w), uv: (.., 2, ch, w/2) interior
-    planes, uint8 at bit_depth 8 and int16 at 10, ch = h/2 at 4:2:0 and h
-    at 4:2:2 (every size is taken from the planes, so both formats, and
-    any width, take this one function); (By, Bx) and (cBy, cBx) maps,
+    V with one shared map.  y: (.., h, w), uv: (.., 2, ch, cw) interior
+    planes, uint8 at bit_depth 8 and int16 at 10, (ch, cw) = (h/2, w/2) at
+    4:2:0, (h, w/2) at 4:2:2 and (h, w) at 4:4:4 (every size is taken from
+    the planes, so every format, and any width, take this one function);
+    (By, Bx) and (cBy, cBx) maps,
     shared by the leading axes; beta, tc: the tables' at the QP
     (deblock_tiles scales them).  Returns new (y, uv), uv itself under
     luma_only."""

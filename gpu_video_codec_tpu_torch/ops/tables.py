@@ -50,15 +50,17 @@ def check_bit_depth(bit_depth) -> int:
     return int(bit_depth)
 
 
-# The chroma formats the port filters, each with its SubHeightC (H.265
-# Table 6-1; SubWidthC is 2 in both): "4:2:0", chroma planes (h/2, w/2) and
-# a packed frame of 3h/2 rows (luma, U, V), and "4:2:2" (the format range
-# extensions, e.g. Main 4:2:2 10), chroma planes (h, w/2) and 2h rows.  Each
-# chroma plane is filtered on its own 8x8 grid with the one-sample filter,
-# its BS maps looked up at the chroma width and gated by the luma tile
-# counts (Q2), and chroma tc is the table's at the frame's QP in both
-# (at 4:2:2 H.265 sets QpC = Min(qPi, 51), no Table 8-10 lookup).
-CHROMA_FORMATS = {"4:2:0": 2, "4:2:2": 1}
+# The chroma formats the port filters, each with its (SubWidthC,
+# SubHeightC) (H.265 Table 6-1): "4:2:0", chroma planes (h/2, w/2) and a
+# packed frame of 3h/2 rows (luma, U, V); and, of the format range
+# extensions, "4:2:2" (e.g. Main 4:2:2 10), chroma planes (h, w/2) and 2h
+# rows, and "4:4:4" (Main 4:4:4, Main 4:4:4 10), chroma planes (h, w) and 3h
+# rows.  Each chroma plane is filtered on its own 8x8 grid with the
+# one-sample filter, its BS maps looked up at the chroma width and gated by
+# the luma tile counts (Q2; at 4:4:4 the plane's own), and chroma tc is the
+# table's at the frame's QP in each (outside 4:2:0 H.265 sets QpC =
+# Min(qPi, 51), no Table 8-10 lookup).
+CHROMA_FORMATS = {"4:2:0": (2, 2), "4:2:2": (2, 1), "4:4:4": (1, 1)}
 
 
 def check_chroma_format(chroma_format) -> str:
@@ -69,10 +71,23 @@ def check_chroma_format(chroma_format) -> str:
     return chroma_format
 
 
+def chroma_width(w: int, chroma_format: str = "4:2:0") -> int:
+    """A chroma plane's columns for a frame of w luma columns: w/2 at 4:2:0
+    and 4:2:2, w at 4:4:4."""
+    return w // CHROMA_FORMATS[check_chroma_format(chroma_format)][0]
+
+
 def chroma_height(h: int, chroma_format: str = "4:2:0") -> int:
     """A chroma plane's rows for a frame of h luma rows: h/2 at 4:2:0, h at
-    4:2:2 (its columns are w/2 in both)."""
-    return h // CHROMA_FORMATS[check_chroma_format(chroma_format)]
+    4:2:2 and 4:4:4."""
+    return h // CHROMA_FORMATS[check_chroma_format(chroma_format)][1]
+
+
+def packed_rows(h: int, chroma_format: str = "4:2:0") -> int:
+    """The rows of a packed frame w samples wide -- luma, then U and V --
+    for h luma rows: 3h/2 at 4:2:0, 2h at 4:2:2, 3h at 4:4:4."""
+    sub_w = CHROMA_FORMATS[check_chroma_format(chroma_format)][0]
+    return h + 2 * chroma_height(h, chroma_format) // sub_w
 
 
 def max_pixel(bit_depth: int = 8) -> int:

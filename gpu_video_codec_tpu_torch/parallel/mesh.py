@@ -38,7 +38,7 @@ from ..models.streaming import _packed_steps
 from ..ops.chain import tile_chain
 from ..ops.cuda_kernel import BLOCK_BX, CHROMA_BLOCK_BX, SAMPLE_DTYPES, packed_grids
 from ..ops.tables import SAMPLE_BLOCK_SIZE as _B
-from ..ops.tables import check_bit_depth, chroma_height
+from ..ops.tables import check_bit_depth, packed_rows
 from ..utils.graphs import CapturedStep, GraphCache, graphed, tensor_key
 from ..utils.tiles import split_covered_data
 from ..utils.tracing import RECORDER, stamp
@@ -306,7 +306,7 @@ def _packed_sharded(mesh, buf, luma_maps, chroma_maps, beta, tc, w, h, luma_only
     stamps = RECORDER.start_call()  # the call's stamps where it is recorded, else None
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    rows = h + chroma_height(h, chroma_format)  # U and V of w/2; raises outside the formats
+    rows = packed_rows(h, chroma_format)  # luma, U and V; raises outside the formats
     if (buf.dim() != 3 or tuple(buf.shape[1:]) != (rows, w)
             or buf.dtype != SAMPLE_DTYPES.get(bit_depth)):
         dtype = SAMPLE_DTYPES[check_bit_depth(bit_depth)]  # raises outside (8, 10)
@@ -339,7 +339,8 @@ def deblock_packed_batch_sharded(mesh: Mesh, buf, luma_maps, chroma_maps, beta, 
                                  luma_only=False, backend="cuda", luma_block=BLOCK_BX,
                                  chroma_block=CHROMA_BLOCK_BX, bit_depth=8,
                                  chroma_format="4:2:0"):
-    """Filter a packed YV12 batch (N, 3h/2, w) uint8 IN PLACE; returns buf.
+    """Filter a packed YV12 batch (N, 3h/2, w) uint8 IN PLACE (or a batch of
+    another bit depth or chroma format, below); returns buf.
 
     Frames go over all slots in contiguous chunks (packed_batch_sharding).
     A slot with k frames runs ONE batched packed step on its chunk (models/
@@ -370,7 +371,14 @@ def deblock_packed_batch_sharded(mesh: Mesh, buf, luma_maps, chroma_maps, beta, 
     counts, as at 4:2:0).  On a CUDA slot a 4:2:2 chunk runs K2 or K2-10,
     one launch, where packed_fits holds, and raises ValueError elsewhere
     (there is no 4:2:2 chain); a CPU slot takes the plain version at any
-    width.  Any other format, or a buffer of the other format's rows,
+    width.  "4:4:4" (Main 4:4:4, Main 4:4:4 10): buf (N, 3h, w), luma then
+    U and V of (h, w) each, chroma_maps the (h/8 + 1, w/8 + 1) maps of
+    those planes (looked up at the chroma width w and gated by the luma
+    tile counts, the planes' own); on a CUDA slot a 4:4:4 chunk runs K2 or
+    K2-10, one launch, where packed_fits holds (w % 16 == 0 at 8 bits,
+    w % 8 == 0 at 10, and 16-byte aligned frames), and raises ValueError
+    elsewhere (there is no 4:4:4 chain); a CPU slot takes the plain version
+    at any width.  Any other format, or a buffer of another format's rows,
     raises ValueError.
     Each call adds its frames' tiles to the counters packed.luma_tiles and
     packed.chroma_tiles (utils/tracing.RECORDER)."""
@@ -389,7 +397,8 @@ def deblock_packed_batch_sharded_jit(mesh: Mesh, buf, luma_maps, chroma_maps, be
     backend, a CUDA slot that holds the buffer, the maps as tensors on its
     device); elsewhere eager.  At bit_depth 10 the replay is one K2-10
     launch (LAUNCHES["packed10"]; "packed10_422" at chroma_format
-    "4:2:2", which is part of the graph's key)."""
+    "4:2:2" and "packed10_444" at "4:4:4", the format being part of the
+    graph's key; "packed", "packed_422" and "packed_444" at 8 bits)."""
     return _packed_sharded(mesh, buf, luma_maps, chroma_maps, beta, tc, w, h, luma_only,
                            backend, luma_block, chroma_block, graphs=True, bit_depth=bit_depth,
                            chroma_format=chroma_format)

@@ -2,7 +2,7 @@
 comparing two trees of the port in one run on one card.
 
     python gpu_video_codec_tpu_torch/tools/kernel_time.py [--tree DIR] \\
-        [--iters 200] [--repeats 3] [--chroma-format 4:2:0|4:2:2]
+        [--iters 200] [--repeats 3] [--chroma-format 4:2:0|4:2:2|4:4:4]
 
 --tree: the checkout whose gpu_video_codec_tpu_torch is imported (default:
 the one this file lies in), e.g. a `git archive` of another commit; run
@@ -40,8 +40,15 @@ chroma_format="4:2:2")) in place on 4 4K Main 4:2:2 10 frames, an int16
 (4, 4320, 3840) buffer of the same blocky content, with BS maps uniform in
 0..2 and with the all-intra maps (BoundaryStrength.intra_default(...,
 "4:2:2")), its plain version, and K2 on the 8-bit frames; beside the
-bounds (2 x 2wh samples a frame) and K2-10's launch.  A tree without
+bounds (2 x 2wh samples a frame) and K2's and K2-10's launches.  A tree without
 4:2:2 exits non-zero.
+
+--chroma-format 4:4:4 does the same on 4 4K Main 4:4:4 frames, a uint8
+(4, 6480, 3840) buffer (the 4:4:4 cell's), and their int16 Main 4:4:4 10
+twin: K2 and K2-10 (chroma_format="4:4:4") with random and all-intra
+maps, and K2's plain version; beside the bounds (2 x 3wh samples a
+frame), the tiles a frame and K2's and K2-10's launches.  A tree without
+4:4:4 exits non-zero.
 """
 
 from __future__ import annotations
@@ -72,7 +79,7 @@ def main(argv: list[str] | None = None) -> int:
         os.path.abspath(__file__)))), help="checkout to import the port from")
     p.add_argument("--iters", type=int, default=200)
     p.add_argument("--repeats", type=int, default=3)
-    p.add_argument("--chroma-format", choices=("4:2:0", "4:2:2"), default="4:2:0")
+    p.add_argument("--chroma-format", choices=("4:2:0", "4:2:2", "4:4:4"), default="4:2:0")
     args = p.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import numpy as np
@@ -94,11 +101,12 @@ def main(argv: list[str] | None = None) -> int:
                           "-i", "0"], capture_output=True, text=True).stdout.strip()
     rng = np.random.default_rng(11)
     beta, tc = get_beta(35), get_tc(35)
-    if args.chroma_format == "4:2:2":
-        if "packed10_422" not in ck.LAUNCHES:
-            print("kernel_time: this tree has no 4:2:2 packed step", file=sys.stderr)
+    if args.chroma_format != "4:2:0":
+        fmt = args.chroma_format
+        if f"packed10_{fmt.replace(':', '')}" not in ck.LAUNCHES:
+            print(f"kernel_time: this tree has no {fmt} packed step", file=sys.stderr)
             return 1
-        return _time_422(args, pkg, ck, dev, smi, rng)
+        return _time_format(args, fmt, pkg, ck, dev, smi, rng)
 
     def operands(shape, mshape, noise=False):
         tiles = (rng.integers(0, 256, shape, dtype=np.uint8) if noise
@@ -200,52 +208,57 @@ def main(argv: list[str] | None = None) -> int:
     return 0
 
 
-def _time_422(args, pkg, ck, dev, smi, rng) -> int:
-    """--chroma-format 4:2:2: K2-10 and K2 on 4 4K 4:2:2 frames."""
+def _time_format(args, fmt, pkg, ck, dev, smi, rng) -> int:
+    """--chroma-format 4:2:2 or 4:4:4: K2-10 and K2 on 4 4K frames of the
+    format (and, at 4:4:4, K2's plain version beside K2-10's)."""
     import numpy as np
     import torch
 
     from gpu_video_codec_tpu_torch.ops.deblock import deblock_packed_plain
-    from gpu_video_codec_tpu_torch.ops.tables import get_beta, get_tc
+    from gpu_video_codec_tpu_torch.ops.tables import chroma_width, get_beta, get_tc, packed_rows
     from gpu_video_codec_tpu_torch.utils.bs import BoundaryStrength, segment_bs_maps_device
     from gpu_video_codec_tpu_torch.utils.timing import device_ms
 
     k, w, h = 4, 3840, 2160
+    rows, cw = packed_rows(h, fmt), chroma_width(w, fmt)
     b37, t37 = get_beta(37), get_tc(37)
-    shape = f"({k}, {2 * h}, {w})"
-    blocks = blocky_tiles(rng, (k, 8, 8, 2 * h // 8, w // 8)).transpose(0, 3, 1, 4, 2)
-    buf = torch.from_numpy(np.ascontiguousarray(blocks.reshape(k, 2 * h, w))).to(dev)
+    shape = f"({k}, {rows}, {w})"
+    blocks = blocky_tiles(rng, (k, 8, 8, rows // 8, w // 8)).transpose(0, 3, 1, 4, 2)
+    buf = torch.from_numpy(np.ascontiguousarray(blocks.reshape(k, rows, w))).to(dev)
     buf10 = (buf.to(torch.int16) << 2) + torch.from_numpy(
         rng.integers(0, 4, tuple(buf.shape), dtype=np.int16)).to(dev)
-    (by, bx), (cby, cbx) = ck.packed_grids(w, h, "4:2:2")
+    (by, bx), (cby, cbx) = ck.packed_grids(w, h, fmt)
     lm = [torch.from_numpy(rng.integers(0, 3, (by, bx), dtype=np.uint8)).to(dev)
           for _ in range(4)]
     cm = [torch.from_numpy(rng.integers(0, 3, (cby, cbx), dtype=np.uint8)).to(dev)
           for _ in range(4)]
-    bs = BoundaryStrength.intra_default(w, h, "4:2:2")
+    bs = BoundaryStrength.intra_default(w, h, fmt)
     ny, nx = h // 8 + 1, w // 8 + 1
     ai = (segment_bs_maps_device(bs.vert, bs.hor, w, ny, nx, ny, nx, device=dev),
-          segment_bs_maps_device(bs.chroma_vert, bs.chroma_hor, w // 2, cby, cbx, ny, nx,
+          segment_bs_maps_device(bs.chroma_vert, bs.chroma_hor, cw, cby, cbx, ny, nx,
                                  device=dev))
 
     def planes(b):
-        return b[:, :h], b[:, h:].view(k, 2, h, w // 2)
+        return b[:, :h], b[:, h:].view(k, 2, h, cw)
 
     def k2(b, maps, bd):
         y, uv = planes(b)
         return lambda: ck.deblock_packed_cuda(y, uv, *maps, b37, t37, out=(y, uv), bit_depth=bd,
-                                              chroma_format="4:2:2")
+                                              chroma_format=fmt)
 
-    fns = {f"K2-10 4:2:2 {shape}": k2(buf10, (lm, cm), 10),
-           f"K2-10 4:2:2 all-intra {shape}": k2(buf10, ai, 10),
-           f"K2 4:2:2 {shape}": k2(buf, (lm, cm), 8),
-           f"K2 4:2:2 all-intra {shape}": k2(buf, ai, 8)}
+    fns = {f"K2-10 {fmt} {shape}": k2(buf10, (lm, cm), 10),
+           f"K2-10 {fmt} all-intra {shape}": k2(buf10, ai, 10),
+           f"K2 {fmt} {shape}": k2(buf, (lm, cm), 8),
+           f"K2 {fmt} all-intra {shape}": k2(buf, ai, 8)}
     runs = {name: [device_ms(fn, args.iters) for _ in range(args.repeats)]
             for name, fn in fns.items()}
-    y10, uv10 = planes(buf10)
-    runs[f"K2-10 4:2:2 plain {shape}"] = [device_ms(
-        lambda: deblock_packed_plain(y10, uv10, lm, cm, b37, t37, bit_depth=10), 3)
-        for _ in range(args.repeats)]
+    plain = {f"K2-10 {fmt} plain {shape}": (buf10, 10)}
+    if fmt == "4:4:4":
+        plain[f"K2 {fmt} plain {shape}"] = (buf, 8)
+    for name, (b, bd) in plain.items():
+        y, uv = planes(b)
+        runs[name] = [device_ms(lambda y=y, uv=uv, bd=bd: deblock_packed_plain(
+            y, uv, lm, cm, b37, t37, bit_depth=bd), 3) for _ in range(args.repeats)]
     print(json.dumps({
         "tree": os.path.relpath(os.path.dirname(os.path.dirname(pkg.__file__))), "card": smi,
         "us": {name: [ms * 1e3 for ms, _ in r] for name, r in runs.items()},
@@ -253,7 +266,7 @@ def _time_422(args, pkg, ck, dev, smi, rng) -> int:
         "bound_us": {shape: 2 * buf.numel() / 3.35e12 * 1e6,
                      f"{shape} 10-bit": 2 * buf10.numel() * 2 / 3.35e12 * 1e6},
         "tiles_per_frame": {"luma": by * bx, "chroma": 2 * cby * cbx},
-        "k2_10": ck.deblock_packed_info(dev, bit_depth=10)}))
+        "k2": ck.deblock_packed_info(dev), "k2_10": ck.deblock_packed_info(dev, bit_depth=10)}))
     return 0
 
 

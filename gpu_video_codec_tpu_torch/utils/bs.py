@@ -26,7 +26,7 @@ import dataclasses
 
 import numpy as np
 
-from ..ops.tables import SAMPLE_BLOCK_SIZE, chroma_height
+from ..ops.tables import SAMPLE_BLOCK_SIZE, chroma_height, chroma_width
 
 
 def _init_flat_bs(total: int, zero_stride: int) -> np.ndarray:
@@ -44,8 +44,8 @@ class BoundaryStrength:
     Sizes (cpu.h:86-87, 104-105):
       luma  vert: (W/8 + 1) * (H/8)     luma  hor: (H/8 + 1) * (W/8)
       chroma vert: (cW/8 + 1) * (cH/8)  chroma hor: (cH/8 + 1) * (cW/8)
-    with the chroma plane (cH, cW) = (H/2, W/2) at chroma_format "4:2:0"
-    and (H, W/2) at "4:2:2".
+    with the chroma plane (cH, cW) = (H/2, W/2) at chroma_format "4:2:0",
+    (H, W/2) at "4:2:2" and (H, W) at "4:4:4".
     """
 
     width: int
@@ -60,7 +60,7 @@ class BoundaryStrength:
     def intra_default(cls, width: int, height: int,
                       chroma_format: str = "4:2:0") -> "BoundaryStrength":
         b = SAMPLE_BLOCK_SIZE
-        cw, ch = width // 2, chroma_height(height, chroma_format)
+        cw, ch = chroma_width(width, chroma_format), chroma_height(height, chroma_format)
         # Array sizes follow the reference's exact expressions with C++
         # left-to-right precedence: (dim/8 + 1) * other_dim / 8 means
         # ((dim/8 + 1) * other_dim) / 8 (cpu.h:86-87, 104-105).  For luma the
@@ -210,7 +210,8 @@ def luma_segment_maps(bs: BoundaryStrength) -> tuple[np.ndarray, np.ndarray, np.
 
 def chroma_segment_maps(bs: BoundaryStrength) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     b = SAMPLE_BLOCK_SIZE
-    cw, ch = bs.width // 2, chroma_height(bs.height, bs.chroma_format)
+    cw = chroma_width(bs.width, bs.chroma_format)
+    ch = chroma_height(bs.height, bs.chroma_format)
     cny = ch // b + 1  # chroma extended tile counts (cpu.h:450-451)
     cnx = cw // b + 1
     luma_ny = bs.height // b + 1  # Q2: gates use luma counts (cpu.h:515, 645)

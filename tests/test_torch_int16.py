@@ -384,7 +384,7 @@ def test_int16_frame_and_probe_on_card(rng, cuda_device):
     out = deblock_frame_cuda(*planes, lm, cm, get_beta(qp), get_tc(qp), dtype=torch.int16)
     assert {k: ck.LAUNCHES[k] - before[k] for k in before} == {
         "luma": 0, "chroma": 0, "luma_i16": 1, "chroma_i16": 1, "rows": 0, "packed": 0,
-        "packed10": 0, "packed_422": 0, "packed10_422": 0}
+        "packed10": 0, "packed_422": 0, "packed10_422": 0, "packed_444": 0, "packed10_444": 0}
     ref = deblock_frame(*planes, lm, cm, get_beta(qp), get_tc(qp), dtype=torch.int16)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     assert int16_probe.main([])["int16_on_gpu"] == "ok-bitexact"

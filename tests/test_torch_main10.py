@@ -28,19 +28,32 @@ chroma_format="4:2:2": seeded random 10-bit frames at QPs 22, 32 and 51,
 all-intra and random BS, at 64x48 and 96x64 (and a sheared 72x40 on the
 mesh), an 8-bit 4:2:2 case on every path, the g++ build on blocks that
 end mid-row and the picture's last chroma tile row, the argument errors
-(4:4:4, a 4:2:0 buffer at 4:2:2 and the reverse), the tile counters, the
-graph key and the BS arrays' sizes, parametrised over the chroma format
-where both apply; and the g++ build at both formats on views 16 bytes
-past a 256-byte boundary with guard elements before and after them (==
-the plain version, no guard element written).
+(a 4:2:0 buffer at 4:2:2 and the reverse, an unknown format), the tile
+counters, the graph key and the BS arrays' sizes, parametrised over the
+chroma format where each applies; and the g++ build at each format on
+views 16 bytes past a 256-byte boundary with guard elements before and
+after them (== the plain version, no guard element written).
+HEVC Main 4:4:4 and Main 4:4:4 10 (chroma_format="4:4:4": (N, 3h, w)
+batches, chroma planes (h, w)) at 8 and 10 bits: the mesh's entries, the
+plain version and the g++ build against the reference at QPs 22, 32 and
+51, all-intra and random BS, at 64x48 and 80x40 (w % 32 == 16, which K2
+takes at 4:4:4; and 72x40 on the mesh); hand-made chroma edges at
+columns and rows 8 and 24 whose filter passes the top sample (the clip);
+the g++ build on blocks that end mid-row and the last chroma tile row;
+K2's grid, whose 4:2:0 and 4:2:2 extents are pinned and whose 4:4:4 rows
+(U's, then V's) leave no block past its row's end; and the guard's rule,
+the luma rows' alone at 4:4:4.
 Tests marked `cuda` launch K2-10 on the card (one launch a call, under its
 own counter) against the plain path at the 4K cell's shape, at 720x576
 (w % 32 == 16), on the buffer's views and on the edge cases above (and
 against the reference), and check that a sheared 10-bit width raises
 there; the same at 4:2:2 (the 4:2:2 cell's (4, 4320, 3840), 720x576 and
 an 8-bit 64x48), with a misaligned 4:2:2 view raising; and on the guarded
-views at both formats (the box loads' L2 promotion fetches whole lines
-past the planes' ends); they skip without
+views at each format (the box loads' L2 promotion fetches whole lines
+past the planes' ends); the same at 4:4:4 (the 4:4:4 cell's (4, 6480,
+3840) uint8, its int16 twin, 720x576 and 80x40, the edges, the
+hand-made chroma edges through the graph replay), with a misaligned view
+and an 8-bit width off 16 raising; they skip without
 a card, and nothing here imports JAX
 (`python -m pytest tests/test_torch_main10.py -m cuda`)."""
 
@@ -53,7 +66,9 @@ import torch
 from bench_torch.references import hevc_deblock as ref
 from gpu_video_codec_tpu_torch.ops import cuda_kernel as ck
 from gpu_video_codec_tpu_torch.ops.deblock import deblock_packed_plain
-from gpu_video_codec_tpu_torch.ops.tables import chroma_height, get_beta, get_tc
+from gpu_video_codec_tpu_torch.ops.tables import (
+    chroma_height, chroma_width, get_beta, get_tc, packed_rows,
+)
 from gpu_video_codec_tpu_torch.parallel import mesh as pm
 from gpu_video_codec_tpu_torch.utils.bs import BoundaryStrength, segment_bs_maps_device
 
@@ -81,18 +96,20 @@ def _maps(bs, w, h, device="cpu", fmt="4:2:0"):
     b = 8
     ny, nx = h // b + 1, w // b + 1
     lm = segment_bs_maps_device(bs["vert"], bs["hor"], w, ny, nx, ny, nx, device=device)
-    cm = segment_bs_maps_device(bs["chroma_vert"], bs["chroma_hor"], w // 2,
-                                chroma_height(h, fmt) // b + 1, (w // 2) // b + 1, ny, nx,
+    cw = chroma_width(w, fmt)
+    cm = segment_bs_maps_device(bs["chroma_vert"], bs["chroma_hor"], cw,
+                                chroma_height(h, fmt) // b + 1, cw // b + 1, ny, nx,
                                 device=device)
     return lm, cm
 
 
 def _frames(seed, n, w, h, fmt="4:2:0"):
     """n packed 10-bit frames (int16, (n, 3h/2, w), or (n, 2h, w) at
-    4:2:2): flat 4x4 cells with small noise (both filters fire), a tenth of
-    the cells at the ends of the range, a quarter uniform noise."""
+    4:2:2, (n, 3h, w) at 4:4:4): flat 4x4 cells with small noise (both
+    filters fire), a tenth of the cells at the ends of the range, a quarter
+    uniform noise."""
     rng = np.random.default_rng(seed)
-    rows = h + chroma_height(h, fmt)
+    rows = packed_rows(h, fmt)
     cell = (n, rows // 4 + 1, w // 4 + 1)
 
     def up(a):
@@ -110,7 +127,7 @@ def _frames(seed, n, w, h, fmt="4:2:0"):
 def _planes(buf, h, fmt="4:2:0"):
     lead = tuple(buf.shape[:-2])
     return buf[..., :h, :], buf[..., h:, :].view(*lead, 2, chroma_height(h, fmt),
-                                                 buf.shape[-1] // 2)
+                                                 chroma_width(buf.shape[-1], fmt))
 
 
 @functools.lru_cache(maxsize=None)
@@ -406,39 +423,41 @@ def test_packed_guard_main10_counts_bytes():
 
 # -- HEVC Main 4:2:2 10: chroma planes (h, w/2) in a (N, 2h, w) buffer --------------------
 
-FORMATS = ["4:2:0", "4:2:2"]
+FORMATS = ["4:2:0", "4:2:2", "4:4:4"]
 QPS_422 = [22, 32, 51]
 
 
 @functools.lru_cache(maxsize=None)
-def _case_422(qp, kind, w, h, bit_depth=10):
-    """Three 4:2:2 frames (10-bit, or the same shifted to 8 bits), their
-    BS and the reference's output at chroma_format "4:2:2" (read-only)."""
-    frames = _frames([qp, w, h, len(kind), 422], 3, w, h, "4:2:2")
+def _format_case(fmt, qp, kind, w, h, bit_depth=10):
+    """Three frames of a chroma format (10-bit, or the same shifted to 8
+    bits), their BS and the reference's output at that format
+    (read-only)."""
+    frames = _frames([qp, w, h, len(kind), int(fmt.replace(":", ""))], 3, w, h, fmt)
     if bit_depth == 8:
         frames = (frames >> 2).to(torch.uint8)
-    bs = _bs(kind, w, h, qp, "4:2:2")
+    bs = _bs(kind, w, h, qp, fmt)
     return frames, bs, ref.deblock_packed(frames, w, h, qp, bs, bit_depth=bit_depth,
-                                          chroma_format="4:2:2")
+                                          chroma_format=fmt)
 
 
-def _step_422(path, frames, bs, qp, w, h, bit_depth):
-    """One 4:2:2 packed step by `path`: the mesh's eager or _jit entry on
-    two CPU slots, K2's plain version, or its g++ build in place."""
-    lm, cm = _maps(bs, w, h, frames.device, "4:2:2")
+def _format_step(fmt, path, frames, bs, qp, w, h, bit_depth):
+    """One packed step of a chroma format by `path`: the mesh's eager or
+    _jit entry on two slots of the frames' device, K2's plain version, or
+    its g++ build in place."""
+    lm, cm = _maps(bs, w, h, frames.device, fmt)
     if path in ENTRIES:
         buf = frames.clone()
-        mesh = pm.make_mesh(1, 2, devices=["cpu"] * 2)
+        mesh = pm.make_mesh(1, 2, devices=[frames.device] * 2)
         out = ENTRIES[path](mesh, buf, lm, cm, get_beta(qp), get_tc(qp), w=w, h=h,
-                            bit_depth=bit_depth, chroma_format="4:2:2")
+                            bit_depth=bit_depth, chroma_format=fmt)
         assert out is buf
         return buf
     if path == "plain":
-        y, uv = deblock_packed_plain(*_planes(frames, h, "4:2:2"), lm, cm, get_beta(qp),
+        y, uv = deblock_packed_plain(*_planes(frames, h, fmt), lm, cm, get_beta(qp),
                                      get_tc(qp), bit_depth=bit_depth)
-        return torch.cat([y, uv.reshape(*frames.shape[:-2], h, w)], dim=-2)
+        return torch.cat([y, uv.reshape(*frames.shape[:-2], -1, w)], dim=-2)
     buf = frames.clone()
-    y, uv = _planes(buf, h, "4:2:2")
+    y, uv = _planes(buf, h, fmt)
     assert ck.load_host_library().gvct_host_deblock_packed(*ck.packed_launch_args(
         y, uv, y, uv, lm, cm, get_beta(qp), get_tc(qp), False, bit_depth)) == 0
     return buf
@@ -453,8 +472,8 @@ def test_mesh_main422_10_matches_reference(qp, kind, w, h, entry):
     """The mesh's packed entries at chroma_format="4:2:2" on two CPU slots
     (3 frames: 2 and 1) == the reference at 4:2:2, byte for byte; the
     chroma planes, half the samples, are filtered."""
-    frames, bs, want = _case_422(qp, kind, w, h)
-    got = _step_422(entry, frames, bs, qp, w, h, 10)
+    frames, bs, want = _format_case("4:2:2", qp, kind, w, h)
+    got = _format_step("4:2:2", entry, frames, bs, qp, w, h, 10)
     assert torch.equal(got, want)
     if qp > 30:
         assert (want[:, h:] != frames[:, h:]).sum() > 50  # chroma filtered too
@@ -466,31 +485,34 @@ def test_mesh_main422_10_matches_reference(qp, kind, w, h, entry):
 @pytest.mark.parametrize("qp", QPS_422)
 def test_k2_10_422_paths_match_reference(qp, kind, w, h, path):
     """K2-10's plain version and its g++ build on 4:2:2 planes (h, w/2)."""
-    frames, bs, want = _case_422(qp, kind, w, h)
-    assert torch.equal(_step_422(path, frames, bs, qp, w, h, 10), want)
+    frames, bs, want = _format_case("4:2:2", qp, kind, w, h)
+    assert torch.equal(_format_step("4:2:2", path, frames, bs, qp, w, h, 10), want)
 
 
 @pytest.mark.parametrize("path", [*ENTRIES, "plain", "host"])
 def test_k2_422_8bit_matches_reference(path):
     """8-bit 4:2:2 (K2's instance on the shared grid) == the reference."""
     w, h, qp = 96, 64, 37
-    frames, bs, want = _case_422(qp, "random", w, h, bit_depth=8)
+    frames, bs, want = _format_case("4:2:2", qp, "random", w, h, bit_depth=8)
     assert frames.dtype == torch.uint8
-    assert torch.equal(_step_422(path, frames, bs, qp, w, h, 8), want)
+    assert torch.equal(_format_step("4:2:2", path, frames, bs, qp, w, h, 8), want)
     assert (want[:, h:] != frames[:, h:]).sum() > 50
 
 
 @functools.lru_cache(maxsize=None)
-def _edge_case_422(fill, w, h):
-    """Two 4:2:2 10-bit frames of uniform noise with BS all 0, all 2 or
-    uniform, and the reference's output (read-only)."""
-    rng = np.random.default_rng([w, h, len(fill), 422])
-    frames = torch.from_numpy(rng.integers(0, TOP + 1, (2, 2 * h, w)).astype(np.int16))
-    bs = _bs("random", w, h, EDGE_QP, "4:2:2")
+def _edge_case_fmt(fill, w, h, fmt="4:2:2", bit_depth=10):
+    """Two frames of a chroma format (4:2:2 by default) of uniform noise,
+    10-bit (or 8-bit), with BS all 0, all 2 or uniform, and the reference's
+    output (read-only)."""
+    rng = np.random.default_rng([w, h, len(fill), int(fmt.replace(":", ""))])
+    top = (1 << bit_depth) - 1
+    frames = rng.integers(0, top + 1, (2, packed_rows(h, fmt), w))
+    frames = torch.from_numpy(frames.astype(np.int16 if bit_depth == 10 else np.uint8))
+    bs = _bs("random", w, h, EDGE_QP, fmt)
     if fill != "random":
         bs = {k: np.full_like(v, 0 if fill == "zero" else 2) for k, v in bs.items()}
-    return frames, bs, ref.deblock_packed(frames, w, h, EDGE_QP, bs, bit_depth=10,
-                                          chroma_format="4:2:2")
+    return frames, bs, ref.deblock_packed(frames, w, h, EDGE_QP, bs, bit_depth=bit_depth,
+                                          chroma_format=fmt)
 
 
 @pytest.mark.parametrize("fill", ["random", "zero", "two"])
@@ -501,7 +523,7 @@ def test_k2_10_422_host_build_edges(w, h, fill):
     picture's last chroma tile row ((h + 8) / 8 rows, its lower half
     outside the plane), BS all 0, all 2 and uniform; in place == into a
     separate output."""
-    frames, bs, want = _edge_case_422(fill, w, h)
+    frames, bs, want = _edge_case_fmt(fill, w, h)
     lm, cm = _maps(bs, w, h, fmt="4:2:2")
     (_, _), (cby, cbx) = ck.packed_grids(w, h, "4:2:2")
     assert cby == h // 8 + 1 and cbx % ck.PACKED_TILES != 0
@@ -581,7 +603,7 @@ def _guarded_step(fmt, k, w, h, device, run):
 def test_k2_10_host_build_keeps_guard_bytes(fmt, k, w, h):
     """K2-10's g++ build on views 16 bytes past a 256-byte boundary with
     guard elements before and after == deblock_packed_plain, into a
-    separate output and in place, at 4:2:0 and 4:2:2, and writes no guard
+    separate output and in place, at 4:2:0, 4:2:2 and 4:4:4, and writes no guard
     element: the zero fill at the border (Q6) and the stores' limits hold
     wherever the view lies."""
     lib = ck.load_host_library()
@@ -596,13 +618,15 @@ def test_k2_10_host_build_keeps_guard_bytes(fmt, k, w, h):
 
 @pytest.mark.parametrize("entry", list(ENTRIES))
 @pytest.mark.parametrize("fmt,rows,match", [
-    ("4:4:4", 3 * H, "chroma_format"),
+    ("4:4:4", 2 * H, r"\(N, 144, 64\)"),
     ("4:2:2", 3 * H // 2, r"\(N, 96, 64\)"),
     ("4:2:0", 2 * H, r"\(N, 72, 64\)"),
-], ids=["444", "420-buffer-at-422", "422-buffer-at-420"])
+    ("4:0:0", H, "chroma_format"),
+], ids=["444", "420-buffer-at-422", "422-buffer-at-420", "400"])
 def test_mesh_chroma_format_argument_errors(entry, fmt, rows, match):
-    """A format the port does not take, and a buffer of the other format's
-    rows, raise ValueError and leave the buffer as it was."""
+    """A buffer of another format's rows (a 4:2:2 buffer at 4:4:4, a
+    4:2:0 one at 4:2:2 and the reverse), and a format the port does not
+    take (4:0:0), raise ValueError and leave the buffer as it was."""
     buf = torch.zeros((2, rows, W), dtype=torch.int16)
     lm, cm = _maps(_bs("ai", W, H), W, H)
     mesh = pm.make_mesh(1, 1, devices=["cpu"])
@@ -614,13 +638,16 @@ def test_mesh_chroma_format_argument_errors(entry, fmt, rows, match):
 
 def test_packed_wrapper_chroma_format_argument_errors():
     """K2's wrapper takes 4:2:2 planes only at chroma_format "4:2:2" and
-    its (cBy, cBx) maps only; 4:4:4 raises."""
+    its (cBy, cBx) maps only; at "4:4:4" it asks for (h, w) planes, and a
+    format it does not take raises."""
     buf = _frames(5, 1, W, H, "4:2:2")
     bs = _bs("ai", W, H, 0, "4:2:2")
     lm, cm = _maps(bs, W, H, fmt="4:2:2")
     y, uv = _planes(buf, H, "4:2:2")
-    with pytest.raises(ValueError, match="chroma_format"):
+    with pytest.raises(ValueError, match=r"uv must be \(1, 2, 48, 64\)"):
         ck.deblock_packed_cuda(y, uv, lm, cm, 26, 3, bit_depth=10, chroma_format="4:4:4")
+    with pytest.raises(ValueError, match="chroma_format"):
+        ck.deblock_packed_cuda(y, uv, lm, cm, 26, 3, bit_depth=10, chroma_format="4:0:0")
     with pytest.raises(ValueError, match=r"uv must be \(1, 2, 24, 32\)"):
         ck.deblock_packed_cuda(y, uv, lm, cm, 26, 3, bit_depth=10)
     with pytest.raises(ValueError, match="bs_ver1 has shape"):
@@ -646,7 +673,8 @@ def test_packed_tile_counters(fmt, luma_only):
     buf = _frames(9, n, w, h, fmt)
     mesh = pm.make_mesh(1, 2, devices=["cpu"] * 2)
     (by, bx), (cby, cbx) = ck.packed_grids(w, h, fmt)
-    assert (by, bx) == (7, 9) and (cby, cbx) == ((7, 5) if fmt == "4:2:2" else (4, 5))
+    assert (by, bx) == (7, 9) and (cby, cbx) == {"4:2:0": (4, 5), "4:2:2": (7, 5),
+                                                 "4:4:4": (7, 9)}[fmt]
     RECORDER.reset()
     for i in range(1, 3):
         pm.deblock_packed_batch_sharded_jit(mesh, buf, lm, cm, 26, 3, w=w, h=h, bit_depth=10,
@@ -684,8 +712,9 @@ def test_chroma_format_is_part_of_the_graph_key(fmt, monkeypatch):
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_intra_default_sizes_follow_the_chroma_format(fmt):
     """BoundaryStrength.intra_default's chroma arrays are the benchmark's
-    all-intra arrays of the format (sizes at the chroma plane (ch, w/2),
-    zero stripes), and its maps are the chroma plane's."""
+    all-intra arrays of the format (sizes at the chroma plane (ch, cw),
+    zero stripes), and its maps are the chroma plane's; a format the port
+    does not take raises."""
     from bench_torch.lib import frames as fr
 
     w, h = 96, 64
@@ -698,8 +727,11 @@ def test_intra_default_sizes_follow_the_chroma_format(fmt):
     cm = chroma_segment_maps(ai)
     assert all(np.array_equal(a, b.numpy()) for a, b in zip(cm, _maps(bench, w, h, fmt=fmt)[1]))
     assert cm[0].shape == ck.packed_grids(w, h, fmt)[1]
+    if fmt == "4:4:4":  # the chroma arrays are the luma arrays' sizes
+        assert ai.chroma_vert.size == ai.vert.size and ai.chroma_hor.size == ai.hor.size
+        assert all(a.shape == (h // 8 + 1, w // 8 + 1) for a in cm)
     with pytest.raises(ValueError, match="chroma_format"):
-        BoundaryStrength.intra_default(w, h, "4:4:4")
+        BoundaryStrength.intra_default(w, h, "4:0:0")
 
 
 @pytest.mark.parametrize("w,takes10,takes8", [(64, True, True), (720, True, False),
@@ -712,6 +744,195 @@ def test_packed_guard_422(w, takes10, takes8):
     buf = torch.zeros((1, 2 * h, w), dtype=torch.int16)
     assert ck.packed_fits(w, *_planes(buf, h, "4:2:2"), bit_depth=10) is takes10
     assert ck.packed_fits(w, *_planes(buf.to(torch.uint8), h, "4:2:2")) is takes8
+
+# -- HEVC Main 4:4:4 (and 4:4:4 10): chroma planes (h, w) in a (N, 3h, w) buffer -------------
+
+BIT_DEPTHS = [8, 10]
+GEOMS_444 = [(64, 48), (80, 40)]  # 80: w % 32 == 16, which K2 takes at 4:4:4 alone
+GEOM_IDS_444 = ["64x48", "80x40"]
+
+
+@pytest.mark.parametrize("bit_depth", BIT_DEPTHS)
+@pytest.mark.parametrize("entry", list(ENTRIES))
+@pytest.mark.parametrize("w,h", [*GEOMS_444, (72, 40)], ids=[*GEOM_IDS_444, "72x40"])
+@pytest.mark.parametrize("kind", BS_KINDS)
+@pytest.mark.parametrize("qp", QPS_422)
+def test_mesh_main444_matches_reference(qp, kind, w, h, entry, bit_depth):
+    """The mesh's packed entries at chroma_format="4:4:4" on two CPU slots
+    (3 frames: 2 and 1) == the reference at 4:4:4, byte for byte, at 8
+    and 10 bits; the chroma planes, two thirds of the samples, are
+    filtered.  72 (w % 16 == 8) is a width K2 refuses at 8 bits; the CPU
+    slots take the plain version at every width."""
+    frames, bs, want = _format_case("4:4:4", qp, kind, w, h, bit_depth)
+    got = _format_step("4:4:4", entry, frames, bs, qp, w, h, bit_depth)
+    assert torch.equal(got, want)
+    if qp > 30:
+        assert (want[:, h:] != frames[:, h:]).sum() > 100  # chroma filtered too
+
+
+@pytest.mark.parametrize("bit_depth", BIT_DEPTHS)
+@pytest.mark.parametrize("path", ["plain", "host"])
+@pytest.mark.parametrize("w,h", [*GEOMS_444, (72, 40)], ids=[*GEOM_IDS_444, "72x40"])
+@pytest.mark.parametrize("kind", BS_KINDS)
+@pytest.mark.parametrize("qp", QPS_422)
+def test_k2_444_paths_match_reference(qp, kind, w, h, path, bit_depth):
+    """K2's and K2-10's plain version and g++ build on 4:4:4 planes (h, w)
+    == the reference; the g++ build runs the grid whose U and V take grid
+    rows of their own.  72 (w % 16 == 8) is a width K2-10 takes at 4:4:4
+    alone (w % 8 == 0 at 10 bits); the 8-bit g++ build checks the same
+    arithmetic there, a width the card's K2 refuses."""
+    frames, bs, want = _format_case("4:4:4", qp, kind, w, h, bit_depth)
+    assert torch.equal(_format_step("4:4:4", path, frames, bs, qp, w, h, bit_depth), want)
+
+
+def _edges_444(bit_depth):
+    """A 64x48 4:4:4 frame, flat luma, whose chroma holds steps at chroma
+    columns (U) and rows (V) 8 and 24 -- edges of the (h, w) planes' own
+    8x8 grid, at luma columns and rows 8 and 24 -- with U's edge at column
+    8 and V's at row 8 set so that the one-sample filter takes both p0
+    and q0 past the top sample: p1, p0 | q0, q1 = 1023, 1019 | 1003, 900
+    (the 8-bit frame is the 10-bit one's quarter: 255, 254 | 250, 225)."""
+    profile = torch.full((W,), 512, dtype=torch.int32)
+    profile[:8] = TOP
+    profile[7] = TOP - 4
+    profile[8:24] = 900
+    profile[8] = TOP - 20
+    f = torch.full((1, 3 * H, W), 512, dtype=torch.int32)
+    f[0, H : 2 * H] = profile[None, :]
+    f[0, 2 * H :] = profile[:H, None]
+    return f.to(torch.int16) if bit_depth == 10 else (f >> 2).to(torch.uint8)
+
+
+EDGE_PATHS = [*ENTRIES, "plain", "host", pytest.param("card", marks=pytest.mark.cuda)]
+
+
+@pytest.mark.parametrize("path", EDGE_PATHS)
+@pytest.mark.parametrize("bit_depth", BIT_DEPTHS)
+def test_main444_chroma_edges(bit_depth, path, monkeypatch, request):
+    """Hand-made chroma edges at columns (U) and rows (V) 8 and 24 of a
+    4:4:4 frame, BS all 2 at QP 51: every path (the card's through the
+    mesh's graph replay, one launch) == the reference; in a row of U (a
+    column of V) away from the other edges the samples that change are p0
+    and q0 of those edges, columns 7, 8, 23 and 24 (rows of V), and the
+    picture's first and last, where BS 2 filters against the zero padding
+    (Q6); and the edge at 8 filters p0 and
+    q0 past the top sample (1023, or 255 at 8 bits), so the clip sets the
+    result (the reference without it differs)."""
+    frame = _edges_444(bit_depth)
+    bs = {k: np.full_like(v, 2) for k, v in _bs("ai", W, H, 0, "4:4:4").items()}
+    want = ref.deblock_packed(frame, W, H, 51, bs, bit_depth=bit_depth, chroma_format="4:4:4")
+    if path == "card":
+        dev = request.getfixturevalue("cuda_device")
+        key = ck.PACKED_LAUNCHES[bit_depth, "4:4:4"]
+        before = ck.LAUNCHES[key]
+        got = _format_step("4:4:4", "jit", frame.to(dev), bs, 51, W, H, bit_depth).cpu()
+        assert ck.LAUNCHES[key] == before + 1  # one slot takes the frame
+    else:
+        got = _format_step("4:4:4", path, frame, bs, 51, W, H, bit_depth)
+    assert torch.equal(got, want)
+    u, v = want[0, H : 2 * H], want[0, 2 * H :]
+    u0, v0 = frame[0, H : 2 * H], frame[0, 2 * H :]
+    assert (u[12] != u0[12]).nonzero().flatten().tolist() == [0, 7, 8, 23, 24, W - 1]
+    assert (v[:, 12] != v0[:, 12]).nonzero().flatten().tolist() == [0, 7, 8, 23, 24, H - 1]
+    assert torch.equal(want[0, 8 : H - 8, 8 : W - 8], frame[0, 8 : H - 8, 8 : W - 8])  # flat
+    top = (1 << bit_depth) - 1
+    assert int(u[12, 7]) == int(u[12, 8]) == int(v[7, 12]) == int(v[8, 12]) == top
+    monkeypatch.setattr(ref, "max_pixel", lambda bit_depth=8: 4095)
+    unclipped = ref.deblock_packed(frame.to(torch.int32), W, H, 51, bs, bit_depth=bit_depth,
+                                   chroma_format="4:4:4")  # int32: room above 255
+    assert all(int(unclipped[0, r, c]) > top for r, c in ((H + 12, 7), (H + 12, 8),
+                                                          (2 * H + 7, 12), (2 * H + 8, 12)))
+
+
+@pytest.mark.parametrize("bit_depth", BIT_DEPTHS)
+@pytest.mark.parametrize("fill", ["random", "zero", "two"])
+@pytest.mark.parametrize("w,h", EDGE_GEOMS, ids=EDGE_IDS)
+def test_k2_444_host_build_edges(w, h, fill, bit_depth):
+    """K2's and K2-10's g++ build at 4:4:4 == the reference on blocks that
+    end mid-row (cBx 9 and 45: one short block, and 2 x 16 + 13), on the
+    picture's last chroma tile row, BS all 0, all 2 and uniform; in place
+    == into a separate output."""
+    frames, bs, want = _edge_case_fmt(fill, w, h, "4:4:4", bit_depth)
+    lm, cm = _maps(bs, w, h, fmt="4:4:4")
+    (by, bx), (cby, cbx) = ck.packed_grids(w, h, "4:4:4")
+    assert (cby, cbx) == (by, bx) and cbx % ck.PACKED_TILES != 0
+    lib = ck.load_host_library()
+    out, inplace = torch.full_like(frames, 7), frames.clone()
+    for src, dst in ((frames, out), (inplace, inplace)):
+        assert lib.gvct_host_deblock_packed(*ck.packed_launch_args(
+            *_planes(src, h, "4:4:4"), *_planes(dst, h, "4:4:4"), lm, cm, get_beta(EDGE_QP),
+            get_tc(EDGE_QP), False, bit_depth)) == 0
+    assert torch.equal(out, want) and torch.equal(inplace, want)
+    assert torch.equal(want, frames) is (fill == "zero")
+    if fill == "two":  # V's last tile row (rows h - 4 .. h - 1 of the plane) filters
+        last = slice(3 * h - 4, 3 * h)
+        assert not torch.equal(want[:, last], frames[:, last])
+
+
+# K2's grid (gx, rows) for 4:2:0 and 4:2:2 frames, pinned: U and V side by
+# side in a grid row, gx = max(lx, 2 cx), rows = by + cby
+GRIDS_420_422 = {
+    ("4:2:0", 3840, 2160): (32, 407), ("4:2:2", 3840, 2160): (32, 542),
+    ("4:2:0", 1920, 1080): (16, 204), ("4:2:2", 1920, 1080): (16, 272),
+    ("4:2:0", 64, 48): (2, 11), ("4:2:2", 64, 48): (2, 14),
+    ("4:2:0", 352, 288): (4, 56), ("4:2:2", 352, 288): (4, 74),
+}
+
+
+@pytest.mark.parametrize("fmt,w,h", list(GRIDS_420_422),
+                         ids=[f"{f}-{w}x{h}" for f, w, h in GRIDS_420_422])
+def test_packed_grid_420_422_unchanged(fmt, w, h):
+    """K2's grid for 4:2:0 and 4:2:2 frames keeps its extents (U and V
+    side by side), and its blocks own every tile of the three planes once;
+    under luma_only it is the luma rows alone."""
+    g = ck.packed_blocks(w, h, fmt)
+    (by, bx), (cby, cbx) = ck.packed_grids(w, h, fmt)
+    assert (g["gx"], g["rows"]) == GRIDS_420_422[fmt, w, h]
+    assert g["tiles"] == (by * bx, cby * cbx, cby * cbx)
+    luma = ck.packed_blocks(w, h, fmt, luma_only=True)
+    lx = -(-bx // ck.PACKED_TILES)
+    assert (luma["gx"], luma["rows"], luma["empty"], luma["tiles"]) == (lx, by, 0,
+                                                                        (by * bx, 0, 0))
+
+
+@pytest.mark.parametrize("w,h", [(3840, 2160), (1920, 1080), (64, 48), (352, 288),
+                                 (4096, 2160), (80, 40)],
+                         ids=["3840x2160", "1920x1080", "64x48", "352x288", "4096x2160",
+                              "80x40"])
+def test_packed_grid_444_leaves_no_block_empty(w, h):
+    """At 4:4:4 U and V take grid rows of their own: the grid is lx blocks
+    wide and by + 2 cby rows, no block lies past its row's end, only each
+    row's last block may be short, and the blocks own every tile once.  At
+    4K: 25,203 blocks, where U and V side by side would launch 33,604 with
+    8,401 empty."""
+    g = ck.packed_blocks(w, h, "4:4:4")
+    (by, bx), (cby, cbx) = ck.packed_grids(w, h, "4:4:4")
+    lx = -(-bx // ck.PACKED_TILES)
+    assert (cby, cbx) == (by, bx)
+    assert (g["gx"], g["rows"], g["empty"]) == (lx, 3 * by, 0)
+    assert g["short"] == (g["rows"] if bx % ck.PACKED_TILES else 0)
+    assert g["tiles"] == (by * bx,) * 3
+    if (w, h) == (3840, 2160):
+        assert g["blocks"] == 25_203 and 2 * lx * (by + cby) - g["blocks"] == 8_401
+
+
+@pytest.mark.parametrize("w,takes10,takes8", [(64, True, True), (80, True, True),
+                                              (720, True, True), (72, True, False),
+                                              (3840, True, True)],
+                         ids=["64", "80", "720", "72", "3840"])
+def test_packed_guard_444(w, takes10, takes8):
+    """At 4:4:4 the chroma rows are as wide as the luma rows, so the guard
+    keeps the luma rows' rule alone: w % 16 == 0 at 8 bits, w % 8 == 0 at
+    10 (16-bit samples), on a 16-byte aligned (1, 3h, w) batch; 4:2:0 keeps
+    w % 32 at 8 bits."""
+    h = 40
+    buf = torch.zeros((1, 3 * h, w), dtype=torch.int16)
+    assert ck.packed_fits(w, *_planes(buf, h, "4:4:4"), bit_depth=10,
+                          chroma_format="4:4:4") is takes10
+    assert ck.packed_fits(w, *_planes(buf.to(torch.uint8), h, "4:4:4"),
+                          chroma_format="4:4:4") is takes8
+    assert ck.packed_width(8, "4:4:4") == 16 and ck.packed_width(10, "4:4:4") == 8
+    assert ck.packed_fits(w) is (w % 32 == 0)
 
 
 # -- the card ---------------------------------------------------------------------------------
@@ -863,7 +1084,7 @@ def test_k2_422_matches_plain_on_card(cuda_device, k, w, h, bit_depth):
 def test_k2_10_422_edges_on_card(cuda_device, w, h, fill):
     """K2-10 at 4:2:2 on test_k2_10_422_host_build_edges' cases == the
     reference, in place == into a separate output, one launch each."""
-    frames, bs, want = _edge_case_422(fill, w, h)
+    frames, bs, want = _edge_case_fmt(fill, w, h)
     lm, cm = _maps(bs, w, h, cuda_device, "4:2:2")
     src = frames.to(cuda_device)
     out, inplace = torch.full_like(src, 7), src.clone()
@@ -881,8 +1102,8 @@ def test_k2_10_422_edges_on_card(cuda_device, w, h, fill):
 @pytest.mark.parametrize("k,w,h", GUARDED, ids=GUARDED_IDS)
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_k2_10_keeps_guard_bytes_on_card(cuda_device, fmt, k, w, h):
-    """K2-10 at 4:2:0 and 4:2:2 on views 16 bytes past a 256-byte boundary,
-    with guard elements before and after, == deblock_packed_plain into a
+    """K2-10 at 4:2:0, 4:2:2 and 4:4:4 on views 16 bytes past a 256-byte
+    boundary, with guard elements before and after, == deblock_packed_plain into a
     separate output, in place and into new planes, one launch each, and no
     guard element changes: the box loads' L2 promotion fetches whole lines
     past the planes' ends, and the zero fill at the border (Q6) and the
@@ -936,3 +1157,99 @@ def test_k2_10_422_misaligned_raises_on_card(cuda_device, entry):
                    chroma_format="4:2:2")
     assert torch.equal(good.cpu(), ref.deblock_packed(buf.cpu(), W, H, 32, bs, bit_depth=10,
                                                       chroma_format="4:2:2"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,w,h,bit_depth", [(4, 3840, 2160, 8), (4, 3840, 2160, 10),
+                                             (2, 720, 576, 8), (3, 80, 40, 8),
+                                             (3, 64, 48, 10), (3, 72, 40, 10)],
+                         ids=["k4-2160p", "k4-2160p-10bit", "k2-720x576", "k3-80x40",
+                              "k3-64x48-10bit", "k3-72x40-10bit"])
+def test_k2_444_matches_plain_on_card(cuda_device, k, w, h, bit_depth):
+    """K2 (and K2-10 at 10 bits) at 4:4:4 through the mesh's graph replay
+    == the plain path on the card, one launch a call under "packed_444"
+    (or "packed10_444"); through the wrapper on the buffer's views; and ==
+    the reference below 4K.  The 8-bit 4K case is the benchmark cell's
+    shape: a uint8 (4, 6480, 3840) buffer; 720 and 80 are w % 32 == 16,
+    and 72 is w % 16 == 8, which K2-10 takes at 4:4:4 alone."""
+    qp = 32
+    frames = _frames([k, w, h, 444], k, w, h, "4:4:4").to(cuda_device)
+    if bit_depth == 8:
+        frames = (frames >> 2).to(torch.uint8)
+    bs = _bs("random", w, h, k, "4:4:4")
+    lm, cm = _maps(bs, w, h, cuda_device, "4:4:4")
+    y, uv = _planes(frames, h, "4:4:4")
+    want_y, want_uv = deblock_packed_plain(y, uv, lm, cm, get_beta(qp), get_tc(qp),
+                                           bit_depth=bit_depth)
+    want = torch.cat([want_y, want_uv.reshape(k, 2 * h, w)], dim=-2)
+    key = ck.PACKED_LAUNCHES[bit_depth, "4:4:4"]
+    mesh = pm.make_mesh(1, 1, devices=[cuda_device])
+    for _ in range(2):  # the call that captures, then a replay
+        buf = frames.clone()
+        before = dict(ck.LAUNCHES)
+        pm.deblock_packed_batch_sharded_jit(mesh, buf, lm, cm, get_beta(qp), get_tc(qp), w=w,
+                                            h=h, bit_depth=bit_depth, chroma_format="4:4:4")
+        torch.cuda.synchronize()
+        assert {n: v - before[n] for n, v in ck.LAUNCHES.items() if v != before[n]} == {key: 1}
+        assert torch.equal(buf, want)
+    new_y, new_uv = ck.deblock_packed_cuda(y, uv, lm, cm, get_beta(qp), get_tc(qp),
+                                           bit_depth=bit_depth, chroma_format="4:4:4")
+    assert torch.equal(torch.cat([new_y, new_uv.reshape(k, 2 * h, w)], dim=-2), want)
+    if w <= 720:
+        assert torch.equal(want.cpu(), ref.deblock_packed(frames.cpu(), w, h, qp, bs,
+                                                          bit_depth=bit_depth,
+                                                          chroma_format="4:4:4"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bit_depth", BIT_DEPTHS)
+@pytest.mark.parametrize("fill", ["random", "zero", "two"])
+@pytest.mark.parametrize("w,h", EDGE_GEOMS, ids=EDGE_IDS)
+def test_k2_444_edges_on_card(cuda_device, w, h, fill, bit_depth):
+    """K2 and K2-10 at 4:4:4 on test_k2_444_host_build_edges' cases == the
+    reference, in place == into a separate output, one launch each."""
+    frames, bs, want = _edge_case_fmt(fill, w, h, "4:4:4", bit_depth)
+    lm, cm = _maps(bs, w, h, cuda_device, "4:4:4")
+    src = frames.to(cuda_device)
+    out, inplace = torch.full_like(src, 7), src.clone()
+    key = ck.PACKED_LAUNCHES[bit_depth, "4:4:4"]
+    before = ck.LAUNCHES[key]
+    for s_, d in ((src, out), (inplace, inplace)):
+        ck.deblock_packed_cuda(*_planes(s_, h, "4:4:4"), lm, cm, get_beta(EDGE_QP),
+                               get_tc(EDGE_QP), out=_planes(d, h, "4:4:4"),
+                               bit_depth=bit_depth, chroma_format="4:4:4")
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES[key] == before + 2
+    assert torch.equal(out, inplace) and torch.equal(out.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", list(ENTRIES))
+def test_k2_444_misaligned_raises_on_card(cuda_device, entry):
+    """A 4:4:4 view off 16 bytes, or an 8-bit width off 16 (72), raises
+    ValueError on the card (no 4:4:4 chain) and leaves the buffer as it
+    was; the aligned buffer then filters as the reference does."""
+    mesh = pm.make_mesh(1, 1, devices=[cuda_device])
+    bs = _bs("ai", W, H, 0, "4:4:4")
+    lm, cm = _maps(bs, W, H, cuda_device, "4:4:4")
+    n = 3 * H * W
+    raw = torch.zeros(n + 8, dtype=torch.uint8, device=cuda_device)
+    buf = raw[8 : 8 + n].view(1, 3 * H, W)  # 8 bytes off
+    src = (_frames(3, 1, W, H, "4:4:4") >> 2).to(torch.uint8)
+    buf.copy_(src)
+    with pytest.raises(ValueError, match="K2 takes w % 16 == 0 at chroma_format 4:4:4"):
+        ENTRIES[entry](mesh, buf, lm, cm, get_beta(32), get_tc(32), w=W, h=H,
+                       chroma_format="4:4:4")
+    sw, sh = 72, 40
+    narrow = (_frames(4, 1, sw, sh, "4:4:4") >> 2).to(torch.uint8).to(cuda_device)
+    slm, scm = _maps(_bs("ai", sw, sh, 0, "4:4:4"), sw, sh, cuda_device, "4:4:4")
+    with pytest.raises(ValueError, match="no 4:4:4 chain: K2 takes w % 16 == 0"):
+        ENTRIES[entry](mesh, narrow, slm, scm, get_beta(32), get_tc(32), w=sw, h=sh,
+                       chroma_format="4:4:4")
+    torch.cuda.synchronize()
+    assert torch.equal(buf.cpu(), src)
+    assert torch.equal(narrow.cpu(), (_frames(4, 1, sw, sh, "4:4:4") >> 2).to(torch.uint8))
+    good = buf.clone()
+    ENTRIES[entry](mesh, good, lm, cm, get_beta(32), get_tc(32), w=W, h=H,
+                   chroma_format="4:4:4")
+    assert torch.equal(good.cpu(), ref.deblock_packed(src, W, H, 32, bs, chroma_format="4:4:4"))
